@@ -21,8 +21,20 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
   and K1 at 65,536 (a chunk of the ad-hoc batch); each is held against
   its plain version on the same inputs, and that against the expected
   bitmap.
-  7  times (CUDA events; host clock for end-to-end walls)
-  8  the kernels line; then the last line {"ok": true, "device": ...}
+  7  times (CUDA events; host clock for end-to-end walls); phases 4-7 run
+     with RLC off (its default) and must launch no K4, K5 or A1
+  8  RLC on (msm.set_enabled): the phase-5 100,000-validator commit is
+     vouched for by one random linear combination (route rlc-single,
+     nb 131,072, c = 8; K4, K5 and A1 once each, K2 never); with one bad
+     signature the combination is rejected and 7 K2 launches name it; a
+     non-canonical R makes the batch rlc-ineligible (no K4 launch)
+  9  RLC through BatchVerifier at 16,384 (c = 8) and 4,096 (c = 4) triples
+ 10  K4, K5 and A1 against their plain versions on the inputs they got in
+     phases 8-9 (262,144 points; (T, K) = (1,304, 8,192) and (712, 1,024)),
+     as canonical bytes; their times
+ 11  K3 (verify_batch_staged) on the phase-6 batch's first 65,536 lanes:
+     K3 = K1 = the expected bitmap, K3 = its plain version; its time
+ 12  the kernels line; then the last line {"ok": true, "device": ...}
 
 Signatures come from a seeded incremental generator (a_i = a_0 + i, so
 A_i = A_{i-1} + B), because signing 100k triples one by one in pure
@@ -71,8 +83,10 @@ from tendermint_tpu_torch.crypto import batch as cbatch  # noqa: E402
 from tendermint_tpu_torch.crypto import ed25519 as edkeys  # noqa: E402
 from tendermint_tpu_torch.libs import native  # noqa: E402
 from tendermint_tpu_torch.ops import cuda_ed25519 as ck  # noqa: E402
+from tendermint_tpu_torch.ops import cuda_msm as cm  # noqa: E402
 from tendermint_tpu_torch.ops import ed25519 as E  # noqa: E402
 from tendermint_tpu_torch.ops import field as F  # noqa: E402
+from tendermint_tpu_torch.ops import msm  # noqa: E402
 from tendermint_tpu_torch.types.basic import (BlockID, BlockIDFlag,  # noqa: E402
                                               PartSetHeader, Timestamp)
 from tendermint_tpu_torch.types.canonical import \
@@ -171,22 +185,29 @@ t = time.perf_counter()
 errs = []
 
 
-def _build_native():
-    if native.get_lib() is None:
-        errs.append("host staging C did not build")
+def _build(fn, what):
+    try:
+        fn()
+    except Exception as e:  # noqa: BLE001 - reported below, then fail
+        errs.append(f"{what}: {e}")
 
 
-th = threading.Thread(target=_build_native)
-th.start()
-try:
-    ck.kernels()
-finally:
+threads = [threading.Thread(target=_build, args=(fn, what)) for fn, what in (
+    (lambda: native.get_lib() or errs.append("host staging C did not build"),
+     "cc"),
+    (ck.kernels, "nvcc ed25519_verify.cu"), (cm.kernels, "nvcc msm.cu"))]
+for th in threads:
+    th.start()
+for th in threads:
     th.join()
 check(not errs, "; ".join(errs))
-ptxas = [ln.strip() for ln in ck.build_info.get("ptxas", "").splitlines()
-         if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+ptxas = [ln.strip() for info in (ck.build_info, cm.build_info)
+         for ln in info.get("ptxas", "").splitlines()
+         if any(w in ln for w in ("registers", "spill", "Compiling entry",
+                                  "Function properties"))]
 log(phase=1, build_s=round(time.perf_counter() - t, 3),
-    nvcc_s=round(ck.build_info["seconds"], 3), ptxas=ptxas)
+    nvcc_s={"ed25519_verify": round(ck.build_info["seconds"], 3),
+            "msm": round(cm.build_info["seconds"], 3)}, ptxas=ptxas)
 
 # -- phase 2: field ---------------------------------------------------------
 
@@ -320,45 +341,56 @@ def commit_error_index(vset, bid, commit, height=9):
     return None
 
 
-launches_main = {"verify_packed": 0, "verify_packed_split": 0}
+KERNEL_MOD = {"verify_packed": ck, "verify_packed_split": ck,
+              "verify_staged": ck, "decompress_niels": cm,
+              "bucket_scan": cm, "aggregate": cm}
+launches_main = {name: 0 for name in KERNEL_MOD}
 PLAIN = {"verify_packed": ck.verify_packed_plain,
-         "verify_packed_split": ck.verify_packed_split_plain}
-REAL = {name: getattr(ck, name) for name in PLAIN}
-captured = {name: [] for name in PLAIN}   # (label, inputs, kernel output)
-capture_next = {name: None for name in PLAIN}
+         "verify_packed_split": ck.verify_packed_split_plain,
+         "verify_staged": ck.verify_staged_plain}
+REAL = {name: getattr(mod, name) for name, mod in KERNEL_MOD.items()}
+captured = {name: [] for name in KERNEL_MOD}  # (label, inputs, output)
+capture_next = {name: None for name in KERNEL_MOD}
 
 
 def _recording(name):
     """The wrapper, plus a copy of the inputs and output of the first call
     after capture_next[name] is set (the main path reuses its device
-    buffers, so the inputs are cloned on the same stream)."""
+    buffers, so tensor inputs are cloned on the same stream)."""
     def wrapper(*args):
         out = REAL[name](*args)
         label = capture_next[name]
         if label is not None:
             capture_next[name] = None
-            captured[name].append((label, [a.clone() for a in args], out))
+            captured[name].append((label, [
+                a.clone() if isinstance(a, torch.Tensor) else a
+                for a in args], out))
         return out
     return wrapper
 
 
-for _name in PLAIN:
-    setattr(ck, _name, _recording(_name))
+for _name, _mod in KERNEL_MOD.items():
+    setattr(_mod, _name, _recording(_name))
 
 
-def main_path(fn, capture=None):
-    """Run fn with the launch counters zeroed just before and read just
-    after; the counts are added to the main-path totals.  capture =
-    (kernel, label) keeps that kernel's first launch of the run."""
-    if capture is not None:
-        capture_next[capture[0]] = capture[1]
+def main_path(fn, capture=()):
+    """Run fn with every launch counter zeroed just before and read just
+    after; the counts are added to the main-path totals.  capture: one
+    (kernel, label) pair or a list of them; each kernel's first launch of
+    the run is kept."""
+    if capture and isinstance(capture[0], str):
+        capture = [capture]
+    for name, label in capture:
+        capture_next[name] = label
     ck.reset_launches()
+    cm.reset_launches()
     out = fn()
-    got = dict(ck.launches)
+    got = {**ck.launches, **cm.launches}
     for k in launches_main:
         launches_main[k] += got[k]
-    check(capture is None or capture_next[capture[0]] is None,
-          f"{capture}: the kernel was not launched")
+    for name, label in capture:
+        check(capture_next[name] is None,
+              f"{name} ({label}): the kernel was not launched")
     return out, got
 
 
@@ -456,18 +488,21 @@ sigs = sign_batch(a_list, pubs, msgs, rng)
 bad6 = set(rng.sample(range(100_000), 97))
 bv = cbatch.BatchVerifier(device=DEV)
 pk_objs = [edkeys.PubKey(p) for p in pubs]
+trip6 = ([], [], [])   # the triples as added, for K3 in phase 11
 for i in range(100_000):
     j = i % 1024
-    bv.add(pk_objs[j], msgs[j],
-           corrupt(sigs[j], rng) if i in bad6 else sigs[j])
+    sig = corrupt(sigs[j], rng) if i in bad6 else sigs[j]
+    bv.add(pk_objs[j], msgs[j], sig)
+    for lst, v in zip(trip6, (pubs[j], msgs[j], sig)):
+        lst.append(v)
 (ok6, bits6), c6 = main_path(bv.verify,
                              capture=("verify_packed", "100k ad-hoc chunk 0"))
 rec6 = dict(E.last_launch())
 expect6 = np.ones(100_000, dtype=bool)
 expect6[list(bad6)] = False
 cmp6 = plain_on_captured("verify_packed", expect6[:E.MAX_CHUNK])
-for _name in PLAIN:   # the timings below call the bare wrappers
-    setattr(ck, _name, REAL[_name])
+for _name in ("verify_packed", "verify_packed_split"):
+    setattr(ck, _name, REAL[_name])   # the timings below call these bare
 log(phase=6, triples=100_000, launches=c6, nb=rec6["nb"],
     chunks=rec6.get("chunks"), chunk_overlap=rec6.get("chunk_overlap"),
     mismatches=int((bits6 != expect6).sum()), k1_vs_plain_main_path=cmp6)
@@ -513,22 +548,187 @@ def wall(fn, reps):
     return out
 
 
+cm.reset_launches()
 w150 = wall(lambda: vset150.verify_commit(CHAIN, bid150, 9, commit150,
                                           device=DEV), 10)
 w100k = wall(lambda: vset100k.verify_commit(CHAIN, bid100k, 9, commit100k,
                                             device=DEV), 3)
 rec7 = dict(E.last_launch())
+rlc_off = {k: launches_main[k] + cm.launches[k] for k in cm.launches}
+check(not any(rlc_off.values()),
+      f"K4/K5/A1 launched while RLC is off: {rlc_off}")
 times["verify_commit_150_wall_s"] = sorted(w150)[len(w150) // 2]
 times["verify_commit_100k_wall_s"] = sorted(w100k)[len(w100k) // 2]
 for name, value in times.items():
     log(phase=7, card=CARD, metric=name, value=value)
 log(phase=7, card=CARD, verify_commit_150_walls_s=w150,
-    verify_commit_100k_walls_s=w100k,
+    verify_commit_100k_walls_s=w100k, rlc_off_msm_launches=rlc_off,
     verify_commit_100k_phases={k: rec7.get(k) for k in (
         "stage_s", "h2d_s", "compute_s", "device_s", "drain_s", "chunks",
         "chunk_overlap")})
 
-# -- phase 8: the kernels line ------------------------------------------------
+# -- phase 8: RLC on the 100,000-validator commit -----------------------------
+
+RLC_CAP = [("decompress_niels", "100k RLC"), ("bucket_scan", "100k RLC"),
+           ("aggregate", "100k RLC")]
+msm.set_enabled(True)
+_, c8a = main_path(lambda: vset100k.verify_commit(CHAIN, bid100k, 9,
+                                                  commit100k, device=DEV),
+                   capture=RLC_CAP)
+route8a, rec8a = dict(msm.last_route()), dict(E.last_launch())
+check((route8a["path"], route8a["outcome"], route8a["nb"], route8a["c"])
+      == ("rlc-single", "vouched", 131_072, 8), str(route8a))
+check(rec8a["path"] == "rlc-single", str(rec8a))
+check((c8a["decompress_niels"], c8a["bucket_scan"], c8a["aggregate"],
+       c8a["verify_packed_split"]) == (1, 1, 1, 0), str(c8a))
+# one bad signature: s + 1 keeps s < L and R canonical, so the batch is
+# eligible and the combination rejects it; the ladder names the index
+bad8 = 4321
+orig8 = commit100k.signatures[bad8].signature
+s8 = (int.from_bytes(orig8[32:], "little") + 1) % L
+commit100k.signatures[bad8].signature = orig8[:32] + s8.to_bytes(32, "little")
+err8b, c8b = main_path(lambda: commit_error_index(vset100k, bid100k,
+                                                  commit100k))
+route8b = dict(msm.last_route())
+check(route8b["outcome"] == "rejected", str(route8b))
+check(c8b["verify_packed_split"] == 7 and c8b["decompress_niels"] == 1,
+      str(c8b))
+check(err8b is not None and f"(#{bad8})" in err8b, f"bad index: {err8b}")
+# a non-canonical R (y = p): ineligible on the host, no K4 launch
+commit100k.signatures[bad8].signature = P.to_bytes(32, "little") + orig8[32:]
+err8c, c8c = main_path(lambda: commit_error_index(vset100k, bid100k,
+                                                  commit100k))
+route8c = dict(msm.last_route())
+commit100k.signatures[bad8].signature = orig8
+check(route8c["path"] == "rlc-ineligible", str(route8c))
+check(c8c["decompress_niels"] == 0 and c8c["verify_packed_split"] == 7,
+      str(c8c))
+check(err8c is not None and f"(#{bad8})" in err8c, f"bad index: {err8c}")
+w8 = wall(lambda: vset100k.verify_commit(CHAIN, bid100k, 9, commit100k,
+                                         device=DEV), 3)
+rec8 = dict(E.last_launch())
+check(rec8["path"] == "rlc-single" and rec8["outcome"] == "vouched",
+      str(rec8))
+times["rlc_verify_commit_100k_wall_s"] = sorted(w8)[1]
+log(phase=8, card=CARD, launches=c8a, route=route8a,
+    launches_bad=c8b, route_bad=route8b, error_bad=err8b,
+    launches_ineligible=c8c, route_ineligible=route8c,
+    rlc_verify_commit_100k_walls_s=w8, record=rec8)
+
+# -- phase 9: RLC through BatchVerifier --------------------------------------
+
+rng = random.Random(SEED + 9)
+a_list, pubs9 = gen_keys(16384, rng)
+msgs9 = [rng.randbytes(64) for _ in range(16384)]
+sigs9 = sign_batch(a_list, pubs9, msgs9, rng)
+pk9 = [edkeys.PubKey(p) for p in pubs9]
+bv9 = {}
+for n9 in (16384, 4096):
+    bv9[n9] = cbatch.BatchVerifier(device=DEV)
+    for i in range(n9):
+        bv9[n9].add(pk9[i], msgs9[i], sigs9[i])
+    cap = [(k, f"{n9} ad-hoc RLC") for k, _ in RLC_CAP] if n9 == 4096 \
+        else ()
+    (ok9, bits9), c9 = main_path(bv9[n9].verify, capture=cap)
+    route9 = dict(msm.last_route())
+    log(phase=9, triples=n9, launches=c9, route=route9)
+    check(ok9 and bits9.all(), f"{n9}: batch not all valid")
+    check((route9["path"], route9["outcome"], route9["nb"], route9["c"])
+          == ("rlc-single", "vouched", n9, 8 if n9 >= 8192 else 4),
+          str(route9))
+    check((c9["decompress_niels"], c9["bucket_scan"], c9["aggregate"],
+           c9["verify_packed"]) == (1, 1, 1, 0), str(c9))
+w9 = wall(bv9[16384].verify, 5)
+rec9 = dict(E.last_launch())
+times["rlc_batch_16384_wall_s"] = sorted(w9)[2]
+log(phase=9, card=CARD, rlc_batch_16384_walls_s=w9, record=rec9)
+msm.set_enabled(None)
+
+# -- phase 10: K4, K5 and A1 against their plain versions ---------------------
+
+
+def byte_cmp(got: torch.Tensor, want: torch.Tensor):
+    """(coords, N, 32) canonical bytes -> (elements compared, mismatching
+    elements, max |byte difference|)."""
+    check(got.shape == want.shape, f"{tuple(got.shape)} != "
+          f"{tuple(want.shape)}")
+    diff = (got.to(torch.int16) - want.to(torch.int16)).abs()
+    return (int(got.shape[0] * got.shape[1]), int(diff.any(-1).sum()),
+            float(diff.max()))
+
+
+def timed(fn):
+    """(result, ms) of one call, CUDA events."""
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return out, e0.elapsed_time(e1)
+
+
+msm_cmp = {"decompress_niels": [], "bucket_scan": [], "aggregate": []}
+label, (b_rows,), (n10, ok10) = captured["decompress_niels"][0]
+(n22, ok22), _ = timed(lambda: cm.decompress_niels_plain(b_rows))
+(n22, ok22), times["plain_k4_262144_ms"] = timed(
+    lambda: cm.decompress_niels_plain(b_rows))
+cmp = byte_cmp(cm.to_bytes10(n10), cm.to_bytes22(n22))
+ok_mism = int((ok10 != ok22).sum())
+msm_cmp["decompress_niels"].append((label, cmp[0], cmp[1] + ok_mism, cmp[2]))
+check(b_rows.shape[1] == 262_144 and bool(ok10.all()), "K4 input")
+times["k4_262144_ms"] = time_events(lambda: REAL["decompress_niels"](b_rows),
+                                    5)
+scan_shapes = []
+for (label, (table, rows), out), (_, (bk, W, c), ws) in zip(
+        captured["bucket_scan"], captured["aggregate"]):
+    T9, K9 = rows.shape
+    scan_shapes.append((T9, K9, W, c, int((rows != 0).sum()),
+                        table.shape[0]))
+    table22 = cm.limbs22_from_bytes(cm.to_bytes10(table))
+    plain, ms = timed(lambda: cm.bucket_scan_plain(table22, rows))
+    times[f"plain_k5_{T9}x{K9}_ms"] = ms
+    msm_cmp["bucket_scan"].append(
+        (label,) + byte_cmp(cm.to_bytes10(out), cm.to_bytes22(plain)))
+    times[f"k5_{T9}x{K9}_ms"] = time_events(
+        lambda: REAL["bucket_scan"](table, rows), 3)
+    bk22 = cm.limbs22_from_bytes(cm.to_bytes10(bk))
+    plain, ms = timed(lambda: cm.aggregate_plain(bk22, W, c))
+    times[f"plain_a1_{W}x{c}_ms"] = ms
+    msm_cmp["aggregate"].append((label,) + byte_cmp(ws, plain))
+    times[f"a1_{W}x{c}_ms"] = time_events(
+        lambda: REAL["aggregate"](bk, W, c), 3)
+log(phase=10, card=CARD, comparisons=msm_cmp, shapes=scan_shapes,
+    times={k: v for k, v in times.items() if k.split("_")[0] in (
+        "k4", "k5", "a1", "plain")})
+check([sh[:4] for sh in scan_shapes]
+      == [(1304, 8192, 32, 8), (712, 1024, 64, 4)], f"shapes {scan_shapes}")
+check(all(c[2] == 0 for v in msm_cmp.values() for c in v),
+      f"a kernel differs from its plain version: {msm_cmp}")
+
+# -- phase 11: K3 on the phase-6 batch ----------------------------------------
+
+p11, m11, s11 = (lst[:E.MAX_CHUNK] for lst in trip6)
+bits11, c11 = main_path(lambda: E.verify_batch_staged(p11, m11, s11,
+                                                      device=DEV),
+                        capture=("verify_staged", "65,536 ad-hoc"))
+rec11 = dict(E.last_launch())
+cmp11 = plain_on_captured("verify_staged", expect6[:E.MAX_CHUNK])
+_, k3_args, k3_out = captured["verify_staged"][-1]
+k1_out = captured["verify_packed"][-1][2]   # phase 6, the same lanes
+k3_vs_k1 = int((k3_out != k1_out).sum())
+times["k3_65536_ms"] = time_events(lambda: REAL["verify_staged"](*k3_args), 3)
+times["plain_k3_65536_ms"] = time_events(
+    lambda: ck.verify_staged_plain(*k3_args), 1)
+log(phase=11, card=CARD, launches=c11, record=rec11, k3_vs_plain=cmp11,
+    k3_vs_k1_mismatches=k3_vs_k1, k3_65536_ms=times["k3_65536_ms"],
+    plain_k3_65536_ms=times["plain_k3_65536_ms"])
+check(np.array_equal(bits11, expect6[:E.MAX_CHUNK]), "K3 bitmap != expected")
+check(c11["verify_staged"] == 1 and rec11["path"] == "cuda-staged", str(c11))
+check(cmp11[1] == 65_536 and cmp11[2] == 0, f"K3 differs from plain: {cmp11}")
+check(k3_vs_k1 == 0, "K3 differs from K1 on the same lanes")
+
+# -- phase 12: the kernels line -----------------------------------------------
 
 src = "tendermint_tpu_torch/csrc/ed25519_verify.cu"
 # each comparison: (input, lanes, mismatching lanes, max |kernel - plain|)
@@ -559,9 +759,44 @@ kernels = [
      "plain_ms": times["plain_k2_16384_ms"],
      "bound_ms": ck.bound_ms(16384), "bound_by": "operations",
      "library_ms": None},
+    {"name": "K3 verify_staged", "route": "cuda", "source": src,
+     "replaces": "tendermint_tpu/ops/pallas_ed25519.py:853",
+     "launches": launches_main["verify_staged"],
+     "lanes_compared": [cmp11[1]], "mismatches": cmp11[2] + k3_vs_k1,
+     "max_abs_err": cmp11[3],
+     "lanes": 65536, "ms": times["k3_65536_ms"],
+     "plain_ms": times["plain_k3_65536_ms"],
+     "bound_ms": ck.bound_ms(65536, staged=True), "bound_by": "operations",
+     "library_ms": None},
 ]
+msm_src = "tendermint_tpu_torch/csrc/msm.cu"
+T5, K5, W5, c5, items5, rows5 = scan_shapes[0]
+for name, key, replaces, lanes, ms, plain_ms, bound in (
+        ("K4 decompress_niels", "decompress_niels",
+         "tendermint_tpu/ops/pallas_msm.py:106", 262_144,
+         times["k4_262144_ms"], times["plain_k4_262144_ms"],
+         cm.bound_ms_decompress(262_144)),
+        ("K5 bucket_scan", "bucket_scan",
+         "tendermint_tpu/ops/pallas_msm.py:188", K5,
+         times[f"k5_{T5}x{K5}_ms"], times[f"plain_k5_{T5}x{K5}_ms"],
+         cm.bound_ms_bucket_scan(items5, rows5, T5, K5)),
+        ("A1 aggregate (XLA _aggregate, not a Pallas kernel)", "aggregate",
+         "tendermint_tpu/ops/msm.py:176", W5,
+         times[f"a1_{W5}x{c5}_ms"], times[f"plain_a1_{W5}x{c5}_ms"],
+         cm.bound_ms_aggregate(W5, c5))):
+    cmps = msm_cmp[key]
+    kernels.append(
+        {"name": name, "route": "cuda", "source": msm_src,
+         "replaces": replaces, "launches": launches_main[key],
+         "lanes_compared": [c[1] for c in cmps],
+         "mismatches": sum(c[2] for c in cmps),
+         "max_abs_err": max(c[3] for c in cmps),
+         "lanes": lanes, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+         "bound_by": "operations", "library_ms": None})
 REPORT.update(times=times, kernels=kernels, ptxas=ptxas,
-              records={"150": rec150, "100k": rec5b, "pipelined": rec6},
+              records={"150": rec150, "100k": rec5b, "pipelined": rec6,
+                       "rlc_100k": rec8, "rlc_16384": rec9,
+                       "staged_65536": rec11},
               total_s=time.perf_counter() - T0)
 os.makedirs(OUT_DIR, exist_ok=True)
 with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

@@ -60,6 +60,19 @@
 // p + 18, 2^255 - 1) and on seeded values by fe_selftest
 // (csrc/ed25519_verify.cu) against the plain PyTorch field of
 // ops/field.py, exactly, in chip_smoke.py.
+//
+// The MSM chains (csrc/msm.cu).  K4 writes each niels row as
+// YpX = carry(Y + X), YmX = carry(Y - X), T2d = fe_mul(T, 2d): all
+// carried.  The table's two constant rows (identity, B) are canonical
+// limbs, 1-bounded.  ge_madd_niels reads an accumulator whose fields are
+// fe_mul outputs (carried) and a niels row that is at most 1-bounded: its
+// widest products are (Y + X) * YpX = 1.002 x 1 and, in the tail,
+// F * G = 1.503 x 1.503 = 2.26 <= 16; its four outputs are fe_mul outputs
+// again.  So the bucket accumulator of K5 stays carried after every step,
+// for any number of steps (T = 1,304 at a 131,072-lane batch).  The window
+// aggregation (A1) chains ge_to_cached + ge_add_cached on carried points
+// the same way: the cached Z is a carried copy, D = 2 Z1 Z2 is 1.002, and
+// the tail products are again at most 2.26.
 #pragma once
 
 #include <stdint.h>
@@ -93,6 +106,19 @@ struct ge_niels {      // (y+x, y-x, 2dxy), Z = 1
                  15978800, -12551817, -6495438, 29715968, 9444199}
 #define FE_SQRTM1 {-32595792, -7943725, 9377950, 3500415, 12389472, \
                    -272473, -25146209, -2005654, 326686, 11406482}
+
+// 32 bytes of one lane from a lane-major (rows, B) byte array -> 8 LE words
+FE_DEV void load_lane32(uint32_t w[8], const uint8_t *__restrict__ rows,
+                        int64_t stride, int64_t lane) {
+#pragma unroll
+  for (int q = 0; q < 8; q++) {
+    uint32_t v = 0;
+#pragma unroll
+    for (int k = 0; k < 4; k++)
+      v |= (uint32_t)rows[(int64_t)(4 * q + k) * stride + lane] << (8 * k);
+    w[q] = v;
+  }
+}
 
 FE_DEV void fe_0(fe h) {
 #pragma unroll

@@ -91,13 +91,15 @@ def get_lib():
                 lib.tm_mod_l.argtypes = [u8p, u8p, u64]
                 lib.tm_challenge_prefixed.argtypes = [u8p, u8p, u64, u8p, u64]
                 lib.tm_challenge_batch.argtypes = [u8p, u8p, u64p, u8p, u64]
+                lib.tm_rlc_scalars.argtypes = [u8p, u8p, u8p, u8p, u8p, u64]
                 lib.tm_vote_sign_bytes.argtypes = [
                     i64p, i64p, u8p, u8p, u64, u8p, u64, u8p, u64,
                     u8p, u64p, u64]
                 for fn in (lib.tm_sha512_prefixed, lib.tm_sha512_batch,
                            lib.tm_scalar_canonical, lib.tm_mod_l,
                            lib.tm_challenge_prefixed,
-                           lib.tm_challenge_batch, lib.tm_vote_sign_bytes):
+                           lib.tm_challenge_batch, lib.tm_rlc_scalars,
+                           lib.tm_vote_sign_bytes):
                     fn.restype = None
                 _lib = lib
             except OSError:
@@ -196,6 +198,26 @@ def challenge_scalars(prefix: np.ndarray, msgs) -> np.ndarray | None:
     lib.tm_challenge_batch(_u8p(prefix), _u8p(buf), _u64p(offsets),
                            _u8p(out), ctypes.c_uint64(B))
     return out
+
+
+def rlc_scalars(z: np.ndarray, k: np.ndarray, s: np.ndarray):
+    """RLC batch staging: zk[i] = z[i]*k[i] mod L and zs = sum z[i]*s[i]
+    mod L (native/staging.c tm_rlc_scalars).  z: (B, 16), k/s: (B, 32)
+    LE uint8.  Returns (zk (B, 32) uint8, zs (32,) uint8) or None."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    z = np.ascontiguousarray(z, dtype=np.uint8)
+    k = np.ascontiguousarray(k, dtype=np.uint8)
+    s = np.ascontiguousarray(s, dtype=np.uint8)
+    B = z.shape[0]
+    if z.shape != (B, 16) or k.shape != (B, 32) or s.shape != (B, 32):
+        raise ValueError("z (B, 16), k and s (B, 32) expected")
+    zk = np.empty((B, 32), dtype=np.uint8)
+    zs = np.empty(32, dtype=np.uint8)
+    lib.tm_rlc_scalars(_u8p(z), _u8p(k), _u8p(s), _u8p(zk), _u8p(zs),
+                       ctypes.c_uint64(B))
+    return zk, zs
 
 
 def vote_sign_bytes(seconds: np.ndarray, nanos: np.ndarray,

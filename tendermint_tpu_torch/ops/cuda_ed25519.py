@@ -1,18 +1,21 @@
-"""Kernels K1 and K2: batched ed25519 verification on an NVIDIA Hopper GPU.
+"""Kernels K1, K2 and K3: batched ed25519 verification on an NVIDIA Hopper
+GPU.
 
 The counterparts of tendermint_tpu/ops/pallas_ed25519.py:
 
   K1  verify_packed_pallas       -> verify_packed(packed)
   K2  verify_packed_split_pallas -> verify_packed_split(pub_rows, rsk)
+  K3  verify_staged_pallas       -> verify_staged(pub, r, s, digest)
 
-Each wrapper takes lane-major uint8 tensors (the staging layout of
-ops/ed25519.prepare_batch_packed / prepare_batch_split) and returns a (B,)
-bool verdict tensor on the input's device.  For a CUDA tensor it launches
-the hand-written kernel of csrc/ed25519_verify.cu (built with nvcc for
-sm_90a on first use, cached by source hash under the package's _build/
-directory, loaded with ctypes) or raises; for a CPU tensor it runs the
-kernel's plain PyTorch version (verify_packed_plain /
-verify_packed_split_plain), built on ops/field.py and ops/curve.py.
+Each wrapper takes lane-major uint8 tensors (the staging layouts of
+ops/ed25519.prepare_batch_packed / prepare_batch_split /
+prepare_batch_compact) and returns a (B,) bool verdict tensor on the
+input's device.  For a CUDA tensor it launches the hand-written kernel of
+csrc/ed25519_verify.cu (built with nvcc for sm_90a on first use, cached by
+source hash under the package's _build/ directory, loaded with ctypes) or
+raises; for a CPU tensor it runs the kernel's plain PyTorch version
+(verify_packed_plain / verify_packed_split_plain / verify_staged_plain),
+built on ops/field.py and ops/curve.py.
 
 `launches` counts kernel launches per wrapper; `fe_selftest` runs the CUDA
 field arithmetic on given elements so that it can be held against the
@@ -21,26 +24,18 @@ plain field (ops/field.py) whatever limb layout the kernel uses.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
 import threading
-import time
 
 import numpy as np
 import torch
 
+from . import _nvcc
 from . import curve as C
 from . import field as F
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
-SOURCES = (os.path.join(CSRC_DIR, "fe25519.cuh"),
-           os.path.join(CSRC_DIR, "ed25519_verify.cu"))
-BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCES = tuple(os.path.join(_nvcc.CSRC_DIR, f) for f in (
+    "fe25519.cuh", "launch.cuh", "ed25519_verify.cu"))
 
 # ---------------------------------------------------------------------------
 # work per signature (csrc/ed25519_verify.cu header note), for the bound
@@ -55,8 +50,14 @@ IMADS_PER_SIG = 2 * PRODUCTS_PER_SIG
 # H100 SXM: 132 SMs x 64 int32 multiply-adds per clock x 1.98 GHz boost
 H100_IMAD_PER_S = 132 * 64 * 1.98e9
 BYTES_PER_SIG = 128 + 1  # staged rows in, verdict out
+# K3: the digest's reduction mod L (3 folds of 6 x 14 int64 products, each
+# counted as 4 32-bit multiply-add halves) and 32 more bytes in
+IMADS_MOD_L = 3 * 6 * 14 * 4
+BYTES_PER_STAGED_SIG = 160 + 1
+MEM_BYTES_PER_S = 3.35e12
 
-launches = {"verify_packed": 0, "verify_packed_split": 0, "fe_selftest": 0}
+launches = {"verify_packed": 0, "verify_packed_split": 0,
+            "verify_staged": 0, "fe_selftest": 0}
 _count_lock = threading.Lock()
 
 
@@ -71,11 +72,14 @@ def _count(name: str) -> None:
         launches[name] += 1
 
 
-def bound_ms(lanes: int) -> float:
-    """Least time the card could take for `lanes` verifications: the
-    larger of the multiply-add time and the byte time (3.35 TB/s)."""
-    ops_s = lanes * IMADS_PER_SIG / H100_IMAD_PER_S
-    bytes_s = lanes * BYTES_PER_SIG / 3.35e12
+def bound_ms(lanes: int, staged: bool = False) -> float:
+    """Least time the card could take for `lanes` verifications (K1/K2,
+    or K3 with `staged`): the larger of the multiply-add time and the
+    byte time (3.35 TB/s)."""
+    imads = IMADS_PER_SIG + (IMADS_MOD_L if staged else 0)
+    nbytes = BYTES_PER_STAGED_SIG if staged else BYTES_PER_SIG
+    ops_s = lanes * imads / H100_IMAD_PER_S
+    bytes_s = lanes * nbytes / MEM_BYTES_PER_S
     return 1e3 * max(ops_s, bytes_s)
 
 
@@ -88,44 +92,13 @@ _lib = None
 build_info: dict = {}
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc")
-    if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
-        path = "/usr/local/cuda/bin/nvcc"
-    if path is None:
-        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
-    return path
-
-
 def build() -> str:
     """Compile csrc/ed25519_verify.cu into a shared library (once per
     source hash); returns its path.  `build_info` receives the build
     seconds and nvcc's -Xptxas -v report (registers, spills)."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in SOURCES:
-        with open(path, "rb") as f:
-            h.update(f.read())
-    tag = h.hexdigest()[:16]
-    so = os.path.join(BUILD_DIR, f"ed25519_verify_{tag}.so")
-    log = so + ".ptxas.txt"
-    if os.path.exists(so):
-        build_info.update(path=so, seconds=0.0, cached=True,
-                          ptxas=open(log).read() if os.path.exists(log)
-                          else "")
-        return so
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    t0 = time.perf_counter()
-    r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCES[1]],
-                       capture_output=True, text=True, timeout=900)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
-    os.replace(tmp, so)
-    with open(log, "w") as f:
-        f.write(r.stderr)
-    build_info.update(path=so, seconds=time.perf_counter() - t0,
-                      cached=False, ptxas=r.stderr)
-    return so
+    info = _nvcc.build("ed25519_verify", SOURCES)
+    build_info.update(info)
+    return info["path"]
 
 
 def kernels() -> ctypes.CDLL:
@@ -137,20 +110,16 @@ def kernels() -> ctypes.CDLL:
             vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
             lib.tm_verify_packed.argtypes = [vp, vp, vp, ll, i, vp]
             lib.tm_verify_packed_split.argtypes = [vp, vp, vp, vp, ll, i, vp]
+            lib.tm_verify_staged.argtypes = [vp, vp, vp, vp, vp, vp, ll, i,
+                                             vp]
             lib.tm_fe_selftest.argtypes = [vp, vp, vp, ll, i, vp]
             for fn in (lib.tm_verify_packed, lib.tm_verify_packed_split,
-                       lib.tm_fe_selftest):
+                       lib.tm_verify_staged, lib.tm_fe_selftest):
                 fn.restype = ctypes.c_int
             lib.tm_error_string.argtypes = [ctypes.c_int]
             lib.tm_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
-
-
-def _check_rc(lib, rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(
-            f"{what}: CUDA error {rc} ({lib.tm_error_string(rc).decode()})")
 
 
 def _check_rows(t: torch.Tensor, rows: int, name: str) -> None:
@@ -258,7 +227,7 @@ def verify_packed(packed: torch.Tensor) -> torch.Tensor:
     rc = lib.tm_verify_packed(packed.data_ptr(),
                               _base_table_dev(dev).data_ptr(),
                               out.data_ptr(), B, dev.index, _stream(dev))
-    _check_rc(lib, rc, "verify_packed")
+    _nvcc.check_rc(lib, rc, "verify_packed")
     _count("verify_packed")
     return out.view(torch.bool)
 
@@ -281,8 +250,35 @@ def verify_packed_split(pub_rows: torch.Tensor,
                                     _base_table_dev(dev).data_ptr(),
                                     out.data_ptr(), B, dev.index,
                                     _stream(dev))
-    _check_rc(lib, rc, "verify_packed_split")
+    _nvcc.check_rc(lib, rc, "verify_packed_split")
     _count("verify_packed_split")
+    return out.view(torch.bool)
+
+
+def verify_staged(pub: torch.Tensor, r: torch.Tensor, s: torch.Tensor,
+                  digest: torch.Tensor) -> torch.Tensor:
+    """K3: (32, B) rows of A, R and s plus the (64, B) raw SHA-512
+    digests of R || A || M (ops/ed25519.prepare_batch_compact) -> (B,)
+    bool; k = digest mod L and the digits are computed on the device."""
+    rows = (("pub", pub, 32), ("r", r, 32), ("s", s, 32),
+            ("digest", digest, 64))
+    for name, t, n in rows:
+        _check_rows(t, n, name)
+    B = pub.shape[1]
+    if any(t.shape[1] != B or t.device != pub.device for _, t, _ in rows):
+        raise ValueError("pub, r, s and digest must have the same "
+                         "lanes/device")
+    if pub.device.type == "cpu":
+        return verify_staged_plain(pub, r, s, digest)
+    dev = pub.device
+    out = torch.empty(B, dtype=torch.uint8, device=dev)
+    lib = kernels()
+    rc = lib.tm_verify_staged(pub.data_ptr(), r.data_ptr(), s.data_ptr(),
+                              digest.data_ptr(),
+                              _base_table_dev(dev).data_ptr(),
+                              out.data_ptr(), B, dev.index, _stream(dev))
+    _nvcc.check_rc(lib, rc, "verify_staged")
+    _count("verify_staged")
     return out.view(torch.bool)
 
 
@@ -304,7 +300,7 @@ def fe_selftest(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     lib = kernels()
     rc = lib.tm_fe_selftest(a.data_ptr(), b.data_ptr(), out.data_ptr(), n,
                             dev.index, _stream(dev))
-    _check_rc(lib, rc, "fe_selftest")
+    _nvcc.check_rc(lib, rc, "fe_selftest")
     _count("fe_selftest")
     return out
 
@@ -322,31 +318,104 @@ def fe_selftest_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.stack([o.t() for o in outs]).to(torch.uint8)
 
 
-def _digits(b32: torch.Tensor) -> torch.Tensor:
-    """(32, B) scalar bytes -> (64, B) signed radix-16 digits in [-8, 7]
-    (pallas_ed25519._digits_from_limbs over _bytes_to_limbs12)."""
-    b = b32.to(F.DTYPE) & 0xFF
+def _bytes_to_limbs12(b: torch.Tensor, nlimbs: int) -> torch.Tensor:
+    """(NB, B) byte rows (0..255) -> (nlimbs, B) radix-2^12 limbs of the
+    full value, no sign masking (pallas_ed25519._bytes_to_limbs12)."""
+    nbytes = b.shape[0]
     rows = []
-    for i in range(F.NLIMB):
+    for i in range(nlimbs):
         if i % 2 == 0:
             b0 = (3 * i) // 2
-            rows.append(b[b0] | ((b[b0 + 1] & 0x0F) << 8))
+            v = b[b0]
+            if b0 + 1 < nbytes:
+                v = v | ((b[b0 + 1] & 0x0F) << 8)
         else:
             b0 = (3 * i - 1) // 2
             v = b[b0] >> 4
-            if b0 + 1 < 32:
+            if b0 + 1 < nbytes:
                 v = v | (b[b0 + 1] << 4)
-            rows.append(v)
-    limbs, _ = F._carry_chain(torch.stack(rows) + 0x888, F.NLIMB)
+        rows.append(v)
+    return torch.stack(rows)
+
+
+def _scalar_carry(rows):
+    """Exact carry over a list of limb rows -> limbs in [0, 2^12); the
+    carry out of the last row is dropped (pallas_ed25519._scalar_carry)."""
+    out = []
+    carry = None
+    for r in rows:
+        v = r if carry is None else r + carry
+        out.append(v & F.MASK)
+        carry = v >> F.RADIX
+    return out
+
+
+# mod L constants of pallas_ed25519: 2^252 = -C (mod L), positive fold
+# offsets M_k >= C * max(hi_k) (hi_1 <= 2^260, hi_2 <= 2^134, hi_3 <= 2^8)
+_L_INT = (1 << 252) + 27742317777372353535851937790883648493
+_C_INT = _L_INT - (1 << 252)
+_C_L12 = [(_C_INT >> (12 * i)) & 0xFFF for i in range(11)]
+_L_L12 = [(_L_INT >> (12 * i)) & 0xFFF for i in range(F.NLIMB)]
+_M_OFFS = [-(-(_C_INT << k) // _L_INT) * _L_INT for k in (260, 134, 8)]
+_SROWS = 33  # 33 * 12 = 396 bits >= the 2^386 fold-1 bound
+
+
+def _mod_l(dig_limbs: torch.Tensor) -> torch.Tensor:
+    """(43, B) radix-2^12 limbs of a 512-bit value -> (NLIMB, B) canonical
+    limbs mod L (pallas_ed25519._mod_l): three positive-offset folds at bit
+    252, then 4 conditional subtracts of L."""
+    rows = list(dig_limbs.unbind(0))
+    for m in _M_OFFS:
+        lo, hi = rows[:21], rows[21:]
+        acc = []
+        for j in range(_SROWS):
+            mj = (m >> (12 * j)) & 0xFFF
+            acc.append(lo[j] + mj if j < 21 else torch.full_like(rows[0], mj))
+        for i in range(11):
+            if _C_L12[i] == 0:
+                continue
+            for j, h in enumerate(hi):
+                if i + j < _SROWS:
+                    acc[i + j] = acc[i + j] - _C_L12[i] * h
+        rows = _scalar_carry(acc)
+    rows = rows[:F.NLIMB]
+    for _ in range(4):   # value < M_3 + 2^252 < 5L
+        ge = decided = None
+        for i in range(F.NLIMB - 1, -1, -1):
+            gt = rows[i] > _L_L12[i]
+            lt = rows[i] < _L_L12[i]
+            if ge is None:
+                ge, decided = gt, gt | lt
+            else:
+                ge = ge | (~decided & gt)
+                decided = decided | gt | lt
+        ge = (ge | ~decided).to(F.DTYPE)   # equal -> subtract
+        rows = _scalar_carry([rows[i] - ge * _L_L12[i]
+                              for i in range(F.NLIMB)])
+    return torch.stack(rows)
+
+
+def _digits_from_limbs(limbs: torch.Tensor) -> torch.Tensor:
+    """(NLIMB, B) radix-2^12 limbs of a scalar < 2^253 -> (64, B) signed
+    radix-16 digits in [-8, 7], least significant first: t = s + 0x88..8,
+    digit j = nibble j of t - 8 (pallas_ed25519._digits_from_limbs)."""
+    rows = _scalar_carry([limbs[i] + 0x888 for i in range(F.NLIMB)])
     digs = []
     for j in range(64):
         limb, sh = divmod(4 * j, F.RADIX)
-        digs.append(((limbs[limb] >> sh) & 0xF) - 8)
+        digs.append(((rows[limb] >> sh) & 0xF) - 8)
     return torch.stack(digs)
 
 
-def _verify_plain(pub_b, r_b, s_b, k_b) -> torch.Tensor:
-    """(32, B) byte rows each -> (B,) bool; _verify_tile's verdict."""
+def _digits(b32: torch.Tensor) -> torch.Tensor:
+    """(32, B) scalar bytes -> (64, B) signed radix-16 digits in [-8, 7]."""
+    return _digits_from_limbs(_bytes_to_limbs12(b32.to(F.DTYPE) & 0xFF,
+                                                F.NLIMB))
+
+
+def _verify_digits(pub_b, r_b, sd, kd) -> torch.Tensor:
+    """(32, B) byte rows of A and R, (64, B) digits of s and k -> (B,)
+    bool; _verify_tile's verdict."""
     dev = pub_b.device
     B = pub_b.shape[1]
     cols = torch.from_numpy(consts_packed()).to(dev)
@@ -356,8 +425,6 @@ def _verify_plain(pub_b, r_b, s_b, k_b) -> torch.Tensor:
     a, decode_ok = C.decompress(y_l, a_sign)
     neg_a = C.Ext(F.carry_lazy(-a.x), a.y, a.z, F.carry_lazy(-a.t))
     tab = C.cached_window(neg_a)                     # fields (9, NLIMB, B)
-    sd = _digits(s_b)
-    kd = _digits(k_b)
     p = C.identity((B,), dev)
     for pos in range(63, -1, -1):
         p = C.dbl(C.dbl(C.dbl(C.dbl(p, False), False), False), True)
@@ -373,6 +440,11 @@ def _verify_plain(pub_b, r_b, s_b, k_b) -> torch.Tensor:
     return decode_ok & (enc == (r_b.to(F.DTYPE) & 0xFF)).all(0)
 
 
+def _verify_plain(pub_b, r_b, s_b, k_b) -> torch.Tensor:
+    """(32, B) byte rows each -> (B,) bool."""
+    return _verify_digits(pub_b, r_b, _digits(s_b), _digits(k_b))
+
+
 def verify_packed_plain(packed: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch K1 on any device: (128, B) -> (B,) bool."""
     b = packed.to(F.DTYPE) & 0xFF
@@ -385,3 +457,13 @@ def verify_packed_split_plain(pub_rows: torch.Tensor,
     p = pub_rows.to(F.DTYPE) & 0xFF
     b = rsk.to(F.DTYPE) & 0xFF
     return _verify_plain(p, b[0:32], b[32:64], b[64:96])
+
+
+def verify_staged_plain(pub: torch.Tensor, r: torch.Tensor, s: torch.Tensor,
+                        digest: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch K3 on any device: the digest reduced mod L and split
+    into digits as _kernel does, then the K1 verify."""
+    kd = _digits_from_limbs(_mod_l(_bytes_to_limbs12(
+        digest.to(F.DTYPE) & 0xFF, 43)))
+    return _verify_digits(pub.to(F.DTYPE) & 0xFF, r.to(F.DTYPE) & 0xFF,
+                          _digits(s), kd)

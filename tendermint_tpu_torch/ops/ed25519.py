@@ -19,7 +19,11 @@ Routes (`last_launch()["path"]`): "cuda" — the packed (128, B) layout into
 K1, in MAX_CHUNK-lane chunks pipelined against their host-to-device copies
 above MAX_CHUNK; "cuda-split" — validator-set batches (cache_pubs, at
 least PUB_CACHE_MIN signatures) with the pubkey rows resident on the
-device, SPLIT_CHUNK lanes per K2 launch.  On device="cpu" the same routes
+device, SPLIT_CHUNK lanes per K2 launch; "rlc-single" — the opt-in RLC
+batch check of ops/msm.py (kernels K4, K5, A1), tried first when
+msm.use_rlc(n), with a fall-through to the routes above unless it vouches
+for the whole batch; "cuda-staged" — verify_batch_staged, K3 on raw
+SHA-512 digests (no node path uses it).  On device="cpu" the same routes
 run the kernels' plain PyTorch versions.
 """
 from __future__ import annotations
@@ -228,6 +232,25 @@ def prepare_batch_split(pubkeys, sigs, msgs):
     rsk[32:64] = s_bytes.T
     rsk[64:96] = k.T
     return np.ascontiguousarray(pubkeys.T), rsk.view(np.int8), host_ok
+
+
+def prepare_batch_compact(pubkeys, sigs, msgs):
+    """Stage a batch for K3: byte packing, the s < L screen and the raw
+    SHA-512(R || A || M) digests; the reduction mod L and the digits run
+    on the device.  Returns ({pub, r, s: (32, B), digest: (64, B)}
+    lane-major int8, host_ok)."""
+    pubkeys = _to_u8_matrix(pubkeys, 32)
+    sigs = _to_u8_matrix(sigs, 64)
+    B = pubkeys.shape[0]
+    if pubkeys.shape != (B, 32) or sigs.shape != (B, 64) or len(msgs) != B:
+        raise ValueError("pubkeys (B, 32), sigs (B, 64) and B msgs expected")
+    r_bytes = np.ascontiguousarray(sigs[:, :32])
+    s_bytes = np.ascontiguousarray(sigs[:, 32:])
+    host_ok = _s_canonical(s_bytes)
+    digests = _sha512_digests(r_bytes, pubkeys, msgs)
+    rows = dict(pub=pubkeys, r=r_bytes, s=s_bytes, digest=digests)
+    return ({k: np.ascontiguousarray(v.T).view(np.int8)
+             for k, v in rows.items()}, host_ok)
 
 
 def bucket_size(n: int) -> int:
@@ -511,9 +534,17 @@ def verify_batch(pubkeys, msgs, sigs, cache_pubs: bool = False,
     cache_pubs: the caller asserts the pubkey set recurs across calls
     (validator-set paths, crypto/batch.verify_sigs_bulk): batches of at
     least PUB_CACHE_MIN take the split route with resident pubkey rows.
+    With the RLC fast path enabled (msm.use_rlc) the batch is first
+    checked as one random linear combination; only if that does not vouch
+    for every signature does the exact per-signature route run.
     device: "cuda" (default, see tendermint_tpu_torch.resolve_device) or
     "cpu" for the kernels' plain PyTorch versions."""
+    from . import msm
+
     dev = resolve_device(device)
+    if msm.use_rlc(len(pubkeys)) and msm.verify_batch_rlc(
+            pubkeys, msgs, sigs, device=dev):
+        return np.ones(len(pubkeys), dtype=bool)
     t0 = time.perf_counter()
     phases = {}
     if cache_pubs and len(pubkeys) >= PUB_CACHE_MIN:
@@ -540,4 +571,24 @@ def verify_batch(pubkeys, msgs, sigs, cache_pubs: bool = False,
         time.perf_counter() - t_col
     phases.update(feed.phases())
     _record_launch(path, dev, n, nb, time.perf_counter() - t0, phases)
+    return res[:n] & host_ok
+
+
+def verify_batch_staged(pubkeys, msgs, sigs, device=None) -> np.ndarray:
+    """Batched verify through K3 (route "cuda-staged"): the host stages
+    raw SHA-512 digests (prepare_batch_compact) and the kernel reduces
+    them mod L.  One launch for the whole batch, padded to a power of
+    two of at least TILE lanes.  Returns the (B,) bool bitmap."""
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    staged, host_ok = prepare_batch_compact(pubkeys, sigs, msgs)
+    n = host_ok.shape[0]
+    nb = max(TILE, bucket_size(n))
+    rows = [torch.from_numpy(np.pad(staged[k].view(np.uint8),
+                                    [(0, 0), (0, nb - n)])).to(dev)
+            for k in ("pub", "r", "s", "digest")]
+    phases = {"stage_s": time.perf_counter() - t0}
+    res = ck.verify_staged(*rows).cpu().numpy()   # synchronises
+    _record_launch("cuda-staged", dev, n, nb, time.perf_counter() - t0,
+                   phases)
     return res[:n] & host_ok

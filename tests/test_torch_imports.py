@@ -13,7 +13,9 @@ import torch
 import tendermint_tpu_torch as T
 from tendermint_tpu_torch.crypto import batch as cbatch
 from tendermint_tpu_torch.ops import cuda_ed25519 as ck
+from tendermint_tpu_torch.ops import cuda_msm as cm
 from tendermint_tpu_torch.ops import ed25519 as E
+from tendermint_tpu_torch.ops import msm
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "tendermint_tpu_torch"
@@ -85,6 +87,10 @@ def test_cuda_missing_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cbatch.verify_sigs_bulk(np.zeros((40, 32), np.uint8),
                                 [b"m"] * 40, [bytes(64)] * 40)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        msm.verify_batch_rlc([pub], [b"m"], [bytes(64)])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        E.verify_batch_staged([pub], [b"m"], [bytes(64)])
     with pytest.raises(ValueError):
         T.resolve_device("mps")
     with pytest.raises(ValueError):
@@ -106,7 +112,31 @@ def test_wrappers_check_inputs_and_count_only_kernel_launches():
     assert out.dtype == torch.bool and out.shape == (4,)
     assert not out.any()
     assert ck.launches == {"verify_packed": 0, "verify_packed_split": 0,
-                           "fe_selftest": 0}
+                           "verify_staged": 0, "fe_selftest": 0}
+
+
+def test_msm_wrappers_check_inputs_and_count_only_kernel_launches():
+    cm.reset_launches()
+    with pytest.raises(ValueError):
+        cm.decompress_niels(torch.zeros((31, 8), dtype=torch.uint8))
+    with pytest.raises(TypeError):
+        cm.decompress_niels(torch.zeros((32, 8), dtype=torch.int8))
+    with pytest.raises(TypeError):
+        cm.bucket_scan(torch.zeros((3, 22, 4), dtype=torch.int64),
+                       torch.zeros((2, 8), dtype=torch.int64))
+    with pytest.raises(ValueError):
+        cm.bucket_scan(torch.zeros((3, 10, 4), dtype=torch.int64),
+                       torch.zeros((2, 8), dtype=torch.int32))
+    # CPU tensors take the plain versions, which are not launches
+    niels, ok = cm.decompress_niels(torch.zeros((32, 4), dtype=torch.uint8))
+    assert niels.shape == (3, 22, 4) and ok.all()   # y = 0 decodes
+    table = msm.assemble_table(niels)
+    buckets = cm.bucket_scan(table, torch.zeros((3, 2 << 4),
+                                                dtype=torch.int32))
+    ws = cm.aggregate(buckets, 2, 4)
+    assert ws.shape == (4, 2, 32) and ws.dtype == torch.uint8
+    assert cm.launches == {"decompress_niels": 0, "bucket_scan": 0,
+                           "aggregate": 0}
 
 
 def test_bound_counts():
@@ -115,3 +145,16 @@ def test_bound_counts():
     assert ck.PRODUCTS_PER_SIG == 100 * 2004 + 55 * 1549
     assert ck.bound_ms(65536) == pytest.approx(
         65536 * 2 * ck.PRODUCTS_PER_SIG / (132 * 64 * 1.98e9) * 1e3)
+    assert ck.bound_ms(65536, staged=True) > ck.bound_ms(65536)
+
+
+def test_msm_bound_counts():
+    """K4: 255 squares + 21 multiplies per point; K5: 7 multiplies per
+    bucket member; A1: 18 multiplies per digit of each window."""
+    rate = 132 * 64 * 1.98e9
+    assert cm.bound_ms_decompress(262144) == pytest.approx(
+        262144 * 2 * (100 * 21 + 55 * 255) / rate * 1e3)
+    assert cm.bound_ms_bucket_scan(6_000_000, 262146, 1304, 8192) == \
+        pytest.approx(6_000_000 * 2 * 700 / rate * 1e3)
+    assert cm.bound_ms_aggregate(32, 8) == pytest.approx(
+        32 * 255 * 18 * 100 * 2 / rate * 1e3)

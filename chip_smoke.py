@@ -4,11 +4,13 @@
 
 Phases (any failure exits non-zero; nothing is caught and skipped):
   0  the card: CUDA available, compute capability >= 9.0, nvidia-smi line
-  1  build the kernels from csrc/ (nvcc) and the host staging C (cc)
+  1  build the kernels from csrc/ (nvcc) and the host staging C (cc);
+     registers, spills, stack and blocks per SM of each verify kernel
   2  field: the CUDA field arithmetic (fe_selftest) against the plain
      PyTorch field on the card, on edge values and seeded elements
-  3  K1 on adversarial vectors + 4,096 seeded triples: kernel bitmap =
-     plain bitmap on the card = pure-Python oracle
+  3  K1 on adversarial vectors (R edge vectors of the projective R check
+     included) + 4,096 seeded triples: kernel bitmap = plain bitmap on
+     the card = pure-Python oracle
   4  ValidatorSet.verify_commit on a 150-validator commit (K1)
   5  ValidatorSet.verify_commit on a 100,000-validator commit (K2, 7
      launches over 114,688 lanes, pubkey cache hit on the second call),
@@ -21,7 +23,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
   and K1 at 65,536 (a chunk of the ad-hoc batch); each is held against
   its plain version on the same inputs, and that against the expected
   bitmap.
-  7  times (CUDA events; host clock for end-to-end walls); phases 4-7 run
+  7  times (CUDA events; host clock for end-to-end walls), K1 and K2
+     beside the one-lane kernel's recorded times; phases 4-7 run
      with RLC off (its default) and must launch no K4, K5 or A1
   8  RLC on (msm.set_enabled): the phase-5 100,000-validator commit is
      vouched for by one random linear combination (route rlc-single,
@@ -43,6 +46,7 @@ chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import random
@@ -87,6 +91,7 @@ from tendermint_tpu_torch.ops import cuda_msm as cm  # noqa: E402
 from tendermint_tpu_torch.ops import ed25519 as E  # noqa: E402
 from tendermint_tpu_torch.ops import field as F  # noqa: E402
 from tendermint_tpu_torch.ops import msm  # noqa: E402
+from tendermint_tpu_torch.tools.kernel_report import parse_ptxas  # noqa: E402
 from tendermint_tpu_torch.types.basic import (BlockID, BlockIDFlag,  # noqa: E402
                                               PartSetHeader, Timestamp)
 from tendermint_tpu_torch.types.canonical import \
@@ -165,6 +170,34 @@ def corrupt(sig: bytes, rng: random.Random) -> bytes:
     return bytes(b)
 
 
+def r_edge_vectors(p0: bytes, m0: bytes, s0: bytes, y_ns: int):
+    """The R edge vectors of the projective R check and their verdicts: a
+    non-square R; R = (0, 1) with the sign bit (P = O); the order-2 R =
+    (0, -1) without and with the sign bit (A = (0, -1), s = 0, k odd, so
+    P = A); R with y = p and with y = 0 (A = the order-4 point y = 0,
+    s = 0, k = 3 mod 4, so P = A); R with y = 2^255 - 1, both signs."""
+    enc = lambda v: v.to_bytes(32, "little")  # noqa: E731
+    z32, a2, a4 = bytes(32), enc(P - 1), enc(0)
+
+    def msg_where(r, a, cond):
+        i = 0
+        while not cond(int.from_bytes(hashlib.sha512(
+                r + a + b"r-edge %d" % i).digest(), "little") % L):
+            i += 1
+        return b"r-edge %d" % i
+    rows = [(p0, m0, enc(y_ns) + s0[32:], False),
+            (enc(1), m0, enc(1 | 1 << 255) + z32, False)]
+    for r, want in ((a2, True), (enc(P - 1 | 1 << 255), False)):
+        rows.append((a2, msg_where(r, a2, lambda k: k % 2 == 1), r + z32,
+                     want))
+    for r, want in ((enc(P), False), (a4, True)):
+        rows.append((a4, msg_where(r, a4, lambda k: k % 4 == 3), r + z32,
+                     want))
+    for r in (enc((1 << 255) - 1), enc((1 << 256) - 1)):
+        rows.append((p0, m0, r + s0[32:], False))
+    return [r[:3] for r in rows], [r[3] for r in rows]
+
+
 def time_events(fn, iters: int) -> float:
     """Mean ms of fn() over iters launches, CUDA events, after a warm-up."""
     fn()
@@ -208,6 +241,16 @@ ptxas = [ln.strip() for info in (ck.build_info, cm.build_info)
 log(phase=1, build_s=round(time.perf_counter() - t, 3),
     nvcc_s={"ed25519_verify": round(ck.build_info["seconds"], 3),
             "msm": round(cm.build_info["seconds"], 3)}, ptxas=ptxas)
+# registers, spills and stack of each verify kernel, and blocks per SM
+occ = ck.occupancy()
+verify_build = {}
+for _name, _row in parse_ptxas(ck.build_info.get("ptxas", "")).items():
+    if _name.startswith("k_verify"):
+        blocks, threads = occ[_name[2:]]
+        verify_build[_name] = dict(_row, blocks_per_sm=blocks,
+                                   threads_per_block=threads)
+        log(phase=1, kernel=_name, **verify_build[_name])
+check(len(verify_build) == 3, f"ptxas report: {sorted(verify_build)}")
 
 # -- phase 2: field ---------------------------------------------------------
 
@@ -272,11 +315,15 @@ edges = [
     (ident, m0, ident + bytes(32)),                              # [0]B = R
     (ident, m0, (P + 1).to_bytes(32, "little") + bytes(32)),     # R >= p
 ]
+r_edges, r_edges_want = r_edge_vectors(p0, m0, s0, y_ns)
+edges += r_edges
 for p, m, s in edges:
     vec_p.append(p), vec_m.append(m), vec_s.append(s)
 n_vec = len(vec_p)
 oracle_vec = np.array([_edref.verify(p, m, s)
                        for p, m, s in zip(vec_p, vec_m, vec_s)])
+check(list(oracle_vec[n_vec - len(r_edges):]) == r_edges_want,
+      "R edge vectors: the oracle disagrees with their construction")
 # 4,096 seeded triples, 1% corrupted
 a_list, pubs = gen_keys(4096, rng)
 msgs = [rng.randbytes(64) for _ in range(4096)]
@@ -559,6 +606,13 @@ check(not any(rlc_off.values()),
       f"K4/K5/A1 launched while RLC is off: {rlc_off}")
 times["verify_commit_150_wall_s"] = sorted(w150)[len(w150) // 2]
 times["verify_commit_100k_wall_s"] = sorted(w100k)[len(w100k) // 2]
+# the times of the one-lane kernel this design replaced, as PERF.md
+# records them for this card (K1 at 4,096 lanes was not recorded)
+ONE_LANE_MS = {"k1_256_ms": 4.033, "k1_4096_ms": None,
+               "k1_65536_ms": 12.441, "k2_16384_ms": 4.407}
+for name in ONE_LANE_MS:
+    log(phase=7, card=CARD, kernel_time=name, ms=times[name],
+        one_lane_ms=ONE_LANE_MS[name])
 for name, value in times.items():
     log(phase=7, card=CARD, metric=name, value=value)
 log(phase=7, card=CARD, verify_commit_150_walls_s=w150,
@@ -794,6 +848,7 @@ for name, key, replaces, lanes, ms, plain_ms, bound in (
          "lanes": lanes, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
          "bound_by": "operations", "library_ms": None})
 REPORT.update(times=times, kernels=kernels, ptxas=ptxas,
+              verify_build=verify_build,
               records={"150": rec150, "100k": rec5b, "pipelined": rec6,
                        "rlc_100k": rec8, "rlc_16384": rec9,
                        "staged_65536": rec11},

@@ -1,5 +1,6 @@
 // Batched ed25519 verification kernels for Hopper (sm_90a), one signature
-// per thread, with a plain C interface for ctypes (ops/cuda_ed25519.py).
+// per group of four lanes, with a plain C interface for ctypes
+// (ops/cuda_ed25519.py).
 //
 // Replaces (tendermint_tpu/ops/pallas_ed25519.py):
 //   K1  verify_packed_pallas        (:826, body _kernel_packed :748)
@@ -12,57 +13,85 @@
 //          (64, B) SHA-512 digest rows; k = digest mod L and its digits
 //          are computed on the device (sc_reduce512 below, the
 //          counterpart of _mod_l :488 and _digits_from_limbs :537)
-// All three run verify_one, the counterpart of _verify_tile (:597): decompress
-// A (reject a non-square, and x = 0 with the sign bit), build the cached
-// table j*(-A) for j = 0..8, run the 64-step joint signed-radix-16 Straus
-// ladder [s]B + [k](-A) (4 doublings, a niels add from the constant table
-// of B, a cached add from the table of -A), invert Z, encode, and compare
-// the 32 bytes with R.  Out: one uint8 verdict per lane.  s >= L is
-// screened on the host; the kernel's bit for such a lane is masked there.
+// All three run verify4 (verify4.cuh), the counterpart of _verify_tile
+// (:597) and of its verdict: decompress A (Go semantics: a non-canonical
+// y accepted and reduced, a non-square rejected, x = 0 with the sign bit
+// rejected), build the cached table j(-A), j = 0..8, run the 64-step
+// joint signed-radix-16 Straus ladder P = [s]B + [k](-A) (4 doublings, a
+// niels add from the constant table of B, a cached add from the table of
+// -A), and accept iff P is the point R encodes.  Out: one uint8 verdict
+// per signature.  s >= L is screened on the host; the kernel's bit for
+// such a lane is masked there.
 //
-// What bounds it on the H100: integer multiply-adds.  A signature costs
-// 2004 field multiplies and 1549 squares (ladder 64 x (16 sq + 30 mul),
-// decompression and inversion ~255 sq each), i.e. 285,595 products
-// 32x32 -> 64 (571,190 32-bit multiply-add halves).  Input is 128 bytes
-// and output 1 byte per signature, so device memory is never the limit.
+// What bounds it on the H100.  The work is integer multiply-adds: the
+// reference's per-signature count (ops/cuda_ed25519.py) is 2004 field
+// multiplies and 1549 squares, 571,190 32-bit multiply-add halves.  Input
+// is 128 bytes and output 1 byte a signature, so device memory is never
+// the limit.  But at the batch sizes of the main path (256 lanes for a
+// 150-validator commit, 16,384 a chunk of a large one) the time is the
+// length of one signature's dependency chain, not the amount of work: a
+// field operation ends in a serial int64 carry chain, and a one-lane
+// design gives each signature ~3,550 of them in a row while a launch of
+// 16,384 lanes fills one warp per scheduler.
 //
-// What the design does about it: ten 25.5-bit limbs (fe25519.cuh) cut a
-// product from the TPU layout's 484 limb products to 100 (55 for a
-// square), and the bound argument there lets every curve formula run
-// without intermediate carries.  The digits of s and k are formed in the
-// kernel from their bytes (t = s + 0x88..8, digit = nibble - 8, as
-// _digits_from_limbs :537).  All inputs are public, so the TPU's 9-way
-// select (_gather9) becomes a plain indexed load: the table of B from
-// shared memory, the per-thread table of -A from local memory (36 field
-// elements do not fit in registers).  Loads coalesce: thread b reads
-// byte b of each row.  Simple first; tuning is later work.
+// What the design does about it.
+// - Four lanes per signature (verify4.cuh): lane t holds coordinate t of
+//   (X, Y, Z, T), and a doubling or an addition is two rounds of four
+//   independent field operations (the parallel extended-coordinate
+//   formulas of Hisil-Wong-Carter-Dawson §4), with the values exchanged
+//   between rounds by __shfl_sync of width 4.  A ladder step is 12
+//   rounds instead of ~46 dependent operations; a signature's chain is
+//   ~1,070 rounds (decode 277, table 22, ladder 768, check 1).
+// - Tables in shared memory: per signature the 9 cached multiples of -A,
+//   the digit words of s and k and R's two coordinates (1,588 B with one
+//   word of padding that staggers the signatures of a warp across
+//   banks), and the niels table of B per block: 51,896 B of dynamic
+//   shared memory for 32 signatures (each launch raises the kernel's
+//   limit past the 48 KB default).  A negative digit reads the swapped
+//   coordinate (Y+X <-> Y-X) and negates 2dT on lane 3: no shuffle.
+//   __launch_bounds__(128, 4) holds a thread to 128 registers, so 4
+//   blocks (16 warps) fit an SM.  The decode is the widest phase: it
+//   parks the values that wait out its square-root power in the group's
+//   scratch (fe_park), and the digits and R's coordinates live there
+//   too.  chip_smoke.py phase 1 prints ptxas's registers, spills and
+//   stack and the blocks per SM of each kernel.
+// - R is checked without inverting Z.  In the first, serial phase lane 0
+//   decodes A while lane 1 decodes R in the same instruction stream (the
+//   decode is written with selects, not branches), strictly: y < p, a
+//   square, and not x = 0 with the sign bit.  At the end lane 0 tests
+//   X_P = x_R Z_P and lane 1 Y_P = y_R Z_P (one multiply each, then a
+//   freeze and compare in fe_eq).  That drops the ~265-operation
+//   inversion from every signature's chain, and it is exact: encode(P) =
+//   R byte for byte iff R is canonical, decodes, and decodes to P.
+//   (=>) encode(P) has y < p in its low 255 bits and the parity of x_P
+//   as its sign bit; decoding R then finds y = y_P, x^2 = x_P^2 (P is on
+//   the curve, so a root exists) and takes the root with x_P's parity,
+//   which is x_P (when x_P = 0 the sign bit is 0, so it is not rejected).
+//   (<=) if R is canonical and decodes to (x_R, y_R) = P, then encode(P)
+//   = y_R with the parity of x_R, which is R's sign bit (decode chose it),
+//   or 0 when x_R = 0 (decode rejected a set sign bit then).  Z_P != 0 for
+//   every point the ladder reaches from a valid A (complete formulas, d
+//   not a square); an invalid A fails the verdict on its own.  Same
+//   verdict as _verify_tile's encode-and-compare, no feature added.
+// - The digits of s and k are formed in the kernel from their bytes (t =
+//   s + 0x88..8, digit = nibble - 8, as _digits_from_limbs :537); all
+//   inputs are public, so the TPU's 9-way select (_gather9) is a plain
+//   indexed load from shared memory.
 //
-// K3 adds the reduction of a 512-bit digest mod L per lane: three folds of
-// 6 x 14 products of 24-bit limbs in int64 (252 products), well under 1%
-// of the ladder, and 32 more input bytes per signature (160 in all).
+// K3 adds the reduction of a 512-bit digest mod L, on every lane of the
+// group: three folds of 6 x 14 products of 24-bit limbs in int64 (252
+// products), under 1% of the work, and 32 more input bytes a signature
+// (160 in all).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "fe25519.cuh"
 #include "launch.cuh"
+#include "verify4.cuh"
 
-#define THREADS 128
-
-// t = s + 0x88..8 (64 eights); digit j = nibble_j(t) - 8 in [-8, 7]
-__device__ __forceinline__ void digit_words(uint32_t t[8],
-                                            const uint32_t s[8]) {
-  uint64_t carry = 0;
-#pragma unroll
-  for (int q = 0; q < 8; q++) {
-    uint64_t v = (uint64_t)s[q] + 0x88888888u + carry;
-    t[q] = (uint32_t)v;
-    carry = v >> 32;
-  }
-}
-
-__device__ __forceinline__ int digit_at(const uint32_t t[8], int pos) {
-  return (int)((t[pos >> 3] >> ((pos & 7) * 4)) & 15) - 8;
-}
+#define THREADS 128                 // 32 signatures a block
+#define GROUPS (THREADS / 4)
+#define MIN_BLOCKS 4                // -> at most 128 registers a thread
 
 // k = digest mod L (K3).  The positive-offset fold of native/staging.c
 // mod_l_one, whose constants these are: 2^252 = -C (mod L) with
@@ -86,22 +115,21 @@ __constant__ int64_t c_l24[11] = {0xf5d3ed, 0x631a5c, 0xd65812, 0xa2f79c,
                                   0,        0,        0x1000};
 
 __device__ void sc_reduce512(uint32_t k[8], const uint32_t d[16]) {
-  int64_t limbs[24];
+  int32_t limbs[24];   // 24-bit limbs; only the fold's columns need int64
 #pragma unroll
   for (int i = 0; i < 24; i++) {
-    int64_t v = 0;
+    int32_t v = 0;
 #pragma unroll
     for (int j = 0; j < 3; j++) {
       int b = 3 * i + j;   // bytes 64.. are zero
-      if (b < 64)
-        v |= (int64_t)((d[b >> 2] >> (8 * (b & 3))) & 0xFF) << (8 * j);
+      if (b < 64) v |= (int32_t)((d[b >> 2] >> (8 * (b & 3))) & 0xFF) << (8 * j);
     }
     limbs[i] = v;
   }
 #pragma unroll 1
   for (int pass = 0; pass < 3; pass++) {
     // split at bit 252 (bit 12 of limb 10): value = lo + 2^252 * hi
-    int64_t hi[14];
+    int32_t hi[14];
 #pragma unroll
     for (int i = 0; i < 14; i++)
       hi[i] = (limbs[10 + i] >> 12) |
@@ -119,28 +147,23 @@ __device__ void sc_reduce512(uint32_t k[8], const uint32_t d[16]) {
 #pragma unroll
     for (int i = 0; i < 24; i++) {
       int64_t v = acc[i] + carry;
-      limbs[i] = v & 0xFFFFFF;
+      limbs[i] = (int32_t)(v & 0xFFFFFF);
       carry = v >> 24;
     }
   }
-  // value < M3 + 2^252 < 5L: conditional subtracts
+  // value < M3 + 2^252 < 5L: conditional subtracts of L, each decided by
+  // the sign of its borrow chain (no data-dependent branch or index)
 #pragma unroll 1
   for (int r = 0; r < 5; r++) {
-    int ge = 1;   // equal -> subtract
-    for (int i = 23; i >= 0; i--) {
-      int64_t li = i < 11 ? c_l24[i] : 0;
-      if (limbs[i] > li) { ge = 1; break; }
-      if (limbs[i] < li) { ge = 0; break; }
-    }
-    if (ge) {
-      int64_t carry = 0;
+    int32_t d2[24], borrow = 0;
 #pragma unroll
-      for (int i = 0; i < 24; i++) {
-        int64_t v = limbs[i] - (i < 11 ? c_l24[i] : 0) + carry;
-        limbs[i] = v & 0xFFFFFF;
-        carry = v >> 24;
-      }
+    for (int i = 0; i < 24; i++) {
+      int32_t v = limbs[i] - (i < 11 ? (int32_t)c_l24[i] : 0) + borrow;
+      d2[i] = v & 0xFFFFFF;
+      borrow = v >> 24;
     }
+#pragma unroll
+    for (int i = 0; i < 24; i++) limbs[i] = borrow == 0 ? d2[i] : limbs[i];
   }
 #pragma unroll
   for (int q = 0; q < 8; q++) {
@@ -154,138 +177,118 @@ __device__ void sc_reduce512(uint32_t k[8], const uint32_t d[16]) {
   }
 }
 
-__device__ bool verify_one(const uint32_t pub[8], const uint32_t r[8],
-                           const uint32_t s[8], const uint32_t k[8],
-                           const ge_niels *base) {
-  ge_ext na;
-  bool ok = ge_frombytes_neg(na, pub);
+// dynamic shared memory of a verify block: the table of B, then each
+// group's V4_SIG_WORDS (51,896 B: above the 48 KB of static shared memory,
+// so each launch raises the kernel's limit first)
+extern __shared__ int32_t smem[];
+#define VERIFY_SMEM_BYTES ((9 * 3 * 10 + GROUPS * V4_SIG_WORDS) * 4)
 
-  // cached j*(-A), j = 0..8
-  ge_cached tab[9];
-  fe_1(tab[0].YpX);
-  fe_1(tab[0].YmX);
-  fe_1(tab[0].Z);
-  fe_0(tab[0].T2d);
-  ge_to_cached(tab[1], na);
-  ge_ext t, u;
-  ge_dbl(t, na, true);                 // 2
-  ge_to_cached(tab[2], t);
-  ge_add_cached(u, t, tab[1]);         // 3
-  ge_to_cached(tab[3], u);
-  ge_dbl(t, t, true);                  // 4
-  ge_to_cached(tab[4], t);
-  ge_add_cached(na, t, tab[1]);        // 5
-  ge_to_cached(tab[5], na);
-  ge_dbl(t, t, true);                  // 8
-  ge_to_cached(tab[8], t);
-  ge_dbl(u, u, true);                  // 6
-  ge_to_cached(tab[6], u);
-  ge_add_cached(u, u, tab[1]);         // 7
-  ge_to_cached(tab[7], u);
-
-  uint32_t ts[8], tk[8];
-  digit_words(ts, s);
-  digit_words(tk, k);
-
-  ge_ext p;
-  fe_0(p.X);
-  fe_1(p.Y);
-  fe_1(p.Z);
-  fe_0(p.T);
-#pragma unroll 1
-  for (int pos = 63; pos >= 0; pos--) {
-    ge_dbl(p, p, false);
-    ge_dbl(p, p, false);
-    ge_dbl(p, p, false);
-    ge_dbl(p, p, true);
-    int db = digit_at(ts, pos);
-    ge_niels nb = base[db < 0 ? -db : db];
-    ge_niels_cneg(nb, db < 0);
-    ge_madd_niels(p, p, nb);
-    int da = digit_at(tk, pos);
-    ge_cached q = tab[da < 0 ? -da : da];
-    ge_cached_cneg(q, da < 0);
-    ge_add_cached(p, p, q);
-  }
-
-  fe zinv, x, y;
-  fe_invert(zinv, p.Z);
-  fe_mul(x, p.X, zinv);
-  fe_mul(y, p.Y, zinv);
-  uint8_t enc[32];
-  fe_tobytes(enc, y);
-  enc[31] |= (uint8_t)(fe_isneg(x) << 7);
-  uint32_t diff = 0;
-#pragma unroll
-  for (int q = 0; q < 8; q++) {
-    uint32_t e = (uint32_t)enc[4 * q] | ((uint32_t)enc[4 * q + 1] << 8) |
-                 ((uint32_t)enc[4 * q + 2] << 16) |
-                 ((uint32_t)enc[4 * q + 3] << 24);
-    diff |= e ^ r[q];
-  }
-  return ok && diff == 0;
+// threadIdx.x and blockIdx.x read again where they are used: the
+// compiler cannot merge these reads, so it keeps no register (or spill
+// slot) for them through the verify
+__device__ __forceinline__ unsigned tid_again() {
+  unsigned v;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(v));
+  return v;
+}
+__device__ __forceinline__ unsigned ctaid_again() {
+  unsigned v;
+  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(v));
+  return v;
 }
 
+// The group primitives of verify4.cuh on the card: a shuffle within the
+// 4-lane group, __syncwarp, and the group's slice of shared memory.
+// Every lane of the warp reaches every call: the kernels never return
+// early, and a ragged tail's lanes verify a repeated signature whose
+// verdict is not stored.
+struct ShflXch {
+  int t;
+  __device__ __forceinline__ int32_t get(int32_t v, int src) const {
+    return __shfl_sync(0xFFFFFFFFu, v, src, 4);
+  }
+  __device__ __forceinline__ void sync() const { __syncwarp(); }
+  __device__ __forceinline__ int32_t *scratch() const {
+    return smem + 9 * 3 * 10 + (tid_again() >> 2) * V4_SIG_WORDS;
+  }
+};
+
 // the 9 niels entries j*B (host-computed, 9 x 3 x 10 int32) -> shared
-__device__ __forceinline__ void load_base(ge_niels *s_base,
+__device__ __forceinline__ void load_base(int32_t *s_base,
                                           const int32_t *__restrict__ tab) {
-  int32_t *dst = reinterpret_cast<int32_t *>(s_base);
-  for (int i = threadIdx.x; i < 9 * 3 * 10; i += blockDim.x) dst[i] = tab[i];
+  for (int i = threadIdx.x; i < 9 * 3 * 10; i += blockDim.x) s_base[i] = tab[i];
   __syncthreads();
 }
 
-__global__ void __launch_bounds__(THREADS)
+// this thread's group: its signature (clamped into [0, B) for the loads)
+// and whether the verdict is stored
+struct Group4 {
+  ShflXch x;
+  int64_t ld;
+  __device__ __forceinline__ explicit Group4(int64_t B) {
+    x.t = (int)(threadIdx.x & 3);
+    int64_t sig = ((int64_t)blockIdx.x * THREADS + threadIdx.x) >> 2;
+    ld = sig < B ? sig : B - 1;
+  }
+  __device__ __forceinline__ void store(uint8_t *out, int64_t B,
+                                        bool v) const {
+    int64_t sig = ((int64_t)ctaid_again() * THREADS + tid_again()) >> 2;
+    if (sig < B && x.t == 0) out[sig] = v;
+  }
+};
+
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 k_verify_packed(const uint8_t *__restrict__ in, int64_t B,
                 const int32_t *__restrict__ base_tab,
                 uint8_t *__restrict__ out) {
-  __shared__ ge_niels s_base[9];
-  load_base(s_base, base_tab);
-  int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= B) return;
-  uint32_t pub[8], r[8], s[8], k[8];
-  load_lane32(pub, in, B, lane);
-  load_lane32(r, in + 32 * B, B, lane);
-  load_lane32(s, in + 64 * B, B, lane);
-  load_lane32(k, in + 96 * B, B, lane);
-  out[lane] = verify_one(pub, r, s, k, s_base);
+  load_base(smem, base_tab);
+  Group4 g(B);
+  uint32_t enc[8];
+  load_lane32(enc, in + (g.x.t == 1 ? 32 * B : 0), B, g.ld);
+  auto scalars = [&](uint32_t s[8], uint32_t k[8]) {
+    load_lane32(s, in + 64 * B, B, g.ld);
+    load_lane32(k, in + 96 * B, B, g.ld);
+  };
+  g.store(out, B, verify4(g.x, enc, scalars, smem));
 }
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 k_verify_packed_split(const uint8_t *__restrict__ pub_rows,
                       const uint8_t *__restrict__ rsk, int64_t B,
                       const int32_t *__restrict__ base_tab,
                       uint8_t *__restrict__ out) {
-  __shared__ ge_niels s_base[9];
-  load_base(s_base, base_tab);
-  int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= B) return;
-  uint32_t pub[8], r[8], s[8], k[8];
-  load_lane32(pub, pub_rows, B, lane);
-  load_lane32(r, rsk, B, lane);
-  load_lane32(s, rsk + 32 * B, B, lane);
-  load_lane32(k, rsk + 64 * B, B, lane);
-  out[lane] = verify_one(pub, r, s, k, s_base);
+  load_base(smem, base_tab);
+  Group4 g(B);
+  uint32_t enc[8];
+  load_lane32(enc, g.x.t == 1 ? rsk : pub_rows, B, g.ld);
+  auto scalars = [&](uint32_t s[8], uint32_t k[8]) {
+    load_lane32(s, rsk + 32 * B, B, g.ld);
+    load_lane32(k, rsk + 64 * B, B, g.ld);
+  };
+  g.store(out, B, verify4(g.x, enc, scalars, smem));
 }
 
-__global__ void __launch_bounds__(THREADS)
+// K3: every lane of the group reduces the digest itself (under 1% of the
+// work), so k needs no exchange
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 k_verify_staged(const uint8_t *__restrict__ pub_rows,
                 const uint8_t *__restrict__ r_rows,
                 const uint8_t *__restrict__ s_rows,
                 const uint8_t *__restrict__ dig_rows, int64_t B,
                 const int32_t *__restrict__ base_tab,
                 uint8_t *__restrict__ out) {
-  __shared__ ge_niels s_base[9];
-  load_base(s_base, base_tab);
-  int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= B) return;
-  uint32_t pub[8], r[8], s[8], dig[16], k[8];
-  load_lane32(pub, pub_rows, B, lane);
-  load_lane32(r, r_rows, B, lane);
-  load_lane32(s, s_rows, B, lane);
-  load_lane32(dig, dig_rows, B, lane);
-  load_lane32(dig + 8, dig_rows + 32 * B, B, lane);
-  sc_reduce512(k, dig);
-  out[lane] = verify_one(pub, r, s, k, s_base);
+  load_base(smem, base_tab);
+  Group4 g(B);
+  uint32_t enc[8];
+  load_lane32(enc, g.x.t == 1 ? r_rows : pub_rows, B, g.ld);
+  auto scalars = [&](uint32_t s[8], uint32_t k[8]) {
+    uint32_t dig[16];
+    load_lane32(dig, dig_rows, B, g.ld);
+    load_lane32(dig + 8, dig_rows + 32 * B, B, g.ld);
+    sc_reduce512(k, dig);
+    load_lane32(s, s_rows, B, g.ld);
+  };
+  g.store(out, B, verify4(g.x, enc, scalars, smem));
 }
 
 // Field self-test: a, b are (n, 32) little-endian elements (bit 255 is
@@ -316,14 +319,24 @@ k_fe_selftest(const uint8_t *__restrict__ a, const uint8_t *__restrict__ b,
   for (int j = 0; j < 32; j++) out[(3 * n + i) * 32 + j] = enc[j];
 }
 
+// a verify kernel may use VERIFY_SMEM_BYTES of dynamic shared memory
+template <class K>
+static cudaError_t allow_smem(K kernel) {
+  return cudaFuncSetAttribute((const void *)kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              VERIFY_SMEM_BYTES);
+}
+
 extern "C" {
 
 int tm_verify_packed(const void *packed, const void *base_tab, void *out,
                      long long B, int device, void *stream) {
   DeviceScope scope(device);
   if (scope.err != cudaSuccess) return (int)scope.err;
+  if (B > 0 && (scope.err = allow_smem(k_verify_packed)) != cudaSuccess)
+    return (int)scope.err;
   if (B > 0)
-    k_verify_packed<<<blocks_for(B, THREADS), THREADS, 0,
+    k_verify_packed<<<blocks_for(4 * B, THREADS), THREADS, VERIFY_SMEM_BYTES,
                       (cudaStream_t)stream>>>(
         (const uint8_t *)packed, B, (const int32_t *)base_tab,
         (uint8_t *)out);
@@ -335,8 +348,11 @@ int tm_verify_packed_split(const void *pub_rows, const void *rsk,
                            int device, void *stream) {
   DeviceScope scope(device);
   if (scope.err != cudaSuccess) return (int)scope.err;
+  if (B > 0 &&
+      (scope.err = allow_smem(k_verify_packed_split)) != cudaSuccess)
+    return (int)scope.err;
   if (B > 0)
-    k_verify_packed_split<<<blocks_for(B, THREADS), THREADS, 0,
+    k_verify_packed_split<<<blocks_for(4 * B, THREADS), THREADS, VERIFY_SMEM_BYTES,
                             (cudaStream_t)stream>>>(
         (const uint8_t *)pub_rows, (const uint8_t *)rsk, B,
         (const int32_t *)base_tab, (uint8_t *)out);
@@ -349,8 +365,10 @@ int tm_verify_staged(const void *pub_rows, const void *r_rows,
                      int device, void *stream) {
   DeviceScope scope(device);
   if (scope.err != cudaSuccess) return (int)scope.err;
+  if (B > 0 && (scope.err = allow_smem(k_verify_staged)) != cudaSuccess)
+    return (int)scope.err;
   if (B > 0)
-    k_verify_staged<<<blocks_for(B, THREADS), THREADS, 0,
+    k_verify_staged<<<blocks_for(4 * B, THREADS), THREADS, VERIFY_SMEM_BYTES,
                       (cudaStream_t)stream>>>(
         (const uint8_t *)pub_rows, (const uint8_t *)r_rows,
         (const uint8_t *)s_rows, (const uint8_t *)dig_rows, B,
@@ -367,6 +385,20 @@ int tm_fe_selftest(const void *a, const void *b, void *out, long long n,
                     (cudaStream_t)stream>>>(
         (const uint8_t *)a, (const uint8_t *)b, n, (uint8_t *)out);
   return (int)cudaGetLastError();
+}
+
+// blocks of THREADS threads that fit on one SM for verify kernel `which`
+// (0 K1, 1 K2, 2 K3), as the occupancy calculator of the runtime says
+int tm_verify_occupancy(int which, int *blocks, int *threads) {
+  const void *fn = which == 0   ? (const void *)k_verify_packed
+                   : which == 1 ? (const void *)k_verify_packed_split
+                                : (const void *)k_verify_staged;
+  *threads = THREADS;
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, VERIFY_SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, fn, THREADS, VERIFY_SMEM_BYTES);
 }
 
 const char *tm_error_string(int code) {

@@ -1,4 +1,5 @@
-// GF(2^255 - 19) and edwards25519 arithmetic for one signature per thread.
+// GF(2^255 - 19) and edwards25519 arithmetic, one field element per thread
+// (the verify kernels spread a point over four threads: verify4.cuh).
 //
 // Counterpart of the field/curve layer inside the Pallas kernels of
 // tendermint_tpu/ops/pallas_ed25519.py (_mul_school, _carry, _freeze,
@@ -73,6 +74,24 @@
 // aggregation (A1) chains ge_to_cached + ge_add_cached on carried points
 // the same way: the cached Z is a carried copy, D = 2 Z1 Z2 is 1.002, and
 // the tail products are again at most 2.26.
+//
+// The four-lane schedule (verify4.cuh, K1-K3).  dbl4 and add4 compute the
+// formulas of ge_dbl and ge_add_cached / ge_madd_niels with the same
+// operands, only split into two rounds of four independent products:
+//   dbl4 round 1: X^2, Y^2, Z^2 of carried coordinates, (X + Y)^2 of a
+//     1.002-bounded sum; round 2: E F, G H, F G, E H with E 1.503, F
+//     2.004, G 1.002, H 1.002 (widest 3.02), exactly ge_dbl's operands.
+//   add4 round 1: (Y + X) Y2pX2, (Y - X) Y2mX2 at 1.002 x 1 (the -A
+//     table holds multiply outputs, the B table canonical limbs; a
+//     negative digit only swaps them and negates 2dT), Z Z2 and T 2dT2
+//     carried x carried (Z2 = 1 for a niels entry); round 2: E 1.002,
+//     F 1.503, G 1.503, H 1.002 (widest F G = 2.26).
+//   to_cached4: (Y +- X) x 1, Z x 1 and T x 2d: one multiply a lane, so
+//     every table entry is a multiply output (carried).
+// Each round's outputs are multiply outputs again, so the point stays
+// carried after any number of steps and the F * G <= 16 contract holds
+// with the one-lane margin (> 5x).  The exchanges (__shfl_sync) move
+// limbs unchanged and do not enter the argument.
 #pragma once
 
 #include <stdint.h>
@@ -302,6 +321,22 @@ FE_DEV bool fe_eq(const fe f, const fe g) {
   return fe_iszero(d);
 }
 
+// Park an element in memory and take it back.  Volatile, so that the
+// compiler keeps no register copy while it waits: the verify kernels park
+// values in shared memory across the decode's square-root power, which
+// is what keeps a thread within 128 registers there.
+FE_DEV void fe_park(int32_t *slot, const fe f) {
+  volatile int32_t *v = slot;
+#pragma unroll
+  for (int i = 0; i < 10; i++) v[i] = f[i];
+}
+
+FE_DEV void fe_unpark(fe f, const int32_t *slot) {
+  const volatile int32_t *v = slot;
+#pragma unroll
+  for (int i = 0; i < 10; i++) f[i] = v[i];
+}
+
 // f^(2^n) by n squarings
 FE_DEV void fe_sqn(fe h, const fe f, int n) {
   fe_sq(h, f);
@@ -310,8 +345,11 @@ FE_DEV void fe_sqn(fe h, const fe f, int n) {
 }
 
 // (f^(2^250 - 1), f^11): the shared prefix of the inversion and
-// square-root exponent ladders (field._chain_250)
-FE_DEV void fe_chain_250(fe z250, fe z11, const fe z) {
+// square-root exponent ladders (field._chain_250).  PARK: t1, the value
+// that waits for a later multiply, waits in park[0..10) (see fe_park).
+template <bool PARK = false>
+FE_DEV void fe_chain_250(fe z250, fe z11, const fe z,
+                         int32_t *park = nullptr) {
   fe t0, t1, t2, t3;
   fe_sq(t0, z);              // 2
   fe_sqn(t1, t0, 2);         // 8
@@ -321,17 +359,23 @@ FE_DEV void fe_chain_250(fe z250, fe z11, const fe z) {
   fe_mul(t1, t1, t2);        // 2^5 - 1
   fe_sqn(t2, t1, 5);
   fe_mul(t1, t2, t1);        // 2^10 - 1
+  if constexpr (PARK) fe_park(park, t1);
   fe_sqn(t2, t1, 10);
+  if constexpr (PARK) fe_unpark(t1, park);
   fe_mul(t2, t2, t1);        // 2^20 - 1
   fe_sqn(t3, t2, 20);
   fe_mul(t2, t3, t2);        // 2^40 - 1
   fe_sqn(t2, t2, 10);
+  if constexpr (PARK) fe_unpark(t1, park);
   fe_mul(t1, t2, t1);        // 2^50 - 1
+  if constexpr (PARK) fe_park(park, t1);
   fe_sqn(t2, t1, 50);
+  if constexpr (PARK) fe_unpark(t1, park);
   fe_mul(t2, t2, t1);        // 2^100 - 1
   fe_sqn(t3, t2, 100);
   fe_mul(t2, t3, t2);        // 2^200 - 1
   fe_sqn(t2, t2, 50);
+  if constexpr (PARK) fe_unpark(t1, park);
   fe_mul(z250, t2, t1);      // 2^250 - 1
 }
 
@@ -344,11 +388,21 @@ FE_DEV void fe_invert(fe out, const fe z) {
 }
 
 // z^((p - 5) / 8) = z^(2^252 - 3)
-FE_DEV void fe_pow22523(fe out, const fe z) {
+// (PARK: z waits out the chain in park[0..10), the chain's own value in
+// park[40..50); see fe_park)
+template <bool PARK = false>
+FE_DEV void fe_pow22523(fe out, const fe z, int32_t *park = nullptr) {
   fe z250, z11;
-  fe_chain_250(z250, z11, z);
+  if constexpr (PARK) fe_park(park, z);
+  fe_chain_250<PARK>(z250, z11, z, PARK ? park + 40 : nullptr);
   fe_sqn(z250, z250, 2);     // 2^252 - 4
-  fe_mul(out, z250, z);      // 2^252 - 3
+  if constexpr (PARK) {
+    fe zz;
+    fe_unpark(zz, park);
+    fe_mul(out, z250, zz);   // 2^252 - 3
+  } else {
+    fe_mul(out, z250, z);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -453,14 +507,20 @@ FE_DEV void ge_niels_cneg(ge_niels &q, bool neg) {
   }
 }
 
-// RFC 8032 5.1.3 decompression of A with Go crypto/ed25519 semantics,
-// returning -A (the ladder's variable base) and the decode verdict: a
+// RFC 8032 5.1.3 decompression with Go crypto/ed25519 semantics: (x, y)
+// with x of the requested sign, both carried, and the decode verdict: a
 // non-canonical y is accepted and reduced, a non-square is rejected, and
 // x = 0 with the sign bit set is rejected.
-FE_DEV bool ge_frombytes_neg(ge_ext &r, const uint32_t w[8]) {
+//
+// PARK (the verify kernels): y, u v^3 and two values of the power wait
+// in memory, at park, park + 40, park + 80 and park + 120 (10 words
+// each), so that they hold no registers while the power runs.
+template <bool PARK = false>
+FE_DEV bool ge_decode(fe x, fe y, const uint32_t w[8],
+                      int32_t *park = nullptr) {
   const fe d = FE_D, sqrtm1 = FE_SQRTM1;
   bool sign = (w[7] >> 31) & 1;
-  fe y, yy, u, v, v3, t, x, vxx;
+  fe yy, u, v, v3, t, vxx;
   fe_frombytes(y, w);
   fe_carry(y);
   fe_sq(yy, y);
@@ -473,23 +533,58 @@ FE_DEV bool ge_frombytes_neg(ge_ext &r, const uint32_t w[8]) {
   fe_sq(t, v3);
   fe_mul(t, t, v);             // v^7
   fe_mul(t, t, u);             // u v^7
-  fe_pow22523(t, t);           // (u v^7)^((p-5)/8)
   fe_mul(x, u, v3);
+  if constexpr (PARK) {
+    fe_park(park, y);
+    fe_park(park + 40, x);
+    fe_pow22523<true>(t, t, park + 80);  // (u v^7)^((p-5)/8)
+    fe_unpark(x, park + 40);
+  } else {
+    fe_pow22523(t, t);
+  }
   fe_mul(x, x, t);             // x = u v^3 (u v^7)^((p-5)/8)
+  if constexpr (PARK) fe_unpark(y, park);
+  // u and v again, from y: only y and x are live across the power, which
+  // keeps the verify kernels' threads within 128 registers
+  fe_sq(yy, y);
+  fe_copy(u, yy);
+  u[0] -= 1;
+  fe_mul(v, yy, d);
+  v[0] += 1;
   fe_sq(vxx, x);
   fe_mul(vxx, vxx, v);         // v x^2
   bool ok_plus = fe_eq(vxx, u);
   fe nu;
   fe_neg(nu, u);
   bool ok_minus = fe_eq(vxx, nu);
-  if (ok_minus) fe_mul(x, x, sqrtm1);
+  // selects, not branches: the lanes of a verify group (verify4.cuh)
+  // decode different points in one instruction stream
+  fe_mul(t, x, sqrtm1);
+  fe_cmov(x, t, ok_minus);
   bool ok = ok_plus || ok_minus;
   if (fe_iszero(x) && sign) ok = false;
-  // A's x has the requested sign; -A's x the other one
-  if (fe_isneg(x) == sign) fe_neg(x, x);
-  fe_copy(r.X, x);
+  fe_neg(t, x);
+  fe_cmov(x, t, fe_isneg(x) != sign);
+  if constexpr (PARK) fe_unpark(y, park);   // y is not live since y^2
+  return ok;
+}
+
+// y < p for the low 255 bits of a little-endian encoding (the strict
+// form of the decode, for R: 2^255 - 19 <= y < 2^255 is non-canonical)
+FE_DEV bool fe_bytes_canonical(const uint32_t w[8]) {
+  uint32_t all = w[1] & w[2] & w[3] & w[4] & w[5] & w[6];
+  bool top = (w[7] & 0x7FFFFFFFu) == 0x7FFFFFFFu;
+  return !(top && all == 0xFFFFFFFFu && w[0] >= 0xFFFFFFEDu);
+}
+
+// -A for the decode of w (the variable base of the ladders), and the
+// verdict of ge_decode
+FE_DEV bool ge_frombytes_neg(ge_ext &r, const uint32_t w[8]) {
+  fe x, y;
+  bool ok = ge_decode(x, y, w);
+  fe_neg(r.X, x);
   fe_copy(r.Y, y);
   fe_1(r.Z);
-  fe_mul(r.T, x, y);
+  fe_mul(r.T, r.X, y);
   return ok;
 }

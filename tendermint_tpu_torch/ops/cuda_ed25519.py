@@ -11,7 +11,8 @@ Each wrapper takes lane-major uint8 tensors (the staging layouts of
 ops/ed25519.prepare_batch_packed / prepare_batch_split /
 prepare_batch_compact) and returns a (B,) bool verdict tensor on the
 input's device.  For a CUDA tensor it launches the hand-written kernel of
-csrc/ed25519_verify.cu (built with nvcc for sm_90a on first use, cached by
+csrc/ed25519_verify.cu (one signature per group of four lanes, the body in
+csrc/verify4.cuh; built with nvcc for sm_90a on first use, cached by
 source hash under the package's _build/ directory, loaded with ctypes) or
 raises; for a CPU tensor it runs the kernel's plain PyTorch version
 (verify_packed_plain / verify_packed_split_plain / verify_staged_plain),
@@ -35,10 +36,12 @@ from . import curve as C
 from . import field as F
 
 SOURCES = tuple(os.path.join(_nvcc.CSRC_DIR, f) for f in (
-    "fe25519.cuh", "launch.cuh", "ed25519_verify.cu"))
+    "fe25519.cuh", "launch.cuh", "verify4.cuh", "ed25519_verify.cu"))
 
 # ---------------------------------------------------------------------------
-# work per signature (csrc/ed25519_verify.cu header note), for the bound
+# work per signature, for the bound: the reference's count (the one-lane
+# verify of the JAX package and of this port's first kernels), kept
+# unchanged so that every design's time is read against one yardstick
 # ---------------------------------------------------------------------------
 # decompression 255 sq + 20 mul; table of -A 16 sq + 51 mul; ladder
 # 64 x (16 sq + 30 mul); inversion and encode 254 sq + 13 mul.
@@ -47,6 +50,14 @@ FE_SQS_PER_SIG = 1549
 PRODUCTS_PER_SIG = 100 * FE_MULS_PER_SIG + 55 * FE_SQS_PER_SIG
 # a 32x32 -> 64-bit product is two 32-bit multiply-adds (low, high half)
 IMADS_PER_SIG = 2 * PRODUCTS_PER_SIG
+# The four-lane design (csrc/verify4.cuh) does, on EACH of a signature's
+# four lanes: decode 256 sq + 20 mul (lanes 2 and 3 repeat A's decode)
+# and -A's T 1 mul; table 8 + 2 x 7 = 22 mul; ladder 64 x (4 sq + 8
+# mul); check 1 mul.  That is 512 sq + 556 mul a lane (the chain: ~1,070
+# rounds), 2,048 sq + 2,224 mul a signature (20% more than the
+# reference), and 2,367 exchanges of a 10-limb value a lane (ladder
+# 64 x 36, table 58, decode 4, check 1), i.e. 23,672 32-bit shuffles a
+# lane, 94,688 a signature.
 # H100 SXM: 132 SMs x 64 int32 multiply-adds per clock x 1.98 GHz boost
 H100_IMAD_PER_S = 132 * 64 * 1.98e9
 BYTES_PER_SIG = 128 + 1  # staged rows in, verdict out
@@ -113,13 +124,30 @@ def kernels() -> ctypes.CDLL:
             lib.tm_verify_staged.argtypes = [vp, vp, vp, vp, vp, vp, ll, i,
                                              vp]
             lib.tm_fe_selftest.argtypes = [vp, vp, vp, ll, i, vp]
+            ip = ctypes.POINTER(ctypes.c_int)
+            lib.tm_verify_occupancy.argtypes = [i, ip, ip]
             for fn in (lib.tm_verify_packed, lib.tm_verify_packed_split,
-                       lib.tm_verify_staged, lib.tm_fe_selftest):
+                       lib.tm_verify_staged, lib.tm_fe_selftest,
+                       lib.tm_verify_occupancy):
                 fn.restype = ctypes.c_int
             lib.tm_error_string.argtypes = [ctypes.c_int]
             lib.tm_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
+
+
+def occupancy() -> dict:
+    """Blocks of how many threads fit on one SM, per verify kernel (the
+    CUDA runtime's occupancy calculator): {kernel: (blocks, threads)}."""
+    lib = kernels()
+    out = {}
+    for which, name in enumerate(("verify_packed", "verify_packed_split",
+                                  "verify_staged")):
+        blocks, threads = ctypes.c_int(), ctypes.c_int()
+        _nvcc.check_rc(lib, lib.tm_verify_occupancy(
+            which, ctypes.byref(blocks), ctypes.byref(threads)), name)
+        out[name] = (blocks.value, threads.value)
+    return out
 
 
 def _check_rows(t: torch.Tensor, rows: int, name: str) -> None:

@@ -8,9 +8,10 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      registers, spills, stack and blocks per SM of each verify kernel
   2  field: the CUDA field arithmetic (fe_selftest) against the plain
      PyTorch field on the card, on edge values and seeded elements
-  3  K1 on adversarial vectors (R edge vectors of the projective R check
-     included) + 4,096 seeded triples: kernel bitmap = plain bitmap on
-     the card = pure-Python oracle
+  3  K1, K2 and K3 on adversarial vectors (R edge vectors of the
+     projective R check included) + 4,096 seeded triples, each staged in
+     its own layout: kernel bitmap = plain bitmap on the card = pure-Python
+     oracle
   4  ValidatorSet.verify_commit on a 150-validator commit (K1)
   5  ValidatorSet.verify_commit on a 100,000-validator commit (K2, 7
      launches over 114,688 lanes, pubkey cache hit on the second call),
@@ -91,7 +92,7 @@ from tendermint_tpu_torch.ops import cuda_msm as cm  # noqa: E402
 from tendermint_tpu_torch.ops import ed25519 as E  # noqa: E402
 from tendermint_tpu_torch.ops import field as F  # noqa: E402
 from tendermint_tpu_torch.ops import msm  # noqa: E402
-from tendermint_tpu_torch.tools.kernel_report import parse_ptxas  # noqa: E402
+from tendermint_tpu_torch.ops._nvcc import parse_ptxas  # noqa: E402
 from tendermint_tpu_torch.types.basic import (BlockID, BlockIDFlag,  # noqa: E402
                                               PartSetHeader, Timestamp)
 from tendermint_tpu_torch.types.canonical import \
@@ -277,7 +278,7 @@ for i, a in enumerate(vals_a[:len(edge)]):
 log(phase=2, elements=len(vals_a), ops=4, mismatches=fe_mism)
 check(fe_mism == 0, "CUDA field differs from the plain field")
 
-# -- phase 3: K1 on vectors -------------------------------------------------
+# -- phase 3: K1, K2, K3 on vectors ---------------------------------------------
 
 rng = random.Random(SEED + 3)
 vec_p, vec_m, vec_s = [], [], []
@@ -352,6 +353,25 @@ check(np.array_equal(final[sample], oracle_sample), "sample != oracle")
 check(np.array_equal(final, expect), "seeded bitmap != expected")
 check(np.array_equal(plain_raw[:len(all_p)] & host_ok, expect),
       "plain bitmap != expected")
+# the same lanes through K2 (split rows) and K3 (raw digests)
+pub3, rsk3, ok3 = E.prepare_batch_split(all_p, all_s, all_m)
+pub3 = torch.from_numpy(pub3).to(DEV)
+rsk3 = torch.from_numpy(rsk3.view(np.uint8)).to(DEV)
+k2_raw3 = ck.verify_packed_split(pub3, rsk3).cpu().numpy()
+k2_plain3 = ck.verify_packed_split_plain(pub3, rsk3).cpu().numpy()
+staged3, ok3s = E.prepare_batch_compact(all_p, all_s, all_m)
+staged3 = [torch.from_numpy(staged3[k].view(np.uint8)).to(DEV)
+           for k in ("pub", "r", "s", "digest")]
+k3_raw3 = ck.verify_staged(*staged3).cpu().numpy()
+k3_plain3 = ck.verify_staged_plain(*staged3).cpu().numpy()
+k2_mism3 = int((k2_raw3 != k2_plain3).sum())
+k3_mism3 = int((k3_raw3 != k3_plain3).sum())
+log(phase=3, k2_vs_plain_mismatches=k2_mism3,
+    k3_vs_plain_mismatches=k3_mism3)
+check(k2_mism3 == 0, "K2 differs from its plain version")
+check(k3_mism3 == 0, "K3 differs from its plain version")
+check(np.array_equal(k2_raw3 & ok3, expect), "K2 bitmap != expected")
+check(np.array_equal(k3_raw3 & ok3s, expect), "K3 bitmap != expected")
 
 
 # -- phases 4/5: validator sets and commits ---------------------------------
@@ -789,9 +809,14 @@ src = "tendermint_tpu_torch/csrc/ed25519_verify.cu"
 k1_cmp = [("phase-3 vectors + seeded", k1_cmp_lanes, k1_mism,
            float(np.abs(k1_raw.astype(int) - plain_raw.astype(int)).max())),
           cmp4, cmp6]
-k2_cmp = [("100k slice", 4096, k2_mism,
+k2_cmp = [("phase-3 vectors + seeded", len(k2_raw3), k2_mism3,
+           float(np.abs(k2_raw3.astype(int) - k2_plain3.astype(int)).max())),
+          ("100k slice", 4096, k2_mism,
            float(np.abs(k2_raw.astype(int) - k2_plain.astype(int)).max())),
           cmp5]
+k3_cmp = [("phase-3 vectors + seeded", len(k3_raw3), k3_mism3,
+           float(np.abs(k3_raw3.astype(int) - k3_plain3.astype(int)).max())),
+          cmp11]
 kernels = [
     {"name": "K1 verify_packed", "route": "cuda", "source": src,
      "replaces": "tendermint_tpu/ops/pallas_ed25519.py:826",
@@ -816,8 +841,9 @@ kernels = [
     {"name": "K3 verify_staged", "route": "cuda", "source": src,
      "replaces": "tendermint_tpu/ops/pallas_ed25519.py:853",
      "launches": launches_main["verify_staged"],
-     "lanes_compared": [cmp11[1]], "mismatches": cmp11[2] + k3_vs_k1,
-     "max_abs_err": cmp11[3],
+     "lanes_compared": [c[1] for c in k3_cmp],
+     "mismatches": sum(c[2] for c in k3_cmp) + k3_vs_k1,
+     "max_abs_err": max(c[3] for c in k3_cmp),
      "lanes": 65536, "ms": times["k3_65536_ms"],
      "plain_ms": times["plain_k3_65536_ms"],
      "bound_ms": ck.bound_ms(65536, staged=True), "bound_by": "operations",

@@ -52,9 +52,12 @@
 //   __launch_bounds__(128, 4) holds a thread to 128 registers, so 4
 //   blocks (16 warps) fit an SM.  The decode is the widest phase: it
 //   parks the values that wait out its square-root power in the group's
-//   scratch (fe_park), and the digits and R's coordinates live there
-//   too.  chip_smoke.py phase 1 prints ptxas's registers, spills and
-//   stack and the blocks per SM of each kernel.
+//   scratch (fe_park), the digits and R's coordinates live there too,
+//   and the encoding is loaded only after s and k.  What ptxas still
+//   spills is a word or two of the thread's place (4-8 B, an offset kept
+//   across the decode's first multiplies), not what bounds the time.
+//   chip_smoke.py phase 1 prints ptxas's registers, spills and stack and
+//   the blocks per SM of each kernel.
 // - R is checked without inverting Z.  In the first, serial phase lane 0
 //   decodes A while lane 1 decodes R in the same instruction stream (the
 //   decode is written with selects, not branches), strictly: y < p, a
@@ -183,9 +186,8 @@ __device__ void sc_reduce512(uint32_t k[8], const uint32_t d[16]) {
 extern __shared__ int32_t smem[];
 #define VERIFY_SMEM_BYTES ((9 * 3 * 10 + GROUPS * V4_SIG_WORDS) * 4)
 
-// threadIdx.x and blockIdx.x read again where they are used: the
-// compiler cannot merge these reads, so it keeps no register (or spill
-// slot) for them through the verify
+// threadIdx.x and blockIdx.x read again where they are used (the
+// loads before the verify, the store after it), not kept through it
 __device__ __forceinline__ unsigned tid_again() {
   unsigned v;
   asm volatile("mov.u32 %0, %%tid.x;" : "=r"(v));
@@ -199,57 +201,71 @@ __device__ __forceinline__ unsigned ctaid_again() {
 
 // The group primitives of verify4.cuh on the card: a shuffle within the
 // 4-lane group, __syncwarp, and the group's slice of shared memory.
-// Every lane of the warp reaches every call: the kernels never return
-// early, and a ragged tail's lanes verify a repeated signature whose
-// verdict is not stored.
+// The thread's place is one register, slot = the word offset in smem of
+// its own coordinate of table entry 0 (where its decode parks, see
+// LanePark); lane() and scratch() are derived from it.  Every lane of the
+// warp reaches every call: the kernels never return early, and a ragged
+// tail's lanes verify a repeated signature whose verdict is not stored.
 struct ShflXch {
-  int t;
+  int slot;
+  __device__ __forceinline__ explicit ShflXch(unsigned tid)
+      : slot(9 * 3 * 10 + (int)(tid >> 2) * V4_SIG_WORDS + 10 * (int)(tid & 3)) {}
+  __device__ __forceinline__ int lane() const {
+    return ((slot - 9 * 3 * 10) % V4_SIG_WORDS) / 10;
+  }
   __device__ __forceinline__ int32_t get(int32_t v, int src) const {
     return __shfl_sync(0xFFFFFFFFu, v, src, 4);
   }
   __device__ __forceinline__ void sync() const { __syncwarp(); }
   __device__ __forceinline__ int32_t *scratch() const {
-    return smem + 9 * 3 * 10 + (tid_again() >> 2) * V4_SIG_WORDS;
+    return smem + slot - 10 * lane();
   }
 };
 
-// the 9 niels entries j*B (host-computed, 9 x 3 x 10 int32) -> shared
+// the 9 niels entries j*B (host-computed, 9 x 3 x 10 int32) -> shared;
+// straight-line, not a loop, so that nothing waits in a spill slot
+// across it
 __device__ __forceinline__ void load_base(int32_t *s_base,
                                           const int32_t *__restrict__ tab) {
-  for (int i = threadIdx.x; i < 9 * 3 * 10; i += blockDim.x) s_base[i] = tab[i];
+#pragma unroll
+  for (int k = 0; k < (9 * 3 * 10 + THREADS - 1) / THREADS; k++) {
+    int i = threadIdx.x + THREADS * k;
+    if (i < 9 * 3 * 10) s_base[i] = tab[i];
+  }
   __syncthreads();
 }
 
-// this thread's group: its signature (clamped into [0, B) for the loads)
-// and whether the verdict is stored
-struct Group4 {
-  ShflXch x;
-  int64_t ld;
-  __device__ __forceinline__ explicit Group4(int64_t B) {
-    x.t = (int)(threadIdx.x & 3);
-    int64_t sig = ((int64_t)blockIdx.x * THREADS + threadIdx.x) >> 2;
-    ld = sig < B ? sig : B - 1;
-  }
-  __device__ __forceinline__ void store(uint8_t *out, int64_t B,
-                                        bool v) const {
-    int64_t sig = ((int64_t)ctaid_again() * THREADS + tid_again()) >> 2;
-    if (sig < B && x.t == 0) out[sig] = v;
-  }
-};
+// this thread's signature, clamped into [0, B) for the loads (a ragged
+// tail's groups verify the last signature again), and the store of the
+// verdict, which only lane 0 of a group within [0, B) makes.  Both read
+// the thread's index again, so that no register keeps it.
+__device__ __forceinline__ int64_t sig_index() {
+  return ((int64_t)ctaid_again() * THREADS + tid_again()) >> 2;
+}
+__device__ __forceinline__ int64_t load_index(int64_t B) {
+  int64_t sig = sig_index();
+  return sig < B ? sig : B - 1;
+}
+__device__ __forceinline__ void store_verdict(uint8_t *out, int64_t B,
+                                              bool v) {
+  int64_t sig = sig_index();
+  if (sig < B && (tid_again() & 3) == 0) out[sig] = v;
+}
 
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 k_verify_packed(const uint8_t *__restrict__ in, int64_t B,
                 const int32_t *__restrict__ base_tab,
                 uint8_t *__restrict__ out) {
   load_base(smem, base_tab);
-  Group4 g(B);
-  uint32_t enc[8];
-  load_lane32(enc, in + (g.x.t == 1 ? 32 * B : 0), B, g.ld);
-  auto scalars = [&](uint32_t s[8], uint32_t k[8]) {
-    load_lane32(s, in + 64 * B, B, g.ld);
-    load_lane32(k, in + 96 * B, B, g.ld);
+  ShflXch x(tid_again());
+  auto enc = [&](uint32_t w[8]) {
+    load_lane32(w, in + (x.lane() == 1 ? 32 * B : 0), B, load_index(B));
   };
-  g.store(out, B, verify4(g.x, enc, scalars, smem));
+  auto scalars = [&](uint32_t s[8], uint32_t k[8]) {
+    load_lane32(s, in + 64 * B, B, load_index(B));
+    load_lane32(k, in + 96 * B, B, load_index(B));
+  };
+  store_verdict(out, B, verify4(x, enc, scalars, smem));
 }
 
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
@@ -258,14 +274,15 @@ k_verify_packed_split(const uint8_t *__restrict__ pub_rows,
                       const int32_t *__restrict__ base_tab,
                       uint8_t *__restrict__ out) {
   load_base(smem, base_tab);
-  Group4 g(B);
-  uint32_t enc[8];
-  load_lane32(enc, g.x.t == 1 ? rsk : pub_rows, B, g.ld);
-  auto scalars = [&](uint32_t s[8], uint32_t k[8]) {
-    load_lane32(s, rsk + 32 * B, B, g.ld);
-    load_lane32(k, rsk + 64 * B, B, g.ld);
+  ShflXch x(tid_again());
+  auto enc = [&](uint32_t w[8]) {
+    load_lane32(w, x.lane() == 1 ? rsk : pub_rows, B, load_index(B));
   };
-  g.store(out, B, verify4(g.x, enc, scalars, smem));
+  auto scalars = [&](uint32_t s[8], uint32_t k[8]) {
+    load_lane32(s, rsk + 32 * B, B, load_index(B));
+    load_lane32(k, rsk + 64 * B, B, load_index(B));
+  };
+  store_verdict(out, B, verify4(x, enc, scalars, smem));
 }
 
 // K3: every lane of the group reduces the digest itself (under 1% of the
@@ -278,17 +295,18 @@ k_verify_staged(const uint8_t *__restrict__ pub_rows,
                 const int32_t *__restrict__ base_tab,
                 uint8_t *__restrict__ out) {
   load_base(smem, base_tab);
-  Group4 g(B);
-  uint32_t enc[8];
-  load_lane32(enc, g.x.t == 1 ? r_rows : pub_rows, B, g.ld);
+  ShflXch x(tid_again());
+  auto enc = [&](uint32_t w[8]) {
+    load_lane32(w, x.lane() == 1 ? r_rows : pub_rows, B, load_index(B));
+  };
   auto scalars = [&](uint32_t s[8], uint32_t k[8]) {
     uint32_t dig[16];
-    load_lane32(dig, dig_rows, B, g.ld);
-    load_lane32(dig + 8, dig_rows + 32 * B, B, g.ld);
+    load_lane32(dig, dig_rows, B, load_index(B));
+    load_lane32(dig + 8, dig_rows + 32 * B, B, load_index(B));
     sc_reduce512(k, dig);
-    load_lane32(s, s_rows, B, g.ld);
+    load_lane32(s, s_rows, B, load_index(B));
   };
-  g.store(out, B, verify4(g.x, enc, scalars, smem));
+  store_verdict(out, B, verify4(x, enc, scalars, smem));
 }
 
 // Field self-test: a, b are (n, 32) little-endian elements (bit 255 is

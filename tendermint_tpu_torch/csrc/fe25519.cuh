@@ -98,8 +98,10 @@
 
 #ifdef __CUDACC__
 #define FE_DEV __device__ __forceinline__
+#define FE_MEMBER __device__ __forceinline__
 #else
 #define FE_DEV static inline
+#define FE_MEMBER inline
 #endif
 
 typedef int32_t fe[10];
@@ -337,6 +339,15 @@ FE_DEV void fe_unpark(fe f, const int32_t *slot) {
   for (int i = 0; i < 10; i++) f[i] = v[i];
 }
 
+// Where the chains below park their waiting values: NoPark keeps them in
+// registers.  A parking caller (the verify kernels) passes a callable
+// whose park() returns its slots and `parks` true; it computes the
+// address again at each call, so that no register holds it either.
+struct NoPark {
+  static constexpr bool parks = false;
+  FE_MEMBER int32_t *park() const { return nullptr; }
+};
+
 // f^(2^n) by n squarings
 FE_DEV void fe_sqn(fe h, const fe f, int n) {
   fe_sq(h, f);
@@ -345,11 +356,12 @@ FE_DEV void fe_sqn(fe h, const fe f, int n) {
 }
 
 // (f^(2^250 - 1), f^11): the shared prefix of the inversion and
-// square-root exponent ladders (field._chain_250).  PARK: t1, the value
-// that waits for a later multiply, waits in park[0..10) (see fe_park).
-template <bool PARK = false>
-FE_DEV void fe_chain_250(fe z250, fe z11, const fe z,
-                         int32_t *park = nullptr) {
+// square-root exponent ladders (field._chain_250).  Parking: t1, the value
+// that waits for a later multiply, waits in park() + off.
+template <class Park = NoPark>
+FE_DEV void fe_chain_250(fe z250, fe z11, const fe z, Park pk = Park(),
+                         int off = 0) {
+  constexpr bool PARK = Park::parks;
   fe t0, t1, t2, t3;
   fe_sq(t0, z);              // 2
   fe_sqn(t1, t0, 2);         // 8
@@ -359,23 +371,23 @@ FE_DEV void fe_chain_250(fe z250, fe z11, const fe z,
   fe_mul(t1, t1, t2);        // 2^5 - 1
   fe_sqn(t2, t1, 5);
   fe_mul(t1, t2, t1);        // 2^10 - 1
-  if constexpr (PARK) fe_park(park, t1);
+  if constexpr (PARK) fe_park(pk.park() + off, t1);
   fe_sqn(t2, t1, 10);
-  if constexpr (PARK) fe_unpark(t1, park);
+  if constexpr (PARK) fe_unpark(t1, pk.park() + off);
   fe_mul(t2, t2, t1);        // 2^20 - 1
   fe_sqn(t3, t2, 20);
   fe_mul(t2, t3, t2);        // 2^40 - 1
   fe_sqn(t2, t2, 10);
-  if constexpr (PARK) fe_unpark(t1, park);
+  if constexpr (PARK) fe_unpark(t1, pk.park() + off);
   fe_mul(t1, t2, t1);        // 2^50 - 1
-  if constexpr (PARK) fe_park(park, t1);
+  if constexpr (PARK) fe_park(pk.park() + off, t1);
   fe_sqn(t2, t1, 50);
-  if constexpr (PARK) fe_unpark(t1, park);
+  if constexpr (PARK) fe_unpark(t1, pk.park() + off);
   fe_mul(t2, t2, t1);        // 2^100 - 1
   fe_sqn(t3, t2, 100);
   fe_mul(t2, t3, t2);        // 2^200 - 1
   fe_sqn(t2, t2, 50);
-  if constexpr (PARK) fe_unpark(t1, park);
+  if constexpr (PARK) fe_unpark(t1, pk.park() + off);
   fe_mul(z250, t2, t1);      // 2^250 - 1
 }
 
@@ -388,17 +400,17 @@ FE_DEV void fe_invert(fe out, const fe z) {
 }
 
 // z^((p - 5) / 8) = z^(2^252 - 3)
-// (PARK: z waits out the chain in park[0..10), the chain's own value in
-// park[40..50); see fe_park)
-template <bool PARK = false>
-FE_DEV void fe_pow22523(fe out, const fe z, int32_t *park = nullptr) {
+// (parking: z waits out the chain in park() + off, the chain's own value
+// in park() + off + 40)
+template <class Park = NoPark>
+FE_DEV void fe_pow22523(fe out, const fe z, Park pk = Park(), int off = 0) {
   fe z250, z11;
-  if constexpr (PARK) fe_park(park, z);
-  fe_chain_250<PARK>(z250, z11, z, PARK ? park + 40 : nullptr);
+  if constexpr (Park::parks) fe_park(pk.park() + off, z);
+  fe_chain_250(z250, z11, z, pk, off + 40);
   fe_sqn(z250, z250, 2);     // 2^252 - 4
-  if constexpr (PARK) {
+  if constexpr (Park::parks) {
     fe zz;
-    fe_unpark(zz, park);
+    fe_unpark(zz, pk.park() + off);
     fe_mul(out, z250, zz);   // 2^252 - 3
   } else {
     fe_mul(out, z250, z);
@@ -507,19 +519,34 @@ FE_DEV void ge_niels_cneg(ge_niels &q, bool neg) {
   }
 }
 
+// y < p for the low 255 bits of a little-endian encoding (the strict
+// form of the decode, for R: 2^255 - 19 <= y < 2^255 is non-canonical)
+FE_DEV bool fe_bytes_canonical(const uint32_t w[8]) {
+  uint32_t all = w[1] & w[2] & w[3] & w[4] & w[5] & w[6];
+  bool top = (w[7] & 0x7FFFFFFFu) == 0x7FFFFFFFu;
+  return !(top && all == 0xFFFFFFFFu && w[0] >= 0xFFFFFFEDu);
+}
+
 // RFC 8032 5.1.3 decompression with Go crypto/ed25519 semantics: (x, y)
 // with x of the requested sign, both carried, and the decode verdict: a
 // non-canonical y is accepted and reduced, a non-square is rejected, and
-// x = 0 with the sign bit set is rejected.
+// x = 0 with the sign bit set is rejected.  strict also rejects y >= p
+// (the decode of R in the verify kernels).
 //
-// PARK (the verify kernels): y, u v^3 and two values of the power wait
-// in memory, at park, park + 40, park + 80 and park + 120 (10 words
-// each), so that they hold no registers while the power runs.
-template <bool PARK = false>
-FE_DEV bool ge_decode(fe x, fe y, const uint32_t w[8],
-                      int32_t *park = nullptr) {
+// Parking (the verify kernels, whose group decodes A on one lane and R on
+// another in one instruction stream): every value that waits out the
+// square-root power waits in memory, at park() + 0 (y), + 40 (u v^3),
+// + 80 and + 120 (the power's) and + 160 (the sign bit and the strict
+// check, one word), so that it holds no register; u and v are computed
+// again from y after the power, and the sqrt(-1) factor is a select, not
+// a branch.  Without parking the decode is the one-lane decode of K4.
+template <class Park = NoPark>
+FE_DEV bool ge_decode(fe x, fe y, const uint32_t w[8], Park pk = Park(),
+                      bool strict = false) {
+  constexpr bool PARK = Park::parks;
   const fe d = FE_D, sqrtm1 = FE_SQRTM1;
   bool sign = (w[7] >> 31) & 1;
+  bool canon = !strict || fe_bytes_canonical(w);
   fe yy, u, v, v3, t, vxx;
   fe_frombytes(y, w);
   fe_carry(y);
@@ -533,48 +560,48 @@ FE_DEV bool ge_decode(fe x, fe y, const uint32_t w[8],
   fe_sq(t, v3);
   fe_mul(t, t, v);             // v^7
   fe_mul(t, t, u);             // u v^7
-  fe_mul(x, u, v3);
+  fe_mul(x, u, v3);            // u v^3
   if constexpr (PARK) {
-    fe_park(park, y);
-    fe_park(park + 40, x);
-    fe_pow22523<true>(t, t, park + 80);  // (u v^7)^((p-5)/8)
-    fe_unpark(x, park + 40);
+    volatile int32_t *flags = pk.park() + 160;
+    *flags = (int32_t)sign | (int32_t)canon << 1;
+    fe_park(pk.park(), y);
+    fe_park(pk.park() + 40, x);
+    fe_pow22523(t, t, pk, 80);  // (u v^7)^((p-5)/8)
+    fe_unpark(x, pk.park() + 40);
+    fe_unpark(y, pk.park());
   } else {
     fe_pow22523(t, t);
   }
   fe_mul(x, x, t);             // x = u v^3 (u v^7)^((p-5)/8)
-  if constexpr (PARK) fe_unpark(y, park);
-  // u and v again, from y: only y and x are live across the power, which
-  // keeps the verify kernels' threads within 128 registers
-  fe_sq(yy, y);
-  fe_copy(u, yy);
-  u[0] -= 1;
-  fe_mul(v, yy, d);
-  v[0] += 1;
+  if constexpr (PARK) {
+    fe_sq(yy, y);
+    fe_copy(u, yy);
+    u[0] -= 1;
+    fe_mul(v, yy, d);
+    v[0] += 1;
+  }
   fe_sq(vxx, x);
   fe_mul(vxx, vxx, v);         // v x^2
   bool ok_plus = fe_eq(vxx, u);
   fe nu;
   fe_neg(nu, u);
   bool ok_minus = fe_eq(vxx, nu);
-  // selects, not branches: the lanes of a verify group (verify4.cuh)
-  // decode different points in one instruction stream
-  fe_mul(t, x, sqrtm1);
-  fe_cmov(x, t, ok_minus);
-  bool ok = ok_plus || ok_minus;
+  if constexpr (PARK) {
+    fe_mul(t, x, sqrtm1);
+    fe_cmov(x, t, ok_minus);
+    const volatile int32_t *flags = pk.park() + 160;
+    int32_t f = *flags;
+    sign = f & 1;
+    canon = (f >> 1) & 1;
+  } else if (ok_minus) {
+    fe_mul(x, x, sqrtm1);
+  }
+  bool ok = (ok_plus || ok_minus) && canon;
   if (fe_iszero(x) && sign) ok = false;
   fe_neg(t, x);
   fe_cmov(x, t, fe_isneg(x) != sign);
-  if constexpr (PARK) fe_unpark(y, park);   // y is not live since y^2
+  if constexpr (PARK) fe_unpark(y, pk.park());   // not live since y^2
   return ok;
-}
-
-// y < p for the low 255 bits of a little-endian encoding (the strict
-// form of the decode, for R: 2^255 - 19 <= y < 2^255 is non-canonical)
-FE_DEV bool fe_bytes_canonical(const uint32_t w[8]) {
-  uint32_t all = w[1] & w[2] & w[3] & w[4] & w[5] & w[6];
-  bool top = (w[7] & 0x7FFFFFFFu) == 0x7FFFFFFFu;
-  return !(top && all == 0xFFFFFFFFu && w[0] >= 0xFFFFFFEDu);
 }
 
 // -A for the decode of w (the variable base of the ladders), and the

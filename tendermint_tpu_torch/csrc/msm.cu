@@ -21,8 +21,8 @@
 // merely the same projective point.
 //
 // What bounds them on the H100: integer multiply-adds, never bytes.
-//   K4: 256 squares + 23 multiplies per point (the square root chain),
-//       16,380 products 32x32 -> 64; 153 bytes in and out per point.
+//   K4: 255 squares + 21 multiplies per point (the square root chain),
+//       16,125 products 32x32 -> 64; 153 bytes in and out per point.
 //   K5: 7 multiplies (700 products) per madd; the function needs one madd
 //       per bucket member, but the layered scan runs K x T of them (the
 //       idle steps add the identity row 0).  Bytes: the 120-byte table

@@ -6,14 +6,13 @@
 // (tests/test_torch_verify4.py does, against the JAX package).
 //
 // Group concept, for a class X:
-//   int t;                           this lane's index in the group
+//   int lane()                       this lane's index t in the group
 //   int32_t get(int32_t v, int src)  v as held by lane src
 //   void sync()                      order the group's shared-memory
 //                                    writes before its later reads
 //   int32_t *scratch()               the group's V4_SIG_WORDS words of
 //                                    scratch (shared memory on the card;
-//                                    asked for again in each phase, so
-//                                    that no register holds it between)
+//                                    asked for again in each phase)
 // Every lane of a group calls each of them, in the same order, the same
 // number of times.  Lanes never branch on t: every per-lane choice is a
 // select or a per-lane coefficient, so the four lanes run one instruction
@@ -84,7 +83,7 @@ FE_DEV void round2_4(X &x, fe p, const fe m, const int cl[4],
 // p = 2 p (dbl-2008-hwcd; T of the input is not read)
 template <class X>
 FE_DEV void dbl4(X &x, fe p) {
-  const int t = x.t;
+  const int t = x.lane();
   fe s;
 #pragma unroll
   for (int i = 0; i < 10; i++) {
@@ -103,7 +102,7 @@ FE_DEV void dbl4(X &x, fe p) {
 // point (Y2+X2, Y2-X2, Z2, 2d T2), see cached_coord / niels_coord
 template <class X>
 FE_DEV void add4(X &x, fe p, const fe q) {
-  const int t = x.t;
+  const int t = x.lane();
   fe s;
 #pragma unroll
   for (int i = 0; i < 10; i++) {
@@ -122,7 +121,7 @@ FE_DEV void add4(X &x, fe p, const fe q) {
 // as one multiply on every lane (by 1 on lanes 0-2, by 2d on lane 3)
 template <class X>
 FE_DEV void to_cached4(X &x, fe c, const fe p) {
-  const int t = x.t;
+  const int t = x.lane();
   const fe d2 = FE_D2;
   fe k;
 #pragma unroll
@@ -167,8 +166,19 @@ FE_DEV void digit_words(uint32_t t[8], const uint32_t s[8]) {
   }
 }
 
+// Where lane t's decode parks its waiting values (ge_decode): its
+// coordinate of the table entries 0-4, which phase 2 writes only later.
+template <class X>
+struct LanePark {
+  static constexpr bool parks = true;
+  X &x;
+  FE_MEMBER int32_t *park() const { return x.scratch() + 10 * x.lane(); }
+};
+
 // The verdict of one signature, on every lane of its group.
-//   enc      the encoding this lane decodes: R on lane 1, A on the others
+//   enc      a callable enc(w) that fills the 8 little-endian words of
+//            the encoding this lane decodes: R on lane 1, A on the others
+//            (called after scalars, so that w is not live before)
 //   scalars  a callable scalars(s, k) that fills the 8 little-endian
 //            words of s and of the challenge k (< L); it is called first
 //            and its digits go to the scratch, so that neither its inputs
@@ -181,14 +191,13 @@ FE_DEV void digit_words(uint32_t t[8], const uint32_t s[8]) {
 // lane 1 decodes it strictly (y < p, a square, not x = 0 with the sign
 // bit), and the group checks X_P = x_R Z_P and Y_P = y_R Z_P, which is
 // exact (see the header of ed25519_verify.cu).
-template <class X, class S>
-FE_DEV bool verify4(X &x, const uint32_t enc[8], S scalars,
-                    const int32_t *base) {
-  const int t = x.t;
+template <class X, class S, class N>
+FE_DEV bool verify4(X &x, N enc, S scalars, const int32_t *base) {
   int32_t *tab;
   // phase 0: the digit words of s and k, to the scratch (first, so that
   // K3's reduction has the registers to itself)
   {
+    const int t = x.lane();
     tab = x.scratch();
     uint32_t ts[8], tk[8];
     scalars(ts, tk);
@@ -205,14 +214,18 @@ FE_DEV bool verify4(X &x, const uint32_t enc[8], S scalars,
     }
   }
 
-  // phase 1: lane 0 decodes A, lane 1 R (lanes 2 and 3 repeat A's); the
-  // decode parks four values in lane t's coordinate of entries 0-3 of
-  // the table, written only later
+  // phase 1: lane 0 decodes A, lane 1 R, strictly (lanes 2 and 3 repeat
+  // A's); what waits out the decode's power waits in the scratch
   fe p, rc;  // x and y, then R's coordinate of this lane
-  bool ok = t != 1 || fe_bytes_canonical(enc);
-  ok = ge_decode<true>(p, rc, enc, x.scratch() + 10 * t) && ok;  // (x, y)
+  bool ok;
+  {
+    uint32_t w[8];
+    enc(w);
+    ok = ge_decode(p, rc, w, LanePark<X>{x}, x.lane() == 1);
+  }
   // -A = (-x, y, 1, -x y) on lane t's coordinate; x_R on lane 0 and y_R
   // on lane 1, kept for the final check
+  const int t = x.lane();
   fe a, b;
 #pragma unroll
   for (int i = 0; i < 10; i++) {

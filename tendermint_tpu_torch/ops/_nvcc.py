@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -65,3 +66,37 @@ def check_rc(lib, rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(
             f"{what}: CUDA error {rc} ({lib.tm_error_string(rc).decode()})")
+
+
+def _short(mangled: str) -> str:
+    """_Z15k_verify_packedPKhlPKiPh -> k_verify_packed."""
+    m = re.match(r"_Z(\d+)", mangled)
+    if not m:
+        return mangled
+    return mangled[m.end():m.end() + int(m.group(1))]
+
+
+def parse_ptxas(text: str) -> dict:
+    """A build's `ptxas` report -> {kernel: {registers, stack,
+    spill_stores, spill_loads, smem}} (mangled names shortened)."""
+    out: dict = {}
+    cur = None
+    for ln in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?(\w+)'?", ln)
+        if m:
+            cur = out.setdefault(_short(m.group(1)), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+            m2 = re.search(r"(\d+) bytes smem", ln)
+            cur["smem"] = int(m2.group(1)) if m2 else 0
+    return out

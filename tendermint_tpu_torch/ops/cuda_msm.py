@@ -41,11 +41,8 @@ SOURCES = tuple(os.path.join(_nvcc.CSRC_DIR, f) for f in (
 # work per call (csrc/msm.cu header note), for the bounds: a field multiply
 # is 100 products 32x32 -> 64, a square 55, each two 32-bit multiply-adds
 # ---------------------------------------------------------------------------
-# y^2 (twice: u and v are recomputed after the power), v^2, v3^2, x^2
-# and the 251 of (p-5)/8; the multiplies include v's twice and the
-# sqrt(-1) factor, always taken, then selected
-DECOMPRESS_SQS = 256
-DECOMPRESS_MULS = 23
+DECOMPRESS_SQS = 255   # y^2, v^2, v3^2, x^2 and the 251 of (p-5)/8
+DECOMPRESS_MULS = 21   # 22 when the root needs the sqrt(-1) factor
 DECOMPRESS_BYTES = 32 + 3 * 40 + 1
 MADD_MULS = 7
 AGG_MULS_PER_DIGIT = 2 * (1 + 8)   # twice to_cached + add_cached

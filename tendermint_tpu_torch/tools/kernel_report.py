@@ -1,18 +1,14 @@
-"""Report on the ed25519 verify kernels (K1, K2, K3) as built for the card:
-ptxas registers, spills and stack per kernel, SASS opcode counts
-(cuobjdump), the SASS of one field multiply and one square (a probe
-kernel built from the same csrc/fe25519.cuh), blocks per SM, and the
-kernels' times by CUDA events at the main path's widths.
+"""SASS report of the ed25519 verify kernels (K1, K2, K3) as built for
+the card: opcode counts per kernel (cuobjdump -sass of the built
+library), and the instructions of one field multiply and one square (a
+probe kernel built from the same csrc/fe25519.cuh).
 
     python3 tendermint_tpu_torch/tools/kernel_report.py [--root DIR]
-        [--label NAME] [--out FILE] [--iters N] [--build-only]
-        [--sass-out FILE]
 
---root names the checkout whose package is measured (default: this
-one), so that two trees can be measured in turns in one run on one card.
-The report is one JSON line on stdout and is also merged, under
---label, into --out (default chiprun_out/kernel_report.json).  Needs a
-CUDA card, nvcc and cuobjdump; exits non-zero without them.
+--root names the checkout whose kernels are built and read (default:
+this one), so that an earlier tree, unpacked with `git archive`, can be
+read in the same run.  Prints one JSON line.  Needs nvcc and cuobjdump;
+registers, spills, blocks per SM and times are chip_smoke.py's.
 """
 from __future__ import annotations
 
@@ -25,8 +21,8 @@ import shutil
 import subprocess
 import sys
 
-_HERE = os.path.dirname(os.path.abspath(__file__))
-_ROOT = os.path.dirname(os.path.dirname(_HERE))
+_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
 
 # One field multiply and one square between a load and a store, and the
 # same load and store alone: their SASS differences are the instructions
@@ -53,219 +49,80 @@ __global__ void k_probe_sq(const int32_t *a, const int32_t *b, int32_t *o) {
 
 _SASS_LINE = re.compile(
     r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)")
+_SELECTED = ("IMAD.WIDE", "IMAD.WIDE.U32", "IMAD", "IMAD.HI", "IMAD.X",
+             "IADD3", "IADD3.X", "SHF.R.S64.HI", "SHF.R.U64", "SHF.L.U64.HI",
+             "LEA", "SEL", "SHFL.IDX", "LDS", "STS", "LDL", "STL", "LDL.64",
+             "STL.64", "LDL.128", "STL.128")
 
 
-def _tool(name: str) -> str:
-    path = shutil.which(name) or f"/usr/local/cuda/bin/{name}"
-    if not os.path.exists(path):
-        sys.exit(f"kernel_report: {name} not found")
-    return path
-
-
-def parse_ptxas(text: str) -> dict:
-    """nvcc -Xptxas -v stderr -> {kernel: {registers, stack, spill_stores,
-    spill_loads, smem}} (mangled names shortened to the kernel's)."""
-    out: dict = {}
-    cur = None
-    for ln in text.splitlines():
-        m = re.search(r"(?:Compiling entry function|Function properties for)"
-                      r" '?(\w+)'?", ln)
-        if m:
-            cur = _short(m.group(1))
-            out.setdefault(cur, {})
-            continue
-        if cur is None:
-            continue
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                      r"(\d+) bytes spill loads", ln)
-        if m:
-            out[cur].update(stack=int(m.group(1)),
-                            spill_stores=int(m.group(2)),
-                            spill_loads=int(m.group(3)))
-        m = re.search(r"Used (\d+) registers", ln)
-        if m:
-            out[cur]["registers"] = int(m.group(1))
-            m2 = re.search(r"(\d+) bytes smem", ln)
-            out[cur]["smem"] = int(m2.group(1)) if m2 else 0
-    return out
+def _run(cmd: list) -> str:
+    tool = shutil.which(cmd[0]) or f"/usr/local/cuda/bin/{cmd[0]}"
+    r = subprocess.run([tool, *cmd[1:]], capture_output=True, text=True,
+                       timeout=600)
+    if r.returncode != 0:
+        sys.exit(f"kernel_report: {cmd[0]} failed: {r.stderr[-2000:]}")
+    return r.stdout
 
 
 def _short(mangled: str) -> str:
-    """_Z15k_verify_packedPKhlPKiPh -> k_verify_packed."""
     m = re.match(r"_Z(\d+)", mangled)
-    if not m:
-        return mangled
-    return mangled[m.end():m.end() + int(m.group(1))]
-
-
-def sass_text(path: str) -> str:
-    r = subprocess.run([_tool("cuobjdump"), "-sass", path],
-                       capture_output=True, text=True, timeout=600)
-    if r.returncode != 0:
-        sys.exit(f"kernel_report: cuobjdump failed: {r.stderr[-2000:]}")
-    return r.stdout
+    return mangled[m.end():m.end() + int(m.group(1))] if m else mangled
 
 
 def sass_counts(path: str) -> dict:
     """cuobjdump -sass of a library or cubin -> {kernel: Counter(opcode)}."""
     out: dict = {}
     cur = None
-    for ln in sass_text(path).splitlines():
+    for ln in _run(["cuobjdump", "-sass", path]).splitlines():
         m = re.search(r"Function : (\w+)", ln)
         if m:
-            cur = _short(m.group(1))
-            out[cur] = collections.Counter()
-            continue
-        m = _SASS_LINE.search(ln)
-        if m and cur is not None:
-            out[cur][m.group(1)] += 1
+            cur = out.setdefault(_short(m.group(1)), collections.Counter())
+        elif cur is not None and (m := _SASS_LINE.search(ln)):
+            cur[m.group(1)] += 1
     return out
 
 
 def _summary(c: collections.Counter) -> dict:
-    keys = ("IMAD.WIDE", "IMAD.WIDE.U32", "IMAD", "IMAD.HI", "IMAD.X",
-            "IADD3", "IADD3.X", "SHF.R.S64.HI", "SHF.R.U64", "SHF.L.U64.HI",
-            "LEA", "SEL", "SHFL.IDX", "LDS", "STS", "LDL", "STL",
-            "LDL.64", "STL.64", "LDL.128", "STL.128")
     fam = collections.Counter()
     for op, n in c.items():
         fam[op.split(".")[0]] += n
-    return {"total": sum(c.values()),
-            "by_family": dict(fam.most_common()),
-            "selected": {k: c.get(k, 0) for k in keys if c.get(k, 0)}}
+    return {"total": sum(c.values()), "by_family": dict(fam.most_common()),
+            "selected": {k: c[k] for k in _SELECTED if c.get(k)}}
 
 
-def probe_counts(root: str, build_dir: str, nvcc: str) -> dict:
+def probe_counts(csrc: str, build_dir: str) -> dict:
     src = os.path.join(build_dir, "probe_fe.cu")
     cubin = os.path.join(build_dir, "probe_fe.cubin")
     with open(src, "w") as f:
         f.write(_PROBE)
-    r = subprocess.run([nvcc, "-cubin", "-gencode",
-                        "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-                        "-I", os.path.join(root, "tendermint_tpu_torch",
-                                           "csrc"), "-o", cubin, src],
-                       capture_output=True, text=True, timeout=600)
-    if r.returncode != 0:
-        sys.exit(f"kernel_report: probe build failed: {r.stderr[-2000:]}")
+    _run(["nvcc", "-cubin", "-gencode", "arch=compute_90a,code=sm_90a",
+          "-O3", "-std=c++17", "-I", csrc, "-o", cubin, src])
     c = sass_counts(cubin)
-    base = c["k_probe_copy"]
     out = {}
     for name in ("mul", "sq"):
         d = collections.Counter(c[f"k_probe_{name}"])
-        d.subtract(base)
-        d = collections.Counter({k: v for k, v in d.items() if v > 0})
-        out[f"fe_{name}"] = _summary(d)
+        d.subtract(c["k_probe_copy"])
+        out[f"fe_{name}"] = _summary(+d)
     return out
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=_ROOT)
-    ap.add_argument("--label", default="tree")
-    ap.add_argument("--out", default=os.path.join("chiprun_out",
-                                                  "kernel_report.json"))
-    ap.add_argument("--iters", type=int, default=5)
-    ap.add_argument("--build-only", action="store_true")
-    ap.add_argument("--sass-out", default=None,
-                    help="also write the library's whole SASS listing here")
-    args = ap.parse_args()
-    root = os.path.abspath(args.root)
+    root = os.path.abspath(ap.parse_args().root)
     sys.path.insert(0, root)
-
-    import numpy as np
-    import torch
-    if not torch.cuda.is_available():
-        sys.exit("kernel_report: torch.cuda.is_available() is false")
-    from tendermint_tpu_torch.crypto import _edref
-    from tendermint_tpu_torch.ops import _nvcc
     from tendermint_tpu_torch.ops import cuda_ed25519 as ck
-    from tendermint_tpu_torch.ops import ed25519 as E
-    if os.path.dirname(os.path.dirname(ck.__file__)) != \
-            os.path.join(root, "tendermint_tpu_torch"):
+    if not ck.__file__.startswith(root + os.sep):
         sys.exit(f"kernel_report: imported {ck.__file__}, not from {root}")
-
-    lib = ck.kernels()
-    if args.build_only:
-        print(json.dumps({"label": args.label, "built": ck.build_info["path"],
-                          "nvcc_s": ck.build_info["seconds"]}), flush=True)
-        return
-    so = ck.build_info["path"]
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()
-    rep: dict = {"label": args.label, "root": root,
-                 "card": card[0] if card else torch.cuda.get_device_name(0),
-                 "nvcc_s": ck.build_info["seconds"]}
-    ptx = parse_ptxas(ck.build_info.get("ptxas", ""))
+    so = ck.build()
     sass = sass_counts(so)
-    if args.sass_out:
-        with open(args.sass_out, "w") as f:
-            f.write(sass_text(so))
-    occ = getattr(lib, "tm_verify_occupancy", None)
-    kernels = {}
-    for i, name in enumerate(("k_verify_packed", "k_verify_packed_split",
-                              "k_verify_staged")):
-        row = {"ptxas": ptx.get(name), "sass": _summary(sass.get(
-            name, collections.Counter()))}
-        if occ is not None:
-            import ctypes
-            occ.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
-                            ctypes.POINTER(ctypes.c_int)]
-            occ.restype = ctypes.c_int
-            blocks, threads = ctypes.c_int(), ctypes.c_int()
-            rc = occ(i, ctypes.byref(blocks), ctypes.byref(threads))
-            row["blocks_per_sm"] = blocks.value if rc == 0 else f"error {rc}"
-            row["threads_per_block"] = threads.value
-        kernels[name] = row
-    rep["kernels"] = kernels
-    rep["probe"] = probe_counts(root, os.path.dirname(so), _nvcc.nvcc())
-
-    # times at the main path's widths, on valid signatures
-    seeds = [bytes([i & 255, i >> 8]) * 16 for i in range(256)]
-    msgs = [b"kernel report %d" % i for i in range(256)]
-    pubs = [_edref.pubkey_from_seed(s) for s in seeds]
-    sigs = [_edref.sign(s, m) for s, m in zip(seeds, msgs)]
-    packed, ok = E.prepare_batch_packed(pubs * 256, sigs * 256, msgs * 256)
-    assert ok.all()
-    dev = torch.device("cuda", 0)
-    buf = torch.from_numpy(packed.view(np.uint8)).to(dev)
-
-    def time_events(fn, iters):
-        fn()
-        torch.cuda.synchronize()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(iters):
-            fn()
-        e1.record()
-        torch.cuda.synchronize()
-        return e0.elapsed_time(e1) / iters
-
-    times = {}
-    for lanes in (256, 4096, 65536):
-        b = buf[:, :lanes].contiguous()
-        if not bool(ck.verify_packed(b).all()):
-            sys.exit(f"kernel_report: K1 rejected a valid lane at {lanes}")
-        times[f"k1_{lanes}_ms"] = time_events(lambda: ck.verify_packed(b),
-                                              args.iters)
-    pr = buf[0:32, :16384].contiguous()
-    rk = buf[32:128, :16384].contiguous()
-    if not bool(ck.verify_packed_split(pr, rk).all()):
-        sys.exit("kernel_report: K2 rejected a valid lane")
-    times["k2_16384_ms"] = time_events(lambda: ck.verify_packed_split(pr, rk),
-                                       args.iters)
-    rep["times"] = times
+    rep = {"root": root, "kernels": {
+        name: _summary(sass.get(name, collections.Counter()))
+        for name in ("k_verify_packed", "k_verify_packed_split",
+                     "k_verify_staged")},
+        "probe": probe_counts(os.path.join(root, "tendermint_tpu_torch",
+                                           "csrc"), os.path.dirname(so))}
     print(json.dumps(rep), flush=True)
-    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-    old = {}
-    if os.path.exists(args.out):
-        with open(args.out) as f:
-            old = json.load(f)
-    old.setdefault(args.label, []).append(rep)
-    with open(args.out, "w") as f:
-        json.dump(old, f, indent=1)
 
 
 if __name__ == "__main__":

@@ -149,11 +149,11 @@ def test_bound_counts():
 
 
 def test_msm_bound_counts():
-    """K4: 256 squares + 23 multiplies per point; K5: 7 multiplies per
+    """K4: 255 squares + 21 multiplies per point; K5: 7 multiplies per
     bucket member; A1: 18 multiplies per digit of each window."""
     rate = 132 * 64 * 1.98e9
     assert cm.bound_ms_decompress(262144) == pytest.approx(
-        262144 * 2 * (100 * 23 + 55 * 256) / rate * 1e3)
+        262144 * 2 * (100 * 21 + 55 * 255) / rate * 1e3)
     assert cm.bound_ms_bucket_scan(6_000_000, 262146, 1304, 8192) == \
         pytest.approx(6_000_000 * 2 * 700 / rate * 1e3)
     assert cm.bound_ms_aggregate(32, 8) == pytest.approx(

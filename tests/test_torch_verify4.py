@@ -125,6 +125,10 @@ def test_r_edges_kernel_wrappers(r_edges):
     k2 = ck.verify_packed_split(torch.from_numpy(pub_rows),
                                 torch.from_numpy(rsk.view(np.uint8))).numpy()
     np.testing.assert_array_equal(k2 & ok2, want)
+    staged, ok3 = ted.prepare_batch_compact(pubs, sigs, msgs)
+    k3 = ck.verify_staged(*(torch.from_numpy(staged[k].view(np.uint8))
+                            for k in ("pub", "r", "s", "digest"))).numpy()
+    np.testing.assert_array_equal(k3 & ok3, want)
 
 
 # ---------------------------------------------------------------------------
@@ -137,6 +141,8 @@ def test_r_edges_kernel_wrappers(r_edges):
 #   D <X> <Y> <Z> <T>                -> 2P as four canonical values
 #   C <X> <Y> <Z> <T> <q0..q3> <neg> -> P + (+-)q, q cached
 #   N <X> <Y> <Z> <T> <q0..q2> <neg> -> P + (+-)q, q niels
+#   E <enc>                          -> the one-lane decode (K4's, no
+#                                       parking): "<ok> <ok strict> <x> <y>"
 HARNESS = r"""
 #include <atomic>
 #include <cstdio>
@@ -173,6 +179,7 @@ struct Group {
 struct HostXch {
   int t;
   Group *g;
+  int lane() const { return t; }
   int32_t get(int32_t v, int src) {
     g->word[t] = v;
     g->bar.wait();
@@ -225,7 +232,8 @@ int main() {
       for (int i = 0; i < 270; i++) in >> base[i];
       continue;
     }
-    int n = c.op == 'V' ? 4 : c.op == 'D' ? 4 : c.op == 'C' ? 8 : 7;
+    int n = c.op == 'E' ? 1 : c.op == 'V' || c.op == 'D' ? 4
+            : c.op == 'C' ? 8 : 7;
     for (int i = 0; i < n; i++) {
       std::string h;
       in >> h;
@@ -242,12 +250,14 @@ int main() {
       HostXch x{t, &g};
       for (size_t i = 0; i < cmds.size(); i++) {
         const Cmd &c = cmds[i];
+        if (c.op == 'E') continue;
         if (c.op == 'V') {
           auto scalars = [&](uint32_t s[8], uint32_t k[8]) {
             memcpy(s, c.w[2], 32);
             memcpy(k, c.w[3], 32);
           };
-          bool v = verify4(x, c.w[t == 1 ? 1 : 0], scalars, base);
+          auto enc = [&](uint32_t w[8]) { memcpy(w, c.w[t == 1], 32); };
+          bool v = verify4(x, enc, scalars, base);
           res[4 * i + t] = v ? "1" : "0";
           continue;
         }
@@ -270,7 +280,17 @@ int main() {
     });
   for (auto &th : lanes) th.join();
   for (size_t i = 0; i < cmds.size(); i++) {
-    if (cmds[i].op == 'V')
+    if (cmds[i].op != 'E') continue;
+    fe x, y, xs, ys;
+    bool ok = ge_decode(x, y, cmds[i].w[0]);
+    bool strict = ge_decode(xs, ys, cmds[i].w[0], NoPark(), true);
+    res[4 * i] = std::string(ok ? "1 " : "0 ") + (strict ? "1 " : "0 ") +
+                 hex(x) + " " + hex(y);
+  }
+  for (size_t i = 0; i < cmds.size(); i++) {
+    if (cmds[i].op == 'E')
+      std::cout << res[4 * i] << "\n";
+    else if (cmds[i].op == 'V')
       std::cout << res[4 * i] << res[4 * i + 1] << res[4 * i + 2]
                 << res[4 * i + 3] << "\n";
     else
@@ -392,3 +412,29 @@ def test_group_dbl_add_match_curve(harness):
                       for p, q in zip(ps, qh)]
     out = harness(lines)
     assert out == want
+
+
+def test_one_lane_decode(harness):
+    """(b): ge_decode without parking (K4's decode, which keeps its
+    one-lane form) and its strict form, on edge and seeded encodings:
+    the verdict is the oracle's decode (strict: and y < p), and x, y are
+    the oracle's point."""
+    rng = random.Random(11)
+    y_ns = 2
+    while _edref._recover_x(y_ns, 0) is not None:
+        y_ns += 1
+    ys = [0, 1, 2, P - 1, P, P + 1, P + 18, (1 << 255) - 1, y_ns]
+    encs = [_enc(y | sign << 255) for y in ys for sign in (0, 1)]
+    for _ in range(12):
+        encs.append(_edref._encode(_edref._mul(rng.randrange(1, L),
+                                               _edref.BASE)))
+        encs.append(bytes(rng.randrange(256) for _ in range(32)))
+    out = harness(["E " + e.hex() for e in encs])
+    for e, o in zip(encs, out):
+        ok, strict, x, y = o.split()
+        pt = _edref._decode(e)
+        canon = int.from_bytes(e, "little") % (1 << 255) < P
+        assert (ok, strict) == (str(int(pt is not None)),
+                                str(int(pt is not None and canon))), e.hex()
+        if pt is not None:
+            assert (x, y) == (_enc(pt[0]).hex(), _enc(pt[1]).hex()), e.hex()

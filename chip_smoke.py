@@ -5,7 +5,8 @@
 Phases (any failure exits non-zero; nothing is caught and skipped):
   0  the card: CUDA available, compute capability >= 9.0, nvidia-smi line
   1  build the kernels from csrc/ (nvcc) and the host staging C (cc);
-     registers, spills, stack and blocks per SM of each verify kernel
+     registers, spills, stack and blocks per SM of each verify kernel and
+     of K4, K5 and A1
   2  field: the CUDA field arithmetic (fe_selftest) against the plain
      PyTorch field on the card, on edge values and seeded elements
   3  K1, K2 and K3 on adversarial vectors (R edge vectors of the
@@ -34,8 +35,11 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      non-canonical R makes the batch rlc-ineligible (no K4 launch)
   9  RLC through BatchVerifier at 16,384 (c = 8) and 4,096 (c = 4) triples
  10  K4, K5 and A1 against their plain versions on the inputs they got in
-     phases 8-9 (262,144 points; (T, K) = (1,304, 8,192) and (712, 1,024)),
-     as canonical bytes; their times
+     phases 8-9 (262,144 points; (T, K) = (1,304, 8,192) and (712, 1,024)):
+     K4 as canonical bytes, K5 and A1 as points (cuda_msm.points_mismatch:
+     the same point, and a valid extended point); their times beside
+     their bounds, their plain versions' and the earlier kernels'; K5's
+     launch alone, also at half and twice its segment count
  11  K3 (verify_batch_staged) on the phase-6 batch's first 65,536 lanes:
      K3 = K1 = the expected bitmap, K3 = its plain version; its time
  12  the kernels line; then the last line {"ok": true, "device": ...}
@@ -252,6 +256,15 @@ for _name, _row in parse_ptxas(ck.build_info.get("ptxas", "")).items():
                                    threads_per_block=threads)
         log(phase=1, kernel=_name, **verify_build[_name])
 check(len(verify_build) == 3, f"ptxas report: {sorted(verify_build)}")
+occ = cm.occupancy()
+msm_build = {}
+for _name, _row in parse_ptxas(cm.build_info.get("ptxas", "")).items():
+    if _name[2:] in occ:
+        blocks, threads = occ[_name[2:]]
+        msm_build[_name] = dict(_row, blocks_per_sm=blocks,
+                                threads_per_block=threads)
+        log(phase=1, kernel=_name, **msm_build[_name])
+check(len(msm_build) == 3, f"ptxas report: {sorted(msm_build)}")
 
 # -- phase 2: field ---------------------------------------------------------
 
@@ -742,6 +755,33 @@ def timed(fn):
     return out, e0.elapsed_time(e1)
 
 
+def point_cmp(got: torch.Tensor, want: torch.Tensor):
+    """(4, N, 32) canonical bytes of extended points -> (points compared,
+    positions that are not the same point or not a valid point, max_abs_err:
+    1.0 where any position mismatches, else 0.0)."""
+    bad = cm.points_mismatch(got, want)
+    return int(got.shape[1]), bad, float(bad > 0)
+
+
+def k5_launch(table, rows, seg, S: int):
+    """A function that launches K5 with S segments a lane through its C
+    entry (no wrapper checks, no launch count), and the tensor it writes."""
+    T9, K9 = rows.shape
+    lib, out9 = cm.kernels(), torch.empty((K9, 4, 10), dtype=torch.int32,
+                                          device=DEV)
+    args9 = (table.data_ptr(), rows.data_ptr(), seg.data_ptr(),
+             out9.data_ptr(), T9, K9, S, DEV.index,
+             torch.cuda.current_stream(DEV).cuda_stream)
+
+    def launch():
+        check(lib.tm_bucket_scan(*args9) == 0, f"K5 at S = {S}: launch")
+    return launch, out9
+
+
+# the times of the one-thread-a-chain K5 and A1 that this design replaced,
+# as PERF.md records them for this card
+EARLIER_MS = {"k5_1304x8192_ms": 6.652, "k5_712x1024_ms": 3.580,
+              "a1_32x8_ms": 7.206, "a1_64x4_ms": 0.445}
 msm_cmp = {"decompress_niels": [], "bucket_scan": [], "aggregate": []}
 label, (b_rows,), (n10, ok10) = captured["decompress_niels"][0]
 (n22, ok22), _ = timed(lambda: cm.decompress_niels_plain(b_rows))
@@ -753,32 +793,57 @@ msm_cmp["decompress_niels"].append((label, cmp[0], cmp[1] + ok_mism, cmp[2]))
 check(b_rows.shape[1] == 262_144 and bool(ok10.all()), "K4 input")
 times["k4_262144_ms"] = time_events(lambda: REAL["decompress_niels"](b_rows),
                                     5)
-scan_shapes = []
-for (label, (table, rows), out), (_, (bk, W, c), ws) in zip(
+scan_shapes, segment_sweep, bounds = [], [], {}
+for (label, (table, rows, seg), out), (_, (bk, W, c), ws) in zip(
         captured["bucket_scan"], captured["aggregate"]):
     T9, K9 = rows.shape
-    scan_shapes.append((T9, K9, W, c, int((rows != 0).sum()),
-                        table.shape[0]))
+    items = int(seg.clamp(max=T9).sum())
+    scan_shapes.append((T9, K9, W, c, items, table.shape[0]))
     table22 = cm.limbs22_from_bytes(cm.to_bytes10(table))
     plain, ms = timed(lambda: cm.bucket_scan_plain(table22, rows))
     times[f"plain_k5_{T9}x{K9}_ms"] = ms
+    plain_bytes = cm.to_bytes22(plain)
     msm_cmp["bucket_scan"].append(
-        (label,) + byte_cmp(cm.to_bytes10(out), cm.to_bytes22(plain)))
-    times[f"k5_{T9}x{K9}_ms"] = time_events(
-        lambda: REAL["bucket_scan"](table, rows), 3)
+        (label,) + point_cmp(cm.to_bytes10(out), plain_bytes))
+    key = f"k5_{T9}x{K9}_ms"
+    times[key] = time_events(lambda: REAL["bucket_scan"](table, rows, seg), 3)
+    bounds[key] = cm.bound_ms_bucket_scan(items, table.shape[0], T9, K9)
+    # the launch alone (the wrapper's time above includes its row-range
+    # check: an aminmax over the (T, K) rows and a host sync), at the
+    # wrapper's segment count and at half and twice it
+    S0 = cm.scan_segments(K9)
+    for S in (S0, S0 // 2, 2 * S0):
+        launch, out9 = k5_launch(table, rows, seg, S)
+        ms = time_events(launch, 5)
+        if S == S0:
+            times[f"k5_{T9}x{K9}_launch_only_ms"] = ms
+            check(torch.equal(out9, out), "K5 launched alone differs from "
+                  "the wrapper's launch")
+        else:
+            segment_sweep.append(dict(
+                shape=key, segments=S, default_segments=S0, ms=ms,
+                mismatches=point_cmp(cm.to_bytes10(out9), plain_bytes)[1]))
     bk22 = cm.limbs22_from_bytes(cm.to_bytes10(bk))
     plain, ms = timed(lambda: cm.aggregate_plain(bk22, W, c))
     times[f"plain_a1_{W}x{c}_ms"] = ms
-    msm_cmp["aggregate"].append((label,) + byte_cmp(ws, plain))
-    times[f"a1_{W}x{c}_ms"] = time_events(
-        lambda: REAL["aggregate"](bk, W, c), 3)
+    msm_cmp["aggregate"].append((label,) + point_cmp(ws, plain))
+    key = f"a1_{W}x{c}_ms"
+    times[key] = time_events(lambda: REAL["aggregate"](bk, W, c), 3)
+    bounds[key] = cm.bound_ms_aggregate(W, c)
+for key, bound in bounds.items():
+    log(phase=10, card=CARD, kernel_time=key, ms=times[key], bound_ms=bound,
+        plain_ms=times["plain_" + key], earlier_ms=EARLIER_MS[key],
+        launch_only_ms=times.get(key.replace("_ms", "_launch_only_ms")))
 log(phase=10, card=CARD, comparisons=msm_cmp, shapes=scan_shapes,
+    segment_sweep=segment_sweep,
     times={k: v for k, v in times.items() if k.split("_")[0] in (
         "k4", "k5", "a1", "plain")})
 check([sh[:4] for sh in scan_shapes]
       == [(1304, 8192, 32, 8), (712, 1024, 64, 4)], f"shapes {scan_shapes}")
 check(all(c[2] == 0 for v in msm_cmp.values() for c in v),
       f"a kernel differs from its plain version: {msm_cmp}")
+check(all(r["mismatches"] == 0 for r in segment_sweep),
+      f"K5 at another segment count differs: {segment_sweep}")
 
 # -- phase 11: K3 on the phase-6 batch ----------------------------------------
 
@@ -851,30 +916,33 @@ kernels = [
 ]
 msm_src = "tendermint_tpu_torch/csrc/msm.cu"
 T5, K5, W5, c5, items5, rows5 = scan_shapes[0]
-for name, key, replaces, lanes, ms, plain_ms, bound in (
+# K4 is compared as bytes; K5 and A1 as points (max_abs_err: 1.0 where any
+# point differs)
+for name, key, replaces, compared, lanes, ms, plain_ms, bound in (
         ("K4 decompress_niels", "decompress_niels",
-         "tendermint_tpu/ops/pallas_msm.py:106", 262_144,
+         "tendermint_tpu/ops/pallas_msm.py:106", "bytes", 262_144,
          times["k4_262144_ms"], times["plain_k4_262144_ms"],
          cm.bound_ms_decompress(262_144)),
         ("K5 bucket_scan", "bucket_scan",
-         "tendermint_tpu/ops/pallas_msm.py:188", K5,
+         "tendermint_tpu/ops/pallas_msm.py:188", "points", K5,
          times[f"k5_{T5}x{K5}_ms"], times[f"plain_k5_{T5}x{K5}_ms"],
          cm.bound_ms_bucket_scan(items5, rows5, T5, K5)),
         ("A1 aggregate (XLA _aggregate, not a Pallas kernel)", "aggregate",
-         "tendermint_tpu/ops/msm.py:176", W5,
+         "tendermint_tpu/ops/msm.py:176", "points", W5,
          times[f"a1_{W5}x{c5}_ms"], times[f"plain_a1_{W5}x{c5}_ms"],
          cm.bound_ms_aggregate(W5, c5))):
     cmps = msm_cmp[key]
     kernels.append(
         {"name": name, "route": "cuda", "source": msm_src,
          "replaces": replaces, "launches": launches_main[key],
-         "lanes_compared": [c[1] for c in cmps],
+         "compared": compared, "lanes_compared": [c[1] for c in cmps],
          "mismatches": sum(c[2] for c in cmps),
          "max_abs_err": max(c[3] for c in cmps),
          "lanes": lanes, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
          "bound_by": "operations", "library_ms": None})
 REPORT.update(times=times, kernels=kernels, ptxas=ptxas,
-              verify_build=verify_build,
+              verify_build=verify_build, msm_build=msm_build,
+              segment_sweep=segment_sweep,
               records={"150": rec150, "100k": rec5b, "pipelined": rec6,
                        "rlc_100k": rec8, "rlc_16384": rec9,
                        "staged_65536": rec11},

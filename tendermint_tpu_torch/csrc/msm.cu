@@ -9,60 +9,66 @@
 //       with Go fe.SetBytes semantics (non-canonical y accepted and
 //       reduced; a non-square, and x = 0 with the sign bit, rejected).
 //   K5  pallas_msm.py:188 _bucket_scan_call (body _kernel_bucket_scan :159)
-//       -> tm_bucket_scan: the layered bucket fill.  Bucket lane k folds the
-//       table rows layer_rows[0..T-1, k] into an extended accumulator by
-//       ge_madd_niels -> (K, 4, 10) int32 bucket sums.
+//       -> tm_bucket_scan: the layered bucket fill.  Bucket lane k sums
+//       the table rows layer_rows[0 .. seg_len[k] - 1, k] -> (K, 4, 10)
+//       int32 bucket sums.  The rows past seg_len[k] are the identity
+//       (row 0) in the layered layout and are not read.
 //   A1  not a TPU kernel: the XLA window aggregation msm.py:176 _aggregate
-//       -> tm_aggregate: per window, sum_b b * S_b by a running suffix sum
-//       from the top digit down -> (4, W, 32) canonical encodings of X, Y,
-//       Z, T.
-// The formulas are those of ops/curve.py (madd_niels, to_cached +
-// add_cached), so every coordinate equals the JAX package's mod p, not
-// merely the same projective point.
+//       -> tm_aggregate: per window, sum_b b * S_b -> (4, W, 32) canonical
+//       encodings of X, Y, Z, T.
+// K4 uses the formulas of ops/curve.py in the same order, so its rows
+// equal the JAX package's mod p coordinate by coordinate.  K5 and A1 add
+// the same points in another order (below), so their outputs are the
+// same POINTS as the JAX package's, in other projective coordinates;
+// ops/msm.py's host combine reads only the point.
 //
 // What bounds them on the H100: integer multiply-adds, never bytes.
 //   K4: 255 squares + 21 multiplies per point (the square root chain),
 //       16,125 products 32x32 -> 64; 153 bytes in and out per point.
-//   K5: 7 multiplies (700 products) per madd; the function needs one madd
-//       per bucket member, but the layered scan runs K x T of them (the
-//       idle steps add the identity row 0).  Bytes: the 120-byte table
-//       rows and the 4-byte row indices.
-//   A1: 2 x (2^c - 1) x (1 + 8) multiplies per window: tiny, but each
-//       window is one dependent chain of ~4,600 multiplies.
+//   K5: 7 multiplies (700 products) per madd, one madd per bucket member
+//       (at a 131,072-lane batch, c = 8: ~4.8 M members, 0.40 ms).  Bytes:
+//       the 120-byte table rows (31 MB, held in the 50 MB L2) and the
+//       4-byte row indices.
+//   A1: (2^c - 1) x 2 x 9 multiplies per window, a few microseconds of
+//       the card's work.  What sets its time is the dependent depth.
 //
-// What the design does about it: one thread per point (K4), per bucket
-// lane (K5) and per window (A1), in the ten 25.5-bit limbs of fe25519.cuh,
-// with the carry argument there extended to the madd chain (every step's
-// output is carried, so the operand bounds hold for any T).  The TPU's
-// sequential t grid axis becomes a loop inside the thread, and the
-// accumulator stays in registers for the whole loop.  K5 gathers each
-// layer's row from the table itself: the (T, NLIMB, K) layers of the JAX
-// layout (2.82 GB at a 131,072-lane batch) are never materialised, and
-// the table (262,146 rows x 120 bytes = 31 MB) stays in the 50 MB L2.
-// K5 runs in blocks of 32 threads so that its 8,192 (c = 8) or 1,024
-// (c = 4) lanes spread over the SMs.  K5 and A1 are bound by one thread's
-// latency through its chain, not by the card's throughput; splitting a
-// chain across threads is later work.
+// What the design does about it.
+//   K4: one thread per point.
+//   K5: a direct port of the layered scan runs one thread per bucket lane
+//       through all T layers (8,192 threads at c = 8, ~2 warps an SM,
+//       every thread T = 1,304 dependent madds of which about half add
+//       the identity).  Here each lane's members are cut into S segments
+//       of G consecutive members, one thread each, and a segment stops at
+//       the lane's own length (seg_len), so no identity row is added.  G =
+//       ceil(m / S), m the longest lane of the warp: the lanes of a warp
+//       step through the same layers, so a warp reads max(1, S / 8) runs
+//       of consecutive layer_rows words at a time, and its time is set
+//       by its longest lane (lanes of one window have similar lengths).
+//       A block of 256 threads holds 256 / S lanes x S segments, lane
+//       fastest.  The S partial sums of a lane are then added by a tree
+//       in shared memory (log2 S rounds).  The caller picks S so that K x
+//       S is about 65,536 threads, one wave at 2 blocks (16 warps) an SM:
+//       S = 8 at c = 8 (~100 madds a thread in the low windows, which also
+//       hold the R items) and S = 64 at c = 4 (~8 madds and 6 rounds).
+//   A1: one thread per window would run 2 (2^c - 1) dependent additions
+//       (32 threads on the card at c = 8).  Here one block per window and
+//       one thread per digit: a Hillis-Steele scan in shared memory gives
+//       the suffix sums U_b = sum_{b' >= b} S_b' in c rounds, and a tree
+//       adds U_1 .. U_{2^c - 1} in c more, since sum_b b S_b =
+//       sum_{b >= 1} U_b.  Depth 2c = 16 additions at c = 8.
+// Every point stays carried through both (fe25519.cuh, "The MSM chains"):
+// each step is a madd or a to_cached + add_cached of carried points.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "fe25519.cuh"
 #include "launch.cuh"
+#include "msm_steps.cuh"
 
 #define THREADS 128
-#define SCAN_THREADS 32
-#define NIELS_WORDS 30
-#define EXT_WORDS 40
-
-FE_DEV void load_fe(fe h, const int32_t *__restrict__ src) {
-#pragma unroll
-  for (int i = 0; i < 10; i++) h[i] = src[i];
-}
-
-FE_DEV void store_fe(int32_t *__restrict__ dst, const fe h) {
-#pragma unroll
-  for (int i = 0; i < 10; i++) dst[i] = h[i];
-}
+#define SCAN_THREADS 256
+#define AGG_MAX_C 8
+#define SLOT_BYTES (EXT_WORDS * 4)
 
 // the canonical 32-byte encoding of f
 FE_DEV void store_bytes(uint8_t *__restrict__ dst, const fe f) {
@@ -95,66 +101,77 @@ k_decompress_niels(const uint8_t *__restrict__ b_rows, int64_t m,
   ok[i] = good;
 }
 
-__global__ void __launch_bounds__(SCAN_THREADS)
+// thread (lane kk, segment s) = threadIdx.x = s * (256 / S) + kk
+__global__ void __launch_bounds__(SCAN_THREADS, 2)
 k_bucket_scan(const int32_t *__restrict__ table,
-              const int32_t *__restrict__ layer_rows, int T, int64_t K,
+              const int32_t *__restrict__ layer_rows,
+              const int32_t *__restrict__ seg_len, int T, int64_t K, int S,
               int32_t *__restrict__ buckets) {
-  int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= K) return;
+  extern __shared__ int32_t sm[];   // SCAN_THREADS slots, limb-major
+  const int lanes = SCAN_THREADS / S;
+  const int s = threadIdx.x / lanes;
+  const int64_t k = (int64_t)blockIdx.x * lanes + threadIdx.x % lanes;
+  const int len = k < K ? k5_clamp(MSM_LDG(seg_len + k), T) : 0;
+  // the S threads of a lane find the same G: every warp that holds one
+  // of this warp's lanes holds all of them (all the block's lanes when
+  // there are at most 32, else 32 consecutive lanes of one segment)
+  const int G = (__reduce_max_sync(0xffffffffu, len) + S - 1) / S;
+  int lo, hi;
+  k5_bounds(len, s, G, lo, hi);
   ge_ext acc;
-  fe_0(acc.X);
-  fe_1(acc.Y);
-  fe_1(acc.Z);
-  fe_0(acc.T);
-  int32_t row = T > 0 ? __ldg(layer_rows + k) : 0;
+  k5_segment(acc, table, layer_rows, K, k, lo, hi);
+  slot_store(sm, SCAN_THREADS, threadIdx.x, acc);
+  __syncthreads();
+  // round h: segment s < h adds segment s + h's sum (slots >= h * lanes
+  // are only read, slots below only written)
 #pragma unroll 1
-  for (int t = 0; t < T; t++) {
-    const int32_t *src = table + (int64_t)row * NIELS_WORDS;
-    ge_niels q;
-    load_fe(q.YpX, src);
-    load_fe(q.YmX, src + 10);
-    load_fe(q.T2d, src + 20);
-    if (t + 1 < T) row = __ldg(layer_rows + (int64_t)(t + 1) * K + k);
-    ge_madd_niels(acc, acc, q);
+  for (int h = S >> 1; h > 0; h >>= 1) {
+    if (s < h) {
+      slot_add(acc, sm, SCAN_THREADS, threadIdx.x + h * lanes);
+      slot_store(sm, SCAN_THREADS, threadIdx.x, acc);
+    }
+    __syncthreads();
   }
-  int32_t *dst = buckets + k * EXT_WORDS;
-  store_fe(dst, acc.X);
-  store_fe(dst + 10, acc.Y);
-  store_fe(dst + 20, acc.Z);
-  store_fe(dst + 30, acc.T);
+  if (s == 0 && k < K) store_ext(buckets + k * EXT_WORDS, acc);
 }
 
-__global__ void __launch_bounds__(SCAN_THREADS)
+// one block of 2^c threads per window; thread b holds digit b
+__global__ void __launch_bounds__(1 << AGG_MAX_C)
 k_aggregate(const int32_t *__restrict__ buckets, int W, int c,
             uint8_t *__restrict__ out) {
-  int w = blockIdx.x * blockDim.x + threadIdx.x;
-  if (w >= W) return;
-  ge_ext suffix, total;
-  fe_0(suffix.X);
-  fe_1(suffix.Y);
-  fe_1(suffix.Z);
-  fe_0(suffix.T);
-  total = suffix;
-  int nb = 1 << c;
-  // digit 0 has weight 0 and is skipped
+  extern __shared__ int32_t sm[];   // 2^c slots, limb-major
+  const int nb = 1 << c, b = threadIdx.x;
+  const int64_t w = blockIdx.x;
+  ge_ext acc;
+  load_ext(acc, buckets + (w * nb + b) * EXT_WORDS);
+  slot_store(sm, nb, b, acc);
+  __syncthreads();
+  // suffix sums: after the round of distance d, thread b holds
+  // S_b + ... + S_{b + 2d - 1}
 #pragma unroll 1
-  for (int b = nb - 1; b >= 1; b--) {
-    const int32_t *src = buckets + ((int64_t)w * nb + b) * EXT_WORDS;
-    ge_ext s;
-    load_fe(s.X, src);
-    load_fe(s.Y, src + 10);
-    load_fe(s.Z, src + 20);
-    load_fe(s.T, src + 30);
-    ge_cached q;
-    ge_to_cached(q, s);
-    ge_add_cached(suffix, suffix, q);
-    ge_to_cached(q, suffix);
-    ge_add_cached(total, total, q);
+  for (int d = 1; d < nb; d <<= 1) {
+    if (b + d < nb) slot_add(acc, sm, nb, b + d);
+    __syncthreads();
+    slot_store(sm, nb, b, acc);
+    __syncthreads();
   }
-  store_bytes(out + (0 * (int64_t)W + w) * 32, total.X);
-  store_bytes(out + (1 * (int64_t)W + w) * 32, total.Y);
-  store_bytes(out + (2 * (int64_t)W + w) * 32, total.Z);
-  store_bytes(out + (3 * (int64_t)W + w) * 32, total.T);
+  // sum_{b >= 1} U_b by a tree: U_0, the only sum that holds S_0 (digit
+  // 0, weight 0), is left out
+  if (b == 0) ge_identity(acc);
+#pragma unroll 1
+  for (int h = nb >> 1; h > 0; h >>= 1) {
+    if (b < h) {
+      slot_add(acc, sm, nb, b + h);
+      slot_store(sm, nb, b, acc);
+    }
+    __syncthreads();
+  }
+  if (b == 0) {
+    store_bytes(out + (0 * (int64_t)W + w) * 32, acc.X);
+    store_bytes(out + (1 * (int64_t)W + w) * 32, acc.Y);
+    store_bytes(out + (2 * (int64_t)W + w) * 32, acc.Z);
+    store_bytes(out + (3 * (int64_t)W + w) * 32, acc.T);
+  }
 }
 
 extern "C" {
@@ -170,27 +187,44 @@ int tm_decompress_niels(const void *b_rows, void *niels, void *ok,
   return (int)cudaGetLastError();
 }
 
-int tm_bucket_scan(const void *table, const void *layer_rows, void *buckets,
-                   int T, long long K, int device, void *stream) {
+// S: segments a bucket lane, a power of two dividing SCAN_THREADS
+int tm_bucket_scan(const void *table, const void *layer_rows,
+                   const void *seg_len, void *buckets, int T, long long K,
+                   int S, int device, void *stream) {
+  if (S < 1 || S > SCAN_THREADS || (S & (S - 1)))
+    return (int)cudaErrorInvalidValue;
   DeviceScope scope(device);
   if (scope.err != cudaSuccess) return (int)scope.err;
   if (K > 0)
-    k_bucket_scan<<<blocks_for(K, SCAN_THREADS), SCAN_THREADS, 0,
-                    (cudaStream_t)stream>>>(
-        (const int32_t *)table, (const int32_t *)layer_rows, T, K,
-        (int32_t *)buckets);
+    k_bucket_scan<<<blocks_for(K, SCAN_THREADS / S), SCAN_THREADS,
+                    SCAN_THREADS * SLOT_BYTES, (cudaStream_t)stream>>>(
+        (const int32_t *)table, (const int32_t *)layer_rows,
+        (const int32_t *)seg_len, T, K, S, (int32_t *)buckets);
   return (int)cudaGetLastError();
 }
 
 int tm_aggregate(const void *buckets, void *out, int W, int c, int device,
                  void *stream) {
+  if (c < 1 || c > AGG_MAX_C) return (int)cudaErrorInvalidValue;
   DeviceScope scope(device);
   if (scope.err != cudaSuccess) return (int)scope.err;
   if (W > 0)
-    k_aggregate<<<blocks_for(W, SCAN_THREADS), SCAN_THREADS, 0,
-                  (cudaStream_t)stream>>>(
+    k_aggregate<<<W, 1 << c, (1 << c) * SLOT_BYTES, (cudaStream_t)stream>>>(
         (const int32_t *)buckets, W, c, (uint8_t *)out);
   return (int)cudaGetLastError();
+}
+
+// blocks of how many threads fit on one SM (0 K4, 1 K5, 2 A1 at c = 8),
+// as the occupancy calculator of the runtime says
+int tm_msm_occupancy(int which, int *blocks, int *threads) {
+  const void *fn = which == 0   ? (const void *)k_decompress_niels
+                   : which == 1 ? (const void *)k_bucket_scan
+                                : (const void *)k_aggregate;
+  *threads = which == 0 ? THREADS : which == 1 ? SCAN_THREADS
+                                               : 1 << AGG_MAX_C;
+  size_t smem = which == 0 ? 0 : (size_t)*threads * SLOT_BYTES;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn,
+                                                            *threads, smem);
 }
 
 const char *tm_error_string(int code) {

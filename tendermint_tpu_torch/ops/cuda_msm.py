@@ -2,7 +2,8 @@
 (ops/msm.py) on an NVIDIA Hopper GPU.
 
   K4  pallas_msm.decompress_niels_pallas -> decompress_niels(b_rows)
-  K5  pallas_msm._bucket_scan_call       -> bucket_scan(table, layer_rows)
+  K5  pallas_msm._bucket_scan_call       -> bucket_scan(table, layer_rows,
+                                                        seg_len)
   A1  msm._aggregate (XLA in the JAX package, not a Pallas kernel)
                                          -> aggregate(buckets, W, c)
 
@@ -16,10 +17,15 @@ niels rows (m, 3, 10), bucket sums (K, 4, 10).  The plain versions keep
 the JAX package's 22 x 12-bit limbs (ops/field.py) with the coordinate
 axis first: (3, NLIMB, m), (4, NLIMB, K).  `to_bytes10` and `to_bytes22`
 freeze and encode either layout on its device into (coords, N, 32)
-canonical bytes, so every comparison between a kernel and its plain
-version is a byte comparison; `limbs22_from_bytes` turns such bytes back
-into the plain layout, so a plain version can run on a kernel's output.
-A1 returns bytes in both cases.
+canonical bytes; `limbs22_from_bytes` turns such bytes back into the
+plain layout, so a plain version can run on a kernel's output.  A1
+returns bytes in both cases.
+
+K4 computes what its plain version computes in the same order, so the
+two are compared as bytes.  K5 and A1 add the same points in another
+order than their plain versions (the JAX package's), so they give the
+same points in other projective coordinates: `points_mismatch` compares
+them as points.
 """
 from __future__ import annotations
 
@@ -35,7 +41,7 @@ from . import field as F
 from .cuda_ed25519 import H100_IMAD_PER_S, MEM_BYTES_PER_S, fe10_limbs
 
 SOURCES = tuple(os.path.join(_nvcc.CSRC_DIR, f) for f in (
-    "fe25519.cuh", "launch.cuh", "msm.cu"))
+    "fe25519.cuh", "launch.cuh", "msm_steps.cuh", "msm.cu"))
 
 # ---------------------------------------------------------------------------
 # work per call (csrc/msm.cu header note), for the bounds: a field multiply
@@ -114,15 +120,33 @@ def kernels() -> ctypes.CDLL:
             lib = ctypes.CDLL(build())
             vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
             lib.tm_decompress_niels.argtypes = [vp, vp, vp, ll, i, vp]
-            lib.tm_bucket_scan.argtypes = [vp, vp, vp, i, ll, i, vp]
+            lib.tm_bucket_scan.argtypes = [vp, vp, vp, vp, i, ll, i, i, vp]
             lib.tm_aggregate.argtypes = [vp, vp, i, i, i, vp]
             for fn in (lib.tm_decompress_niels, lib.tm_bucket_scan,
                        lib.tm_aggregate):
                 fn.restype = ctypes.c_int
+            ip = ctypes.POINTER(ctypes.c_int)
+            lib.tm_msm_occupancy.argtypes = [i, ip, ip]
+            lib.tm_msm_occupancy.restype = ctypes.c_int
             lib.tm_error_string.argtypes = [ctypes.c_int]
             lib.tm_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
+
+
+def occupancy() -> dict:
+    """Blocks of how many threads fit on one SM, per kernel (the CUDA
+    runtime's occupancy calculator; A1 at c = 8): {kernel: (blocks,
+    threads)}."""
+    lib = kernels()
+    out = {}
+    for which, name in enumerate(("decompress_niels", "bucket_scan",
+                                  "aggregate")):
+        blocks, threads = ctypes.c_int(), ctypes.c_int()
+        _nvcc.check_rc(lib, lib.tm_msm_occupancy(
+            which, ctypes.byref(blocks), ctypes.byref(threads)), name)
+        out[name] = (blocks.value, threads.value)
+    return out
 
 
 def _stream(dev: torch.device) -> int:
@@ -237,27 +261,47 @@ def decompress_niels(b_rows: torch.Tensor):
     return niels, ok.view(torch.bool)
 
 
-def bucket_scan(table: torch.Tensor, layer_rows: torch.Tensor):
-    """K5: fold, for every bucket lane k, the table rows layer_rows[:, k]
-    (T, K) int32 into an extended accumulator starting at the identity.
+def scan_segments(K: int) -> int:
+    """K5's segments a bucket lane (csrc/msm.cu): the power of two that
+    makes K x S about 65,536 threads (one wave of 256-thread blocks at two
+    an SM), at most 64, so that a block holds at least four lanes."""
+    s = max(1, 65536 // max(K, 1))
+    return min(64, 1 << (s.bit_length() - 1))
+
+
+def bucket_scan(table: torch.Tensor, layer_rows: torch.Tensor,
+                seg_len: "torch.Tensor | None" = None):
+    """K5: for every bucket lane k, the sum of the table rows
+    layer_rows[:, k] (T, K) int32, starting from the identity.
+    seg_len (K,) int32: lane k's members are its first seg_len[k] rows;
+    the kernel reads no row past them (the layered layout fills them with
+    row 0, the identity), the plain version adds all T.  None: T for
+    every lane.  The kernel cuts a lane into `scan_segments(K)` segments.
     Kernel layout: table (R, 3, 10) int32 -> (K, 4, 10) int32; plain
     layout: (3, NLIMB, R) -> (4, NLIMB, K)."""
     _check(layer_rows, (torch.int32,), (None, None), "layer_rows")
+    T, K = layer_rows.shape
+    if seg_len is not None:
+        _check(seg_len, (torch.int32,), (K,), "seg_len")
+        if seg_len.device != layer_rows.device:
+            raise ValueError("seg_len and layer_rows must be on one device")
     if layer_rows.device.type == "cpu":
         _check(table, (torch.int64,), (3, F.NLIMB, None), "table")
         return bucket_scan_plain(table, layer_rows)
     _check(table, (torch.int32,), (None, 3, 10), "table")
     if table.device != layer_rows.device:
         raise ValueError("table and layer_rows must be on one device")
-    T, K = layer_rows.shape
     lo, hi = torch.aminmax(layer_rows)
     if int(lo) < 0 or int(hi) >= table.shape[0]:
         raise ValueError("layer_rows index outside the table")
     dev = table.device
+    if seg_len is None:
+        seg_len = torch.full((K,), T, dtype=torch.int32, device=dev)
     out = torch.empty((K, 4, 10), dtype=torch.int32, device=dev)
     lib = kernels()
     rc = lib.tm_bucket_scan(table.data_ptr(), layer_rows.data_ptr(),
-                            out.data_ptr(), T, K, dev.index, _stream(dev))
+                            seg_len.data_ptr(), out.data_ptr(), T, K,
+                            scan_segments(K), dev.index, _stream(dev))
     _nvcc.check_rc(lib, rc, "bucket_scan")
     _count("bucket_scan")
     return out
@@ -266,9 +310,12 @@ def bucket_scan(table: torch.Tensor, layer_rows: torch.Tensor):
 def aggregate(buckets: torch.Tensor, W: int, c: int) -> torch.Tensor:
     """A1: bucket sums of W windows x 2^c digits -> (4, W, 32) uint8
     canonical encodings of X, Y, Z, T of sum_b b * S_{w,b}.  Kernel
-    layout (W * 2^c, 4, 10) int32; plain layout (4, NLIMB, W * 2^c)."""
+    layout (W * 2^c, 4, 10) int32, 1 <= c <= 8; plain layout
+    (4, NLIMB, W * 2^c)."""
     if buckets.device.type == "cpu":
         return aggregate_plain(buckets, W, c)
+    if not 1 <= c <= 8:
+        raise ValueError(f"aggregate: c must be in 1..8, got {c}")
     _check(buckets, (torch.int32,), (W << c, 4, 10), "buckets")
     dev = buckets.device
     out = torch.empty((4, W, 32), dtype=torch.uint8, device=dev)
@@ -278,6 +325,26 @@ def aggregate(buckets: torch.Tensor, W: int, c: int) -> torch.Tensor:
     _nvcc.check_rc(lib, rc, "aggregate")
     _count("aggregate")
     return out
+
+
+def points_mismatch(a: torch.Tensor, b: torch.Tensor) -> int:
+    """a, b: (4, N, 32) uint8 canonical encodings of X, Y, Z, T on one
+    device -> the number of positions i where a_i and b_i are not the
+    same point (X1 Z2 != X2 Z1 or Y1 Z2 != Y2 Z1 mod p) or a_i is not a
+    valid extended point (Z = 0, T Z != X Y, or -X^2 + Y^2 != Z^2 + d T^2).
+    b is the reference; its validity is not checked."""
+    a, b = a.contiguous(), b.contiguous()
+    _check(a, (torch.uint8,), (4, None, 32), "a")
+    _check(b, (torch.uint8,), tuple(a.shape), "b")
+    x1, y1, z1, t1 = (F.bytes_to_limbs(v.t())[0] for v in a)
+    x2, y2, z2, t2 = (F.bytes_to_limbs(v.t())[0] for v in b)
+    xz, zx, yz, zy, tz, xy, xx, yy, zz, tt = F.mul_many([
+        (x1, z2), (x2, z1), (y1, z2), (y2, z1), (t1, z1), (x1, y1),
+        (x1, x1), (y1, y1), (z1, z1), (t1, t1)])
+    dtt = F.mul(tt, F.const(C.D_INT, tt))
+    bad = (~F.eq(xz, zx) | ~F.eq(yz, zy) | F.is_zero(z1) | ~F.eq(tz, xy)
+           | ~F.eq(yy, xx + zz + dtt))
+    return int(bad.sum())
 
 
 # ---------------------------------------------------------------------------

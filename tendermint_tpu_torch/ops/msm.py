@@ -25,8 +25,10 @@ The pipeline, as the JAX package's:
   K4        decompress -R_i and -A_i into niels rows (ops/cuda_msm.py)
   device    c-bit window digits, ONE stable sort of every (window, digit)
             item key with its table row, the (T, K) matrix of layer rows
-  K5        the layered bucket fill: bucket lane k adds its t-th member at
-            step t, for t < T
+  K5        the layered bucket fill: bucket lane k sums its members, the
+            rows layer_rows[t, k] for t < seg_len[k] (the kernel cuts
+            them into segments across threads; the plain version adds
+            the identity row at every step past seg_len[k])
   A1        per window sum_b b * S_b, frozen to canonical bytes
   host      Horner over the W_A window sums, the cofactor, the identity
             test (Python bignum)
@@ -213,7 +215,7 @@ def _msm_pipeline(r_bytes, pub_bytes, zk, z, zs, c: int, marks=None):
     layer_rows = torch.where(valid, srows[pos], 0).to(torch.int32)  # (T, K)
     marks.mark("sort")
 
-    buckets = cm.bucket_scan(table, layer_rows)
+    buckets = cm.bucket_scan(table, layer_rows, seg_len.to(torch.int32))
     marks.mark("k5")
     ws = cm.aggregate(buckets, W_A, c)
     marks.mark("a1")

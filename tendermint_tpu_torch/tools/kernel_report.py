@@ -1,7 +1,10 @@
-"""SASS report of the ed25519 verify kernels (K1, K2, K3) as built for
-the card: opcode counts per kernel (cuobjdump -sass of the built
-library), and the instructions of one field multiply and one square (a
-probe kernel built from the same csrc/fe25519.cuh).
+"""SASS report of the port's kernels as built for the card: opcode counts
+per kernel of the verify kernels (K1, K2, K3) and of the MSM kernels (K4,
+K5, A1), with the instructions of each loop body (each backward branch's
+span, longest first: K5's are a tree round and a madd step), from
+cuobjdump -sass of the built libraries; and the instructions of one field
+multiply and one square (a probe kernel built from the same
+csrc/fe25519.cuh).
 
     python3 tendermint_tpu_torch/tools/kernel_report.py [--root DIR]
 
@@ -69,17 +72,28 @@ def _short(mangled: str) -> str:
     return mangled[m.end():m.end() + int(m.group(1))] if m else mangled
 
 
-def sass_counts(path: str) -> dict:
-    """cuobjdump -sass of a library or cubin -> {kernel: Counter(opcode)}."""
+_BACK_BRA = re.compile(r"/\*([0-9a-f]{4,})\*/.*\bBRA\s+(?:`\()?0x([0-9a-f]+)")
+
+
+def sass_counts(path: str) -> tuple:
+    """cuobjdump -sass of a library or cubin -> ({kernel: Counter(opcode)},
+    {kernel: instructions of each backward-branch body, longest first})."""
     out: dict = {}
+    loops: dict = {}
     cur = None
     for ln in _run(["cuobjdump", "-sass", path]).splitlines():
         m = re.search(r"Function : (\w+)", ln)
         if m:
-            cur = out.setdefault(_short(m.group(1)), collections.Counter())
+            cur = _short(m.group(1))
+            out.setdefault(cur, collections.Counter())
+            loops.setdefault(cur, [])
         elif cur is not None and (m := _SASS_LINE.search(ln)):
-            cur[m.group(1)] += 1
-    return out
+            out[cur][m.group(1)] += 1
+            b = _BACK_BRA.search(ln)
+            if b and int(b.group(2), 16) < int(b.group(1), 16):
+                span = (int(b.group(1), 16) - int(b.group(2), 16)) // 16 + 1
+                loops[cur].append(span)
+    return out, {k: sorted(v, reverse=True) for k, v in loops.items()}
 
 
 def _summary(c: collections.Counter) -> dict:
@@ -97,7 +111,7 @@ def probe_counts(csrc: str, build_dir: str) -> dict:
         f.write(_PROBE)
     _run(["nvcc", "-cubin", "-gencode", "arch=compute_90a,code=sm_90a",
           "-O3", "-std=c++17", "-I", csrc, "-o", cubin, src])
-    c = sass_counts(cubin)
+    c, _ = sass_counts(cubin)
     out = {}
     for name in ("mul", "sq"):
         d = collections.Counter(c[f"k_probe_{name}"])
@@ -112,16 +126,23 @@ def main() -> None:
     root = os.path.abspath(ap.parse_args().root)
     sys.path.insert(0, root)
     from tendermint_tpu_torch.ops import cuda_ed25519 as ck
+    from tendermint_tpu_torch.ops import cuda_msm as cm
     if not ck.__file__.startswith(root + os.sep):
         sys.exit(f"kernel_report: imported {ck.__file__}, not from {root}")
-    so = ck.build()
-    sass = sass_counts(so)
-    rep = {"root": root, "kernels": {
-        name: _summary(sass.get(name, collections.Counter()))
-        for name in ("k_verify_packed", "k_verify_packed_split",
-                     "k_verify_staged")},
-        "probe": probe_counts(os.path.join(root, "tendermint_tpu_torch",
-                                           "csrc"), os.path.dirname(so))}
+    kernels = {}
+    for mod, names in ((ck, ("k_verify_packed", "k_verify_packed_split",
+                             "k_verify_staged")),
+                       (cm, ("k_decompress_niels", "k_bucket_scan",
+                             "k_aggregate"))):
+        so = mod.build()
+        sass, loops = sass_counts(so)
+        for name in names:
+            kernels[name] = dict(
+                _summary(sass.get(name, collections.Counter())),
+                loop_instructions=loops.get(name, []))
+    rep = {"root": root, "kernels": kernels,
+           "probe": probe_counts(os.path.join(root, "tendermint_tpu_torch",
+                                              "csrc"), os.path.dirname(so))}
     print(json.dumps(rep), flush=True)
 
 

@@ -35,11 +35,15 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      non-canonical R makes the batch rlc-ineligible (no K4 launch)
   9  RLC through BatchVerifier at 16,384 (c = 8) and 4,096 (c = 4) triples
  10  K4, K5 and A1 against their plain versions on the inputs they got in
-     phases 8-9 (262,144 points; (T, K) = (1,304, 8,192) and (712, 1,024)):
-     K4 as canonical bytes, K5 and A1 as points (cuda_msm.points_mismatch:
-     the same point, and a valid extended point); their times beside
-     their bounds, their plain versions' and the earlier kernels'; K5's
-     launch alone, also at half and twice its segment count
+     phases 8-9: K4 as canonical bytes and ok flags on all four of its
+     launches (262,144 points twice, 32,768, 8,192) and on adversarial
+     encodings (each edge y with both sign bits, the R edge vectors,
+     random bytes; at a ragged size, padded to whole blocks, tiled to
+     100,003); K5 and A1 ((T, K) = (1,304, 8,192) and (712, 1,024)) as
+     points (cuda_msm.points_mismatch: the same point, and a valid
+     extended point); K4's times at its three sizes and K5's and A1's
+     beside their bounds, their plain versions' and the earlier kernels';
+     K5's launch alone, also at half and twice its segment count
  11  K3 (verify_batch_staged) on the phase-6 batch's first 65,536 lanes:
      K3 = K1 = the expected bitmap, K3 = its plain version; its time
  12  the kernels line; then the last line {"ok": true, "device": ...}
@@ -675,7 +679,9 @@ orig8 = commit100k.signatures[bad8].signature
 s8 = (int.from_bytes(orig8[32:], "little") + 1) % L
 commit100k.signatures[bad8].signature = orig8[:32] + s8.to_bytes(32, "little")
 err8b, c8b = main_path(lambda: commit_error_index(vset100k, bid100k,
-                                                  commit100k))
+                                                  commit100k),
+                       capture=("decompress_niels",
+                                "100k RLC, one bad signature"))
 route8b = dict(msm.last_route())
 check(route8b["outcome"] == "rejected", str(route8b))
 check(c8b["verify_packed_split"] == 7 and c8b["decompress_niels"] == 1,
@@ -715,7 +721,7 @@ for n9 in (16384, 4096):
     for i in range(n9):
         bv9[n9].add(pk9[i], msgs9[i], sigs9[i])
     cap = [(k, f"{n9} ad-hoc RLC") for k, _ in RLC_CAP] if n9 == 4096 \
-        else ()
+        else ("decompress_niels", f"{n9} ad-hoc RLC")
     (ok9, bits9), c9 = main_path(bv9[n9].verify, capture=cap)
     route9 = dict(msm.last_route())
     log(phase=9, triples=n9, launches=c9, route=route9)
@@ -778,21 +784,82 @@ def k5_launch(table, rows, seg, S: int):
     return launch, out9
 
 
-# the times of the one-thread-a-chain K5 and A1 that this design replaced,
-# as PERF.md records them for this card
+# the times of the kernels that these designs replaced, as PERF.md records
+# them for this card: the one-thread-a-chain K5 and A1, K4 on the shared
+# field ops with their serial carry
 EARLIER_MS = {"k5_1304x8192_ms": 6.652, "k5_712x1024_ms": 3.580,
-              "a1_32x8_ms": 7.206, "a1_64x4_ms": 0.445}
+              "a1_32x8_ms": 7.206, "a1_64x4_ms": 0.445,
+              "k4_262144_ms": 1.650}
 msm_cmp = {"decompress_niels": [], "bucket_scan": [], "aggregate": []}
-label, (b_rows,), (n10, ok10) = captured["decompress_niels"][0]
-(n22, ok22), _ = timed(lambda: cm.decompress_niels_plain(b_rows))
-(n22, ok22), times["plain_k4_262144_ms"] = timed(
-    lambda: cm.decompress_niels_plain(b_rows))
-cmp = byte_cmp(cm.to_bytes10(n10), cm.to_bytes22(n22))
-ok_mism = int((ok10 != ok22).sum())
-msm_cmp["decompress_niels"].append((label, cmp[0], cmp[1] + ok_mism, cmp[2]))
-check(b_rows.shape[1] == 262_144 and bool(ok10.all()), "K4 input")
-times["k4_262144_ms"] = time_events(lambda: REAL["decompress_niels"](b_rows),
-                                    5)
+
+
+def k4_cmp(label, b_rows, rows10, ok10):
+    """K4's rows (as canonical bytes) and ok flags against the plain
+    version on the same input; appended to msm_cmp.  -> plain ok flags."""
+    n22, ok22 = cm.decompress_niels_plain(b_rows)
+    cmp = byte_cmp(cm.to_bytes10(rows10), cm.to_bytes22(n22))
+    msm_cmp["decompress_niels"].append(
+        (label, cmp[0], cmp[1] + int((ok10 != ok22).sum()), cmp[2]))
+    return ok22
+
+
+# K4 on each of its main-path launches (all of their points are valid)
+k4_inputs = {}
+for label, (b_rows,), (n10, ok10) in captured["decompress_niels"]:
+    k4_cmp(label, b_rows, n10, ok10)
+    check(bool(ok10.all()), f"K4 ({label}): a valid point rejected")
+    k4_inputs.setdefault(b_rows.shape[1], b_rows)
+check([c[1] // 3 for c in msm_cmp["decompress_niels"]]
+      == [262_144, 262_144, 32_768, 8_192],
+      f"K4 launches: {msm_cmp['decompress_niels']}")
+# and on adversarial encodings: y = 0, 1, 2, p - 1, p, p + 1, p + 18,
+# 2^255 - 1 and a non-square, each with both sign bits; the R and A of
+# the phase-3 R edge vectors and the phase-3 keys (flipped ones among
+# them); seeded random bytes.  Once at a size that ends inside a block,
+# once padded to whole blocks, and tiled to 100,003 points.
+rng = random.Random(SEED + 10)
+adv = [(y | sgn << 255).to_bytes(32, "little")
+       for y in (0, 1, 2, P - 1, P, P + 1, P + 18, (1 << 255) - 1, y_ns)
+       for sgn in (0, 1)]
+adv += [s[:32] for _, _, s in r_edges] + [p for p, _, _ in r_edges]
+adv += vec_p[:48] + [rng.randbytes(32) for _ in range(27)]
+oracle_adv = np.array([_edref._decode(e) is not None for e in adv])
+adv_u8 = np.frombuffer(b"".join(adv), np.uint8).reshape(-1, 32)
+block = cm.occupancy()["decompress_niels"][1]
+pad = -len(adv) % block
+for label, rows in (
+        (f"adversarial, {len(adv)}", adv_u8),
+        (f"adversarial + {pad} random, {len(adv) + pad}",
+         np.concatenate([adv_u8, np.frombuffer(rng.randbytes(32 * pad),
+                                               np.uint8).reshape(-1, 32)])),
+        ("adversarial tiled, 100,003", np.resize(adv_u8, (100_003, 32)))):
+    b_adv = torch.from_numpy(np.ascontiguousarray(rows.T)).to(DEV)
+    n10, ok10 = REAL["decompress_niels"](b_adv)
+    ok22 = k4_cmp(label, b_adv, n10, ok10).cpu().numpy()
+    check(np.array_equal(ok22[:len(adv)], oracle_adv),
+          f"K4 plain ({label}) != the oracle's decode")
+_, times["plain_k4_262144_ms"] = timed(   # warmed by k4_cmp
+    lambda: cm.decompress_niels_plain(k4_inputs[262_144]))
+for m10, b10 in k4_inputs.items():
+    times[f"k4_{m10}_ms"] = time_events(
+        lambda: REAL["decompress_niels"](b10), 20)
+    log(phase=10, card=CARD, kernel_time=f"k4_{m10}_ms",
+        ms=times[f"k4_{m10}_ms"], bound_ms=cm.bound_ms_decompress(m10),
+        earlier_ms=EARLIER_MS.get(f"k4_{m10}_ms"), points_per_thread=1,
+        threads_per_block=block, blocks=-(-m10 // block),
+        blocks_per_sm=msm_build["k_decompress_niels"]["blocks_per_sm"])
+# the RLC 100k record's k4_s span in its parts: the transpose of the
+# staged R and A rows (ops/msm.py:179), K4, assemble_table (:181)
+b10 = k4_inputs[262_144]
+r10, p10 = (h.t().contiguous() for h in b10.chunk(2, dim=1))
+n10 = captured["decompress_niels"][0][2][0]
+k4_span = {"transpose_ms": time_events(
+               lambda: torch.cat([r10, p10]).t().contiguous(), 20),
+           "k4_ms": times["k4_262144_ms"],
+           "assemble_table_ms": time_events(
+               lambda: msm.assemble_table(n10), 20),
+           "record_k4_s": rec8.get("k4_s")}
+log(phase=10, card=CARD, rlc_100k_k4_span=k4_span)
 scan_shapes, segment_sweep, bounds = [], [], {}
 for (label, (table, rows, seg), out), (_, (bk, W, c), ws) in zip(
         captured["bucket_scan"], captured["aggregate"]):
@@ -940,7 +1007,7 @@ for name, key, replaces, compared, lanes, ms, plain_ms, bound in (
          "max_abs_err": max(c[3] for c in cmps),
          "lanes": lanes, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
          "bound_by": "operations", "library_ms": None})
-REPORT.update(times=times, kernels=kernels, ptxas=ptxas,
+REPORT.update(times=times, kernels=kernels, ptxas=ptxas, k4_span=k4_span,
               verify_build=verify_build, msm_build=msm_build,
               segment_sweep=segment_sweep,
               records={"150": rec150, "100k": rec5b, "pipelined": rec6,

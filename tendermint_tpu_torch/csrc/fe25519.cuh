@@ -539,7 +539,8 @@ FE_DEV bool fe_bytes_canonical(const uint32_t w[8]) {
 // + 80 and + 120 (the power's) and + 160 (the sign bit and the strict
 // check, one word), so that it holds no register; u and v are computed
 // again from y after the power, and the sqrt(-1) factor is a select, not
-// a branch.  Without parking the decode is the one-lane decode of K4.
+// a branch.  Without parking it is the plain one-lane decode (K4 has its
+// own, csrc/decompress.cuh).
 template <class Park = NoPark>
 FE_DEV bool ge_decode(fe x, fe y, const uint32_t w[8], Park pk = Park(),
                       bool strict = false) {
@@ -604,14 +605,3 @@ FE_DEV bool ge_decode(fe x, fe y, const uint32_t w[8], Park pk = Park(),
   return ok;
 }
 
-// -A for the decode of w (the variable base of the ladders), and the
-// verdict of ge_decode
-FE_DEV bool ge_frombytes_neg(ge_ext &r, const uint32_t w[8]) {
-  fe x, y;
-  bool ok = ge_decode(x, y, w);
-  fe_neg(r.X, x);
-  fe_copy(r.Y, y);
-  fe_1(r.Z);
-  fe_mul(r.T, r.X, y);
-  return ok;
-}

@@ -33,7 +33,9 @@
 //       the card's work.  What sets its time is the dependent depth.
 //
 // What the design does about it.
-//   K4: one thread per point.
+//   K4: one thread per point, its square root chain on K4's own square
+//       and multiply (two rounds of independent carries), 128 registers,
+//       32-thread blocks: csrc/decompress.cuh, whose note gives the design.
 //   K5: a direct port of the layered scan runs one thread per bucket lane
 //       through all T layers (8,192 threads at c = 8, ~2 warps an SM,
 //       every thread T = 1,304 dependent madds of which about half add
@@ -61,11 +63,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "decompress.cuh"
 #include "fe25519.cuh"
 #include "launch.cuh"
 #include "msm_steps.cuh"
 
-#define THREADS 128
+#define K4_THREADS 32
 #define SCAN_THREADS 256
 #define AGG_MAX_C 8
 #define SLOT_BYTES (EXT_WORDS * 4)
@@ -78,27 +81,16 @@ FE_DEV void store_bytes(uint8_t *__restrict__ dst, const fe f) {
   for (int q = 0; q < 32; q++) dst[q] = enc[q];
 }
 
-__global__ void __launch_bounds__(THREADS)
+// K4 (csrc/decompress.cuh): one point a thread, 32-thread blocks held to
+// 128 registers, so that 16 warps fit an SM
+__global__ void __launch_bounds__(K4_THREADS, 16)
 k_decompress_niels(const uint8_t *__restrict__ b_rows, int64_t m,
                    int32_t *__restrict__ niels, uint8_t *__restrict__ ok) {
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= m) return;
   uint32_t w[8];
   load_lane32(w, b_rows, m, i);
-  ge_ext np;                       // -P: X = -x, Y = y, Z = 1, T = -xy
-  bool good = ge_frombytes_neg(np, w);
-  const fe d2 = FE_D2;
-  fe ypx, ymx, t2d;
-  fe_add(ypx, np.Y, np.X);         // y - x
-  fe_carry(ypx);
-  fe_sub(ymx, np.Y, np.X);         // y + x
-  fe_carry(ymx);
-  fe_mul(t2d, np.T, d2);           // -2dxy
-  int32_t *row = niels + i * NIELS_WORDS;
-  store_fe(row, ypx);
-  store_fe(row + 10, ymx);
-  store_fe(row + 20, t2d);
-  ok[i] = good;
+  ok[i] = decompress_niels_row(niels + i * NIELS_WORDS, w);
 }
 
 // thread (lane kk, segment s) = threadIdx.x = s * (256 / S) + kk
@@ -181,7 +173,7 @@ int tm_decompress_niels(const void *b_rows, void *niels, void *ok,
   DeviceScope scope(device);
   if (scope.err != cudaSuccess) return (int)scope.err;
   if (m > 0)
-    k_decompress_niels<<<blocks_for(m, THREADS), THREADS, 0,
+    k_decompress_niels<<<blocks_for(m, K4_THREADS), K4_THREADS, 0,
                          (cudaStream_t)stream>>>(
         (const uint8_t *)b_rows, m, (int32_t *)niels, (uint8_t *)ok);
   return (int)cudaGetLastError();
@@ -220,8 +212,8 @@ int tm_msm_occupancy(int which, int *blocks, int *threads) {
   const void *fn = which == 0   ? (const void *)k_decompress_niels
                    : which == 1 ? (const void *)k_bucket_scan
                                 : (const void *)k_aggregate;
-  *threads = which == 0 ? THREADS : which == 1 ? SCAN_THREADS
-                                               : 1 << AGG_MAX_C;
+  *threads = which == 0 ? K4_THREADS : which == 1 ? SCAN_THREADS
+                                                  : 1 << AGG_MAX_C;
   size_t smem = which == 0 ? 0 : (size_t)*threads * SLOT_BYTES;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn,
                                                             *threads, smem);

@@ -1,10 +1,11 @@
 """SASS report of the port's kernels as built for the card: opcode counts
 per kernel of the verify kernels (K1, K2, K3) and of the MSM kernels (K4,
 K5, A1), with the instructions of each loop body (each backward branch's
-span, longest first: K5's are a tree round and a madd step), from
-cuobjdump -sass of the built libraries; and the instructions of one field
-multiply and one square (a probe kernel built from the same
-csrc/fe25519.cuh).
+span, longest first: K5's are a tree round and a madd step, K4's one
+square of its power chain), from cuobjdump -sass of the built libraries;
+and the instructions of one field multiply and one square (a probe kernel
+built from the same csrc/fe25519.cuh), and of K4's own (fe_mul2, fe_sq2
+of csrc/decompress.cuh) where the checkout has them.
 
     python3 tendermint_tpu_torch/tools/kernel_report.py [--root DIR]
 
@@ -46,6 +47,22 @@ __global__ void k_probe_sq(const int32_t *a, const int32_t *b, int32_t *o) {
   fe f, h;
   for (int i = 0; i < 10; i++) f[i] = a[10 * threadIdx.x + i] + b[i];
   fe_sq(h, f);
+  for (int i = 0; i < 10; i++) o[10 * threadIdx.x + i] = h[i];
+}
+"""
+# K4's multiply and square (csrc/decompress.cuh), the same way
+_PROBE2 = r"""
+#include "decompress.cuh"
+__global__ void k_probe_mul2(const int32_t *a, const int32_t *b, int32_t *o) {
+  fe f, g, h;
+  for (int i = 0; i < 10; i++) f[i] = a[10 * threadIdx.x + i], g[i] = b[i];
+  fe_mul2(h, f, g);
+  for (int i = 0; i < 10; i++) o[10 * threadIdx.x + i] = h[i];
+}
+__global__ void k_probe_sq2(const int32_t *a, const int32_t *b, int32_t *o) {
+  fe f, h;
+  for (int i = 0; i < 10; i++) f[i] = a[10 * threadIdx.x + i] + b[i];
+  fe_sq2(h, f);
   for (int i = 0; i < 10; i++) o[10 * threadIdx.x + i] = h[i];
 }
 """
@@ -107,13 +124,18 @@ def _summary(c: collections.Counter) -> dict:
 def probe_counts(csrc: str, build_dir: str) -> dict:
     src = os.path.join(build_dir, "probe_fe.cu")
     cubin = os.path.join(build_dir, "probe_fe.cubin")
+    names = ["mul", "sq"]
+    text = _PROBE
+    if os.path.exists(os.path.join(csrc, "decompress.cuh")):
+        names += ["mul2", "sq2"]
+        text += _PROBE2
     with open(src, "w") as f:
-        f.write(_PROBE)
+        f.write(text)
     _run(["nvcc", "-cubin", "-gencode", "arch=compute_90a,code=sm_90a",
           "-O3", "-std=c++17", "-I", csrc, "-o", cubin, src])
     c, _ = sass_counts(cubin)
     out = {}
-    for name in ("mul", "sq"):
+    for name in names:
         d = collections.Counter(c[f"k_probe_{name}"])
         d.subtract(c["k_probe_copy"])
         out[f"fe_{name}"] = _summary(+d)

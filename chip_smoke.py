@@ -24,7 +24,13 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
   corrupted signature), K2 at 16,384 (a chunk of the corrupted bulk run)
   and K1 at 65,536 (a chunk of the ad-hoc batch); each is held against
   its plain version on the same inputs, and that against the expected
-  bitmap.
+  bitmap.  The launches run on the degradation runtime's lane worker
+  thread (crypto/degrade.py); the capture is module-level and clones the
+  inputs inside the launch's own bracket on the worker's current stream,
+  the one the kernel ran on, before the launch's done event is recorded.
+  After every run of phases 4-9 the runtime must have served it from the
+  card: crypto_device_launch_total{site} rose, no device failure and no
+  host fallback was counted, and the breaker is closed.
   7  times (CUDA events; host clock for end-to-end walls), K1 and K2
      beside the one-lane kernel's recorded times; phases 4-7 run
      with RLC off (its default) and must launch no K4, K5 or A1
@@ -46,7 +52,23 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      K5's launch alone, also at half and twice its segment count
  11  K3 (verify_batch_staged) on the phase-6 batch's first 65,536 lanes:
      K3 = K1 = the expected bitmap, K3 = its plain version; its time
- 12  the kernels line; then the last line {"ok": true, "device": ...}
+ 12  the degradation runtime on the card: the phase-5 100,000-validator
+     commit (one bad signature) with bulk.ed25519=raise re-verified on the
+     host with no kernel launch (the degraded wall, beside phase 5's), then
+     a real K2 run; the chaos matrix (raise, latency:2000 against a 0.5 s
+     deadline, corrupt-bitmap at the lane site, raise at
+     ops.ed25519.verify_batch) on a 4,096-validator commit (K2) and a
+     4,096-triple BatchVerifier batch (K1): exact bitmaps, the failure
+     class, 0 launches under a raise, 1 or more when the kernel ran; the
+     breaker opened by three raises, refusing the device, and closed by
+     a half-open K2 trial on an injected clock; outside a drill (no
+     failpoint armed) a kernel wrapper that raises and a launch past its
+     deadline raise DeviceLaneError out of both targets, with the failure
+     counted and no host fallback; the 150-validator
+     verify_commit with and without the spot check
+     (TM_TPU_SPOT_CHECK=0), and the bulk call through the runtime beside
+     the direct call
+ 13  the kernels line; then the last line {"ok": true, "device": ...}
 
 Signatures come from a seeded incremental generator (a_i = a_0 + i, so
 A_i = A_{i-1} + B), because signing 100k triples one by one in pure
@@ -93,8 +115,12 @@ import numpy as np  # noqa: E402
 import tendermint_tpu_torch as T  # noqa: E402
 from tendermint_tpu_torch.crypto import _edref  # noqa: E402
 from tendermint_tpu_torch.crypto import batch as cbatch  # noqa: E402
+from tendermint_tpu_torch.crypto import degrade  # noqa: E402
 from tendermint_tpu_torch.crypto import ed25519 as edkeys  # noqa: E402
+from tendermint_tpu_torch.libs import fail as failpoints  # noqa: E402
 from tendermint_tpu_torch.libs import native  # noqa: E402
+from tendermint_tpu_torch.libs import trace  # noqa: E402
+from tendermint_tpu_torch.libs.metrics import Registry  # noqa: E402
 from tendermint_tpu_torch.ops import cuda_ed25519 as ck  # noqa: E402
 from tendermint_tpu_torch.ops import cuda_msm as cm  # noqa: E402
 from tendermint_tpu_torch.ops import ed25519 as E  # noqa: E402
@@ -110,6 +136,9 @@ from tendermint_tpu_torch.types.validator import Validator  # noqa: E402
 from tendermint_tpu_torch.types.validator_set import (  # noqa: E402
     CommitVerifyError, ValidatorSet)
 
+check(os.environ.get("TM_TPU_DISABLE_BATCH") != "1"
+      and not failpoints.armed(), "TM_TPU_DISABLE_BATCH=1 or TM_TPU_FAILPOINTS is set: this script "
+      "measures the card, not the host lanes or a chaos drill")
 T0 = time.perf_counter()
 DEV = torch.device("cuda", 0)
 KIND = torch.cuda.get_device_name(0)
@@ -457,15 +486,43 @@ for _name, _mod in KERNEL_MOD.items():
     setattr(_mod, _name, _recording(_name))
 
 
-def main_path(fn, capture=()):
+def counter_total(counter) -> float:
+    """The sum of a counter over all its label sets."""
+    return sum(float(line.rsplit(" ", 1)[1]) for line in counter.render())
+
+
+def runtime_clean(what: str, site=None, launched0=0.0) -> None:
+    """The degradation runtime served `what` from the card: its device
+    launches at `site` rose, no device launch failed and no batch fell
+    back to the host anywhere so far, and the breaker is closed."""
+    rt = degrade.runtime()
+    if site is not None:
+        check(rt.metrics.device_launches.value(site=site) > launched0,
+              f"{what}: crypto_device_launch_total{{site={site}}} did not "
+              f"rise")
+    fails = counter_total(rt.metrics.device_failures)
+    falls = counter_total(rt.metrics.host_fallbacks)
+    check(fails == 0 and falls == 0,
+          f"{what}: device failures {fails}, host fallbacks {falls}:\n"
+          + "\n".join(rt.metrics.device_failures.render()
+                      + rt.metrics.host_fallbacks.render()))
+    check(rt.breaker.state == degrade.CLOSED,
+          f"{what}: breaker {rt.breaker.state}")
+
+
+def main_path(fn, capture=(), site=None):
     """Run fn with every launch counter zeroed just before and read just
     after; the counts are added to the main-path totals.  capture: one
     (kernel, label) pair or a list of them; each kernel's first launch of
-    the run is kept."""
+    the run is kept.  site: the degradation runtime's lane site the run
+    goes through; the runtime must have served it from the card
+    (runtime_clean)."""
     if capture and isinstance(capture[0], str):
         capture = [capture]
     for name, label in capture:
         capture_next[name] = label
+    launched0 = (degrade.runtime().metrics.device_launches.value(site=site)
+                 if site is not None else 0.0)
     ck.reset_launches()
     cm.reset_launches()
     out = fn()
@@ -475,6 +532,8 @@ def main_path(fn, capture=()):
     for name, label in capture:
         check(capture_next[name] is None,
               f"{name} ({label}): the kernel was not launched")
+    if site is not None:
+        runtime_clean(f"main path at {site}", site, launched0)
     return out, got
 
 
@@ -496,13 +555,15 @@ def plain_on_captured(name: str, expect: np.ndarray):
 rng = random.Random(SEED + 4)
 vset150, commit150, bid150, _ = make_commit(150, rng)
 _, c4a = main_path(lambda: vset150.verify_commit(CHAIN, bid150, 9, commit150,
-                                                 device=DEV))
+                                                 device=DEV),
+                   site="bulk.ed25519")
 rec150 = dict(E.last_launch())
 bad_i = 77
 orig = commit150.signatures[bad_i].signature
 commit150.signatures[bad_i].signature = corrupt(orig, rng)
 err, c4b = main_path(lambda: commit_error_index(vset150, bid150, commit150),
-                     capture=("verify_packed", "150-validator commit"))
+                     capture=("verify_packed", "150-validator commit"),
+                     site="bulk.ed25519")
 commit150.signatures[bad_i].signature = orig
 expect4 = np.ones(150, dtype=bool)
 expect4[bad_i] = False
@@ -526,10 +587,12 @@ check(all(_edref.verify(vp100k[i], msgs100k[i], sig100k[i]) for i in smp),
       "generator produced an invalid signature")
 hits0 = E._pub_cache.hits
 _, c5a = main_path(lambda: vset100k.verify_commit(CHAIN, bid100k, 9,
-                                                  commit100k, device=DEV))
+                                                  commit100k, device=DEV),
+                   site="bulk.ed25519")
 rec5a = dict(E.last_launch())
 _, c5b = main_path(lambda: vset100k.verify_commit(CHAIN, bid100k, 9,
-                                                  commit100k, device=DEV))
+                                                  commit100k, device=DEV),
+                   site="bulk.ed25519")
 rec5b = dict(E.last_launch())
 hit = E._pub_cache.hits - hits0
 mat = vset100k._pub_matrix()[0]
@@ -537,7 +600,8 @@ bad5 = set(rng.sample(range(100_000), 100)) | {5, 4000}
 sig_bad = [corrupt(s, rng) if i in bad5 else s for i, s in enumerate(sig100k)]
 bits, c5c = main_path(lambda: cbatch.verify_sigs_bulk(mat, msgs100k, sig_bad,
                                                       device=DEV),
-                      capture=("verify_packed_split", "100k bulk chunk 0"))
+                      capture=("verify_packed_split", "100k bulk chunk 0"),
+                      site="bulk.ed25519")
 expect5 = np.ones(100_000, dtype=bool)
 expect5[list(bad5)] = False
 cmp5 = plain_on_captured("verify_packed_split", expect5[:E.SPLIT_CHUNK])
@@ -580,7 +644,8 @@ for i in range(100_000):
     for lst, v in zip(trip6, (pubs[j], msgs[j], sig)):
         lst.append(v)
 (ok6, bits6), c6 = main_path(bv.verify,
-                             capture=("verify_packed", "100k ad-hoc chunk 0"))
+                             capture=("verify_packed", "100k ad-hoc chunk 0"),
+                             site="batch.ed25519")
 rec6 = dict(E.last_launch())
 expect6 = np.ones(100_000, dtype=bool)
 expect6[list(bad6)] = False
@@ -638,6 +703,7 @@ w150 = wall(lambda: vset150.verify_commit(CHAIN, bid150, 9, commit150,
 w100k = wall(lambda: vset100k.verify_commit(CHAIN, bid100k, 9, commit100k,
                                             device=DEV), 3)
 rec7 = dict(E.last_launch())
+runtime_clean("phase-7 walls")
 rlc_off = {k: launches_main[k] + cm.launches[k] for k in cm.launches}
 check(not any(rlc_off.values()),
       f"K4/K5/A1 launched while RLC is off: {rlc_off}")
@@ -665,7 +731,7 @@ RLC_CAP = [("decompress_niels", "100k RLC"), ("bucket_scan", "100k RLC"),
 msm.set_enabled(True)
 _, c8a = main_path(lambda: vset100k.verify_commit(CHAIN, bid100k, 9,
                                                   commit100k, device=DEV),
-                   capture=RLC_CAP)
+                   capture=RLC_CAP, site="bulk.ed25519")
 route8a, rec8a = dict(msm.last_route()), dict(E.last_launch())
 check((route8a["path"], route8a["outcome"], route8a["nb"], route8a["c"])
       == ("rlc-single", "vouched", 131_072, 8), str(route8a))
@@ -681,7 +747,8 @@ commit100k.signatures[bad8].signature = orig8[:32] + s8.to_bytes(32, "little")
 err8b, c8b = main_path(lambda: commit_error_index(vset100k, bid100k,
                                                   commit100k),
                        capture=("decompress_niels",
-                                "100k RLC, one bad signature"))
+                                "100k RLC, one bad signature"),
+                       site="bulk.ed25519")
 route8b = dict(msm.last_route())
 check(route8b["outcome"] == "rejected", str(route8b))
 check(c8b["verify_packed_split"] == 7 and c8b["decompress_niels"] == 1,
@@ -690,7 +757,8 @@ check(err8b is not None and f"(#{bad8})" in err8b, f"bad index: {err8b}")
 # a non-canonical R (y = p): ineligible on the host, no K4 launch
 commit100k.signatures[bad8].signature = P.to_bytes(32, "little") + orig8[32:]
 err8c, c8c = main_path(lambda: commit_error_index(vset100k, bid100k,
-                                                  commit100k))
+                                                  commit100k),
+                       site="bulk.ed25519")
 route8c = dict(msm.last_route())
 commit100k.signatures[bad8].signature = orig8
 check(route8c["path"] == "rlc-ineligible", str(route8c))
@@ -700,6 +768,7 @@ check(err8c is not None and f"(#{bad8})" in err8c, f"bad index: {err8c}")
 w8 = wall(lambda: vset100k.verify_commit(CHAIN, bid100k, 9, commit100k,
                                          device=DEV), 3)
 rec8 = dict(E.last_launch())
+runtime_clean("phase-8 walls")
 check(rec8["path"] == "rlc-single" and rec8["outcome"] == "vouched",
       str(rec8))
 times["rlc_verify_commit_100k_wall_s"] = sorted(w8)[1]
@@ -722,7 +791,8 @@ for n9 in (16384, 4096):
         bv9[n9].add(pk9[i], msgs9[i], sigs9[i])
     cap = [(k, f"{n9} ad-hoc RLC") for k, _ in RLC_CAP] if n9 == 4096 \
         else ("decompress_niels", f"{n9} ad-hoc RLC")
-    (ok9, bits9), c9 = main_path(bv9[n9].verify, capture=cap)
+    (ok9, bits9), c9 = main_path(bv9[n9].verify, capture=cap,
+                                 site="batch.ed25519")
     route9 = dict(msm.last_route())
     log(phase=9, triples=n9, launches=c9, route=route9)
     check(ok9 and bits9.all(), f"{n9}: batch not all valid")
@@ -733,6 +803,7 @@ for n9 in (16384, 4096):
            c9["verify_packed"]) == (1, 1, 1, 0), str(c9))
 w9 = wall(bv9[16384].verify, 5)
 rec9 = dict(E.last_launch())
+runtime_clean("phase-9 walls")
 times["rlc_batch_16384_wall_s"] = sorted(w9)[2]
 log(phase=9, card=CARD, rlc_batch_16384_walls_s=w9, record=rec9)
 msm.set_enabled(None)
@@ -934,7 +1005,359 @@ check(c11["verify_staged"] == 1 and rec11["path"] == "cuda-staged", str(c11))
 check(cmp11[1] == 65_536 and cmp11[2] == 0, f"K3 differs from plain: {cmp11}")
 check(k3_vs_k1 == 0, "K3 differs from K1 on the same lanes")
 
-# -- phase 12: the kernels line -----------------------------------------------
+# -- phase 12: the degradation runtime on the card ----------------------------
+
+LANE_THREAD = "batch-device-lane"
+
+
+def join_abandoned() -> None:
+    """Wait for the launches the runtime abandoned at their deadline: each
+    runs on to its end on its quarantined lane thread, launching kernels
+    and writing ops/ed25519's launch record there, so a mode's launch
+    count is read, and the next mode started, only after them."""
+    rt = degrade.runtime()
+    live = rt._pool._thread if rt._pool is not None else None
+    for th in threading.enumerate():
+        if th.name == LANE_THREAD and th is not live:
+            th.join(120)
+            check(not th.is_alive(), "an abandoned launch did not end")
+    torch.cuda.synchronize()
+
+
+def timed_call(fn):
+    t = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t
+
+
+runtime12 = {"card": CARD}
+rt = degrade.runtime()
+timeout0 = rt.cfg.launch_timeout_s
+
+# full width: the phase-5 100,000-validator commit with the bulk lane's
+# launch raising: the host re-verifies all 100k signatures and names the
+# bad one; no kernel runs.  Then a real K2 run resets the breaker's count.
+bad12 = 31_337
+orig12 = commit100k.signatures[bad12].signature
+commit100k.signatures[bad12].signature = corrupt(orig12, rng)
+failpoints.set_mode("bulk.ed25519", "raise")
+ck.reset_launches()
+err12, degraded_s = timed_call(
+    lambda: commit_error_index(vset100k, bid100k, commit100k))
+failpoints.clear()
+k12 = dict(ck.launches)
+consecutive = rt.breaker._consecutive
+commit100k.signatures[bad12].signature = orig12
+check(err12 is not None and f"(#{bad12})" in err12,
+      f"degraded 100k commit: bad index {err12}")
+check(k12["verify_packed_split"] == 0 and k12["verify_packed"] == 0,
+      f"degraded 100k commit launched kernels: {k12}")
+check(rt.metrics.device_failures.value(site="bulk.ed25519",
+                                       reason="raise") == 1
+      and rt.metrics.host_fallbacks.value(site="bulk.ed25519",
+                                          reason="raise") == 1,
+      "degraded 100k commit: failure and fallback not counted once")
+check(consecutive == 1 and rt.breaker.state == degrade.CLOSED,
+      f"breaker after one raise: {rt.breaker.state}, {consecutive}")
+ck.reset_launches()
+_, real_s = timed_call(lambda: vset100k.verify_commit(
+    CHAIN, bid100k, 9, commit100k, device=DEV))
+check(ck.launches["verify_packed_split"] == 7
+      and rt.breaker._consecutive == 0
+      and rt.breaker.state == degrade.CLOSED,
+      f"the real K2 run after the raise: {ck.launches}, "
+      f"{rt.breaker.state}, {rt.breaker._consecutive}")
+runtime12["full_width"] = dict(
+    validators=100_000, site="bulk.ed25519", mode="raise", error=err12,
+    kernel_launches=k12, degraded_wall_s=degraded_s,
+    phase7_100k_wall_s=times["verify_commit_100k_wall_s"],
+    real_k2_wall_s=real_s, consecutive_failures_after_raise=consecutive)
+log(phase=12, card=CARD, **runtime12["full_width"])
+
+# the chaos matrix on the card: a 4,096-validator commit (cuda-split, K2)
+# with one bad signature, and a 4,096-triple BatchVerifier batch with 3
+# invalid lanes (cuda, K1)
+rng = random.Random(SEED + 12)
+vset4k, commit4k, bid4k, _ = make_commit(4096, rng)
+bad4k = 1234
+commit4k.signatures[bad4k].signature = corrupt(
+    commit4k.signatures[bad4k].signature, rng)
+a_list, pubs12 = gen_keys(4096, rng)
+msgs12 = [rng.randbytes(64) for _ in range(4096)]
+sigs12 = sign_batch(a_list, pubs12, msgs12, rng)
+bad12b = sorted(rng.sample(range(4096), 3))
+sigs12 = [corrupt(s, rng) if i in bad12b else s for i, s in enumerate(sigs12)]
+pk12 = [edkeys.PubKey(p) for p in pubs12]
+expect12 = np.ones(4096, dtype=bool)
+expect12[bad12b] = False
+
+
+def commit4k_run():
+    return commit_error_index(vset4k, bid4k, commit4k)
+
+
+def batch4k_run():
+    bv = cbatch.BatchVerifier(device=DEV)
+    for p, m, s in zip(pk12, msgs12, sigs12):
+        bv.add(p, m, s)
+    return bv.verify()[1]
+
+
+TARGETS = [
+    ("4,096-validator commit", "bulk.ed25519", commit4k_run,
+     lambda out: out is not None and f"(#{bad4k})" in out,
+     "verify_packed_split", "cuda-split"),
+    ("4,096-triple BatchVerifier", "batch.ed25519", batch4k_run,
+     lambda out: np.array_equal(out, expect12), "verify_packed", "cuda")]
+# (mode, site: None = the lane's own, failure class, kernel launches)
+MODES = [("raise", None, "raise", "none"),
+         ("latency:2000", None, "timeout", "some"),
+         ("corrupt-bitmap", None, "integrity", "some"),
+         ("raise", "ops.ed25519.verify_batch", "raise", "none")]
+chaos12 = []
+for label, lane, run, ok_out, kernel, route in TARGETS:
+    ck.reset_launches()
+    out = run()                                    # the clean control
+    rec12 = dict(E.last_launch())
+    check(ok_out(out) and rec12["path"] == route
+          and ck.launches[kernel] == 1, f"{label}: control {rec12}")
+    for mode, at, reason, want in MODES:
+        site = at or lane
+        rt = degrade.runtime()
+        m = rt.metrics
+        fails0 = m.device_failures.value(site=lane, reason=reason)
+        falls0 = m.host_fallbacks.value(site=lane, reason=reason)
+        fired0 = failpoints.fired(site, mode)
+        if reason == "timeout":
+            rt.cfg.launch_timeout_s = 0.5
+        failpoints.set_mode(site, mode)
+        ck.reset_launches()
+        out, wall_s = timed_call(run)
+        failpoints.clear()
+        rt.cfg.launch_timeout_s = timeout0
+        launches_at_return = ck.launches[kernel]
+        join_abandoned()
+        launched = ck.launches[kernel]
+        row = dict(target=label, site=site, mode=mode, reason=reason,
+                   wall_s=wall_s, kernel=kernel,
+                   launches_at_return=launches_at_return,
+                   launches=launched, bitmap_ok=bool(ok_out(out)),
+                   failures=m.device_failures.value(site=lane,
+                                                    reason=reason) - fails0,
+                   fallbacks=m.host_fallbacks.value(site=lane,
+                                                    reason=reason) - falls0,
+                   fired=failpoints.fired(site, mode) - fired0)
+        chaos12.append(row)
+        log(phase=12, card=CARD, **row)
+        check(row["bitmap_ok"], f"{label} under {site}={mode}: bitmap")
+        check(row["failures"] == 1 and row["fallbacks"] == 1
+              and row["fired"] >= 1,
+              f"{label} under {site}={mode}: not counted as {reason}")
+        check(launched == 0 if want == "none" else launched >= 1,
+              f"{label} under {site}={mode}: {launched} {kernel} launches")
+        # the device lane serves again on a fresh worker, and the clean
+        # run resets the breaker's consecutive count for the next mode
+        ck.reset_launches()
+        out = run()
+        check(ok_out(out) and ck.launches[kernel] == 1
+              and rt.breaker.state == degrade.CLOSED,
+              f"{label}: the clean run after {site}={mode}")
+runtime12["chaos"] = chaos12
+
+# outside a drill a fault on the card reaches the caller: a kernel wrapper
+# that raises and a launch past its deadline, with no failpoint armed,
+# raise DeviceLaneError out of both targets; the failure is counted and
+# nothing is re-verified on the host
+
+
+def launch_failed(*args):
+    raise RuntimeError("cudaErrorLaunchFailure (raised by chip_smoke.py)")
+
+
+check(not failpoints.armed(), "a failpoint is still armed")
+card_faults = []
+for label, lane, run, ok_out, kernel, route in TARGETS:
+    for reason in ("raise", "timeout"):
+        rt = degrade.runtime()
+        m = rt.metrics
+        fails0 = m.device_failures.value(site=lane, reason=reason)
+        falls0 = counter_total(m.host_fallbacks)
+        real_fn = getattr(ck, kernel)   # bare again since phase 7
+        if reason == "raise":
+            setattr(ck, kernel, launch_failed)
+        else:
+            rt.cfg.launch_timeout_s = 1e-4
+        ck.reset_launches()
+        raised = None
+        try:
+            run()
+        except degrade.DeviceLaneError as e:
+            raised = str(e)
+        finally:
+            setattr(ck, kernel, real_fn)
+            rt.cfg.launch_timeout_s = timeout0
+        join_abandoned()
+        row = dict(target=label, site=lane, reason=reason, raised=raised,
+                   kernel=kernel, launches=ck.launches[kernel],
+                   failures=m.device_failures.value(site=lane,
+                                                    reason=reason) - fails0,
+                   fallbacks=counter_total(m.host_fallbacks) - falls0)
+        card_faults.append(row)
+        log(phase=12, card=CARD, **row)
+        check(raised is not None and f"({reason})" in raised
+              and row["failures"] == 1 and row["fallbacks"] == 0,
+              f"{label}: an un-injected {reason} on the card: {row}")
+        check(row["launches"] == 0 if reason == "raise"
+              else row["launches"] >= 1,
+              f"{label}: un-injected {reason}: {row['launches']} launches")
+        ck.reset_launches()
+        out = run()
+        check(ok_out(out) and ck.launches[kernel] == 1
+              and rt.breaker.state == degrade.CLOSED,
+              f"{label}: the clean run after an un-injected {reason}")
+runtime12["card_faults"] = card_faults
+
+# the breaker: an injected clock and failure_threshold=3; three raises
+# open it, the next call is refused the device (breaker_open, no launch),
+# and once the clock passes the backoff the half-open trial runs a real
+# K2 launch and closes it
+clk = [0.0]
+cfg12 = degrade.DegradeConfig(failure_threshold=3, launch_timeout_s=60.0,
+                              backoff_base_s=10.0, backoff_max_s=120.0,
+                              backoff_jitter=0.0)
+rtb = degrade.configure(cfg12, clock=lambda: clk[0],
+                        registry=Registry("breaker"))
+trans = []
+rtb.breaker.add_listener(lambda o, n, r: trans.append((o, n)))
+failpoints.set_mode("bulk.ed25519", "raise")
+ck.reset_launches()
+for _ in range(3):
+    check(TARGETS[0][3](commit4k_run()), "breaker: bad index under raise")
+state_after_3 = rtb.breaker.state
+launched3 = rtb.metrics.device_launches.value(site="bulk.ed25519")
+check(TARGETS[0][3](commit4k_run()), "breaker: bad index while open")
+refused = rtb.metrics.host_fallbacks.value(site="bulk.ed25519",
+                                           reason="breaker_open")
+k_open = ck.launches["verify_packed_split"]
+launched4 = rtb.metrics.device_launches.value(site="bulk.ed25519")
+failpoints.clear()
+clk[0] = 10.1
+ck.reset_launches()
+check(TARGETS[0][3](commit4k_run()), "breaker: bad index on the trial")
+k_trial = ck.launches["verify_packed_split"]
+runtime12["breaker"] = dict(
+    state_after_3_raises=state_after_3, breaker_open_fallbacks=refused,
+    k2_launches_while_open=k_open, device_launches=[launched3, launched4],
+    k2_launches_on_trial=k_trial, state_after_trial=rtb.breaker.state,
+    transitions=trans)
+log(phase=12, card=CARD, **runtime12["breaker"])
+check(state_after_3 == degrade.OPEN, f"breaker after 3 raises: "
+      f"{state_after_3}")
+check(refused == 1 and k_open == 0 and launched4 == launched3 == 3,
+      f"breaker open: {runtime12['breaker']}")
+check(k_trial == 1 and rtb.breaker.state == degrade.CLOSED
+      and trans == [(degrade.CLOSED, degrade.OPEN),
+                    (degrade.OPEN, degrade.HALF_OPEN),
+                    (degrade.HALF_OPEN, degrade.CLOSED)],
+      f"breaker trial: {runtime12['breaker']}")
+
+# the cost of the runtime on the per-block path: the 150-validator
+# verify_commit through the runtime with its one host spot check and
+# without it (TM_TPU_SPOT_CHECK=0), the bulk call on the same rows through
+# the runtime, with and without, beside the same call made directly, the
+# direct call handed to a bare lane worker and waited for (the hand-off
+# alone: no breaker, counters or spot check), and the spot check alone;
+# in turns, round by round
+mat150 = vset150._pub_matrix()[0]
+msgs150 = commit_sign_bytes_batch(CHAIN, commit150, list(range(150)))
+sigs150 = [cs.signature for cs in commit150.signatures]
+os.environ["TM_TPU_SPOT_CHECK"] = "0"
+rt = degrade.configure(degrade.DegradeConfig.from_env(),
+                       registry=Registry("per_block"))
+os.environ.pop("TM_TPU_SPOT_CHECK")
+check(rt.cfg.spot_check is False, "TM_TPU_SPOT_CHECK=0 was not read")
+ones150 = np.ones(150, dtype=bool)
+VARIANTS = {
+    "verify_commit_spot_on": (True, lambda: vset150.verify_commit(
+        CHAIN, bid150, 9, commit150, device=DEV)),
+    "verify_commit_spot_off": (False, lambda: vset150.verify_commit(
+        CHAIN, bid150, 9, commit150, device=DEV)),
+    "bulk_spot_on": (True, lambda: cbatch.verify_sigs_bulk(
+        mat150, msgs150, sigs150, device=DEV)),
+    "bulk_spot_off": (False, lambda: cbatch.verify_sigs_bulk(
+        mat150, msgs150, sigs150, device=DEV)),
+    "direct": (None, lambda: cbatch.verify_ed25519_batch(
+        mat150, msgs150, sigs150, cache_pubs=True, device=DEV)),
+    "direct_on_bare_worker": (None, lambda: bare_worker.submit(
+        lambda: cbatch.verify_ed25519_batch(
+            mat150, msgs150, sigs150, cache_pubs=True, device=DEV))
+        .result(60)),
+    "spot_check_alone": (None, lambda: check(
+        cbatch._spot_check_bulk(mat150, msgs150, sigs150)(ones150),
+        "spot check on a valid commit")),
+}
+bare_worker = degrade._LaneWorker("bare-lane")
+walls12 = {k: [] for k in VARIANTS}
+for rnd in range(41):           # round 0 warms up
+    for key, (spot, fn) in VARIANTS.items():
+        if spot is not None:
+            rt.cfg.spot_check = spot
+        t = time.perf_counter()
+        fn()
+        if rnd:
+            walls12[key].append(time.perf_counter() - t)
+bare_worker.shutdown(wait=True)
+runtime_clean("phase-12 per-block walls", "bulk.ed25519")
+degrade.configure(degrade.DegradeConfig.from_env())
+runtime12["per_block"] = dict(
+    median_s={k: sorted(v)[len(v) // 2] for k, v in walls12.items()},
+    quartiles_s={k: (sorted(v)[len(v) // 4], sorted(v)[3 * len(v) // 4])
+                 for k, v in walls12.items()},
+    walls_s=walls12, rounds=40,
+    phase7_verify_commit_150_wall_s=times["verify_commit_150_wall_s"])
+log(phase=12, card=CARD, **{k: v for k, v in runtime12["per_block"].items()
+                             if k != "walls_s"})
+
+# the same commit, called ten times in a row as phase 7 times it, under
+# the flight recorder: each call's device.collect (caller) and
+# device.launch (lane worker) spans split its wall into the hand-off to
+# the worker, the launch (ops.ed25519.verify_batch inside it) and the way
+# back (the wake-up, the spot check's one-bit compare, the breaker; its
+# host verify runs in the caller after the submit, before the wait)
+trace.enable()
+seq12 = trace.last_seq()
+traced_w = wall(lambda: vset150.verify_commit(CHAIN, bid150, 9, commit150,
+                                              device=DEV), 10)
+spans12 = trace.snapshot(seq12)
+trace.disable()
+trace.reset()
+collects = [r for r in spans12 if r["name"] == "device.collect"][1:]
+launches12 = [r for r in spans12 if r["name"] == "device.launch"][1:]
+ops12 = {r["parent"]: r for r in spans12
+         if r["name"] == "ops.ed25519.verify_batch"}
+check(len(collects) == len(launches12) == 10
+      and all(r["id"] in ops12 for r in launches12)
+      and all(r["attrs"].get("outcome") == "ok" for r in collects),
+      f"phase 12: traced spans {[r['name'] for r in spans12]}")
+split = {"to_worker": [], "launch": [], "ops_verify_batch": [], "back": []}
+for c, ln in zip(collects, launches12):
+    split["to_worker"].append((ln["ts_ns"] - c["ts_ns"]) / 1e9)
+    split["launch"].append(ln["dur_ns"] / 1e9)
+    split["ops_verify_batch"].append(ops12[ln["id"]]["dur_ns"] / 1e9)
+    split["back"].append((c["ts_ns"] + c["dur_ns"] - ln["ts_ns"]
+                          - ln["dur_ns"]) / 1e9)
+runtime12["traced_150"] = dict(
+    walls_s=traced_w, median_wall_s=sorted(traced_w)[5],
+    median_s={k: sorted(v)[5] for k, v in split.items()}, split_s=split,
+    spans=len(spans12), threads=sorted({r["tname"] for r in spans12}))
+log(phase=12, card=CARD, **{k: v for k, v in runtime12["traced_150"].items()
+                             if k != "split_s"})
+times["degraded_verify_commit_100k_wall_s"] = degraded_s
+times["verify_commit_150_spot_off_wall_s"] = \
+    runtime12["per_block"]["median_s"]["verify_commit_spot_off"]
+check(degrade.runtime().breaker.state == degrade.CLOSED, "breaker at the end")
+
+# -- phase 13: the kernels line -----------------------------------------------
 
 src = "tendermint_tpu_torch/csrc/ed25519_verify.cu"
 # each comparison: (input, lanes, mismatching lanes, max |kernel - plain|)
@@ -1008,6 +1431,7 @@ for name, key, replaces, compared, lanes, ms, plain_ms, bound in (
          "lanes": lanes, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
          "bound_by": "operations", "library_ms": None})
 REPORT.update(times=times, kernels=kernels, ptxas=ptxas, k4_span=k4_span,
+              runtime=runtime12,
               verify_build=verify_build, msm_build=msm_build,
               segment_sweep=segment_sweep,
               records={"150": rec150, "100k": rec5b, "pipelined": rec6,

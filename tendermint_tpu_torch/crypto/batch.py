@@ -2,26 +2,121 @@
 
 The counterpart of tendermint_tpu/crypto/batch.py for one device: call
 sites enqueue (pubkey, msg, sig) triples and get back an exact per-triple
-validity bitmap, computed in one batched kernel launch per chunk (one
-signature per GPU thread; see ops/ed25519.py).
+validity bitmap, computed in one batched kernel launch per chunk (see
+ops/ed25519.py).
 
 Routing (as the JAX package): batches below `tpu_threshold` stay on the
-host (pure-Python or OpenSSL single verifies, SigCache first); ed25519
-batches of at least `tpu_threshold` go to the device.  Every entry point
-takes a `device` ("cuda" by default, "cpu" for the kernels' plain
-versions; see tendermint_tpu_torch.resolve_device).  Not yet ported: the
-VerifyScheduler, the degradation runtime with its host fallback, the
-host-lane pool and tracing.
+host (SigCache first, then OpenSSL or pure-Python single verifies);
+ed25519 batches of at least `tpu_threshold` go to the device through the
+degradation runtime (crypto/degrade.py), which bounds each launch by a
+deadline, spot-checks its bitmap on the host, counts failures against a
+circuit breaker and re-verifies a failed launch on the host, so the
+caller's bitmap is exact whatever the device did.  On the card that
+re-verify happens only in a chaos drill (a failpoint armed); outside one
+a failed launch raises degrade.DeviceLaneError to the caller.
+
+Device rule (_use_device): TM_TPU_DISABLE_BATCH=1 keeps every batch on
+the host lanes (an explicit opt-out); TM_TPU_FORCE_BATCH=1 takes the
+device lane on whatever device the caller names ("cpu" runs the kernels'
+plain PyTorch versions); otherwise `device` decides — "cpu" asked for
+explicitly takes the host lanes, "cuda" the device lane, and CUDA
+missing without a request for the CPU raises RuntimeError.
+
+Not yet ported: the VerifyScheduler and the host-lane pool (the port
+verifies ed25519 only, so host lanes run serially in the caller, as the
+JAX package's do with the pool disabled).
 """
 from __future__ import annotations
 
+import os
+import random
+import time
 from dataclasses import dataclass
-from typing import List, Sequence, Tuple
+from functools import partial
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from tendermint_tpu_torch import resolve_device
+from tendermint_tpu_torch.libs import trace
 from . import PubKey
+from . import degrade
 from . import ed25519 as ed
+
+
+def _use_device(device=None) -> bool:
+    """Whether an eligible batch takes the device lane (see the module
+    docstring).  Never returns False because CUDA is missing: that
+    raises, unless the caller asked for the CPU or opted out."""
+    if os.environ.get("TM_TPU_DISABLE_BATCH", "") == "1":
+        return False
+    if os.environ.get("TM_TPU_FORCE_BATCH", "") == "1":
+        return True
+    if resolve_device(device).type == "cpu":
+        return False
+    if not degrade.runtime().backend_available():
+        raise RuntimeError(
+            "tendermint_tpu_torch: the CUDA backend failed to initialise")
+    return True
+
+
+def _load_kernels(device, n: int):
+    """The torch.device a device lane launches on, resolved HERE on the
+    caller's thread (the lane worker must not resolve it: its current
+    CUDA device is 0), with the kernels it will launch built and loaded
+    here too.  An nvcc build takes tens of seconds to minutes: inside the
+    lane worker it would run under the launch deadline, time out and
+    fall back to the host with the kernel never run.  Called before the
+    breaker is asked, so a build failure raises to the caller and is
+    never counted as a device failure."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        from tendermint_tpu_torch.ops import cuda_ed25519, cuda_msm, msm
+        cuda_ed25519.kernels()
+        if msm.use_rlc(n):
+            cuda_msm.kernels()
+    return dev
+
+
+class _SpotCheck:
+    """Integrity guard of a device lane: re-verify ONE random triple on
+    the host and require the device's bit to agree — one host verify per
+    launch, and a device returning garbage bitmaps (chaos mode
+    "corrupt-bitmap", a real silent-corruption class) is degraded
+    instead of trusted.  `triple_at(j) -> (pub, msg, sig)` with pub a
+    PubKey object.  The runtime calls prepare() after the submit and
+    before it waits for the launch, so the host verify is not left until
+    the bitmap is back; the call with the bitmap compares one bit.  The
+    verify (OpenSSL through `cryptography`) holds the GIL, so the lane
+    worker starts its launch once it is done."""
+
+    def __init__(self, n: int, triple_at):
+        self.n = n
+        self._triple_at = triple_at
+        self._verdict = None  # (j, host bit) once prepared
+
+    def prepare(self):
+        if self._verdict is not None or self.n == 0:
+            return
+        j = random.randrange(self.n)
+        try:
+            pub, msg, sig = self._triple_at(j)
+            host = pub.verify_signature(msg, sig)
+        except Exception:  # noqa: BLE001 - malformed input = invalid
+            host = False
+        self._verdict = (j, bool(host))
+
+    def __call__(self, bits: np.ndarray) -> bool:
+        if self.n == 0 or len(bits) != self.n:
+            return len(bits) == self.n
+        self.prepare()
+        j, host = self._verdict
+        return bool(bits[j]) == host
+
+
+def _spot_check_items(items):
+    return _SpotCheck(len(items),
+                      lambda j: (items[j].pub, items[j].msg, items[j].sig))
 
 
 @dataclass
@@ -109,31 +204,186 @@ class BatchVerifier:
     def verify(self) -> Tuple[bool, np.ndarray]:
         """Returns (all_valid, per-item bool bitmap, in insertion order)."""
         n = len(self._items)
-        out = np.zeros(n, dtype=bool)
         if n == 0:
-            return True, out
+            return True, np.zeros(0, dtype=bool)
+        # verify() entry is this request's "submit": the e2e bracket lands
+        # in the verify_e2e_latency histogram, labeled path="direct"
+        t_submit = time.monotonic()
+        # flight-recorder root of the batch: the lane spans (device.launch
+        # on the worker, device.collect, the verdict) link under it
+        with trace.span("batch.verify", n=n,
+                        threshold=self.tpu_threshold) as sp:
+            ok, bits = self._verify(n, sp, t_submit)
+        degrade.publish_request_latency(
+            _context_priority_name(), "direct",
+            time.monotonic() - t_submit)
+        return ok, bits
+
+    def _verify(self, n: int, sp,
+                t_submit: Optional[float] = None) -> Tuple[bool, np.ndarray]:
+        out = np.zeros(n, dtype=bool)
         by_type: dict = {}
         for i, it in enumerate(self._items):
             by_type.setdefault(it.pub.type_name, []).append(i)
+        # tiny-batch hot path (a consensus vote window): below the
+        # threshold no lane can reach the device, so the runtime (whose
+        # breaker lock is shared across callers) is never touched
+        rt = degrade.runtime() if n >= self.tpu_threshold else None
+        # [(tname, idxs, items, future, t0, done_at, on_card)]
+        device_lanes = []
+        host_lanes = []
         for tname, idxs in by_type.items():
             items = [self._items[i] for i in idxs]
-            if tname == ed.KEY_TYPE and len(items) >= self.tpu_threshold:
-                bits = verify_ed25519_batch([it.pub.bytes() for it in items],
-                                            [it.msg for it in items],
-                                            [it.sig for it in items],
-                                            device=self.device)
-            else:
-                bits = _host_verify_items(items)
-            out[np.asarray(idxs)] = bits
+            verifier = _device_verifier(tname) if rt is not None else None
+            if (verifier is not None and len(items) >= self.tpu_threshold
+                    and _use_device(self.device)):
+                dev = _load_kernels(self.device, len(items))
+                if rt.try_acquire():
+                    t0 = time.monotonic()
+                    fut = rt.submit(
+                        f"batch.{tname}", partial(verifier, device=dev),
+                        [it.pub.bytes() for it in items],
+                        [it.msg for it in items],
+                        [it.sig for it in items])
+                    done_at = _lane_done_stamp(fut)
+                    device_lanes.append((tname, idxs, items, fut, t0,
+                                         done_at, dev.type == "cuda"))
+                    continue
+                # breaker open: this lane WOULD have gone to the device
+                rt.allow_fallback(f"batch.{tname}", "breaker_open",
+                                  dev.type == "cuda")
+            host_lanes.append((tname, idxs, items))
+        if trace.is_enabled():
+            sp.add(schemes=",".join(f"{t}:{len(ix)}"
+                                    for t, ix in by_type.items()),
+                   device_lanes=len(device_lanes),
+                   host_lanes=len(host_lanes),
+                   device_eligible=rt is not None)
+        lane_times: List[Tuple[str, str, float, float]] = []
+        try:
+            _run_host_lanes(host_lanes, out, "batch.host_lane",
+                            sp.span_id, lane_times=lane_times,
+                            t_submit=t_submit)
+        finally:
+            # always settle EVERY device lane: a host-lane exception must
+            # not abandon an in-flight launch or leave the breaker's
+            # acquire unbalanced.  A launch that times out, raises, or
+            # fails the host spot check is counted against the breaker
+            # and the lane re-verifies on the host, preserving the exact
+            # per-triple bitmap — on the card only in a chaos drill;
+            # otherwise collect() raises DeviceLaneError.
+            for tname, idxs, items, fut, t0, done_at, on_card in \
+                    device_lanes:
+                out[np.asarray(idxs)] = rt.collect(
+                    f"batch.{tname}", fut,
+                    host_fn=partial(_host_verify_items, items),
+                    spot_check=_spot_check_items(items), on_card=on_card)
+                lane_times.append((tname, "device", t0,
+                                   done_at[0] if done_at
+                                   else time.monotonic()))
+        _publish_lane_report(lane_times, sp, rt is not None)
         # remember the valid ones so later serial re-checks are cache hits
-        for i, it in enumerate(self._items):
-            if out[i]:
-                verified_sigs.add(it.pub.bytes(), it.msg, it.sig)
+        with trace.span("batch.verdict") as vsp:
+            for i, it in enumerate(self._items):
+                if out[i]:
+                    verified_sigs.add(it.pub.bytes(), it.msg, it.sig)
+            if trace.is_enabled():
+                vsp.add(valid=int(out.sum()), n=n)
         return bool(out.all()), out
 
 
+def _run_host_lanes(host_lanes, out: np.ndarray, span_name: str, parent,
+                    lane_times=None, t_submit: Optional[float] = None):
+    """Run the per-scheme host lanes one after another in the caller (the
+    JAX package's path with its host-lane pool disabled).  `parent` is
+    the caller's span id; `lane_times` (when given) collects (scheme,
+    kind, t0, t1) wall brackets for the lane report; `t_submit` is the
+    request's lifecycle origin, recorded on each lane span."""
+    for tname, idxs, items in host_lanes:
+        t0 = time.monotonic()
+        with trace.span(span_name, parent=parent, scheme=tname,
+                        n=len(items)) as lsp:
+            if t_submit is not None and trace.is_enabled():
+                lsp.add(since_submit_s=round(t0 - t_submit, 6))
+            bits = _host_verify_items(items)
+        if lane_times is not None:
+            lane_times.append((tname, "host", t0, time.monotonic()))
+        out[np.asarray(idxs)] = bits
+
+
+def _lane_done_stamp(fut) -> list:
+    """Timestamp box filled when a device-lane future completes: the
+    lane's wall bracket ends when the DEVICE finished, not when the
+    caller got around to collect().  A launch that never completes
+    (timeout/quarantine) leaves the box empty and the bracket falls back
+    to collect-return, which then includes the host re-verify."""
+    done_at: list = []
+
+    def _stamp(_f):
+        done_at.append(time.monotonic())
+    fut.add_done_callback(_stamp)
+    return done_at
+
+
+_last_lanes: dict = {}
+
+
+def last_lane_report() -> dict:
+    """Wall-time decomposition of the most recent verify with lanes:
+    {"lanes": [{"scheme", "kind", "wall_s"}, ...], "wall_s", "sum_s",
+    "overlap_ratio"} — overlap_ratio = 1 - wall/sum is 0 for serial
+    lanes and (k-1)/k for k perfectly overlapped ones."""
+    return _last_lanes
+
+
+def _publish_lane_report(lane_times, sp, publish_metrics: bool):
+    """Fold per-lane wall brackets into the lane report + the
+    crypto_lane_overlap_ratio gauge (skipped for tiny batches, which
+    never touch degrade.runtime()).  Returns THIS call's report dict
+    (None when there were no lanes)."""
+    global _last_lanes
+    if not lane_times:
+        return None
+    wall = max(t1 for _, _, _, t1 in lane_times) - \
+        min(t0 for _, _, t0, _ in lane_times)
+    total = sum(t1 - t0 for _, _, t0, t1 in lane_times)
+    overlap = 0.0
+    if len(lane_times) > 1 and total > 0 and wall > 0:
+        overlap = max(0.0, 1.0 - wall / total)
+    report = {
+        "lanes": [{"scheme": s, "kind": k, "wall_s": round(t1 - t0, 6)}
+                  for s, k, t0, t1 in lane_times],
+        "wall_s": round(wall, 6),
+        "sum_s": round(total, 6),
+        "overlap_ratio": round(overlap, 4),
+    }
+    _last_lanes = report
+    if len(lane_times) > 1:
+        if trace.is_enabled():
+            sp.add(lane_overlap=round(overlap, 4))
+        if publish_metrics:
+            degrade.publish_lane_overlap(overlap)
+    return report
+
+
+def _context_priority_name() -> str:
+    """Priority label for the direct path's e2e latency.  The caller's
+    scheduler priority context waits for the VerifyScheduler's port;
+    COMMIT is its fallback value."""
+    return "commit"
+
+
+def _device_verifier(tname: str):
+    """The device lane for a key scheme, or None if that scheme stays on
+    the host (only ed25519 has one)."""
+    if tname == ed.KEY_TYPE:
+        return verify_ed25519_batch
+    return None
+
+
 def _host_verify_items(items) -> np.ndarray:
-    """Host lane: SigCache hits first, then per-item verify_signature."""
+    """Host lane: SigCache hits first, then per-item verify_signature for
+    the misses."""
     bits = np.zeros(len(items), dtype=bool)
     for i, it in enumerate(items):
         bits[i] = (verified_sigs.hit(it.pub.bytes(), it.msg, it.sig)
@@ -149,19 +399,38 @@ def verify_sigs_bulk(pubs: Sequence[PubKey], msgs, sigs: Sequence[bytes],
     or any sequence of bytes; `pubs` a list of PubKeys or the (n, 32)
     uint8 raw ed25519 pubkey matrix of the validator-set fast path.
 
-    Routing matches BatchVerifier: device kernel for batches of at least
-    tpu_threshold all-ed25519 triples, with the pubkey rows kept
-    device-resident (cache_pubs: a validator set's keys recur every
-    block); the host otherwise."""
+    Routing matches BatchVerifier: big all-ed25519 batches go to the
+    device through the degradation runtime (site "bulk.ed25519"), with
+    the pubkey rows kept device-resident (cache_pubs: a validator set's
+    keys recur every block) and the host re-verify as its fallback;
+    every other batch goes through BatchVerifier, which fills the
+    SigCache.  (The VerifyScheduler route and the coordinated multi-
+    process sweep wait for their ports.)"""
     n = len(pubs)
+    rt = degrade.runtime()
     if isinstance(pubs, np.ndarray):
-        if n >= tpu_threshold:
-            return verify_ed25519_batch(pubs, msgs, sigs, cache_pubs=True,
-                                        device=device)
-        return _host_bulk_ed25519(pubs, msgs, sigs)
-    if n >= tpu_threshold and all(p.type_name == ed.KEY_TYPE for p in pubs):
-        return verify_ed25519_batch([p.bytes() for p in pubs], msgs, sigs,
-                                    cache_pubs=True, device=device)
+        # (n, 32) raw ed25519 pubkey matrix — the validator-set fast
+        # path (types/validator_set._pub_matrix): no per-key objects
+        if n >= tpu_threshold and _use_device(device):
+            dev = _load_kernels(device, n)
+            return rt.run(
+                "bulk.ed25519",
+                partial(verify_ed25519_batch, pubs, msgs, sigs,
+                        cache_pubs=True, device=dev),
+                host_fn=partial(_host_bulk_ed25519, pubs, msgs, sigs),
+                spot_check=_spot_check_bulk(pubs, msgs, sigs),
+                on_card=dev.type == "cuda")
+        pubs = [ed.PubKey(bytes(p)) for p in pubs]
+    if (n >= tpu_threshold and all(p.type_name == ed.KEY_TYPE for p in pubs)
+            and _use_device(device)):
+        dev = _load_kernels(device, n)
+        return rt.run(
+            "bulk.ed25519",
+            partial(verify_ed25519_batch, [p.bytes() for p in pubs],
+                    msgs, sigs, cache_pubs=True, device=dev),
+            host_fn=partial(_host_bulk_ed25519, pubs, msgs, sigs),
+            spot_check=_spot_check_bulk(pubs, msgs, sigs),
+            on_card=dev.type == "cuda")
     bv = BatchVerifier(tpu_threshold=tpu_threshold, device=device)
     for i in range(n):
         bv.add(pubs[i], msgs[i], sigs[i])
@@ -174,17 +443,25 @@ def _as_ed_pub(p) -> PubKey:
 
 
 def _host_bulk_ed25519(pubs, msgs, sigs) -> np.ndarray:
-    """Host verification of a whole-commit batch: the same per-triple
-    semantics as the device path, malformed lengths simply invalid."""
+    """Host re-verification of a whole-commit batch — the degradation
+    target when the device lane times out, raises, or the breaker is
+    open.  Same per-triple semantics as the device path: malformed
+    inputs are simply invalid, never exceptions."""
     n = len(pubs)
     bits = np.zeros(n, dtype=bool)
     for i in range(n):
         try:
             bits[i] = _as_ed_pub(pubs[i]).verify_signature(
                 bytes(msgs[i]), bytes(sigs[i]))
-        except ValueError:  # malformed key length = invalid
+        except Exception:  # noqa: BLE001 - malformed input = invalid
             bits[i] = False
     return bits
+
+
+def _spot_check_bulk(pubs, msgs, sigs):
+    return _SpotCheck(
+        len(pubs),
+        lambda j: (_as_ed_pub(pubs[j]), bytes(msgs[j]), bytes(sigs[j])))
 
 
 def verify_ed25519_batch(pubkeys: Sequence[bytes], msgs: Sequence[bytes],

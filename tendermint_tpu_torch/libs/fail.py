@@ -1,0 +1,238 @@
+"""Fault injection: indexed crash points + named chaos modes.
+
+The counterpart of tendermint_tpu/libs/fail.py.  Two mechanisms share
+this module:
+
+1. Indexed fail points (reference libs/fail/fail.go:28-39): call sites
+   are numbered in execution order by a process-global counter; when the
+   counter reaches $FAIL_TEST_INDEX the process dies immediately.
+
+2. Named, mode-keyed injection for the device-lane chaos matrix
+   (crypto/degrade.py, tests/test_torch_chaos.py).  A site like
+   "ops.ed25519.verify_batch" calls inject(site) on entry; an armed mode
+   forces one failure class deterministically:
+
+       raise          raise InjectedFault at the site
+       latency:<ms>   sleep <ms> before proceeding (drives the launch
+                      deadline in the degradation runtime)
+       corrupt-bitmap invert the device result bitmap (exercises the
+                      runtime's host spot-check integrity guard)
+       exit           os._exit(77), the crash-matrix convention
+
+   Armed programmatically (set_mode / clear) for in-process tests, or
+   via $TM_TPU_FAILPOINTS="site=mode;site2=mode" for subprocess tests;
+   site "*" matches every site.  fired() exposes hit counts so tests
+   can assert the injection actually triggered.
+"""
+from __future__ import annotations
+
+import os
+import threading
+import time
+from typing import Dict, Optional, Tuple
+
+_counter = 0
+_lock = threading.Lock()
+
+_modes: Dict[str, str] = {}
+_fired: Dict[Tuple[str, str], int] = {}
+
+# ---------------------------------------------------------------------------
+# the chaos-site registry.  Every fail.inject/corrupt_bitmap call site of
+# the package appears here; set_mode() refuses to arm an unregistered
+# site, so a typo'd chaos test fails loudly instead of silently never
+# injecting.  Tests register throwaway sites with register().
+# ---------------------------------------------------------------------------
+
+REGISTERED_SITES = frozenset({
+    # the device-kernel entry seam (ops/ed25519.verify_batch): the
+    # per-signature, split and RLC routes all start behind it
+    "ops.ed25519.verify_batch",
+    # degradation-runtime lane sites (crypto/degrade.py submit/run):
+    # BatchVerifier's ed25519 lane and the whole-commit bulk path
+    "batch.ed25519",
+    "bulk.ed25519",
+})
+
+_extra_sites: set = set()
+
+
+def register(site: str) -> str:
+    """Register an ad-hoc site (tests, experiments).  Returns it."""
+    with _lock:
+        _extra_sites.add(site)
+    return site
+
+
+def is_registered(site: str) -> bool:
+    if site == "*" or site in REGISTERED_SITES:
+        return True
+    with _lock:
+        return site in _extra_sites
+
+
+class InjectedFault(RuntimeError):
+    """A chaos-injected device fault (mode "raise")."""
+
+
+def _target() -> int:
+    v = os.environ.get("FAIL_TEST_INDEX")
+    return int(v) if v else -1
+
+
+def fail_point(_site_id: int = 0):
+    """Die (os._exit) if this is the $FAIL_TEST_INDEX-th fail point hit."""
+    global _counter
+    t = _target()
+    if t < 0:
+        return
+    with _lock:
+        current = _counter
+        _counter += 1
+    if current == t:
+        os._exit(77)
+
+
+def reset():
+    """Back to a pristine state: counter, modes, hit counts, ad-hoc site
+    registrations and the env-validation cache (a site one test
+    registered must not let a later test's typo of the same name arm
+    silently)."""
+    global _counter, _env_validated
+    with _lock:
+        _counter = 0
+        _modes.clear()
+        _fired.clear()
+        _extra_sites.clear()
+    _env_validated = None
+
+
+# ---------------------------------------------------------------------------
+# named chaos modes
+# ---------------------------------------------------------------------------
+
+def set_mode(site: str, mode: Optional[str]):
+    """Arm (or with mode=None disarm) an injection mode at a named site.
+    The mode stays armed until cleared.  Arming an UNREGISTERED site
+    raises (register ad-hoc test sites with register())."""
+    if mode is not None and not is_registered(site):
+        raise ValueError(
+            f"fail site {site!r} is not registered (REGISTERED_SITES in "
+            f"libs/fail.py, or fail.register)")
+    with _lock:
+        if mode is None:
+            _modes.pop(site, None)
+        else:
+            _modes[site] = mode
+
+
+def clear(site: Optional[str] = None):
+    with _lock:
+        if site is None:
+            _modes.clear()
+        else:
+            _modes.pop(site, None)
+
+
+def fired(site: str, mode: str) -> int:
+    with _lock:
+        return _fired.get((site, mode), 0)
+
+
+def armed() -> bool:
+    """Whether a chaos drill is on: a named mode is armed at some site,
+    by set_mode or by $TM_TPU_FAILPOINTS.  On the card the degradation
+    runtime re-verifies a failed launch on the host only then."""
+    with _lock:
+        if _modes:
+            return True
+    return any(v.strip() for _, _, v in
+               (e.partition("=") for e in
+                os.environ.get("TM_TPU_FAILPOINTS", "").split(";")))
+
+
+_env_validated: Optional[str] = None
+
+
+def _validate_env(env: str):
+    """Every TM_TPU_FAILPOINTS key must be a registered site, checked
+    once per distinct env value at the first inject() that reads it, so
+    a typo surfaces loudly inside the armed process."""
+    global _env_validated
+    if env == _env_validated:
+        return
+    for entry in env.split(";"):
+        k, _, v = entry.partition("=")
+        k = k.strip()
+        if v and k and k != "*" and not is_registered(k):
+            raise ValueError(
+                f"TM_TPU_FAILPOINTS site {k!r} is not registered "
+                f"(REGISTERED_SITES in libs/fail.py)")
+    _env_validated = env
+
+
+def _mode_for(site: str) -> Optional[str]:
+    with _lock:
+        m = _modes.get(site) or _modes.get("*")
+    if m is not None:
+        return m
+    env = os.environ.get("TM_TPU_FAILPOINTS", "")
+    if not env:
+        return None
+    _validate_env(env)
+    for entry in env.split(";"):
+        k, _, v = entry.partition("=")
+        if v and k.strip() in (site, "*"):
+            return v.strip()
+    return None
+
+
+def _count(site: str, mode: str):
+    with _lock:
+        _fired[(site, mode)] = _fired.get((site, mode), 0) + 1
+
+
+# result-transform modes: no-ops at the entry hook, applied by their
+# dedicated result helpers (corrupt_bitmap / corrupt_bytes)
+_RESULT_MODES = frozenset({"corrupt-bitmap", "corrupt-chunk"})
+
+
+def inject(site: str):
+    """Entry hook of a named fail-point site: raise / stall / die per the
+    armed mode.  Result-transform modes are no-ops here."""
+    mode = _mode_for(site)
+    if mode is None or mode in _RESULT_MODES:
+        return
+    if mode == "raise":
+        _count(site, mode)
+        raise InjectedFault(f"injected fault at {site}")
+    if mode.startswith("latency:"):
+        _count(site, mode)
+        time.sleep(float(mode.split(":", 1)[1]) / 1000.0)
+        return
+    if mode == "exit":
+        _count(site, mode)
+        os._exit(77)
+    raise ValueError(f"unknown fail mode {mode!r} at {site}")
+
+
+def corrupt_bitmap(site: str, bits):
+    """Result hook of a device-lane site: under "corrupt-bitmap" return
+    the inverted bitmap (a device replying with garbage), which the
+    degradation runtime's host spot check must catch."""
+    if _mode_for(site) == "corrupt-bitmap":
+        import numpy as np
+        _count(site, "corrupt-bitmap")
+        return ~np.asarray(bits, dtype=bool)
+    return bits
+
+
+def corrupt_bytes(site: str, data: bytes) -> bytes:
+    """Result hook of a byte-stream site: under "corrupt-chunk" flip the
+    first byte (a peer serving garbage)."""
+    if _mode_for(site) == "corrupt-chunk":
+        _count(site, "corrupt-chunk")
+        if not data:
+            return b"\xff"
+        return bytes([data[0] ^ 0xFF]) + bytes(data[1:])
+    return data

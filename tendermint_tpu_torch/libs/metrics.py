@@ -1,0 +1,360 @@
+"""Metrics registry with Prometheus text exposition.
+
+The counterpart of tendermint_tpu/libs/metrics.py for the families the
+port publishes: counters, gauges and histograms with optional label
+dimensions, a process-global default registry (tests may build private
+registries), rendered in the Prometheus text format.  The bundles here
+are CryptoMetrics (the device-lane degradation runtime, routes, request
+latency, SLO gauges) and TraceMetrics (the flight recorder's own drop
+counter); the node's other families are not ported yet.
+"""
+from __future__ import annotations
+
+import threading
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
+
+
+def _escape_label_value(v) -> str:
+    """Prometheus text-format label-value escaping: backslash, double
+    quote and newline must be escaped or a value like `ch="0x20"` (or a
+    reason string carrying a traceback line) corrupts the whole
+    exposition for every scraper."""
+    return (str(v).replace("\\", "\\\\").replace('"', '\\"')
+            .replace("\n", "\\n"))
+
+
+def _escape_help(v: str) -> str:
+    """# HELP lines escape backslash and newline (not quotes)."""
+    return v.replace("\\", "\\\\").replace("\n", "\\n")
+
+
+class _Metric:
+    def __init__(self, name: str, help_: str, labels: Sequence[str] = ()):
+        self.name = name
+        self.help = help_
+        self.label_names = tuple(labels)
+        self._lock = threading.Lock()
+
+    def _key(self, labels: Dict[str, str]) -> Tuple[str, ...]:
+        assert set(labels) == set(self.label_names), (
+            f"{self.name}: labels {set(labels)} != {set(self.label_names)}")
+        return tuple(labels[k] for k in self.label_names)
+
+    def _fmt_labels(self, key: Tuple[str, ...], extra: str = "") -> str:
+        pairs = [f'{n}="{_escape_label_value(v)}"'
+                 for n, v in zip(self.label_names, key)]
+        if extra:
+            pairs.append(extra)
+        return "{" + ",".join(pairs) + "}" if pairs else ""
+
+
+class Counter(_Metric):
+    kind = "counter"
+
+    def __init__(self, name, help_="", labels=()):
+        super().__init__(name, help_, labels)
+        self._values: Dict[Tuple[str, ...], float] = {}
+
+    def inc(self, n: float = 1.0, **labels):
+        key = self._key(labels)
+        with self._lock:
+            self._values[key] = self._values.get(key, 0.0) + n
+
+    def value(self, **labels) -> float:
+        with self._lock:
+            return self._values.get(self._key(labels), 0.0)
+
+    def render(self) -> List[str]:
+        with self._lock:
+            items = sorted(self._values.items())
+        return [f"{self.name}{self._fmt_labels(k)} {v:g}"
+                for k, v in items] or [f"{self.name} 0"]
+
+
+class Gauge(_Metric):
+    kind = "gauge"
+
+    def __init__(self, name, help_="", labels=()):
+        super().__init__(name, help_, labels)
+        self._values: Dict[Tuple[str, ...], float] = {}
+
+    def set(self, v: float, **labels):
+        with self._lock:
+            self._values[self._key(labels)] = float(v)
+
+    def add(self, n: float, **labels):
+        key = self._key(labels)
+        with self._lock:
+            self._values[key] = self._values.get(key, 0.0) + n
+
+    def value(self, **labels) -> float:
+        with self._lock:
+            return self._values.get(self._key(labels), 0.0)
+
+    def render(self) -> List[str]:
+        with self._lock:
+            items = sorted(self._values.items())
+        return [f"{self.name}{self._fmt_labels(k)} {v:g}"
+                for k, v in items] or [f"{self.name} 0"]
+
+
+def exp_buckets(start: float, factor: float, count: int) -> List[float]:
+    """Exponential-range buckets (reference consensus/metrics.go:33
+    0.1..100s exprange)."""
+    out, v = [], start
+    for _ in range(count):
+        out.append(v)
+        v *= factor
+    return out
+
+
+class _HistTimer:
+    """One timed bracket against a histogram (Histogram.time()).
+
+    Two shapes: the context-manager form observes the wall clock on a
+    CLEAN exit (an exception means the bracket never completed — same
+    policy every existing hand-rolled site applied by observing at the
+    end of the happy path), and the manual form calls ``observe()``
+    exactly at the point the caller declares success (the degradation
+    runtime observes launch seconds only when the launch did not
+    degrade)."""
+
+    __slots__ = ("_h", "_clock", "_labels", "_t0")
+
+    def __init__(self, h: "Histogram", clock, labels):
+        self._h = h
+        self._clock = clock
+        self._labels = labels
+        self._t0 = clock()
+
+    def __enter__(self):
+        self._t0 = self._clock()
+        return self
+
+    def __exit__(self, etype, evalue, tb):
+        if etype is None:
+            self.observe()
+        return False
+
+    def observe(self):
+        self._h.observe(self._clock() - self._t0, **self._labels)
+
+
+class Histogram(_Metric):
+    kind = "histogram"
+
+    def __init__(self, name, help_="", labels=(), buckets=None):
+        super().__init__(name, help_, labels)
+        self.buckets = sorted(buckets or
+                              [.005, .01, .025, .05, .1, .25, .5,
+                               1, 2.5, 5, 10])
+        self._counts: Dict[Tuple[str, ...], List[int]] = {}
+        self._sum: Dict[Tuple[str, ...], float] = {}
+        self._n: Dict[Tuple[str, ...], int] = {}
+
+    def time(self, clock=time.monotonic, **labels) -> _HistTimer:
+        """Timed-bracket helper: ``with hist.time(site=...):`` observes
+        the wall clock of the block, replacing the hand-rolled
+        ``t0 = monotonic() ... observe(monotonic() - t0)`` pattern.
+        `clock` is injectable (the degradation runtime times against
+        its deterministic test clock)."""
+        return _HistTimer(self, clock, labels)
+
+    def count(self, **labels) -> int:
+        """Observation count for a label set (test/report accessor)."""
+        with self._lock:
+            return self._n.get(self._key(labels), 0)
+
+    def total(self, **labels) -> float:
+        """Sum of observed values for a label set."""
+        with self._lock:
+            return self._sum.get(self._key(labels), 0.0)
+
+    def observe(self, v: float, **labels):
+        key = self._key(labels)
+        with self._lock:
+            counts = self._counts.setdefault(key,
+                                             [0] * (len(self.buckets) + 1))
+            for i, ub in enumerate(self.buckets):
+                if v <= ub:
+                    counts[i] += 1
+                    break
+            else:
+                counts[-1] += 1
+            self._sum[key] = self._sum.get(key, 0.0) + v
+            self._n[key] = self._n.get(key, 0) + 1
+
+    def render(self) -> List[str]:
+        out = []
+        with self._lock:
+            keys = sorted(self._counts)
+            for key in keys:
+                cum = 0
+                for i, ub in enumerate(self.buckets):
+                    cum += self._counts[key][i]
+                    le = 'le="{:g}"'.format(ub)
+                    out.append(f"{self.name}_bucket"
+                               f"{self._fmt_labels(key, le)}"
+                               f" {cum}")
+                cum += self._counts[key][-1]
+                inf = 'le="+Inf"'
+                out.append(f"{self.name}_bucket"
+                           f"{self._fmt_labels(key, inf)} {cum}")
+                out.append(f"{self.name}_sum{self._fmt_labels(key)}"
+                           f" {self._sum[key]:g}")
+                out.append(f"{self.name}_count{self._fmt_labels(key)}"
+                           f" {self._n[key]}")
+        return out
+
+
+class Registry:
+    def __init__(self, namespace: str = "tendermint"):
+        self.namespace = namespace
+        self._metrics: Dict[str, _Metric] = {}
+        self._lock = threading.Lock()
+
+    def _register(self, cls, subsystem, name, help_, **kw):
+        full = f"{self.namespace}_{subsystem}_{name}" if subsystem else \
+            f"{self.namespace}_{name}"
+        with self._lock:
+            if full in self._metrics:
+                m = self._metrics[full]
+                assert isinstance(m, cls), full
+                return m
+            m = cls(full, help_, **kw)
+            self._metrics[full] = m
+            return m
+
+    def counter(self, subsystem, name, help_="", labels=()) -> Counter:
+        return self._register(Counter, subsystem, name, help_,
+                              labels=labels)
+
+    def gauge(self, subsystem, name, help_="", labels=()) -> Gauge:
+        return self._register(Gauge, subsystem, name, help_, labels=labels)
+
+    def histogram(self, subsystem, name, help_="", labels=(),
+                  buckets=None) -> Histogram:
+        return self._register(Histogram, subsystem, name, help_,
+                              labels=labels, buckets=buckets)
+
+    def render_text(self) -> str:
+        """Prometheus text exposition format."""
+        lines = []
+        with self._lock:
+            metrics = sorted(self._metrics.items())
+        for name, m in metrics:
+            if m.help:
+                lines.append(f"# HELP {name} {_escape_help(m.help)}")
+            lines.append(f"# TYPE {name} {m.kind}")
+            lines.extend(m.render())
+        return "\n".join(lines) + "\n"
+
+
+DEFAULT = Registry()
+
+
+class CryptoMetrics:
+    """Device-lane degradation runtime (crypto/degrade.py): launches,
+    failure classes, host fallbacks, breaker lifecycle and backend
+    probing — the operator's view of whether the accelerator is serving
+    the verify hot path or the node has degraded to host verification
+    (docs/adr/adr-010-device-lane-degradation.md)."""
+
+    def __init__(self, reg: Optional[Registry] = None):
+        reg = reg or DEFAULT
+        self.device_launches = reg.counter(
+            "crypto", "device_launch_total",
+            "Device verify launches dispatched.", labels=("site",))
+        self.device_failures = reg.counter(
+            "crypto", "device_failure_total",
+            "Device launches that failed, by failure class.",
+            labels=("site", "reason"))
+        self.host_fallbacks = reg.counter(
+            "crypto", "host_fallback_total",
+            "Batches re-verified on the host OpenSSL path.",
+            labels=("site", "reason"))
+        self.breaker_state = reg.gauge(
+            "crypto", "breaker_state",
+            "Device-lane circuit breaker: 0 closed, 0.5 half-open, "
+            "1 open.")
+        self.breaker_transitions = reg.counter(
+            "crypto", "breaker_transitions_total",
+            "Breaker state transitions.", labels=("to",))
+        self.backend_probes = reg.counter(
+            "crypto", "backend_probe_total",
+            "Accelerator backend probes, by outcome.", labels=("result",))
+        self.device_launch_seconds = reg.histogram(
+            "crypto", "device_launch_seconds",
+            "Wall-clock of successful device verify launches.",
+            labels=("site",), buckets=exp_buckets(0.001, 4, 10))
+        # promoted from ad-hoc module globals (ops/msm.last_route and
+        # friends) so /metrics alone answers "did the sharded RLC path
+        # actually engage in production" without polling test hooks
+        self.msm_route = reg.counter(
+            "crypto", "msm_route_total",
+            "Verify dispatch routes taken, by path "
+            "(rlc-sharded/rlc-single/mesh-sharded/mesh-xla/global-mesh/"
+            "pallas/xla/...) and "
+            "outcome — only outcome=\"vouched\" means an RLC route "
+            "actually stood in for per-signature verification; "
+            "overflow/decode-failed/rejected bounced to the per-sig "
+            "ladder, and plain kernel launches count as "
+            "outcome=\"executed\".",
+            labels=("path", "outcome"))
+        self.batch_occupancy = reg.gauge(
+            "crypto", "batch_occupancy_ratio",
+            "Real rows / padded device lanes of the most recent "
+            "device batch (pad lanes are pure overhead).")
+        self.device_compile_seconds = reg.histogram(
+            "crypto", "device_compile_seconds",
+            "Wall-clock of FIRST launches per (path, lane bucket) — "
+            "dominated by jit compile; steady-state launches land in "
+            "crypto_device_launch_seconds instead.",
+            labels=("site",), buckets=exp_buckets(0.01, 4, 10))
+        # are a mixed batch's per-scheme lanes running side by side
+        # (wall = max over lanes) or serially (wall = sum over lanes)
+        self.lane_overlap = reg.gauge(
+            "crypto", "lane_overlap_ratio",
+            "Lane concurrency of the most recent multi-lane verify "
+            "batch: 1 - wall/sum(per-lane wall times).  0 means the "
+            "lanes ran serially; (k-1)/k means k lanes fully "
+            "overlapped.")
+        # per-request latency observatory (ADR-016): end-to-end
+        # submit-to-settle latency by priority and the settling path
+        self.verify_e2e_latency = reg.histogram(
+            "crypto", "verify_e2e_latency_seconds",
+            "End-to-end verify latency, submit to settle, by priority "
+            "class and settling path: sched-device / sched-host / "
+            "sched-fallback (degrade host re-verify inside a scheduler "
+            "window) / sched-cache (resolved from SigCache without "
+            "lanes) / direct (the BatchVerifier path when the "
+            "scheduler is not running).",
+            labels=("priority", "path"),
+            buckets=exp_buckets(0.0002, 4, 12))
+        # the sliding-window SLO estimator's targets (libs/slo.py).  The
+        # families of modules not ported yet wait for them: the comb
+        # table cache, the VerifyScheduler (queue, shed, deadlines, the
+        # windowed SLO quantiles it refreshes) and the host-lane pool
+        self.slo_target = reg.gauge(
+            "crypto", "slo_target_seconds",
+            "Configured p99 target per stream ([slo] <stream>_p99_ms, "
+            "seconds).  Published so SLO consumers — the adaptive "
+            "control plane (ADR-023), dashboards — read targets from "
+            "metrics instead of magic constants.  Absent for streams "
+            "with no configured target.", labels=("stream",))
+
+
+class TraceMetrics:
+    """Flight recorder self-observability (libs/trace.py): a wrapped
+    ring silently overwrites its oldest spans by design, but the
+    OVERWRITE must be visible — a trace consumer reading a quiet buffer
+    needs to know whether the system was quiet or the ring lapped it."""
+
+    def __init__(self, reg: Optional[Registry] = None):
+        reg = reg or DEFAULT
+        self.dropped_spans = reg.counter(
+            "trace", "dropped_spans_total",
+            "Finished spans overwritten by flight-recorder ring "
+            "wraparound since process start (the ring keeps the newest "
+            "window; this counts what it forgot).")

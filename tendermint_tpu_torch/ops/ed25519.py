@@ -38,6 +38,8 @@ import numpy as np
 import torch
 
 from tendermint_tpu_torch import resolve_device
+from tendermint_tpu_torch.libs import fail
+from tendermint_tpu_torch.libs import trace
 from . import cuda_ed25519 as ck
 from . import curve as C
 from . import field as F
@@ -272,13 +274,22 @@ def last_launch():
     """Immutable snapshot of the most recent launch record: path / device
     / n / nb (padded lanes) / occupancy / first_launch / wall_s, plus the
     phase keys stage_s, h2d_s, compute_s (CUDA-event times on a GPU),
-    collect_s or drain_s, and for chunked routes chunks / chunk_overlap."""
+    collect_s or drain_s, and for chunked routes chunks / chunk_overlap.
+
+    The record is process-global and written when a launch finishes.  A
+    launch that the degradation runtime abandoned at its deadline keeps
+    running on its quarantined lane thread and records itself when it
+    ends, so after a timeout this can show the abandoned launch rather
+    than the one that followed it; wait for the abandoned thread before
+    reading it."""
     with _launch_lock:
         return _last_launch
 
 
-def _record_launch(path: str, dev: torch.device, n: int, nb: int,
-                   wall_s: float, phases: dict):
+def _set_last_launch(path: str, dev: torch.device, n: int, nb: int,
+                     wall_s: float, phases: dict) -> bool:
+    """Store a launch record; returns whether it was the first launch of
+    its (path, device, nb) bucket."""
     global _last_launch, _launch_seq
     key = (path, str(dev), nb)
     with _launch_lock:
@@ -289,6 +300,22 @@ def _record_launch(path: str, dev: torch.device, n: int, nb: int,
             phases, path=path, device=str(dev), n=n, nb=nb,
             occupancy=n / nb if nb else 1.0, first_launch=first,
             wall_s=wall_s, seq=_launch_seq))
+    return first
+
+
+def _record_launch(path: str, dev: torch.device, n: int, nb: int,
+                   wall_s: float, phases: dict):
+    """Store the launch record and publish the route: the
+    crypto_msm_route_total{path, outcome="executed"} counter, the lane
+    occupancy and (on a bucket's first launch) the compile split, and
+    the route attrs on the innermost live span."""
+    first = _set_last_launch(path, dev, n, nb, wall_s, phases)
+    from tendermint_tpu_torch.crypto import degrade
+    degrade.publish_route(path, "executed", n=n, nb=nb,
+                          compile_s=wall_s if first else None)
+    trace.current().add(path=path, n=n, nb=nb,
+                        occupancy=round(n / nb if nb else 1.0, 4),
+                        shards=1, first_launch=first)
 
 
 def _overlap(h2d_s: float, compute_s: float, span_s: float) -> float:
@@ -304,7 +331,12 @@ class _ChunkFeed:
     """Double-buffered host-to-device feed for a chunked launch: chunk
     j+1's rows go from a pinned host buffer to the device on a side
     stream while chunk j's kernel runs on the current stream, ordered by
-    events.  On a CPU device the rows are used as they are."""
+    events.  On a CPU device the rows are used as they are.
+
+    "The current stream" is that of the thread that builds the feed: on
+    the degradation runtime's lane worker, a thread of its own, it is
+    the default stream of `dev` (the stream every caller of the package
+    uses unless it entered a stream context of its own)."""
 
     def __init__(self, dev: torch.device, rows: int, lanes: int):
         self.dev = dev
@@ -539,9 +571,18 @@ def verify_batch(pubkeys, msgs, sigs, cache_pubs: bool = False,
     for every signature does the exact per-signature route run.
     device: "cuda" (default, see tendermint_tpu_torch.resolve_device) or
     "cpu" for the kernels' plain PyTorch versions."""
+    # chaos seam: the degradation runtime (crypto/degrade.py) wraps every
+    # dispatch into this function, so an injected raise/latency here is
+    # indistinguishable from a real device fault to the callers
+    fail.inject("ops.ed25519.verify_batch")
+    with trace.span("ops.ed25519.verify_batch", n=len(pubkeys)):
+        return _verify_batch(pubkeys, msgs, sigs, cache_pubs,
+                             resolve_device(device))
+
+
+def _verify_batch(pubkeys, msgs, sigs, cache_pubs: bool, dev):
     from . import msm
 
-    dev = resolve_device(device)
     if msm.use_rlc(len(pubkeys)) and msm.verify_batch_rlc(
             pubkeys, msgs, sigs, device=dev):
         return np.ones(len(pubkeys), dtype=bool)

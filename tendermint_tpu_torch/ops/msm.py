@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from tendermint_tpu_torch import resolve_device
+from tendermint_tpu_torch.libs import trace
 from . import cuda_msm as cm
 from . import curve as C
 from . import ed25519 as ed
@@ -428,17 +429,26 @@ def last_route():
 
 def _set_route(route: dict, dev=None, wall_s: float = 0.0,
                phases=None) -> None:
-    """Publish a route decision; when an MSM ran (nb set), mirror it into
-    ops/ed25519's launch record with its phases."""
+    """Publish a route decision: swap the snapshot under the lock, count
+    it into CryptoMetrics (crypto_msm_route_total{path, outcome}) at set
+    time, and mark it on the flight recorder; when an MSM ran (nb set),
+    mirror it into ops/ed25519's launch record with its phases."""
     global _last_route
     snap = MappingProxyType(dict(route))
     with _route_lock:
         _last_route = snap
+    from tendermint_tpu_torch.crypto import degrade
+    degrade.publish_route(route.get("path"), route.get("outcome"),
+                          n=route.get("n"), nb=route.get("nb"))
     nb = route.get("nb")
     if nb:
         extra = dict(phases or {}, c=route["c"], shards=route["shards"],
                      outcome=route["outcome"])
-        ed._record_launch(route["path"], dev, route["n"], nb, wall_s, extra)
+        ed._set_last_launch(route["path"], dev, route["n"], nb, wall_s,
+                            extra)
+    trace.instant("msm.route", **route)
+    trace.current().add(path=route.get("path"),
+                        outcome=route.get("outcome"))
 
 
 def verify_batch_rlc(pubkeys, msgs, sigs, z=None, device=None) -> bool:

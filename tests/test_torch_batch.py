@@ -117,3 +117,35 @@ def test_malformed_lengths(triples):
     assert not got[1] and not got[2] and got[3]
     np.testing.assert_array_equal(
         tbatch._host_bulk_ed25519(pubs, msgs, sigs), got)
+
+
+def test_bulk_below_threshold_fills_the_sig_cache(triples, monkeypatch):
+    """An (n, 32) matrix below tpu_threshold goes through BatchVerifier in
+    both packages, so the valid triple lands in the SigCache and a short
+    signature is simply invalid."""
+    pubs, msgs, sigs = triples
+    mat = np.frombuffer(pubs[1] + pubs[2], np.uint8).reshape(2, 32)
+    two = [msgs[1], msgs[2]]
+    short = [sigs[1], sigs[2][:63]]
+    got = {}
+    for name, mod in (("jax", jbatch), ("port", tbatch)):
+        monkeypatch.setattr(mod, "verified_sigs", mod.SigCache())
+        bits = mod.verify_sigs_bulk(mat, two, short)
+        got[name] = (bits.tolist(), len(mod.verified_sigs))
+    assert got["port"] == got["jax"] == ([True, False], 1)
+    assert tbatch.verified_sigs.hit(pubs[1], msgs[1], sigs[1])
+
+
+def test_host_bulk_never_raises(triples):
+    """The host fallback of the whole-commit path returns False for any
+    malformed triple (a short key, a message or key that is not bytes),
+    as the JAX package's does: it is the runtime's host_fn, and a
+    fallback must not raise where the reference answers."""
+    pubs, msgs, sigs = triples
+    p = [pubs[1], pubs[2][:31], object(), pubs[5]]
+    m = [msgs[1], msgs[2], msgs[3], None]
+    s = [sigs[1], sigs[2], sigs[3], sigs[5]]
+    want = jbatch._host_bulk_ed25519(p, m, s)
+    got = tbatch._host_bulk_ed25519(p, m, s)
+    np.testing.assert_array_equal(want, got)
+    assert got.tolist() == [True, False, False, False]

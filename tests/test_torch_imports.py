@@ -42,6 +42,15 @@ def _port_modules():
     return mods
 
 
+def test_resilience_modules_are_checked():
+    """The degradation runtime and the libs under it are among the modules
+    the two checks below cover."""
+    mods = _port_modules()
+    for m in ("crypto.degrade", "libs.fail", "libs.trace", "libs.metrics",
+              "libs.slo"):
+        assert f"tendermint_tpu_torch.{m}" in mods, m
+
+
 def test_import_keeps_jax_out():
     """Importing every module of the port in a fresh interpreter loads
     neither jax nor the JAX package."""
@@ -87,6 +96,11 @@ def test_cuda_missing_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cbatch.verify_sigs_bulk(np.zeros((40, 32), np.uint8),
                                 [b"m"] * 40, [bytes(64)] * 40)
+    bv = cbatch.BatchVerifier()
+    for _ in range(40):
+        bv.add(cbatch.ed.PubKey(pub), b"m", bytes(64))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        bv.verify()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         msm.verify_batch_rlc([pub], [b"m"], [bytes(64)])
     with pytest.raises(RuntimeError, match="CUDA is not available"):

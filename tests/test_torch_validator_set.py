@@ -2,6 +2,7 @@
 (tendermint_tpu_torch/convert.py): identical sign bytes, and
 verify_commit / verify_commit_light / verify_commit_light_trusting pass,
 or raise the same error naming the same index, on both sides."""
+import os
 from fractions import Fraction
 
 import numpy as np
@@ -100,11 +101,23 @@ def _tbid(commit):
                           tbasic.PartSetHeader(psh.total, psh.hash))
 
 
-def _outcome(fn):
+def _outcome(fn, force_batch=False):
+    """fn's exception as (type name, message), or None.  force_batch: run
+    it with TM_TPU_FORCE_BATCH=1, so that the port's batches of at least
+    32 signatures take its device lane (on device="cpu" the kernels'
+    plain versions) instead of the host lanes a CPU device selects."""
+    saved = os.environ.get("TM_TPU_FORCE_BATCH")
+    if force_batch:
+        os.environ["TM_TPU_FORCE_BATCH"] = "1"
     try:
         fn()
     except Exception as e:  # noqa: BLE001 - the outcome is compared
         return type(e).__name__, str(e)
+    finally:
+        if saved is None:
+            os.environ.pop("TM_TPU_FORCE_BATCH", None)
+        else:
+            os.environ["TM_TPU_FORCE_BATCH"] = saved
     return None
 
 
@@ -113,15 +126,16 @@ def _all_outcomes(j_vset, j_commit, t_vset, t_commit):
     h = j_commit.height
     return [
         (_outcome(lambda: j_vset.verify_commit(CHAIN, jb, h, j_commit)),
-         _outcome(lambda: t_vset.verify_commit(CHAIN, tb, h, t_commit))),
+         _outcome(lambda: t_vset.verify_commit(CHAIN, tb, h, t_commit),
+                  True)),
         (_outcome(lambda: j_vset.verify_commit_light(CHAIN, jb, h,
                                                      j_commit)),
          _outcome(lambda: t_vset.verify_commit_light(CHAIN, tb, h,
-                                                     t_commit))),
+                                                     t_commit), True)),
         (_outcome(lambda: j_vset.verify_commit_light_trusting(
             CHAIN, j_commit, Fraction(1, 3))),
          _outcome(lambda: t_vset.verify_commit_light_trusting(
-             CHAIN, t_commit, Fraction(1, 3)))),
+             CHAIN, t_commit, Fraction(1, 3)), True)),
     ]
 
 

@@ -68,7 +68,33 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      verify_commit with and without the spot check
      (TM_TPU_SPOT_CHECK=0), and the bulk call through the runtime beside
      the direct call
- 13  the kernels line; then the last line {"ok": true, "device": ...}
+ 13  the VerifyScheduler at the node's defaults (window 2 ms, max_batch
+     8,192, max_pending 65,536, tpu_threshold 32): 24 consumer threads,
+     one submission in flight each — blocksync replay (4 x 2 x 8,192,
+     verify_items), commit checks (4 x 4 x 1,024, verify_sigs_bulk under
+     priority_context(COMMIT), 10% of them pre-cached), vote pre-verify
+     (8 x 10 x 150, verify_items with a 5 ms deadline, 50 of each window
+     also in its pair's window) and mempool pre-checks (8 x 8 x 512,
+     submit) — 126,688 triples from phases 5-6 and the generator, 1 in
+     1,000 corrupted: exact bitmaps; every triple verified on the card
+     once, but for the pre-cached (never) and the gossip duplicates
+     (deduped, cache hits or, when the pair's windows were staged apart
+     while the first copy was in flight, a second lane), with stats()
+     agreeing; no shed, no direct-path fallback; every launch K1 at
+     sched.ed25519, one per device lane, the first window's K1 held
+     against its plain version; beside the same load on the direct path
+     one call after another, and the JAX bench's 16 x 64 shape sync
+     against pipelined.  Chaos through the scheduler on phase 12's
+     4,096-triple batch: raise and corrupt-bitmap drills (exact bitmaps,
+     sched-fallback), a K1 wrapper that raises outside a drill
+     (DeviceLaneError on the future, no host fallback, the next
+     submission served by the card).  The launch observatory since phase
+     4: one record per launch (the ring rotates, the totals do not), each
+     with its phases; each (path, nb) bucket once in the inventory with
+     its first-launch wall; pub_cache = the DeviceLRU's bytes after phase
+     5 and staging back to 0 after every phase; the 150-validator
+     and the RLC 100k verify_commit with devobs off and on
+ 14  the kernels line; then the last line {"ok": true, "device": ...}
 
 Signatures come from a seeded incremental generator (a_i = a_0 + i, so
 A_i = A_{i-1} + B), because signing 100k triples one by one in pure
@@ -116,9 +142,12 @@ import tendermint_tpu_torch as T  # noqa: E402
 from tendermint_tpu_torch.crypto import _edref  # noqa: E402
 from tendermint_tpu_torch.crypto import batch as cbatch  # noqa: E402
 from tendermint_tpu_torch.crypto import degrade  # noqa: E402
+from tendermint_tpu_torch.crypto import devobs  # noqa: E402
 from tendermint_tpu_torch.crypto import ed25519 as edkeys  # noqa: E402
+from tendermint_tpu_torch.crypto import scheduler as vsched  # noqa: E402
 from tendermint_tpu_torch.libs import fail as failpoints  # noqa: E402
 from tendermint_tpu_torch.libs import native  # noqa: E402
+from tendermint_tpu_torch.libs import slo  # noqa: E402
 from tendermint_tpu_torch.libs import trace  # noqa: E402
 from tendermint_tpu_torch.libs.metrics import Registry  # noqa: E402
 from tendermint_tpu_torch.ops import cuda_ed25519 as ck  # noqa: E402
@@ -537,6 +566,13 @@ def main_path(fn, capture=(), site=None):
     return out, got
 
 
+def staging_clear(phase) -> None:
+    """The device observatory's staging pool is back to 0 bytes: every
+    launch of the phase released its chunk feed's buffers."""
+    level = devobs.ledger_report().get("staging", {}).get("bytes", 0)
+    check(level == 0, f"phase {phase}: staging pool holds {level} bytes")
+
+
 def plain_on_captured(name: str, expect: np.ndarray):
     """Hold the kernel output of the last capture of `name` against the
     plain version on the same inputs, and the plain verdict against the
@@ -552,6 +588,46 @@ def plain_on_captured(name: str, expect: np.ndarray):
     return label, len(got), int(err.sum()), float(err.max())
 
 
+# the device observatory from here on: every launch record is counted
+# against ops/ed25519's launch sequence in phase 13
+check(devobs.is_enabled(), "the device observatory is disabled")
+DEVOBS_CUR4 = devobs.cursor()
+# devobs's own time on the main path: each entry point the ops modules
+# call is timed from here on ({name: [calls, seconds]})
+OBS_COST: dict = {}
+_obs_lock = threading.Lock()
+
+
+def _timed_obs(name):
+    fn = getattr(devobs, name)
+
+    def timed(*a, **k):
+        t = time.perf_counter()
+        try:
+            return fn(*a, **k)
+        finally:
+            dt = time.perf_counter() - t
+            with _obs_lock:
+                c = OBS_COST.setdefault(name, [0, 0.0])
+                c[0] += 1
+                c[1] += dt
+    setattr(devobs, name, timed)
+
+
+for _name in ("record", "publish_pending", "ledger_set", "ledger_add"):
+    _timed_obs(_name)
+
+
+def obs_cost_since(before: dict, calls: int) -> dict:
+    """devobs's calls and microseconds per verify call since `before`."""
+    with _obs_lock:
+        now = {k: list(v) for k, v in OBS_COST.items()}
+    return {k: {"calls": (v[0] - before.get(k, [0, 0.0])[0]) / calls,
+                "us": 1e6 * (v[1] - before.get(k, [0, 0.0])[1]) / calls}
+            for k, v in now.items()}
+
+
+LAUNCH_SEQ4 = E.last_launch()["seq"]
 rng = random.Random(SEED + 4)
 vset150, commit150, bid150, _ = make_commit(150, rng)
 _, c4a = main_path(lambda: vset150.verify_commit(CHAIN, bid150, 9, commit150,
@@ -575,6 +651,7 @@ check(rec150["path"] == "cuda" and rec150["nb"] == 256, str(rec150))
 check(c4a["verify_packed"] >= 1, "K1 counter did not rise")
 check(err is not None and f"(#{bad_i})" in err, f"bad index: {err}")
 check(cmp4[1] == 256 and cmp4[2] == 0, f"K1 differs from plain: {cmp4}")
+staging_clear(4)
 
 t = time.perf_counter()
 rng = random.Random(SEED + 5)
@@ -626,6 +703,11 @@ check(np.array_equal(bits, expect5), "bulk bitmap != expected")
 check(k2_mism == 0, "K2 differs from its plain version")
 check(np.array_equal(k2_plain & ok_sl, expect5[:4096]), "K2 slice bitmap")
 check(cmp5[1] == 16_384 and cmp5[2] == 0, f"K2 differs from plain: {cmp5}")
+pub_pool5 = devobs.ledger_report().get("pub_cache", {}).get("bytes")
+check(pub_pool5 == E._pub_cache.total_bytes > 0,
+      f"devobs pub_cache {pub_pool5} != DeviceLRU "
+      f"{E._pub_cache.total_bytes}")
+staging_clear(5)
 
 # -- phase 6: pipelined K1 through BatchVerifier -------------------------------
 
@@ -659,6 +741,7 @@ check(rec6["path"] == "cuda" and rec6["nb"] == 131_072
       and c6["verify_packed"] == 2, str(rec6))
 check(np.array_equal(bits6, expect6), "pipelined bitmap != expected")
 check(cmp6[1] == 65_536 and cmp6[2] == 0, f"K1 differs from plain: {cmp6}")
+staging_clear(6)
 
 # -- phase 7: times ---------------------------------------------------------
 
@@ -723,6 +806,7 @@ log(phase=7, card=CARD, verify_commit_150_walls_s=w150,
     verify_commit_100k_phases={k: rec7.get(k) for k in (
         "stage_s", "h2d_s", "compute_s", "device_s", "drain_s", "chunks",
         "chunk_overlap")})
+staging_clear(7)
 
 # -- phase 8: RLC on the 100,000-validator commit -----------------------------
 
@@ -765,8 +849,11 @@ check(route8c["path"] == "rlc-ineligible", str(route8c))
 check(c8c["decompress_niels"] == 0 and c8c["verify_packed_split"] == 7,
       str(c8c))
 check(err8c is not None and f"(#{bad8})" in err8c, f"bad index: {err8c}")
+with _obs_lock:
+    obs8 = {k: list(v) for k, v in OBS_COST.items()}
 w8 = wall(lambda: vset100k.verify_commit(CHAIN, bid100k, 9, commit100k,
                                          device=DEV), 3)
+obs8 = obs_cost_since(obs8, 4)      # wall() warms up with one more call
 rec8 = dict(E.last_launch())
 runtime_clean("phase-8 walls")
 check(rec8["path"] == "rlc-single" and rec8["outcome"] == "vouched",
@@ -775,7 +862,8 @@ times["rlc_verify_commit_100k_wall_s"] = sorted(w8)[1]
 log(phase=8, card=CARD, launches=c8a, route=route8a,
     launches_bad=c8b, route_bad=route8b, error_bad=err8b,
     launches_ineligible=c8c, route_ineligible=route8c,
-    rlc_verify_commit_100k_walls_s=w8, record=rec8)
+    rlc_verify_commit_100k_walls_s=w8, devobs_per_call=obs8, record=rec8)
+staging_clear(8)
 
 # -- phase 9: RLC through BatchVerifier --------------------------------------
 
@@ -807,6 +895,7 @@ runtime_clean("phase-9 walls")
 times["rlc_batch_16384_wall_s"] = sorted(w9)[2]
 log(phase=9, card=CARD, rlc_batch_16384_walls_s=w9, record=rec9)
 msm.set_enabled(None)
+staging_clear(9)
 
 # -- phase 10: K4, K5 and A1 against their plain versions ---------------------
 
@@ -982,6 +1071,7 @@ check(all(c[2] == 0 for v in msm_cmp.values() for c in v),
       f"a kernel differs from its plain version: {msm_cmp}")
 check(all(r["mismatches"] == 0 for r in segment_sweep),
       f"K5 at another segment count differs: {segment_sweep}")
+staging_clear(10)
 
 # -- phase 11: K3 on the phase-6 batch ----------------------------------------
 
@@ -1004,6 +1094,7 @@ check(np.array_equal(bits11, expect6[:E.MAX_CHUNK]), "K3 bitmap != expected")
 check(c11["verify_staged"] == 1 and rec11["path"] == "cuda-staged", str(c11))
 check(cmp11[1] == 65_536 and cmp11[2] == 0, f"K3 differs from plain: {cmp11}")
 check(k3_vs_k1 == 0, "K3 differs from K1 on the same lanes")
+staging_clear(11)
 
 # -- phase 12: the degradation runtime on the card ----------------------------
 
@@ -1356,14 +1447,518 @@ times["degraded_verify_commit_100k_wall_s"] = degraded_s
 times["verify_commit_150_spot_off_wall_s"] = \
     runtime12["per_block"]["median_s"]["verify_commit_spot_off"]
 check(degrade.runtime().breaker.state == degrade.CLOSED, "breaker at the end")
+staging_clear(12)
 
-# -- phase 13: the kernels line -----------------------------------------------
+# -- phase 13: the VerifyScheduler and the launch observatory ------------------
+
+
+def pctl(vals, q):
+    v = sorted(vals)
+    return v[min(len(v) - 1, int(q * len(v)))] if v else None
+
+
+def wait_for(cond, what, timeout=10.0):
+    end = time.monotonic() + timeout
+    while not cond():
+        check(time.monotonic() < end, f"phase 13: {what}")
+        time.sleep(0.002)
+
+
+sched13 = {"card": CARD}
+# a private registry: phase 12 counted its drills in the default one
+degrade.configure(degrade.DegradeConfig.from_env(),
+                  registry=Registry("sched13"))
+
+# the triples: phase 5's 100,000, phase 6's 1,024 distinct (its corrupted
+# ones stay invalid) and fresh ones from the same generator, 1 in 1,000
+# corrupted at seeded positions; every consumer's triples are distinct
+# but for the gossip duplicates of the vote windows
+rng = random.Random(SEED + 13)
+N_BS, N_CM, N_CS, N_MP = (4, 2, 8192), (4, 4, 1024), (8, 10, 150), (8, 8, 512)
+SHARED = 50   # triples of each vote window also in its pair's window
+n_items13 = sum(t * c * k for t, c, k in (N_BS, N_CM, N_CS, N_MP))
+n_dup13 = (N_CS[0] // 2) * N_CS[1] * SHARED
+n_pool = n_items13 - n_dup13
+n5, n6 = len(vp100k), 1024
+n_fresh = n_pool - n5 - n6
+a_x, p_x = gen_keys(n_fresh, rng)
+m_x = [rng.randbytes(64) for _ in range(n_fresh)]
+s_x = sign_batch(a_x, p_x, m_x, rng)
+pool_p = vp100k + trip6[0][:n6] + p_x
+pool_m = [msgs100k[i] for i in range(n5)] + trip6[1][:n6] + m_x
+pool_s = list(sig100k) + trip6[2][:n6] + s_x
+pool_ok = [True] * n5 + [i not in bad6 for i in range(n6)] + [True] * n_fresh
+bad13 = rng.sample([i for i in range(n_pool) if pool_ok[i]], n_pool // 1000)
+for i in bad13:
+    pool_s[i] = corrupt(pool_s[i], rng)
+    pool_ok[i] = False
+check(len(set(pool_s)) == n_pool, "phase 13: the triples are not distinct")
+order = list(range(n_pool))
+rng.shuffle(order)
+_next = iter(order)
+
+
+def take(k):
+    return [next(_next) for _ in range(k)]
+
+
+calls13 = {
+    "blocksync": [[take(N_BS[2]) for _ in range(N_BS[1])]
+                  for _ in range(N_BS[0])],
+    "commit": [[take(N_CM[2]) for _ in range(N_CM[1])]
+               for _ in range(N_CM[0])],
+    "mempool": [[take(N_MP[2]) for _ in range(N_MP[1])]
+                for _ in range(N_MP[0])],
+    "consensus": [[None] * N_CS[1] for _ in range(N_CS[0])]}
+dup13 = set()
+for pair in range(N_CS[0] // 2):
+    for c in range(N_CS[1]):
+        shared = take(SHARED)
+        dup13.update(shared)
+        calls13["consensus"][2 * pair][c] = shared + take(N_CS[2] - SHARED)
+        calls13["consensus"][2 * pair + 1][c] = \
+            take(N_CS[2] - SHARED) + shared
+commit_idx = [i for t in calls13["commit"] for c in t for i in c]
+pre13 = rng.sample([i for i in commit_idx if pool_ok[i]],
+                   len(commit_idx) // 10)
+pk_obj = {i: edkeys.PubKey(pool_p[i]) for i in commit_idx}
+
+
+def args13(cls, idx):
+    if cls == "commit":
+        return ([pk_obj[i] for i in idx], [pool_m[i] for i in idx],
+                [pool_s[i] for i in idx])
+    return [(pool_p[i], pool_m[i], pool_s[i]) for i in idx]
+
+
+inputs13 = {cls: [[args13(cls, c) for c in t] for t in calls]
+            for cls, calls in calls13.items()}
+expect13 = {cls: [[np.array([pool_ok[i] for i in c]) for c in t]
+                  for t in calls]
+            for cls, calls in calls13.items()}
+
+
+def fresh_cache():
+    """A SigCache no entry of the phase can be evicted from, holding the
+    pre-cached 10% of the COMMIT triples."""
+    cbatch.verified_sigs = cbatch.SigCache(capacity=1 << 18)
+    for i in pre13:
+        cbatch.verified_sigs.add(pool_p[i], pool_m[i], pool_s[i])
+
+
+def consume(cls, args, sched=None):
+    """One consumer call on its entry point; returns the bitmap."""
+    if cls == "blocksync":
+        return vsched.verify_items(args, vsched.Priority.BLOCKSYNC,
+                                   device=DEV)[1]
+    if cls == "consensus":
+        return vsched.verify_items(args, vsched.Priority.CONSENSUS,
+                                   deadline=time.monotonic() + 0.005,
+                                   device=DEV)[1]
+    if cls == "commit":
+        with vsched.priority_context(vsched.Priority.COMMIT):
+            return cbatch.verify_sigs_bulk(*args, device=DEV)
+    if sched is None:   # the mempool pre-check's direct path
+        return vsched.verify_items(args, vsched.Priority.MEMPOOL,
+                                   device=DEV)[1]
+    return sched.submit(args, vsched.Priority.MEMPOOL).result(
+        timeout=sched.sync_timeout())
+
+
+def exact13(bits) -> bool:
+    return all(np.array_equal(b, e) for cls in bits
+               for tb, te in zip(bits[cls], expect13[cls])
+               for b, e in zip(tb, te))
+
+
+def sync_baseline():
+    """No scheduler running: each consumer's calls on its direct path,
+    one after another (bench.py's sync loop).  Returns (wall, the
+    launches' devobs block)."""
+    check(vsched.running() is None, "a scheduler is running")
+    fresh_cache()
+    cur = devobs.cursor()
+    t0 = time.perf_counter()
+    bits = {cls: [[consume(cls, a) for a in t_args] for t_args in ins]
+            for cls, ins in inputs13.items()}
+    wall_s = time.perf_counter() - t0
+    check(exact13(bits), "phase 13: sync baseline bitmaps")
+    return wall_s, devobs.device_block(since=cur)
+
+
+def start_sched():
+    """A fresh SigCache and a scheduler at the node's defaults."""
+    fresh_cache()
+    sch = vsched.install(vsched.VerifyScheduler(
+        window_s=0.002, max_batch=8192, max_pending=65536,
+        tpu_threshold=32, device=DEV))
+    sch.start()
+    return sch
+
+
+sync13_s, sync13_blk = sync_baseline()
+
+# the mixed load through the scheduler at the node's defaults
+s13 = start_sched()
+rt13 = degrade.runtime()
+m13 = rt13.metrics
+slo.reset()
+slo.enable(window=1 << 14)
+launched13 = []     # the signatures of each device launch, in order
+real_veb = cbatch.verify_ed25519_batch
+direct13 = [0]
+
+
+def recording_veb(pubkeys, msgs, sigs, cache_pubs=False, device=None):
+    launched13.append(list(sigs))
+    return real_veb(pubkeys, msgs, sigs, cache_pubs=cache_pubs,
+                    device=device)
+
+
+class CountingBV(cbatch.BatchVerifier):
+    def verify(self):
+        direct13[0] += 1
+        return super().verify()
+
+
+site_launches0 = {site: m13.device_launches.value(site=site)
+                  for site in ("batch.ed25519", "bulk.ed25519")}
+n_threads = sum(len(ins) for ins in inputs13.values())
+
+
+def consumer13(load, cls, k):
+    def run():
+        load["start"].wait(60)
+        try:
+            for c, a in enumerate(inputs13[cls][k]):
+                if cls == "consensus":
+                    load["pairs"][k // 2].wait(60)
+                t0 = time.perf_counter()
+                load["bits"][cls][k][c] = consume(cls, a, load["sched"])
+                load["lat"][cls].append(time.perf_counter() - t0)
+        except Exception as e:  # noqa: BLE001 - surfaced below
+            load["errors"].append((cls, k, repr(e)))
+    return threading.Thread(target=run, name=f"consumer-{cls}-{k}")
+
+
+def mixed_load(sched):
+    """Every consumer thread on its entry point through `sched`, started
+    together; returns the load's record (wall, bitmaps, latencies)."""
+    load = dict(sched=sched, errors=[],
+                lat={cls: [] for cls in inputs13},
+                bits={cls: [[None] * len(t) for t in ins]
+                      for cls, ins in inputs13.items()},
+                start=threading.Barrier(n_threads + 1),
+                pairs=[threading.Barrier(2) for _ in range(N_CS[0] // 2)],
+                cursor=devobs.cursor())
+    threads = [consumer13(load, cls, k) for cls, ins in inputs13.items()
+               for k in range(len(ins))]
+    for th in threads:
+        th.start()
+    load["start"].wait(60)
+    t0 = time.perf_counter()
+    for th in threads:
+        th.join(300)
+    load["wall_s"] = time.perf_counter() - t0
+    check(not any(th.is_alive() for th in threads), "a consumer hung")
+    check(not load["errors"],
+          f"phase 13: consumer errors {load['errors'][:3]}")
+    check(exact13(load["bits"]), "phase 13: scheduled bitmaps")
+    return load
+
+
+cbatch.verify_ed25519_batch = recording_veb
+cbatch.BatchVerifier = CountingBV
+ck.verify_packed = _recording("verify_packed")
+try:
+    load13, c13 = main_path(lambda: mixed_load(s13),
+                            capture=("verify_packed", "scheduler window"),
+                            site="sched.ed25519")
+finally:
+    cbatch.verify_ed25519_batch = real_veb
+    cbatch.BatchVerifier = CountingBV.__bases__[0]
+    ck.verify_packed = REAL["verify_packed"]
+piped13_s, lat13 = load13["wall_s"], load13["lat"]
+wait_for(lambda: s13.stats()["launches"] == len(launched13),
+         "the executor did not settle its launches")
+st13 = s13.stats()
+slo_rep = {cls: slo.stream_report(cls) for cls in inputs13}
+slo.disable()
+slo.reset()
+# the accounting: each triple verified on the card once, but for the
+# pre-cached ones (never) and the gossip duplicates (once, or twice
+# when the pair's windows were staged apart while the first copy was
+# still in flight); every other copy was resolved without a lane
+sig_count: dict = {}
+for launch in launched13:
+    for sg in launch:
+        sig_count[sg] = sig_count.get(sg, 0) + 1
+relaned13 = sum(1 for i in dup13 if sig_count.get(pool_s[i]) == 2)
+others_once = all(sig_count.get(pool_s[i]) == 1 for i in range(n_pool)
+                  if i not in dup13 and i not in pre13)
+pre_launched = sum(1 for i in pre13 if pool_s[i] in sig_count)
+dup_hits13 = st13["cache_hits"] - len(pre13)
+sched13["accounting"] = dict(
+    items=st13["items"], lanes=st13["lanes"], dedup=st13["dedup"],
+    cache_hits=st13["cache_hits"], precached=len(pre13),
+    gossip_duplicates=n_dup13, duplicates_deduped=st13["dedup"],
+    duplicates_from_cache=dup_hits13, duplicates_relaned=relaned13,
+    card_lanes=sum(sig_count.values()), shed=st13["shed"])
+log(phase=13, card=CARD, **sched13["accounting"])
+check(st13["items"] == n_items13 and st13["shed"] == 0
+      and st13["exec_faults"] == 0 and st13["submissions"] == sum(
+          len(c) for ins in inputs13.values() for c in ins),
+      f"phase 13: stats {st13}")
+check(st13["lanes"] + st13["dedup"] + st13["cache_hits"] == n_items13,
+      "phase 13: lanes + dedup + cache_hits != items")
+check(others_once and pre_launched == 0
+      and all(1 <= sig_count.get(pool_s[i], 0) <= 2 for i in dup13),
+      f"phase 13: lanes per triple (pre-cached launched {pre_launched})")
+check(st13["lanes"] == sum(sig_count.values()),
+      "phase 13: stats lanes != the lanes the card verified")
+check(st13["cache_hits"] >= len(pre13) and dup_hits13 + st13["dedup"]
+      + relaned13 == n_dup13,
+      f"phase 13: duplicates {sched13['accounting']}")
+# every device launch was K1 at sched.ed25519, one per device lane
+sched_lanes = m13.device_launches.value(site="sched.ed25519")
+check(c13["verify_packed"] == len(launched13) == sched_lanes
+      and c13["verify_packed_split"] == 0
+      and not any(c13[k] for k in cm.launches),
+      f"phase 13: launches {c13}, device lanes {sched_lanes}")
+direct_launches = {site: m13.device_launches.value(site=site) - v
+                   for site, v in site_launches0.items()}
+check(direct13[0] == 0 and not any(direct_launches.values()),
+      f"phase 13: direct-path fallbacks {direct13[0]}, {direct_launches}")
+runtime_clean("phase-13 mixed load", "sched.ed25519")
+# the first coalesced window's K1 launch against its plain version
+ok_of = {pool_s[i]: pool_ok[i] for i in range(n_pool)}
+cmp13 = plain_on_captured("verify_packed",
+                          np.array([ok_of[sg] for sg in launched13[0]]))
+check(cmp13[2] == 0, f"K1 differs from plain on a scheduler window: {cmp13}")
+paths13 = {r["path"] for r in devobs.records(last=len(launched13))}
+check(paths13 == {"cuda"}, f"phase 13: launch paths {paths13}")
+sizes13 = sorted(len(x) for x in launched13)
+sched13["mixed"] = dict(
+    consumers={cls: f"{len(ins)} x {len(ins[0])} x {len(ins[0][0]) if cls != 'commit' else len(ins[0][0][0])}"
+               for cls, ins in inputs13.items()},
+    items=n_items13, window_ms=2, max_batch=8192, max_pending=65536,
+    tpu_threshold=32, pipelined_wall_s=piped13_s,
+    pipelined_sigs_per_s=n_items13 / piped13_s, sync_wall_s=sync13_s,
+    sync_sigs_per_s=n_items13 / sync13_s, speedup=sync13_s / piped13_s,
+    launches=st13["launches"], mean_batch=st13["mean_batch"],
+    overlap_ratio=st13["overlap_ratio"], stager_busy_s=st13["stage_s"],
+    executor_busy_s=st13["exec_busy_s"],
+    pipelined_launches=devobs.device_block(since=load13["cursor"]),
+    sync_launches=sync13_blk, window_lanes_min_median_max=(
+        sizes13[0], sizes13[len(sizes13) // 2], sizes13[-1]),
+    consensus_deadline_misses=m13.sched_deadline_miss.value(
+        priority="consensus"),
+    consensus_calls=len(lat13["consensus"]),
+    client_e2e_s={cls: {"p50": pctl(v, 0.5), "p99": pctl(v, 0.99)}
+                  for cls, v in lat13.items()},
+    sched_e2e_s={cls: {"p50": r["p50_s"], "p99": r["p99_s"], "n": r["n"]}
+                 for cls, r in slo_rep.items() if r},
+    k1_vs_plain=cmp13)
+log(phase=13, **sched13["mixed"])
+staging_clear("13 mixed load")
+
+# the JAX bench's own shape (bench.py _sched_main): 16 BLOCKSYNC
+# submissions of 64, each consumer's BatchVerifier one after another
+# against all 16 submitted at once through the scheduler
+rng = random.Random(SEED + 131)
+a_b, p_b = gen_keys(1024, rng)
+m_b = [rng.randbytes(64) for _ in range(1024)]
+s_b = sign_batch(a_b, p_b, m_b, rng)
+subs_b = [[(edkeys.PubKey(p_b[i]), m_b[i], s_b[i])
+           for i in range(k * 64, (k + 1) * 64)] for k in range(16)]
+
+
+def bench_sync():
+    cbatch.verified_sigs = cbatch.SigCache()
+    for sub in subs_b:
+        bv = cbatch.BatchVerifier(device=DEV)
+        for pub, m_, sg in sub:
+            bv.add(pub, m_, sg)
+        check(bv.verify()[0], "bench shape: sync batch invalid")
+
+
+def bench_piped():
+    cbatch.verified_sigs = cbatch.SigCache()
+    futs = [None] * 16
+    ths = [threading.Thread(target=lambda k=k: futs.__setitem__(
+        k, s13.submit(subs_b[k], vsched.Priority.BLOCKSYNC)))
+        for k in range(16)]
+    for th in ths:
+        th.start()
+    for th in ths:
+        th.join(60)
+    check(all(f.result(timeout=60).all() for f in futs),
+          "bench shape: pipelined batch invalid")
+
+
+bench_w = {"sync": [], "pipelined": []}
+for rnd in range(6):            # round 0 warms up
+    for key, fn in (("sync", bench_sync), ("pipelined", bench_piped)) \
+            if rnd % 2 else (("pipelined", bench_piped), ("sync", bench_sync)):
+        t = time.perf_counter()
+        fn()
+        if rnd:
+            bench_w[key].append(time.perf_counter() - t)
+sched13["bench_16x64"] = dict(
+    walls_s=bench_w, sync_median_s=pctl(bench_w["sync"], 0.5),
+    pipelined_median_s=pctl(bench_w["pipelined"], 0.5),
+    speedup=pctl(bench_w["sync"], 0.5) / pctl(bench_w["pipelined"], 0.5))
+log(phase=13, card=CARD, bench_16x64={k: v for k, v in
+                                      sched13["bench_16x64"].items()
+                                      if k != "walls_s"})
+runtime_clean("phase-13 bench shape", "sched.ed25519")
+
+# chaos through the scheduler: one 4,096-triple BLOCKSYNC submission with
+# 3 invalid lanes (phase 12's), on a fresh runtime
+degrade.configure(degrade.DegradeConfig.from_env(),
+                  registry=Registry("sched13_chaos"))
+items4k = list(zip(pk12, msgs12, sigs12))
+
+
+def sub4k():
+    cbatch.verified_sigs = cbatch.SigCache()
+    return s13.submit(items4k, vsched.Priority.BLOCKSYNC,
+                      populate_cache=False).result(timeout=120)
+
+
+chaos13 = []
+for mode, reason, want in (("raise", "raise", "none"),
+                           ("corrupt-bitmap", "integrity", "some")):
+    m = degrade.runtime().metrics
+    failpoints.set_mode("sched.ed25519", mode)
+    ck.reset_launches()
+    try:
+        bits = sub4k()
+    finally:
+        failpoints.clear()
+    row = dict(site="sched.ed25519", mode=mode, reason=reason,
+               bitmap_ok=bool(np.array_equal(bits, expect12)),
+               path=vsched.last_latency_report().get("path"),
+               launches=ck.launches["verify_packed"],
+               failures=m.device_failures.value(site="sched.ed25519",
+                                                reason=reason),
+               fallbacks=m.host_fallbacks.value(site="sched.ed25519",
+                                                reason=reason))
+    chaos13.append(row)
+    log(phase=13, card=CARD, **row)
+    check(row["bitmap_ok"] and row["path"] == "sched-fallback"
+          and row["failures"] == 1 and row["fallbacks"] == 1,
+          f"phase 13 chaos {mode}: {row}")
+    check(row["launches"] == 0 if want == "none" else row["launches"] >= 1,
+          f"phase 13 chaos {mode}: {row['launches']} K1 launches")
+    ck.reset_launches()
+    check(np.array_equal(sub4k(), expect12)
+          and ck.launches["verify_packed"] == 1
+          and degrade.runtime().breaker.state == degrade.CLOSED,
+          f"phase 13: the clean submission after {mode}")
+# outside a drill: a K1 wrapper that raises fails the launch's futures
+# with DeviceLaneError, counted once, with no host fallback; the
+# scheduler keeps running and the next submission is served by the card
+check(not failpoints.armed(), "a failpoint is still armed")
+m = degrade.runtime().metrics
+real_k1 = ck.verify_packed
+ck.verify_packed = launch_failed
+raised13 = None
+try:
+    sub4k()
+except degrade.DeviceLaneError as e:
+    raised13 = str(e)
+finally:
+    ck.verify_packed = real_k1
+ck.reset_launches()
+after13 = sub4k()
+row = dict(site="sched.ed25519", reason="raise", raised=raised13,
+           failures=m.device_failures.value(site="sched.ed25519",
+                                            reason="raise") - 1,
+           fallbacks=counter_total(m.host_fallbacks) - 2,
+           running=s13.is_running(),
+           next_bitmap_ok=bool(np.array_equal(after13, expect12)),
+           next_launches=ck.launches["verify_packed"])
+chaos13.append(row)
+log(phase=13, card=CARD, **row)
+check(raised13 is not None and "(raise)" in raised13
+      and row["failures"] == 1 and row["fallbacks"] == 0
+      and row["running"] and row["next_bitmap_ok"]
+      and row["next_launches"] == 1
+      and degrade.runtime().breaker.state == degrade.CLOSED,
+      f"phase 13: an un-injected K1 raise through the scheduler: {row}")
+sched13["chaos"] = chaos13
+s13.stop()
+vsched.uninstall(s13)
+degrade.configure(degrade.DegradeConfig.from_env(),
+                  registry=Registry("devobs13"))
+
+# devobs on the card: one record per launch since phase 4 (the ring's
+# 256 slots rotate; the totals do not), each with its phases; each
+# (path, nb) bucket once in the inventory with its first-launch wall
+blk13 = devobs.device_block(since=DEVOBS_CUR4)
+n_launch13 = E.last_launch()["seq"] - LAUNCH_SEQ4
+recs13 = devobs.records(since_seq=DEVOBS_CUR4["seq"])
+seqs13 = [r["seq"] for r in recs13]
+no_phases = [(r["path"], r["seq"]) for r in recs13 if not (
+    all(r.get(k) is not None for k in ("stage_s", "h2d_s", "compute_s"))
+    and (r.get("collect_s") is not None or r.get("drain_s") is not None))]
+inv13 = devobs.compile_inventory()
+inv_keys = [(e["path"], e["nb"]) for e in inv13]
+seen13 = {(p_, nb) for p_, _, nb in E._seen_buckets}
+sched13["devobs"] = dict(
+    launches=blk13["launches"], launch_seq_delta=n_launch13,
+    ring_records=len(recs13), rotated=devobs.OBS.rotated(),
+    shed=devobs.OBS.shed_counts(), wall_s=blk13["wall_s"],
+    compile_s=blk13["compile_s"], window=blk13["window"],
+    inventory=[{k: e[k] for k in ("path", "nb", "compile_s", "hits")}
+               for e in inv13],
+    hbm=devobs.ledger_report(), records_without_phases=no_phases[:8],
+    own_time_since_phase4={k: {"calls": v[0], "us_per_call": 1e6 * v[1]
+                               / max(v[0], 1)}
+                           for k, v in OBS_COST.items()},
+    own_time_rlc_100k_per_call=obs8)
+log(phase=13, card=CARD, **sched13["devobs"])
+ring = devobs.OBS.capacity
+check(blk13["launches"] == n_launch13 > ring
+      and devobs.OBS.shed_counts() == {"chaos": 0, "evict": 0},
+      f"phase 13: devobs counted {blk13['launches']} of {n_launch13}")
+check(len(recs13) == ring and seqs13 == list(range(
+    E.last_launch()["seq"] - ring + 1, E.last_launch()["seq"] + 1)),
+      f"phase 13: the ring does not hold the last {ring} launches in order")
+check(not no_phases, f"phase 13: records without their phases {no_phases}")
+check(len(inv_keys) == len(set(inv_keys)) and set(inv_keys) == seen13
+      and all(e["compile_s"] is not None for e in inv13),
+      f"phase 13: inventory {inv_keys} against {seen13}")
+
+# the cost of recording: the 150-validator verify_commit, devobs off and
+# on in turns, 10 calls each
+w_obs = {"on": [], "off": []}
+for rnd in range(11):           # round 0 warms up
+    for key in (("on", "off") if rnd % 2 else ("off", "on")):
+        (devobs.enable if key == "on" else devobs.disable)()
+        t = time.perf_counter()
+        vset150.verify_commit(CHAIN, bid150, 9, commit150, device=DEV)
+        if rnd:
+            w_obs[key].append(time.perf_counter() - t)
+devobs.enable()
+sched13["devobs_wall_150"] = dict(
+    walls_s=w_obs, median_on_s=pctl(w_obs["on"], 0.5),
+    median_off_s=pctl(w_obs["off"], 0.5))
+times["verify_commit_150_devobs_on_wall_s"] = pctl(w_obs["on"], 0.5)
+times["verify_commit_150_devobs_off_wall_s"] = pctl(w_obs["off"], 0.5)
+log(phase=13, card=CARD, verify_commit_150_devobs_on_s=pctl(w_obs["on"], 0.5),
+    verify_commit_150_devobs_off_s=pctl(w_obs["off"], 0.5))
+runtime_clean("phase-13 devobs walls")
+staging_clear(13)
+
+# -- phase 14: the kernels line -----------------------------------------------
 
 src = "tendermint_tpu_torch/csrc/ed25519_verify.cu"
 # each comparison: (input, lanes, mismatching lanes, max |kernel - plain|)
 k1_cmp = [("phase-3 vectors + seeded", k1_cmp_lanes, k1_mism,
            float(np.abs(k1_raw.astype(int) - plain_raw.astype(int)).max())),
-          cmp4, cmp6]
+          cmp4, cmp6, cmp13]
 k2_cmp = [("phase-3 vectors + seeded", len(k2_raw3), k2_mism3,
            float(np.abs(k2_raw3.astype(int) - k2_plain3.astype(int)).max())),
           ("100k slice", 4096, k2_mism,
@@ -1431,7 +2026,7 @@ for name, key, replaces, compared, lanes, ms, plain_ms, bound in (
          "lanes": lanes, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
          "bound_by": "operations", "library_ms": None})
 REPORT.update(times=times, kernels=kernels, ptxas=ptxas, k4_span=k4_span,
-              runtime=runtime12,
+              runtime=runtime12, scheduler=sched13,
               verify_build=verify_build, msm_build=msm_build,
               segment_sweep=segment_sweep,
               records={"150": rec150, "100k": rec5b, "pipelined": rec6,

@@ -22,9 +22,11 @@ plain PyTorch versions); otherwise `device` decides — "cpu" asked for
 explicitly takes the host lanes, "cuda" the device lane, and CUDA
 missing without a request for the CPU raises RuntimeError.
 
-Not yet ported: the VerifyScheduler and the host-lane pool (the port
-verifies ed25519 only, so host lanes run serially in the caller, as the
-JAX package's do with the pool disabled).
+Consumers that run concurrently coalesce through the VerifyScheduler
+(crypto/scheduler.py): verify_sigs_bulk's list branch routes there when
+it runs on the caller's device.  Not yet ported: the host-lane pool (the
+port verifies ed25519 only, whose host lane is serial in the JAX package
+too, so host lanes run serially in the caller).
 """
 from __future__ import annotations
 
@@ -276,7 +278,7 @@ class BatchVerifier:
                     device_lanes:
                 out[np.asarray(idxs)] = rt.collect(
                     f"batch.{tname}", fut,
-                    host_fn=partial(_host_verify_items, items),
+                    host_fn=partial(_host_verify_items, tname, items),
                     spot_check=_spot_check_items(items), on_card=on_card)
                 lane_times.append((tname, "device", t0,
                                    done_at[0] if done_at
@@ -293,19 +295,22 @@ class BatchVerifier:
 
 
 def _run_host_lanes(host_lanes, out: np.ndarray, span_name: str, parent,
-                    lane_times=None, t_submit: Optional[float] = None):
+                    assume_miss: bool = False, lane_times=None,
+                    t_submit: Optional[float] = None):
     """Run the per-scheme host lanes one after another in the caller (the
     JAX package's path with its host-lane pool disabled).  `parent` is
-    the caller's span id; `lane_times` (when given) collects (scheme,
-    kind, t0, t1) wall brackets for the lane report; `t_submit` is the
-    request's lifecycle origin, recorded on each lane span."""
+    the caller's span id; `assume_miss` is passed to _host_verify_items;
+    `lane_times` (when given) collects (scheme, kind, t0, t1) wall
+    brackets for the lane report; `t_submit` is the request's lifecycle
+    origin, recorded on each lane span."""
     for tname, idxs, items in host_lanes:
         t0 = time.monotonic()
         with trace.span(span_name, parent=parent, scheme=tname,
                         n=len(items)) as lsp:
             if t_submit is not None and trace.is_enabled():
                 lsp.add(since_submit_s=round(t0 - t_submit, 6))
-            bits = _host_verify_items(items)
+            bits = _host_verify_items(tname, items, assume_miss=assume_miss,
+                                      t_submit=t_submit)
         if lane_times is not None:
             lane_times.append((tname, "host", t0, time.monotonic()))
         out[np.asarray(idxs)] = bits
@@ -367,10 +372,16 @@ def _publish_lane_report(lane_times, sp, publish_metrics: bool):
 
 
 def _context_priority_name() -> str:
-    """Priority label for the direct path's e2e latency.  The caller's
-    scheduler priority context waits for the VerifyScheduler's port;
-    COMMIT is its fallback value."""
-    return "commit"
+    """Priority label for the direct path's e2e latency: the caller's
+    scheduler priority context when one is set (scheduler.
+    priority_context), COMMIT otherwise.  Lazy import — the scheduler
+    imports this module at load."""
+    try:
+        from tendermint_tpu_torch.crypto import scheduler as vsched
+        return vsched.context_priority(
+            vsched.Priority.COMMIT)[0].name.lower()
+    except Exception:  # noqa: BLE001 - a label must never break verify
+        return "commit"
 
 
 def _device_verifier(tname: str):
@@ -381,13 +392,29 @@ def _device_verifier(tname: str):
     return None
 
 
-def _host_verify_items(items) -> np.ndarray:
-    """Host lane: SigCache hits first, then per-item verify_signature for
-    the misses."""
-    bits = np.zeros(len(items), dtype=bool)
-    for i, it in enumerate(items):
-        bits[i] = (verified_sigs.hit(it.pub.bytes(), it.msg, it.sig)
-                   or it.pub.verify_signature(it.msg, it.sig))
+def _host_verify_items(tname: str, items, assume_miss: bool = False,
+                       t_submit: Optional[float] = None) -> np.ndarray:
+    """Host lane of scheme `tname`: SigCache hits first, then the misses
+    verified one by one in the caller (verify_signature; the JAX
+    package's native sharded lanes cover secp256k1 and sr25519, which
+    wait for their ports).  `assume_miss` skips the cache pre-pass when
+    the caller already filtered hits (the scheduler's stager hashed every
+    triple once and resolved hits without lanes).  `t_submit`, the
+    request's lifecycle origin, is taken for the reference's signature;
+    only its sharded lanes read it."""
+    n = len(items)
+    bits = np.zeros(n, dtype=bool)
+    if assume_miss:
+        miss = range(n)
+    else:
+        miss = []
+        for i, it in enumerate(items):
+            if verified_sigs.hit(it.pub.bytes(), it.msg, it.sig):
+                bits[i] = True
+            else:
+                miss.append(i)
+    for i in miss:
+        bits[i] = items[i].pub.verify_signature(items[i].msg, items[i].sig)
     return bits
 
 
@@ -404,9 +431,33 @@ def verify_sigs_bulk(pubs: Sequence[PubKey], msgs, sigs: Sequence[bytes],
     the pubkey rows kept device-resident (cache_pubs: a validator set's
     keys recur every block) and the host re-verify as its fallback;
     every other batch goes through BatchVerifier, which fills the
-    SigCache.  (The VerifyScheduler route and the coordinated multi-
-    process sweep wait for their ports.)"""
+    SigCache.
+
+    When the process-global VerifyScheduler is running on the caller's
+    device, list-input batches up to its max_batch route through it
+    instead (at the caller's priority context, default COMMIT, without
+    filling the SigCache) so concurrent consumers coalesce into shared
+    launches.  Batches above max_batch and the (n, 32) raw-pubkey-matrix
+    input (the validator-set per-block path with its device-resident
+    key cache) keep the direct path.  Only SchedulerError and
+    TimeoutError send a scheduled batch to the direct path: a launch
+    that failed on the card raises DeviceLaneError here, as it does on
+    the direct path.  (The coordinated multi-process sweep waits for
+    its port.)"""
     n = len(pubs)
+    if n and not isinstance(pubs, np.ndarray):
+        from tendermint_tpu_torch.crypto import scheduler as vsched
+        sch = vsched.running_on(resolve_device(device))
+        if sch is not None and n <= sch.max_batch:
+            try:
+                items = [(pubs[i], msgs[i], sigs[i]) for i in range(n)]
+                prio, deadline = vsched.context_priority(
+                    vsched.Priority.COMMIT)
+                return sch.submit(items, prio, deadline=deadline,
+                                  populate_cache=False).result(
+                                      timeout=sch.sync_timeout())
+            except (vsched.SchedulerError, TimeoutError):
+                pass  # fall through to the direct path below
     rt = degrade.runtime()
     if isinstance(pubs, np.ndarray):
         # (n, 32) raw ed25519 pubkey matrix — the validator-set fast

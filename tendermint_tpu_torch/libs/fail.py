@@ -49,9 +49,17 @@ REGISTERED_SITES = frozenset({
     # per-signature, split and RLC routes all start behind it
     "ops.ed25519.verify_batch",
     # degradation-runtime lane sites (crypto/degrade.py submit/run):
-    # BatchVerifier's ed25519 lane and the whole-commit bulk path
+    # BatchVerifier's ed25519 lane, the VerifyScheduler's coalesced
+    # ed25519 lane and the whole-commit bulk path (the sr25519 and
+    # secp256k1 lanes, and lanepool.verify, wait for those schemes)
     "batch.ed25519",
+    "sched.ed25519",
     "bulk.ed25519",
+    # device observatory (crypto/devobs.py): fires on every launch-record
+    # store.  raise = the record sheds (counted in
+    # crypto_devobs_shed_total{reason=chaos}) while the device launch and
+    # its bitmap proceed untouched; latency is absorbed into the recording
+    "devobs.record",
 })
 
 _extra_sites: set = set()

@@ -4,9 +4,10 @@ The counterpart of tendermint_tpu/libs/metrics.py for the families the
 port publishes: counters, gauges and histograms with optional label
 dimensions, a process-global default registry (tests may build private
 registries), rendered in the Prometheus text format.  The bundles here
-are CryptoMetrics (the device-lane degradation runtime, routes, request
-latency, SLO gauges) and TraceMetrics (the flight recorder's own drop
-counter); the node's other families are not ported yet.
+are CryptoMetrics (the device-lane degradation runtime, routes, the
+VerifyScheduler, request latency, SLO gauges), DevObsMetrics (the device
+observatory of crypto/devobs.py) and TraceMetrics (the flight recorder's
+own drop counter); the node's other families are not ported yet.
 """
 from __future__ import annotations
 
@@ -263,6 +264,7 @@ class CryptoMetrics:
 
     def __init__(self, reg: Optional[Registry] = None):
         reg = reg or DEFAULT
+        self.registry = reg   # for the port's own families (scheduler)
         self.device_launches = reg.counter(
             "crypto", "device_launch_total",
             "Device verify launches dispatched.", labels=("site",))
@@ -312,16 +314,48 @@ class CryptoMetrics:
             "dominated by jit compile; steady-state launches land in "
             "crypto_device_launch_seconds instead.",
             labels=("site",), buckets=exp_buckets(0.01, 4, 10))
+        # VerifyScheduler (crypto/scheduler.py): the cross-consumer
+        # coalescing service — is the queue backing up, how full are the
+        # coalesced launches, is the shed class actually being shed, and
+        # is host staging hiding under device execution.  (The comb
+        # table cache's families wait for its port.)
+        self.sched_queue_depth = reg.gauge(
+            "crypto", "sched_queue_depth",
+            "Triples pending in the VerifyScheduler queue, all "
+            "priority classes.")
+        self.sched_batch_size = reg.histogram(
+            "crypto", "sched_batch_size",
+            "Deduped lanes per coalesced VerifyScheduler launch.",
+            buckets=[1, 4, 16, 64, 256, 1024, 4096, 16384, 65536])
+        self.sched_shed_total = reg.counter(
+            "crypto", "sched_shed_total",
+            "Submissions load-shed by the VerifyScheduler (bounded "
+            "queue: lowest class rejected when full, queued lowest-"
+            "class work evicted for higher classes).",
+            labels=("priority",))
+        self.sched_overlap_ratio = reg.gauge(
+            "crypto", "sched_overlap_ratio",
+            "Fraction of VerifyScheduler host-staging time that "
+            "overlapped an in-flight device launch (the double-"
+            "buffered pipeline's effectiveness; 0 when idle).")
         # are a mixed batch's per-scheme lanes running side by side
-        # (wall = max over lanes) or serially (wall = sum over lanes)
+        # (wall = max over lanes) or serially (wall = sum over lanes).
+        # (The host-lane pool's families wait for its port.)
         self.lane_overlap = reg.gauge(
             "crypto", "lane_overlap_ratio",
             "Lane concurrency of the most recent multi-lane verify "
             "batch: 1 - wall/sum(per-lane wall times).  0 means the "
             "lanes ran serially; (k-1)/k means k lanes fully "
             "overlapped.")
-        # per-request latency observatory (ADR-016): end-to-end
-        # submit-to-settle latency by priority and the settling path
+        # per-request latency observatory (ADR-016): the lifecycle of a
+        # verify request — time in the scheduler queue, end-to-end
+        # submit-to-settle latency by priority and the path that
+        # settled it, and whether deadlines were actually met
+        self.sched_queue_wait = reg.histogram(
+            "crypto", "sched_queue_wait_seconds",
+            "Time a VerifyScheduler submission waited from submit() to "
+            "its coalescing window closing, by priority class.",
+            labels=("priority",), buckets=exp_buckets(0.0002, 4, 10))
         self.verify_e2e_latency = reg.histogram(
             "crypto", "verify_e2e_latency_seconds",
             "End-to-end verify latency, submit to settle, by priority "
@@ -332,10 +366,31 @@ class CryptoMetrics:
             "scheduler is not running).",
             labels=("priority", "path"),
             buckets=exp_buckets(0.0002, 4, 12))
-        # the sliding-window SLO estimator's targets (libs/slo.py).  The
-        # families of modules not ported yet wait for them: the comb
-        # table cache, the VerifyScheduler (queue, shed, deadlines, the
-        # windowed SLO quantiles it refreshes) and the host-lane pool
+        self.sched_deadline_miss = reg.counter(
+            "crypto", "sched_deadline_miss_total",
+            "Submissions that settled AFTER their requested deadline "
+            "(the window closes early to chase a deadline; this counts "
+            "the ones the launch still failed to meet).",
+            labels=("priority",))
+        # sliding-window SLO estimator (libs/slo.py): windowed
+        # quantiles and error-budget burn, refreshed after each
+        # scheduler launch when [slo] / TM_TPU_SLO=1 is enabled
+        self.slo_p50 = reg.gauge(
+            "crypto", "slo_p50_seconds",
+            "Median verify e2e latency over the sliding SLO window, "
+            "per stream (priority class).  Absent until [slo] enables "
+            "the estimator.", labels=("stream",))
+        self.slo_p99 = reg.gauge(
+            "crypto", "slo_p99_seconds",
+            "p99 verify e2e latency over the sliding SLO window, per "
+            "stream.", labels=("stream",))
+        self.slo_burn_rate = reg.gauge(
+            "crypto", "slo_burn_rate",
+            "Error-budget burn rate against the stream's p99 target "
+            "([slo] config): windowed fraction of requests over "
+            "target / the stream's [slo] budget (budget_pct/100, "
+            "default 0.01).  1.0 = spending the budget exactly as "
+            "fast as the SLO allows.", labels=("stream",))
         self.slo_target = reg.gauge(
             "crypto", "slo_target_seconds",
             "Configured p99 target per stream ([slo] <stream>_p99_ms, "
@@ -343,6 +398,86 @@ class CryptoMetrics:
             "control plane (ADR-023), dashboards — read targets from "
             "metrics instead of magic constants.  Absent for streams "
             "with no configured target.", labels=("stream",))
+
+
+class DevObsMetrics:
+    """Device observatory (crypto/devobs.py, ADR-021): where a device
+    launch's wall clock goes (host staging / H2D transfer / compute /
+    D2H collect), whether the double-buffered chunk paths actually hide
+    transfer behind compute, what is resident in device memory per pool,
+    and how many (kernel, bucket shape) entries the process has built.
+    (The per-shard imbalance gauges wait for the sharded paths.)"""
+
+    def __init__(self, reg: Optional[Registry] = None):
+        reg = reg or DEFAULT
+        self.device_stage = reg.histogram(
+            "crypto", "device_stage_seconds",
+            "Host staging share of a device launch (pack / pad / "
+            "challenge hashing), seconds, by dispatch path.",
+            labels=("path",), buckets=exp_buckets(0.0002, 4, 10))
+        self.device_transfer = reg.histogram(
+            "crypto", "device_transfer_seconds",
+            "Host->device transfer share of a device launch, seconds, "
+            "by dispatch path (monolithic paths bracket the device_put "
+            "with block_until_ready; pipelined paths record the summed "
+            "device_put walls).", labels=("path",),
+            buckets=exp_buckets(0.0002, 4, 10))
+        self.device_compute = reg.histogram(
+            "crypto", "device_compute_seconds",
+            "Kernel compute share of a device launch (dispatch -> "
+            "block_until_ready on the results), seconds, by path.",
+            labels=("path",), buckets=exp_buckets(0.0005, 4, 10))
+        self.device_collect = reg.histogram(
+            "crypto", "device_collect_seconds",
+            "Device->host bitmap readback share of a launch, seconds, "
+            "by path.", labels=("path",),
+            buckets=exp_buckets(0.0002, 4, 10))
+        self.device_drain = reg.histogram(
+            "crypto", "device_drain_seconds",
+            "Final blocking wait of a double-buffered launch (residual "
+            "un-hidden compute + D2H readback, merged — these paths "
+            "cannot split compute from collect without serializing the "
+            "pipeline they exist to overlap), seconds, by path.",
+            labels=("path",), buckets=exp_buckets(0.0005, 4, 10))
+        self.chunk_overlap = reg.gauge(
+            "crypto", "device_chunk_overlap_ratio",
+            "Fraction of the most recent double-buffered launch's "
+            "host->device DMA wall issued while a previous chunk's "
+            "kernel was in flight (1 = transfer fully hidden behind "
+            "compute, 0 = serial).")
+        self.chunk_overlap_seq = reg.gauge(
+            "crypto", "device_chunk_overlap_seq",
+            "Observatory sequence number of the launch that last set "
+            "crypto_device_chunk_overlap_ratio — the control plane's "
+            "overlap mode compares it across periods so a busy path "
+            "repeatedly publishing the same stable ratio still reads "
+            "as fresh (a frozen ratio AND a frozen seq = idle).")
+        self.hbm_resident = reg.gauge(
+            "crypto", "hbm_resident_bytes",
+            "Device-resident bytes per pool (table_cache = comb window "
+            "tables, pub_cache = pubkey rows, base_comb = the static "
+            "basepoint comb, mesh_tables = the data plane's extra "
+            "per-device comb copies or sharded slices (ADR-027), "
+            "staging = launch staging buffers — "
+            "charged as the double-buffered in-flight window for the "
+            "duration of the launch call; a caller that keeps results "
+            "in flight after a non-blocking launch returns is not "
+            "charged past the call).", labels=("pool",))
+        self.hbm_peak = reg.gauge(
+            "crypto", "hbm_resident_peak_bytes",
+            "High-water mark of crypto_hbm_resident_bytes per pool "
+            "since process start (or the last devobs reset).",
+            labels=("pool",))
+        self.compile_cache_entries = reg.gauge(
+            "crypto", "compile_cache_entries",
+            "Distinct (kernel path, lane bucket, shards) entries in "
+            "the device observatory's compile-cache inventory — the "
+            "shapes this process has paid an XLA/Mosaic compile for.")
+        self.devobs_shed = reg.counter(
+            "crypto", "devobs_shed_total",
+            "Device-observatory records shed (reason=chaos: a "
+            "recording fault was swallowed, the launch proceeded; "
+            "reason=evict: ring/queue overflow).", labels=("reason",))
 
 
 class TraceMetrics:

@@ -289,17 +289,27 @@ def last_launch():
 def _set_last_launch(path: str, dev: torch.device, n: int, nb: int,
                      wall_s: float, phases: dict) -> bool:
     """Store a launch record; returns whether it was the first launch of
-    its (path, device, nb) bucket."""
+    its (path, device, nb) bucket.
+
+    This is also THE funnel into the device observatory
+    (crypto/devobs.py): every launch record — K1/K2 via _record_launch,
+    K3, and the RLC route mirror from ops/msm._set_route — is stored
+    into its ring here, and the deferred publication drains right
+    after, with _launch_lock already released (devobs records under its
+    own leaf lock and never publishes)."""
     global _last_launch, _launch_seq
     key = (path, str(dev), nb)
     with _launch_lock:
         first = key not in _seen_buckets
         _seen_buckets.add(key)
         _launch_seq += 1
-        _last_launch = MappingProxyType(dict(
-            phases, path=path, device=str(dev), n=n, nb=nb,
-            occupancy=n / nb if nb else 1.0, first_launch=first,
-            wall_s=wall_s, seq=_launch_seq))
+        snap = {"shards": 1, **phases, "path": path, "device": str(dev),
+                "n": n, "nb": nb, "occupancy": n / nb if nb else 1.0,
+                "first_launch": first, "wall_s": wall_s, "seq": _launch_seq}
+        _last_launch = MappingProxyType(snap)
+    from tendermint_tpu_torch.crypto import devobs
+    devobs.record(snap)
+    devobs.publish_pending()
     return first
 
 
@@ -336,7 +346,12 @@ class _ChunkFeed:
     "The current stream" is that of the thread that builds the feed: on
     the degradation runtime's lane worker, a thread of its own, it is
     the default stream of `dev` (the stream every caller of the package
-    uses unless it entered a stream context of its own)."""
+    uses unless it entered a stream context of its own).
+
+    Each slot's buffers are made at its first put, and the device bytes
+    of the slots in use are charged to the device observatory's
+    "staging" pool until close() (on the CPU, the chunk rows the kernel
+    reads), so the ledger holds the in-flight window of the launch."""
 
     def __init__(self, dev: torch.device, rows: int, lanes: int):
         self.dev = dev
@@ -344,23 +359,44 @@ class _ChunkFeed:
         self.chunks = 0
         self.copy_ev = []   # (start, end) event pairs per chunk
         self.kern_ev = []
+        self.slot_bytes = rows * lanes
+        self.charged = 0
+        self.shape = (rows, lanes)
+        self.pinned = [None, None]
+        self.bufs = [None, None]
         if not self.cuda:
             return
         self.main = torch.cuda.current_stream(dev)
         self.side = torch.cuda.Stream(dev)
-        self.pinned = [torch.empty((rows, lanes), dtype=torch.uint8,
-                                   pin_memory=True) for _ in range(2)]
-        self.bufs = [torch.empty((rows, lanes), dtype=torch.uint8,
-                                 device=dev) for _ in range(2)]
         self.done = [None, None]   # kernel-finished event per slot
         self.copied = [None, None]  # copy-finished event per slot
+
+    def _charge(self, slot: int):
+        """Charge a slot to the staging pool at its first use."""
+        if self.charged < (slot + 1) * self.slot_bytes:
+            from tendermint_tpu_torch.crypto import devobs
+            devobs.ledger_add("staging", self.slot_bytes)
+            self.charged += self.slot_bytes
+
+    def close(self):
+        """Release the staging charge (the launch call is over)."""
+        if self.charged:
+            from tendermint_tpu_torch.crypto import devobs
+            devobs.ledger_add("staging", -self.charged)
+            self.charged = 0
 
     def put(self, j: int, rows_np: np.ndarray) -> torch.Tensor:
         """Start the transfer of chunk j; returns its device tensor."""
         src = torch.from_numpy(np.ascontiguousarray(rows_np).view(np.uint8))
+        slot = j % 2
+        self._charge(slot)
         if not self.cuda:
             return src
-        slot = j % 2
+        if self.bufs[slot] is None:
+            self.pinned[slot] = torch.empty(self.shape, dtype=torch.uint8,
+                                            pin_memory=True)
+            self.bufs[slot] = torch.empty(self.shape, dtype=torch.uint8,
+                                          device=self.dev)
         if self.copied[slot] is not None:
             # the pinned slot is still the source of chunk j-2's copy
             self.copied[slot].synchronize()
@@ -441,6 +477,7 @@ class DeviceLRU:
     def __init__(self, max_entries: int):
         self.max_entries = max_entries
         self._od: "collections.OrderedDict" = collections.OrderedDict()
+        self._bytes = 0
         self._lock = threading.Lock()
         self.hits = 0
         self.misses = 0
@@ -448,25 +485,33 @@ class DeviceLRU:
 
     def get(self, key):
         with self._lock:
-            value = self._od.get(key)
-            if value is None:
+            ent = self._od.get(key)
+            if ent is None:
                 self.misses += 1
                 return None
             self._od.move_to_end(key)
             self.hits += 1
-            return value
+            return ent[0]
 
-    def put(self, key, value):
+    def put(self, key, value, nbytes: int = 0):
+        """Insert `value` (charged `nbytes` in total_bytes)."""
         with self._lock:
-            cur = self._od.get(key)
-            if cur is not None:  # racing upload lost: first wins
+            ent = self._od.get(key)
+            if ent is not None:  # racing upload lost: first wins
                 self._od.move_to_end(key)
-                return cur
-            self._od[key] = value
+                return ent[0]
+            self._od[key] = (value, nbytes)
+            self._bytes += nbytes
             while len(self._od) > max(1, self.max_entries):
-                self._od.popitem(last=False)
+                _, (_, b) = self._od.popitem(last=False)
+                self._bytes -= b
                 self.evictions += 1
         return value
+
+    @property
+    def total_bytes(self) -> int:
+        with self._lock:
+            return self._bytes
 
     def __len__(self) -> int:
         with self._lock:
@@ -498,7 +543,10 @@ def _pub_cache_get(pub_rows: np.ndarray, nsub: int, dev: torch.device):
     sub = pub_rows.shape[1] // nsub
     chunks = [torch.from_numpy(np.ascontiguousarray(
         pub_rows[:, j * sub:(j + 1) * sub])).to(dev) for j in range(nsub)]
-    return _pub_cache.put(key, chunks)
+    chunks = _pub_cache.put(key, chunks, nbytes=int(pub_rows.nbytes))
+    from tendermint_tpu_torch.crypto import devobs
+    devobs.ledger_set("pub_cache", _pub_cache.total_bytes)
+    return chunks
 
 
 def _msgs_slice(msgs, a: int, b: int):
@@ -588,29 +636,34 @@ def _verify_batch(pubkeys, msgs, sigs, cache_pubs: bool, dev):
         return np.ones(len(pubkeys), dtype=bool)
     t0 = time.perf_counter()
     phases = {}
-    if cache_pubs and len(pubkeys) >= PUB_CACHE_MIN:
-        feed = _ChunkFeed(dev, 96, _split_chunk(len(pubkeys)))
-        outs, host_ok, n, nb, stage_s = split_chunked_launch(
-            pubkeys, msgs, sigs, dev, feed=feed)
-        phases["stage_s"] = stage_s
-        path = "cuda-split"
-    else:
-        packed, host_ok = prepare_batch_packed(pubkeys, sigs, msgs)
-        n = host_ok.shape[0]
-        nb = max(TILE, bucket_size(n))
-        if nb != n:  # pad the trailing (lane) axis
-            packed = np.pad(packed, [(0, 0), (0, nb - n)])
-        phases["stage_s"] = time.perf_counter() - t0
-        nsub = max(1, nb // MAX_CHUNK)
-        feed = _ChunkFeed(dev, 128, nb // nsub)
-        outs = verify_packed_pipelined(packed, nsub, feed)
-        path = "cuda"
-    t_col = time.perf_counter()
-    out = outs[0] if len(outs) == 1 else torch.cat(outs)
-    res = out.cpu().numpy()  # synchronises: the wall includes execution
-    phases["drain_s" if len(outs) > 1 else "collect_s"] = \
-        time.perf_counter() - t_col
-    phases.update(feed.phases())
+    feed = None
+    try:
+        if cache_pubs and len(pubkeys) >= PUB_CACHE_MIN:
+            feed = _ChunkFeed(dev, 96, _split_chunk(len(pubkeys)))
+            outs, host_ok, n, nb, stage_s = split_chunked_launch(
+                pubkeys, msgs, sigs, dev, feed=feed)
+            phases["stage_s"] = stage_s
+            path = "cuda-split"
+        else:
+            packed, host_ok = prepare_batch_packed(pubkeys, sigs, msgs)
+            n = host_ok.shape[0]
+            nb = max(TILE, bucket_size(n))
+            if nb != n:  # pad the trailing (lane) axis
+                packed = np.pad(packed, [(0, 0), (0, nb - n)])
+            phases["stage_s"] = time.perf_counter() - t0
+            nsub = max(1, nb // MAX_CHUNK)
+            feed = _ChunkFeed(dev, 128, nb // nsub)
+            outs = verify_packed_pipelined(packed, nsub, feed)
+            path = "cuda"
+        t_col = time.perf_counter()
+        out = outs[0] if len(outs) == 1 else torch.cat(outs)
+        res = out.cpu().numpy()  # synchronises: the wall includes execution
+        phases["drain_s" if len(outs) > 1 else "collect_s"] = \
+            time.perf_counter() - t_col
+        phases.update(feed.phases())
+    finally:
+        if feed is not None:
+            feed.close()
     _record_launch(path, dev, n, nb, time.perf_counter() - t0, phases)
     return res[:n] & host_ok
 
@@ -625,11 +678,26 @@ def verify_batch_staged(pubkeys, msgs, sigs, device=None) -> np.ndarray:
     staged, host_ok = prepare_batch_compact(pubkeys, sigs, msgs)
     n = host_ok.shape[0]
     nb = max(TILE, bucket_size(n))
-    rows = [torch.from_numpy(np.pad(staged[k].view(np.uint8),
-                                    [(0, 0), (0, nb - n)])).to(dev)
-            for k in ("pub", "r", "s", "digest")]
+    padded = [torch.from_numpy(np.pad(staged[k].view(np.uint8),
+                                      [(0, 0), (0, nb - n)]))
+              for k in ("pub", "r", "s", "digest")]
     phases = {"stage_s": time.perf_counter() - t0}
-    res = ck.verify_staged(*rows).cpu().numpy()   # synchronises
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)] \
+        if dev.type == "cuda" else None
+    if ev:
+        ev[0].record()
+    rows = [r.to(dev) for r in padded]
+    if ev:
+        ev[1].record()
+    out = ck.verify_staged(*rows)
+    if ev:
+        ev[2].record()
+    t_col = time.perf_counter()
+    res = out.cpu().numpy()   # synchronises
+    phases["collect_s"] = time.perf_counter() - t_col
+    if ev:
+        phases["h2d_s"] = ev[0].elapsed_time(ev[1]) / 1e3
+        phases["compute_s"] = ev[1].elapsed_time(ev[2]) / 1e3
     _record_launch("cuda-staged", dev, n, nb, time.perf_counter() - t0,
                    phases)
     return res[:n] & host_ok

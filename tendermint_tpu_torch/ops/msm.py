@@ -163,6 +163,11 @@ class _Marks:
         if len(self.events) > 1:
             out["device_s"] = self.events[0][1].elapsed_time(
                 self.events[-1][1]) / 1e3
+        names = [name for name, _ in self.events]
+        if "h2d" in names and names[-1] != "h2d":
+            # the kernels' share: from the copies' end to the last stage
+            out["compute_s"] = self.events[names.index("h2d")][1] \
+                .elapsed_time(self.events[-1][1]) / 1e3
         return out
 
 

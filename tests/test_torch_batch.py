@@ -149,3 +149,53 @@ def test_host_bulk_never_raises(triples):
     got = tbatch._host_bulk_ed25519(p, m, s)
     np.testing.assert_array_equal(want, got)
     assert got.tolist() == [True, False, False, False]
+
+
+def test_context_priority_name_reads_the_context():
+    """The direct path's e2e latency label is the caller's scheduler
+    priority context, COMMIT outside one, restored on exit."""
+    from tendermint_tpu.crypto import scheduler as jvs
+    from tendermint_tpu_torch.crypto import scheduler as tvs
+
+    for b, vs in ((jbatch, jvs), (tbatch, tvs)):
+        got = [b._context_priority_name()]
+        with vs.priority_context(vs.Priority.BLOCKSYNC):
+            got.append(b._context_priority_name())
+            with vs.priority_context(vs.Priority.CONSENSUS, deadline=1.0):
+                got.append(b._context_priority_name())
+                got.append(vs.context_priority(vs.Priority.MEMPOOL))
+            got.append(b._context_priority_name())
+        got.append(b._context_priority_name())
+        got[3] = (got[3][0].name, got[3][1])
+        assert got == ["commit", "blocksync", "consensus",
+                       ("CONSENSUS", 1.0), "blocksync", "commit"]
+
+
+def test_host_verify_items_takes_the_reference_signature(triples,
+                                                         monkeypatch):
+    """_host_verify_items(tname, items, assume_miss=, t_submit=) as the
+    JAX package's: the same bitmap with and without the cache pre-pass,
+    and assume_miss never consults the SigCache."""
+    import inspect
+
+    assert list(inspect.signature(tbatch._host_verify_items).parameters) \
+        == list(inspect.signature(jbatch._host_verify_items).parameters)
+    pubs, msgs, sigs = triples
+    out = {}
+    for name, b, keys in (("jax", jbatch, jkeys), ("port", tbatch, tkeys)):
+        cache = b.SigCache()
+        monkeypatch.setattr(b, "verified_sigs", cache)
+        items = [b._Item(keys.PubKey(p), m, s)
+                 for p, m, s in zip(pubs, msgs, sigs)]
+        cache.add(pubs[1], msgs[1], sigs[1])
+        a = b._host_verify_items("ed25519", items)
+        hits = (cache.hits, cache.misses)
+        c = b._host_verify_items("ed25519", items, assume_miss=True,
+                                 t_submit=0.0)
+        out[name] = (a.tolist(), c.tolist(), hits,
+                     (cache.hits, cache.misses))
+    assert out["jax"] == out["port"]
+    a, c, hits, after = out["port"]
+    assert a == c == [_edref.verify(p, m, s)
+                      for p, m, s in zip(pubs, msgs, sigs)]
+    assert hits == (1, 47) and after == hits

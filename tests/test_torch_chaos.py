@@ -47,9 +47,8 @@ TRACERS = {"jax": jtrace.TRACER, "port": ttrace.TRACER}
 ROUTE_FAMILIES = ("crypto_msm_route_total", "crypto_batch_occupancy_ratio",
                   "crypto_device_compile_seconds")
 # families of modules the port has not ported yet (comb table cache,
-# VerifyScheduler, host-lane pool); they stay 0 in the JAX package here
-UNPORTED_FAMILIES = ("crypto_table_", "crypto_sched_", "crypto_host_pool_",
-                     "crypto_slo_p50_", "crypto_slo_p99_", "crypto_slo_burn_")
+# host-lane pool); they stay 0 in the JAX package here
+UNPORTED_FAMILIES = ("crypto_table_", "crypto_host_pool_")
 
 
 @pytest.fixture(autouse=True, scope="module")

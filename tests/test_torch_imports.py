@@ -51,6 +51,29 @@ def test_resilience_modules_are_checked():
         assert f"tendermint_tpu_torch.{m}" in mods, m
 
 
+def test_scheduler_modules_are_checked():
+    """The VerifyScheduler, the device observatory and the service
+    lifecycle under them are among the modules the checks below cover."""
+    mods = _port_modules()
+    for m in ("crypto.scheduler", "crypto.devobs", "libs.service"):
+        assert f"tendermint_tpu_torch.{m}" in mods, m
+
+
+def test_scheduler_cuda_missing_raises(monkeypatch):
+    """With no CUDA and no device='cpu', the scheduler's constructor and
+    its sync wrapper raise instead of running on the CPU."""
+    from tendermint_tpu_torch.crypto import scheduler as vs
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(T, "_default_device", "cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        vs.VerifyScheduler()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        vs.verify_items([(bytes(32), b"m", bytes(64))])
+    s = vs.VerifyScheduler(device="cpu")
+    assert s.device == torch.device("cpu") and not s.is_running()
+
+
 def test_import_keeps_jax_out():
     """Importing every module of the port in a fresh interpreter loads
     neither jax nor the JAX package."""

@@ -45,7 +45,8 @@ def fails():
 
 def test_fail_sites_of_the_port_are_registered_in_both(fails):
     assert tfail.REGISTERED_SITES == {"ops.ed25519.verify_batch",
-                                      "batch.ed25519", "bulk.ed25519"}
+                                      "batch.ed25519", "sched.ed25519",
+                                      "bulk.ed25519", "devobs.record"}
     assert all(jfail.is_registered(s) for s in tfail.REGISTERED_SITES)
 
 
@@ -108,10 +109,9 @@ def test_fail_point_counter_matches(fails, monkeypatch):
 # -- metrics ----------------------------------------------------------------
 
 # CryptoMetrics families of modules the port has not ported yet (the comb
-# table cache, the VerifyScheduler with the SLO quantiles it refreshes,
-# the host-lane pool): the JAX package's exposition is compared without them
-UNPORTED = re.compile(r"_crypto_(table_|sched_|host_pool_|slo_p50_|slo_p99_"
-                      r"|slo_burn_)")
+# table cache, the host-lane pool): the JAX package's exposition is
+# compared without them
+UNPORTED = re.compile(r"_crypto_(table_|host_pool_)")
 
 
 def _ported(text: str) -> str:
@@ -172,7 +172,7 @@ def test_crypto_metrics_families_match():
     ported = _both(lambda m: [f for f in families(m)
                               if not UNPORTED.search(f[0])],
                    (jmetrics, tmetrics))
-    assert ported == families(tmetrics) and len(ported) == 13
+    assert ported == families(tmetrics) and len(ported) == 22
     assert len(families(jmetrics)) == 27
 
 

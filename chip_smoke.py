@@ -4,9 +4,9 @@
 
 Phases (any failure exits non-zero; nothing is caught and skipped):
   0  the card: CUDA available, compute capability >= 9.0, nvidia-smi line
-  1  build the kernels from csrc/ (nvcc) and the host staging C (cc);
-     registers, spills, stack and blocks per SM of each verify kernel and
-     of K4, K5 and A1
+  1  build the kernels from csrc/ (nvcc, one process a source, side by
+     side) and the host C (cc); registers, spills, stack and blocks per SM
+     of each verify kernel, of K4, K5 and A1, and of S1 and S2
   2  field: the CUDA field arithmetic (fe_selftest) against the plain
      PyTorch field on the card, on edge values and seeded elements
   3  K1, K2 and K3 on adversarial vectors (R edge vectors of the
@@ -93,8 +93,34 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      with its phases; each (path, nb) bucket once in the inventory with
      its first-launch wall; pub_cache = the DeviceLRU's bytes after phase
      5 and staging back to 0 after every phase; the 150-validator
-     and the RLC 100k verify_commit with devobs off and on
- 14  the kernels line; then the last line {"ok": true, "device": ...}
+     verify_commit with devobs off and on
+ 14  the secp256k1 and sr25519 lanes: S1's field (fe_secp_selftest)
+     against the plain field; S1 and S2 against their plain versions (raw
+     bitmaps) and, behind the host screens, the pure-Python oracles and
+     the native C lanes: S1 on the adversarial set (s = 0, s >= N,
+     r >= P, x >= P, a non-square lift_x, an off-curve R_x), on rows
+     whose ladder meets the degenerate additions and on a 1,000-triple
+     sweep, 1 in 10 corrupted; S2 on the tamper classes and on
+     non-canonical, odd, high-bit and non-square encodings of A and R,
+     and the same sweep.  BASELINE config 5: 4,096 triples round-robined
+     over ed25519, secp256k1 and sr25519 (1,366 / 1,365 / 1,365, each
+     lane padded to 2,048) through BatchVerifier(device="cuda"), a fresh
+     SigCache a pass, one warm-up and 7 timed passes, each launching K1,
+     S1 and S2 once at batch.<scheme> with an all-true bitmap and no
+     host fallback: median wall, sigs/s, the lane report, the spot
+     checks' share of the wall; the first pass's S1 and S2 launches
+     against their plain versions.  The secp256k1 rollback
+     (set_lane_enabled(False): the native host lane through the pool, at
+     its default size and at one worker).  A mixed 150-validator commit
+     (50 of each scheme) through ValidatorSet.verify_commit: 10 walls,
+     then one bad signature of each scheme named at its index.  Drills:
+     a raise at ops.secp/ops.sr25519.verify_batch re-verified on the host
+     (exact bitmap); S1's and S2's wrappers raising outside a drill
+     (DeviceLaneError, no host fallback); a clean pass after.  A mixed
+     verify_items call through a VerifyScheduler on the card (launches
+     at sched.secp256k1 and sched.sr25519).  S1's and S2's times at
+     2,048 and 65,536 lanes beside their bounds and their plain versions
+ 15  the kernels line; then the last line {"ok": true, "device": ...}
 
 Signatures come from a seeded incremental generator (a_i = a_0 + i, so
 A_i = A_{i-1} + B), because signing 100k triples one by one in pure
@@ -140,11 +166,15 @@ import numpy as np  # noqa: E402
 
 import tendermint_tpu_torch as T  # noqa: E402
 from tendermint_tpu_torch.crypto import _edref  # noqa: E402
+from tendermint_tpu_torch.crypto import _ristretto  # noqa: E402
 from tendermint_tpu_torch.crypto import batch as cbatch  # noqa: E402
 from tendermint_tpu_torch.crypto import degrade  # noqa: E402
 from tendermint_tpu_torch.crypto import devobs  # noqa: E402
 from tendermint_tpu_torch.crypto import ed25519 as edkeys  # noqa: E402
+from tendermint_tpu_torch.crypto import lanepool  # noqa: E402
 from tendermint_tpu_torch.crypto import scheduler as vsched  # noqa: E402
+from tendermint_tpu_torch.crypto import secp256k1 as secpkeys  # noqa: E402
+from tendermint_tpu_torch.crypto import sr25519 as srkeys  # noqa: E402
 from tendermint_tpu_torch.libs import fail as failpoints  # noqa: E402
 from tendermint_tpu_torch.libs import native  # noqa: E402
 from tendermint_tpu_torch.libs import slo  # noqa: E402
@@ -152,9 +182,13 @@ from tendermint_tpu_torch.libs import trace  # noqa: E402
 from tendermint_tpu_torch.libs.metrics import Registry  # noqa: E402
 from tendermint_tpu_torch.ops import cuda_ed25519 as ck  # noqa: E402
 from tendermint_tpu_torch.ops import cuda_msm as cm  # noqa: E402
+from tendermint_tpu_torch.ops import cuda_secp as cs1  # noqa: E402
+from tendermint_tpu_torch.ops import cuda_sr25519 as cs2  # noqa: E402
 from tendermint_tpu_torch.ops import ed25519 as E  # noqa: E402
 from tendermint_tpu_torch.ops import field as F  # noqa: E402
 from tendermint_tpu_torch.ops import msm  # noqa: E402
+from tendermint_tpu_torch.ops import secp as secp_ops  # noqa: E402
+from tendermint_tpu_torch.ops import sr25519 as sr_ops  # noqa: E402
 from tendermint_tpu_torch.ops._nvcc import parse_ptxas  # noqa: E402
 from tendermint_tpu_torch.types.basic import (BlockID, BlockIDFlag,  # noqa: E402
                                               PartSetHeader, Timestamp)
@@ -295,19 +329,25 @@ def _build(fn, what):
 threads = [threading.Thread(target=_build, args=(fn, what)) for fn, what in (
     (lambda: native.get_lib() or errs.append("host staging C did not build"),
      "cc"),
-    (ck.kernels, "nvcc ed25519_verify.cu"), (cm.kernels, "nvcc msm.cu"))]
+    (ck.kernels, "nvcc ed25519_verify.cu"), (cm.kernels, "nvcc msm.cu"),
+    (cs1.kernels, "nvcc secp256k1_verify.cu"),
+    (cs2.kernels, "nvcc sr25519_verify.cu"))]
 for th in threads:
     th.start()
 for th in threads:
     th.join()
 check(not errs, "; ".join(errs))
-ptxas = [ln.strip() for info in (ck.build_info, cm.build_info)
+ptxas = [ln.strip() for info in (ck.build_info, cm.build_info,
+                                 cs1.build_info, cs2.build_info)
          for ln in info.get("ptxas", "").splitlines()
          if any(w in ln for w in ("registers", "spill", "Compiling entry",
                                   "Function properties"))]
 log(phase=1, build_s=round(time.perf_counter() - t, 3),
     nvcc_s={"ed25519_verify": round(ck.build_info["seconds"], 3),
-            "msm": round(cm.build_info["seconds"], 3)}, ptxas=ptxas)
+            "msm": round(cm.build_info["seconds"], 3),
+            "secp256k1_verify": round(cs1.build_info["seconds"], 3),
+            "sr25519_verify": round(cs2.build_info["seconds"], 3)},
+    ptxas=ptxas)
 # registers, spills and stack of each verify kernel, and blocks per SM
 occ = ck.occupancy()
 verify_build = {}
@@ -327,6 +367,17 @@ for _name, _row in parse_ptxas(cm.build_info.get("ptxas", "")).items():
                                 threads_per_block=threads)
         log(phase=1, kernel=_name, **msm_build[_name])
 check(len(msm_build) == 3, f"ptxas report: {sorted(msm_build)}")
+# S1 and S2: registers, spills, stack and blocks per SM
+lane_build = {}
+for mod in (cs1, cs2):
+    occ = mod.occupancy()
+    for _name, _row in parse_ptxas(mod.build_info.get("ptxas", "")).items():
+        if _name[2:] in occ:
+            blocks, threads = occ[_name[2:]]
+            lane_build[_name] = dict(_row, blocks_per_sm=blocks,
+                                     threads_per_block=threads)
+            log(phase=1, kernel=_name, **lane_build[_name])
+check(len(lane_build) == 2, f"ptxas report: {sorted(lane_build)}")
 
 # -- phase 2: field ---------------------------------------------------------
 
@@ -1952,7 +2003,474 @@ log(phase=13, card=CARD, verify_commit_150_devobs_on_s=pctl(w_obs["on"], 0.5),
 runtime_clean("phase-13 devobs walls")
 staging_clear(13)
 
-# -- phase 14: the kernels line -----------------------------------------------
+# -- phase 14: the secp256k1 and sr25519 lanes; BASELINE config 5 -------------
+
+PS, NS = secp_ops.P, secp_ops.N
+lanes14: dict = {}
+# S1's field (fe_secp_selftest) against the plain field, and against Python
+# integers on the edge values
+rng = random.Random(SEED + 14)
+edge_s = [0, 1, 2, PS - 1, PS, PS + 1, (1 << 256) - 1, 977, (1 << 32) + 977,
+          1 << 255, PS - 977]
+vals_a = edge_s + [rng.randrange(1 << 256) for _ in range(4096)]
+vals_b = [rng.randrange(1 << 256) for _ in vals_a[:-len(edge_s)]] + edge_s
+fa, fb = to_u8(vals_a), to_u8(vals_b)
+got = cs1.fe_secp_selftest(fa, fb)
+want = cs1.fe_secp_selftest_plain(fa, fb)
+torch.cuda.synchronize()
+fs_mism = int((got != want).any(-1).sum())
+for i, a in enumerate(vals_a[:len(edge_s)]):
+    a, b = a % PS, vals_b[i] % PS
+    exp = [a, a * b % PS, a * a % PS, (a + b) % PS, (a - b) % PS,
+           pow(a, PS - 2, PS), pow(a, (PS + 1) // 4, PS)]
+    for op in range(7):
+        g = int.from_bytes(got[op, i].cpu().numpy().tobytes(), "little")
+        check(g == exp[op],
+              f"fe_secp_selftest op {op} on {hex(vals_a[i])}")
+log(phase=14, s1_field_elements=len(vals_a), ops=7, mismatches=fs_mism)
+check(fs_mism == 0, "S1's field differs from the plain field")
+lanes14["s1_field"] = dict(elements=len(vals_a), ops=7,
+                           mismatches=fs_mism)
+
+# BASELINE config 5: 4,096 triples round-robined over ed25519, secp256k1
+# and sr25519 (scripts/bench_report.py's mixed shape: "mixed bench %6d"
+# messages), signed by the in-repo signers; ed25519 by the generator
+t = time.perf_counter()
+N5 = 4096
+msgs5 = [b"mixed bench %6d" % i for i in range(N5)]
+idx5 = {s: [i for i in range(N5) if i % 3 == j]
+        for j, s in enumerate(("ed25519", "secp256k1", "sr25519"))}
+ed_a, ed_p = gen_keys(len(idx5["ed25519"]), rng)
+ed_s = sign_batch(ed_a, ed_p, [msgs5[i] for i in idx5["ed25519"]], rng)
+secp_k = [secpkeys.PrivKey.gen_from_secret(b"config5 %d" % i)
+          for i in idx5["secp256k1"]]
+secp_p = [k.pub_key().bytes() for k in secp_k]
+secp_s = [k.sign(msgs5[i]) for k, i in zip(secp_k, idx5["secp256k1"])]
+sr_m = [hashlib.sha256(b"config5 %d" % i).digest()
+        for i in idx5["sr25519"]]
+sr_p = [srkeys.PrivKey(m).pub_key().bytes() for m in sr_m]
+sr_s = [srkeys.sign(m, msgs5[i]) for m, i in zip(sr_m, idx5["sr25519"])]
+gen14_s = time.perf_counter() - t
+RAW5 = {"ed25519": (ed_p, ed_s), "secp256k1": (secp_p, secp_s),
+        "sr25519": (sr_p, sr_s)}
+KEYS5 = {"ed25519": edkeys, "secp256k1": secpkeys, "sr25519": srkeys}
+ITEMS5 = [None] * N5
+for s, ix in idx5.items():
+    for j, i in enumerate(ix):
+        ITEMS5[i] = (KEYS5[s].PubKey(RAW5[s][0][j]), msgs5[i], RAW5[s][1][j])
+for i in rng.sample(range(N5), 12):
+    check(ITEMS5[i][0].verify_signature(ITEMS5[i][1], ITEMS5[i][2]),
+          f"config 5 generator: triple {i} does not verify")
+log(phase=14, config5_triples=N5,
+    per_scheme={s: len(ix) for s, ix in idx5.items()},
+    gen_s=round(gen14_s, 3))
+
+
+def lane_rows(scheme, pubs, msgs, sigs, corrupt_every=0):
+    """(rows (128, n) uint8 on the card, host_ok, the oracle's verdicts)
+    of a lane's kernel: staged as its verify_batch_device stages them,
+    no range screen applied to the rows."""
+    if scheme == "secp256k1":
+        rows, ok = secp_ops.stage(pubs, msgs, sigs)
+        # the raw rows of screened lanes too (stage zeroes them)
+        for i in np.flatnonzero(~ok):
+            p, s = bytes(pubs[i]), bytes(sigs[i])
+            e = int.from_bytes(secp_ops._tagged_hash(
+                "BIP0340/challenge", s[:32] + p[1:]
+                + hashlib.sha256(bytes(msgs[i])).digest()), "big") % NS
+            rows[i] = np.frombuffer(p[1:] + s + e.to_bytes(32, "big"),
+                                    np.uint8)
+    else:
+        rows, ok = sr_ops.stage(pubs, msgs, sigs)
+    oracle = np.array([KEYS5[scheme].PubKey(bytes(p)).verify_signature(
+        bytes(m), bytes(s)) for p, m, s in zip(pubs, msgs, sigs)])
+    return (torch.from_numpy(np.ascontiguousarray(rows.T)).to(DEV), ok,
+            oracle)
+
+
+def lane_cmp(label, scheme, pubs, msgs, sigs):
+    """S1 or S2 against its plain version (raw bitmaps, every lane) and,
+    masked by the host screens, against the pure-Python oracle and the
+    native C lane.  Returns (label, lanes, mismatches, max_abs_err)."""
+    rows, ok, oracle = lane_rows(scheme, pubs, msgs, sigs)
+    mod = cs1 if scheme == "secp256k1" else cs2
+    kern = mod.verify_rows if scheme == "secp256k1" else mod.verify_packed
+    plain = (mod.verify_rows_plain if scheme == "secp256k1"
+             else mod.verify_packed_plain)
+    got = kern(rows).cpu().numpy()
+    want = plain(rows).cpu().numpy()
+    nat = (native.secp_verify if scheme == "secp256k1"
+           else native.sr25519_verify)(pubs, msgs, sigs)
+    err = np.abs(got.astype(int) - want.astype(int))
+    row = dict(label=label, scheme=scheme, lanes=len(got),
+               mismatches=int(err.sum()), valid=int(oracle.sum()),
+               vs_oracle=int(((got & ok) != oracle).sum()),
+               vs_native=int(((got & ok) != nat).sum()))
+    log(phase=14, card=CARD, **row)
+    check(row["mismatches"] == 0 and row["vs_oracle"] == 0
+          and row["vs_native"] == 0, f"phase 14 {label}: {row}")
+    return label, len(got), int(err.sum()), float(err.max())
+
+
+# S1: the adversarial set (s = 0, s >= N, r >= P, x >= P, a non-square
+# lift_x, an off-curve R_x), rows whose ladder meets the complete add's
+# degenerate cases, and a seeded sweep at a ragged size, 1 in 10 corrupted
+def be32(x):
+    return x.to_bytes(32, "big")
+
+
+k0 = secpkeys.PrivKey.gen_from_secret(b"\x77" * 32)
+pk0, m0 = k0.pub_key().bytes(), b"structured secp lane"
+g0 = k0.sign(m0)
+xn = 5
+while pow((pow(xn, 3, PS) + 7) % PS, (PS - 1) // 2, PS) == 1:
+    xn += 1
+adv1 = [(pk0, m0, g0[:32] + be32(NS)), (pk0, m0, g0[:32] + be32(NS + 1)),
+        (pk0, m0, be32(PS) + g0[32:]), (pk0, m0, be32(PS + 1) + g0[32:]),
+        (pk0, m0, be32(xn) + g0[32:]), (b"\x02" + be32(PS), m0, g0),
+        (b"\x02" + be32(xn), m0, g0), (pk0, m0, g0[:32] + be32(0)),
+        (pk0, m0, g0), (b"\x03" + pk0[1:], m0, g0)]
+s1_cmp = [lane_cmp("S1 adversarial", "secp256k1", *zip(*adv1))]
+gmul = secp_ops.g_multiples()
+deg = []
+for kx in (1, 2, 3):
+    for de in (1, 2, 5):
+        ds = (kx * de) % 16 or 1
+        deg.append(be32(gmul[kx][0]) + be32(rng.getrandbits(256))
+                   + be32((ds << 252) | rng.getrandbits(250))
+                   + be32((de << 252) | rng.getrandbits(250)))
+sd = rng.getrandbits(255)
+deg.append(be32(gmul[1][0]) + bytes(32) + be32(sd) * 2)
+deg_rows = torch.from_numpy(np.ascontiguousarray(np.frombuffer(
+    b"".join(deg), np.uint8).reshape(-1, 128).T)).to(DEV)
+deg_got = cs1.verify_rows(deg_rows).cpu().numpy()
+deg_want = cs1.verify_rows_plain(deg_rows).cpu().numpy()
+deg_mism = int((deg_got != deg_want).sum())
+log(phase=14, card=CARD, s1_degenerate_rows=len(deg), mismatches=deg_mism)
+check(deg_mism == 0, "S1 differs from its plain version on the "
+      "degenerate additions")
+s1_cmp.append(("S1 degenerate adds", len(deg), deg_mism,
+               float(deg_mism > 0)))
+
+
+def sweep(scheme, n):
+    """The first n of config 5's triples of a scheme, 1 in 10 corrupted."""
+    pubs, sigs = RAW5[scheme]
+    msgs = [msgs5[i] for i in idx5[scheme][:n]]
+    sigs = [corrupt(s, rng) if j % 10 == 3 else s
+            for j, s in enumerate(sigs[:n])]
+    return pubs[:n], msgs, sigs
+
+
+s1_cmp.append(lane_cmp("S1 sweep 1,000", "secp256k1",
+                       *sweep("secp256k1", 1000)))
+
+# S2: the tamper classes of tests/test_sr25519_lane.py (R tampered, s
+# tampered, marker cleared, s >= L, wrong message, wrong key) and
+# non-canonical, odd, high-bit and non-square encodings of A and R
+PE = (1 << 255) - 19
+nsq = next(s for s in range(2, 200, 2)
+           if _ristretto.Point.decode(s.to_bytes(32, "little")) is None)
+sp = list(RAW5["sr25519"][0][:24])
+sm = [msgs5[i] for i in idx5["sr25519"][:24]]
+ss = [bytearray(s) for s in RAW5["sr25519"][1][:24]]
+ss[3][2] ^= 1
+ss[5][40] ^= 1
+ss[7][63] &= 0x7F
+ss[9][63] = 0xFF
+sm[11] = b"tampered"
+sp[13] = sp[14]
+for j, v in enumerate((nsq, 3, PE + 1, 2 + (1 << 255))):
+    e = v.to_bytes(32, "little")
+    sp[15 + j] = e
+    ss[19 + j][:32] = e
+s2_cmp = [lane_cmp("S2 adversarial", "sr25519", sp, sm,
+                   [bytes(s) for s in ss])]
+s2_cmp.append(lane_cmp("S2 sweep 1,000", "sr25519", *sweep("sr25519", 1000)))
+lanes14["compared"] = {"S1": s1_cmp, "S2": s2_cmp}
+
+# config 5 through BatchVerifier(device="cuda"): a fresh SigCache each
+# pass, one warm-up pass and 7 timed; every pass launches K1, S1 and S2
+# once each, on the card, with an all-true bitmap and no host fallback.
+# The spot check (one pure-Python verify a secp256k1 or sr25519 lane,
+# OpenSSL for ed25519) is timed inside the pass.
+degrade.configure(degrade.DegradeConfig.from_env(), registry=Registry("c5"))
+spot_s = [0.0]
+_prepare = cbatch._SpotCheck.prepare
+
+
+def timed_prepare(self):
+    t = time.perf_counter()
+    try:
+        return _prepare(self)
+    finally:
+        spot_s[0] += time.perf_counter() - t
+
+
+cbatch._SpotCheck.prepare = timed_prepare
+cap14 = {}
+REAL14 = {"S1": cs1.verify_rows, "S2": cs2.verify_packed}
+
+
+def capture14(name):
+    def wrapper(rows):
+        out = REAL14[name](rows)
+        if name not in cap14:
+            cap14[name] = (rows.clone(), out.clone())
+        return out
+    return wrapper
+
+
+def config5_pass(items=ITEMS5):
+    cbatch.verified_sigs = cbatch.SigCache()
+    bv = cbatch.BatchVerifier(device=DEV)
+    for it in items:
+        bv.add(*it)
+    spot_s[0] = 0.0
+    t = time.perf_counter()
+    ok, bits = bv.verify()
+    return ok, bits, time.perf_counter() - t, spot_s[0]
+
+
+SITES5 = ("batch.ed25519", "batch.secp256k1", "batch.sr25519")
+launches14 = {"S1": 0, "S2": 0}
+walls5, spots5, reports5 = [], [], []
+cs1.verify_rows, cs2.verify_packed = capture14("S1"), capture14("S2")
+for rnd in range(8):
+    rt = degrade.runtime()
+    before = {s: rt.metrics.device_launches.value(site=s) for s in SITES5}
+    cs1.reset_launches()
+    cs2.reset_launches()
+    (ok, bits, w, sp_s), got = main_path(config5_pass)
+    n1, n2 = cs1.launches["verify_rows"], cs2.launches["verify_packed"]
+    launches14["S1"] += n1
+    launches14["S2"] += n2
+    for s in SITES5:
+        runtime_clean(f"config 5 pass {rnd}", s, before[s])
+    check(ok and bits.all(), f"config 5 pass {rnd}: bitmap not all true")
+    check(got["verify_packed"] == 1 and n1 == 1 and n2 == 1,
+          f"config 5 pass {rnd}: K1 {got['verify_packed']}, S1 {n1}, S2 {n2}")
+    if rnd:
+        walls5.append(w)
+        spots5.append(sp_s)
+        reports5.append(cbatch.last_lane_report())
+cs1.verify_rows, cs2.verify_packed = REAL14["S1"], REAL14["S2"]
+med5 = pctl(walls5, 0.5)
+rep5 = reports5[walls5.index(med5)] if med5 in walls5 else reports5[0]
+lanes14["config5"] = dict(
+    triples=N5, walls_s=walls5, median_wall_s=med5, sigs_per_s=N5 / med5,
+    spot_check_s=spots5, spot_check_share=pctl(spots5, 0.5) / med5,
+    lane_report=rep5, launches=launches14)
+times["config5_wall_s"] = med5
+times["config5_sigs_per_s"] = N5 / med5
+log(phase=14, card=CARD, config5_median_wall_s=med5,
+    sigs_per_s=round(N5 / med5, 1),
+    spot_check_share=round(lanes14["config5"]["spot_check_share"], 4),
+    lane_report=rep5)
+# the main path's S1 and S2 launches against their plain versions
+for name, mod, plain, cmps in (("S1", cs1, cs1.verify_rows_plain, s1_cmp),
+                               ("S2", cs2, cs2.verify_packed_plain, s2_cmp)):
+    rows, out = cap14[name]
+    want = plain(rows).cpu().numpy()
+    got = out.cpu().numpy()
+    n_real = len(idx5["secp256k1" if name == "S1" else "sr25519"])
+    mism = int((got != want).sum())
+    check(rows.shape[1] == 2048 and mism == 0 and want[:n_real].all(),
+          f"{name} on config 5's launch: {mism} mismatches, lanes "
+          f"{rows.shape[1]}")
+    cmps.append((f"{name} config 5 launch", rows.shape[1], mism,
+                 float(mism > 0)))
+ROWS5 = {k: v[0] for k, v in cap14.items()}
+
+# the secp256k1 rollback: secp256k1 on the native host lane through the
+# pool, at the pool's default size and at one worker
+roll = {}
+secp_ops.set_lane_enabled(False)
+try:
+    for label, nw in (("pool_default", None), ("pool_1", 1)):
+        lanepool.set_workers(nw)
+        ws = []
+        for rnd in range(4):
+            cs1.reset_launches()
+            (ok, bits, w, _), got = main_path(config5_pass)
+            check(ok and bits.all() and cs1.launches["verify_rows"] == 0,
+                  f"rollback {label}: bitmap or an S1 launch")
+            if rnd:
+                ws.append(w)
+        roll[label] = dict(workers=lanepool.workers(), walls_s=ws,
+                           median_wall_s=pctl(ws, 0.5),
+                           lane_report=cbatch.last_lane_report())
+        log(phase=14, card=CARD, rollback=label,
+            workers=lanepool.workers(), median_wall_s=pctl(ws, 0.5))
+finally:
+    secp_ops.set_lane_enabled(None)
+    lanepool.set_workers(None)
+lanes14["rollback"] = roll
+times["config5_rollback_pool_wall_s"] = roll["pool_default"]["median_wall_s"]
+times["config5_rollback_serial_wall_s"] = roll["pool_1"]["median_wall_s"]
+
+# a mixed 150-validator commit (50 of each scheme) through
+# ValidatorSet.verify_commit on the card: K1, S1 and S2 once a call
+signer = {}
+vals150 = []
+for j in range(150):
+    s = ("ed25519", "secp256k1", "sr25519")[j % 3]
+    seed = hashlib.sha256(b"mixed150 %d" % j).digest()
+    if s == "ed25519":
+        k = edkeys.PrivKey(seed)
+        pub = k.pub_key()
+        signer[pub.bytes()] = k.sign
+    elif s == "secp256k1":
+        k = secpkeys.PrivKey.gen_from_secret(seed)
+        pub = k.pub_key()
+        signer[pub.bytes()] = k.sign
+    else:
+        pub = srkeys.PrivKey(seed).pub_key()
+        signer[pub.bytes()] = (lambda m, seed=seed: srkeys.sign(seed, m))
+    vals150.append(Validator.new(pub, 10))
+vsetm = ValidatorSet(vals150)
+bidm = BlockID(b"\x37" * 32, PartSetHeader(1, b"\x38" * 32))
+sigsm = [CommitSig(block_id_flag=BlockIDFlag.COMMIT,
+                   validator_address=v.address,
+                   timestamp=Timestamp(1700000700, i * 7919))
+         for i, v in enumerate(vsetm.validators)]
+commitm = Commit(height=9, round=0, block_id=bidm, signatures=sigsm)
+msgsm = commit_sign_bytes_batch(CHAIN, commitm, list(range(150)))
+for i, v in enumerate(vsetm.validators):
+    sigsm[i].signature = signer[v.pub_key.bytes()](bytes(msgsm[i]))
+wm = []
+for rnd in range(11):
+    cs1.reset_launches()
+    cs2.reset_launches()
+    t = time.perf_counter()
+    _, got = main_path(lambda: vsetm.verify_commit(CHAIN, bidm, 9, commitm,
+                                                   device=DEV))
+    w = time.perf_counter() - t
+    check(got["verify_packed"] == 1 and cs1.launches["verify_rows"] == 1
+          and cs2.launches["verify_packed"] == 1,
+          f"mixed 150 commit: K1 {got['verify_packed']}, S1 "
+          f"{cs1.launches['verify_rows']}, S2 {cs2.launches['verify_packed']}")
+    if rnd:
+        wm.append(w)
+bad_m = {}
+for s in ("ed25519", "secp256k1", "sr25519"):
+    i = next(i for i, v in enumerate(vsetm.validators)
+             if v.pub_key.type_name == s)
+    orig = commitm.signatures[i].signature
+    commitm.signatures[i].signature = bytes([orig[0] ^ 1]) + orig[1:]
+    err = commit_error_index(vsetm, bidm, commitm)
+    commitm.signatures[i].signature = orig
+    bad_m[s] = (i, err)
+    check(err is not None and f"(#{i})" in err,
+          f"mixed 150 commit: a bad {s} signature at {i}: {err}")
+for s in SITES5:
+    runtime_clean("mixed 150 commit", s)
+lanes14["mixed_150"] = dict(walls_s=wm, median_wall_s=pctl(wm, 0.5),
+                            bad_index={k: v[0] for k, v in bad_m.items()})
+times["verify_commit_mixed_150_wall_s"] = pctl(wm, 0.5)
+log(phase=14, card=CARD, verify_commit_mixed_150_s=pctl(wm, 0.5),
+    bad_index=lanes14["mixed_150"]["bad_index"])
+
+# the drills: a raise at ops.secp.verify_batch and ops.sr25519.verify_batch
+# in a drill re-verifies those lanes on the host (exact bitmap); outside a
+# drill S1's and S2's wrappers swapped for ones that raise: DeviceLaneError
+# and no host fallback
+drills = []
+for site in ("ops.secp.verify_batch", "ops.sr25519.verify_batch"):
+    rt = degrade.configure(degrade.DegradeConfig.from_env(),
+                           registry=Registry("drill14"))
+    failpoints.set_mode(site, "raise")
+    try:
+        ok, bits, w, _ = config5_pass()
+    finally:
+        failpoints.reset()
+    lane = "batch." + ("secp256k1" if "secp" in site else "sr25519")
+    row = dict(site=site, exact=bool(ok and bits.all()), wall_s=w,
+               fallbacks=rt.metrics.host_fallbacks.value(site=lane,
+                                                         reason="raise"))
+    drills.append(row)
+    log(phase=14, card=CARD, drill=row)
+    check(row["exact"] and row["fallbacks"] == 1, f"drill at {site}: {row}")
+for name, mod, attr in (("S1", cs1, "verify_rows"),
+                        ("S2", cs2, "verify_packed")):
+    rt = degrade.configure(degrade.DegradeConfig.from_env(),
+                           registry=Registry("card14"))
+    real_fn = getattr(mod, attr)
+    setattr(mod, attr, launch_failed)
+    raised = None
+    try:
+        config5_pass()
+    except degrade.DeviceLaneError as e:
+        raised = str(e)
+    finally:
+        setattr(mod, attr, real_fn)
+    row = dict(kernel=name, raised=raised,
+               fallbacks=counter_total(rt.metrics.host_fallbacks))
+    drills.append(row)
+    log(phase=14, card=CARD, card_fault=row)
+    check(raised is not None and row["fallbacks"] == 0,
+          f"{name} raising outside a drill: {row}")
+degrade.configure(degrade.DegradeConfig.from_env(),
+                  registry=Registry("c5_after"))
+ok, bits, _, _ = config5_pass()
+check(ok and bits.all(), "config 5 after the drills")
+for s in ("batch.secp256k1", "batch.sr25519"):
+    runtime_clean("config 5 after the drills", s)
+lanes14["drills"] = drills
+
+# the scheduler: one mixed verify_items call launches at sched.secp256k1
+# and sched.sr25519 (start() builds S1 and S2 on this thread)
+s14 = vsched.install(vsched.VerifyScheduler(device=DEV))
+s14.start()
+try:
+    rt = degrade.runtime()
+    cs1.reset_launches()
+    cs2.reset_launches()
+    cbatch.verified_sigs = cbatch.SigCache()
+    ok, bits = vsched.verify_items(ITEMS5, device=DEV)
+    sched_sites = {s: rt.metrics.device_launches.value(site=s)
+                   for s in ("sched.ed25519", "sched.secp256k1",
+                             "sched.sr25519")}
+finally:
+    s14.stop()
+    vsched.uninstall(s14)
+st14 = s14.stats()
+lanes14["scheduler"] = dict(sites=sched_sites, exec_faults=st14["exec_faults"],
+                            launches=st14["launches"],
+                            s1=cs1.launches["verify_rows"],
+                            s2=cs2.launches["verify_packed"])
+log(phase=14, card=CARD, scheduler=lanes14["scheduler"])
+check(ok and bits.all() and all(v >= 1 for v in sched_sites.values())
+      and cs1.launches["verify_rows"] >= 1
+      and cs2.launches["verify_packed"] >= 1 and st14["exec_faults"] == 0,
+      f"scheduler: {lanes14['scheduler']}")
+cbatch._SpotCheck.prepare = _prepare
+
+# kernel times: S1 and S2 by CUDA events at 2,048 (config 5's launch) and
+# 65,536 lanes, beside their bounds and their plain versions at 2,048
+for name, fn, plain in (("s1", REAL14["S1"], cs1.verify_rows_plain),
+                        ("s2", REAL14["S2"], cs2.verify_packed_plain)):
+    rows = ROWS5["S1" if name == "s1" else "S2"]
+    big = rows.repeat(1, 32).contiguous()
+    times[f"{name}_2048_ms"] = time_events(lambda: fn(rows), 20)
+    times[f"{name}_65536_ms"] = time_events(lambda: fn(big), 3)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    plain(rows)
+    torch.cuda.synchronize()
+    times[f"plain_{name}_2048_ms"] = 1e3 * (time.perf_counter() - t)
+ga, pa = cs1.digit_adds(ROWS5["S1"])
+times["s1_2048_bound_ms"] = cs1.bound_ms(2048, ga, pa)
+times["s1_65536_bound_ms"] = cs1.bound_ms(65536, 32 * ga, 32 * pa)
+times["s2_2048_bound_ms"] = cs2.bound_ms(2048)
+times["s2_65536_bound_ms"] = cs2.bound_ms(65536)
+log(phase=14, card=CARD, **{k: v for k, v in times.items()
+                            if k.startswith(("s1_", "s2_", "plain_s"))})
+REPORT["lanes"] = lanes14
+runtime_clean("phase 14")
+staging_clear(14)
+
+# -- phase 15: the kernels line -----------------------------------------------
 
 src = "tendermint_tpu_torch/csrc/ed25519_verify.cu"
 # each comparison: (input, lanes, mismatching lanes, max |kernel - plain|)
@@ -2025,9 +2543,32 @@ for name, key, replaces, compared, lanes, ms, plain_ms, bound in (
          "max_abs_err": max(c[3] for c in cmps),
          "lanes": lanes, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
          "bound_by": "operations", "library_ms": None})
+# S1 and S2, each at config 5's launch (2,048 lanes); held against their
+# plain versions as verdict bitmaps
+for name, key, src_f, replaces, cmps, bound in (
+        ("S1 secp256k1 verify_rows (XLA _verify_core, not a Pallas kernel)",
+         "s1", "tendermint_tpu_torch/csrc/secp256k1_verify.cu",
+         "tendermint_tpu/ops/secp.py:201", s1_cmp,
+         times["s1_2048_bound_ms"]),
+        ("S2 sr25519 verify_packed (XLA _verify_core with ristretto decode "
+         "and eq, not a Pallas kernel)", "s2",
+         "tendermint_tpu_torch/csrc/sr25519_verify.cu",
+         "tendermint_tpu/ops/sr25519.py:44", s2_cmp,
+         times["s2_2048_bound_ms"])):
+    kernels.append(
+        {"name": name, "route": "cuda", "source": src_f,
+         "replaces": replaces, "launches": launches14[key.upper()],
+         "compared": "verdict bitmaps",
+         "lanes_compared": [c[1] for c in cmps],
+         "mismatches": sum(c[2] for c in cmps),
+         "max_abs_err": max(c[3] for c in cmps),
+         "lanes": 2048, "ms": times[f"{key}_2048_ms"],
+         "plain_ms": times[f"plain_{key}_2048_ms"], "bound_ms": bound,
+         "bound_by": "operations", "library_ms": None})
 REPORT.update(times=times, kernels=kernels, ptxas=ptxas, k4_span=k4_span,
               runtime=runtime12, scheduler=sched13,
               verify_build=verify_build, msm_build=msm_build,
+              lane_build=lane_build,
               segment_sweep=segment_sweep,
               records={"150": rec150, "100k": rec5b, "pipelined": rec6,
                        "rlc_100k": rec8, "rlc_16384": rec9,

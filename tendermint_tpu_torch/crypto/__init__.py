@@ -48,8 +48,12 @@ def pubkey_from_type_name(type_name: str, data: bytes) -> "PubKey":
     if type_name == "ed25519":
         from . import ed25519
         return ed25519.PubKey(data)
-    if type_name in ("secp256k1", "sr25519"):
-        raise NotImplementedError(f"{type_name} keys are not yet ported")
+    if type_name == "secp256k1":
+        from . import secp256k1
+        return secp256k1.PubKey(data)
+    if type_name == "sr25519":
+        from . import sr25519
+        return sr25519.PubKey(data)
     raise ValueError(f"unsupported key type {type_name}")
 
 

@@ -6,8 +6,12 @@ validity bitmap, computed in one batched kernel launch per chunk (see
 ops/ed25519.py).
 
 Routing (as the JAX package): batches below `tpu_threshold` stay on the
-host (SigCache first, then OpenSSL or pure-Python single verifies);
-ed25519 batches of at least `tpu_threshold` go to the device through the
+host (SigCache first, then OpenSSL for ed25519 and the native C lanes of
+crypto/lanepool.py for secp256k1 and sr25519); per-scheme batches of at
+least `tpu_threshold` go to the device — ed25519 to K1-K3 (ops/ed25519.py),
+secp256k1 to S1 (ops/secp.py; set_lane_enabled(False) or
+TM_TPU_SECP_LANE=0 is the rollback switch to the host C lane), sr25519 to
+S2 (ops/sr25519.py) — through the
 degradation runtime (crypto/degrade.py), which bounds each launch by a
 deadline, spot-checks its bitmap on the host, counts failures against a
 circuit breaker and re-verifies a failed launch on the host, so the
@@ -24,9 +28,8 @@ missing without a request for the CPU raises RuntimeError.
 
 Consumers that run concurrently coalesce through the VerifyScheduler
 (crypto/scheduler.py): verify_sigs_bulk's list branch routes there when
-it runs on the caller's device.  Not yet ported: the host-lane pool (the
-port verifies ed25519 only, whose host lane is serial in the JAX package
-too, so host lanes run serially in the caller).
+it runs on the caller's device.  A mixed batch's host lanes run side by
+side on the host-lane pool (crypto/lanepool.py).
 """
 from __future__ import annotations
 
@@ -44,6 +47,7 @@ from tendermint_tpu_torch.libs import trace
 from . import PubKey
 from . import degrade
 from . import ed25519 as ed
+from . import lanepool
 
 
 def _use_device(device=None) -> bool:
@@ -62,21 +66,30 @@ def _use_device(device=None) -> bool:
     return True
 
 
-def _load_kernels(device, n: int):
+def _load_kernels(device, n: int, schemes=(ed.KEY_TYPE,)):
     """The torch.device a device lane launches on, resolved HERE on the
     caller's thread (the lane worker must not resolve it: its current
-    CUDA device is 0), with the kernels it will launch built and loaded
-    here too.  An nvcc build takes tens of seconds to minutes: inside the
-    lane worker it would run under the launch deadline, time out and
-    fall back to the host with the kernel never run.  Called before the
-    breaker is asked, so a build failure raises to the caller and is
-    never counted as a device failure."""
+    CUDA device is 0), with the kernels that the lanes of `schemes` will
+    launch built and loaded here too: K1-K3 (and the RLC kernels when
+    msm.use_rlc(n)) for ed25519, S1 for secp256k1 while its lane is on,
+    S2 for sr25519.  An nvcc build takes tens of seconds to minutes:
+    inside the lane worker it would run under the launch deadline, time
+    out and fall back to the host with the kernel never run.  Called
+    before the breaker is asked, so a build failure raises to the caller
+    and is never counted as a device failure."""
     dev = resolve_device(device)
     if dev.type == "cuda":
-        from tendermint_tpu_torch.ops import cuda_ed25519, cuda_msm, msm
-        cuda_ed25519.kernels()
-        if msm.use_rlc(n):
-            cuda_msm.kernels()
+        from tendermint_tpu_torch.ops import (cuda_ed25519, cuda_msm,
+                                              cuda_secp, cuda_sr25519, msm,
+                                              secp)
+        if ed.KEY_TYPE in schemes:
+            cuda_ed25519.kernels()
+            if msm.use_rlc(n):
+                cuda_msm.kernels()
+        if "secp256k1" in schemes and secp.use_lane():
+            cuda_secp.kernels()
+        if "sr25519" in schemes:
+            cuda_sr25519.kernels()
     return dev
 
 
@@ -239,7 +252,7 @@ class BatchVerifier:
             verifier = _device_verifier(tname) if rt is not None else None
             if (verifier is not None and len(items) >= self.tpu_threshold
                     and _use_device(self.device)):
-                dev = _load_kernels(self.device, len(items))
+                dev = _load_kernels(self.device, len(items), (tname,))
                 if rt.try_acquire():
                     t0 = time.monotonic()
                     fut = rt.submit(
@@ -273,16 +286,25 @@ class BatchVerifier:
             # fails the host spot check is counted against the breaker
             # and the lane re-verifies on the host, preserving the exact
             # per-triple bitmap — on the card only in a chaos drill;
-            # otherwise collect() raises DeviceLaneError.
+            # otherwise collect() raises DeviceLaneError, which is raised
+            # once every other lane of the batch is settled too.
+            card_fault = None
             for tname, idxs, items, fut, t0, done_at, on_card in \
                     device_lanes:
-                out[np.asarray(idxs)] = rt.collect(
-                    f"batch.{tname}", fut,
-                    host_fn=partial(_host_verify_items, tname, items),
-                    spot_check=_spot_check_items(items), on_card=on_card)
+                try:
+                    out[np.asarray(idxs)] = rt.collect(
+                        f"batch.{tname}", fut,
+                        host_fn=partial(_host_verify_items, tname, items),
+                        spot_check=_spot_check_items(items),
+                        on_card=on_card)
+                except degrade.DeviceLaneError as e:
+                    card_fault = card_fault or e
+                    continue
                 lane_times.append((tname, "device", t0,
                                    done_at[0] if done_at
                                    else time.monotonic()))
+            if card_fault is not None:
+                raise card_fault
         _publish_lane_report(lane_times, sp, rt is not None)
         # remember the valid ones so later serial re-checks are cache hits
         with trace.span("batch.verdict") as vsp:
@@ -297,13 +319,19 @@ class BatchVerifier:
 def _run_host_lanes(host_lanes, out: np.ndarray, span_name: str, parent,
                     assume_miss: bool = False, lane_times=None,
                     t_submit: Optional[float] = None):
-    """Run the per-scheme host lanes one after another in the caller (the
-    JAX package's path with its host-lane pool disabled).  `parent` is
-    the caller's span id; `assume_miss` is passed to _host_verify_items;
-    `lane_times` (when given) collects (scheme, kind, t0, t1) wall
-    brackets for the lane report; `t_submit` is the request's lifecycle
-    origin, recorded on each lane span."""
-    for tname, idxs, items in host_lanes:
+    """Run the per-scheme host lanes concurrently through the host-lane
+    pool (crypto/lanepool.run_lanes), so the host side of a mixed batch
+    costs the max over its lanes instead of their sum; lanes the pool
+    does not admit (disabled or saturated) run serially in the caller.
+    `parent` is the caller's span id, linking each lane span under the
+    batch span across the pool's threads; `assume_miss` is passed to
+    _host_verify_items; `lane_times` (when given) collects (scheme, kind,
+    t0, t1) wall brackets for the lane report; `t_submit` is the
+    request's lifecycle origin, recorded on each lane span."""
+    if not host_lanes:
+        return
+
+    def lane(tname, items):
         t0 = time.monotonic()
         with trace.span(span_name, parent=parent, scheme=tname,
                         n=len(items)) as lsp:
@@ -313,6 +341,21 @@ def _run_host_lanes(host_lanes, out: np.ndarray, span_name: str, parent,
                                       t_submit=t_submit)
         if lane_times is not None:
             lane_times.append((tname, "host", t0, time.monotonic()))
+        return bits
+
+    # lane-level pooling needs at least MIN_CHUNK items across the lanes:
+    # a tiny mixed vote window must not construct the pool or pay future
+    # handoffs on the consensus hot path
+    if len(host_lanes) > 1 and \
+            sum(len(items) for _, _, items in host_lanes) \
+            >= lanepool.MIN_CHUNK:
+        results = lanepool.run_lanes(
+            [partial(lane, tname, items)
+             for tname, _idxs, items in host_lanes])
+    else:
+        results = [lane(tname, items)
+                   for tname, _idxs, items in host_lanes]
+    for (tname, idxs, items), bits in zip(host_lanes, results):
         out[np.asarray(idxs)] = bits
 
 
@@ -386,26 +429,47 @@ def _context_priority_name() -> str:
 
 def _device_verifier(tname: str):
     """The device lane for a key scheme, or None if that scheme stays on
-    the host (only ed25519 has one)."""
+    the host.  ed25519: K1-K3 (ops/ed25519.py); sr25519: S2
+    (ops/sr25519.py); secp256k1: S1 (ops/secp.py) unless the rollback
+    switch is thrown (secp.use_lane()).  Each is called with (pubs, msgs,
+    sigs, device=)."""
     if tname == ed.KEY_TYPE:
         return verify_ed25519_batch
+    if tname == "sr25519":
+        return _verify_sr25519
+    if tname == "secp256k1":
+        from tendermint_tpu_torch.ops import secp as secp_ops
+        if secp_ops.use_lane():
+            return _verify_secp256k1
     return None
+
+
+def _verify_sr25519(pubs, msgs, sigs, device=None) -> np.ndarray:
+    from tendermint_tpu_torch.ops import sr25519 as srlane
+    return srlane.verify_batch_device(pubs, msgs, sigs, device=device)
+
+
+def _verify_secp256k1(pubs, msgs, sigs, device=None) -> np.ndarray:
+    from tendermint_tpu_torch.ops import secp as secp_ops
+    return secp_ops.verify_batch_device(pubs, msgs, sigs, device=device)
 
 
 def _host_verify_items(tname: str, items, assume_miss: bool = False,
                        t_submit: Optional[float] = None) -> np.ndarray:
-    """Host lane of scheme `tname`: SigCache hits first, then the misses
-    verified one by one in the caller (verify_signature; the JAX
-    package's native sharded lanes cover secp256k1 and sr25519, which
-    wait for their ports).  `assume_miss` skips the cache pre-pass when
-    the caller already filtered hits (the scheduler's stager hashed every
+    """Host lane of scheme `tname`: SigCache hits first; the misses of
+    secp256k1 and sr25519 batch through their native C verifiers
+    (native/ecverify.c), sharded across the host pool's cores by
+    lanepool.verify_sharded; ed25519 misses, and every miss where no C
+    toolchain exists or a length is malformed, verify one by one
+    (verify_signature).  `assume_miss` skips the cache pre-pass when the
+    caller already filtered hits (the scheduler's stager hashed every
     triple once and resolved hits without lanes).  `t_submit`, the
-    request's lifecycle origin, is taken for the reference's signature;
-    only its sharded lanes read it."""
+    request's lifecycle origin, is recorded on the lanepool.verify
+    span."""
     n = len(items)
     bits = np.zeros(n, dtype=bool)
     if assume_miss:
-        miss = range(n)
+        miss = list(range(n))
     else:
         miss = []
         for i, it in enumerate(items):
@@ -413,8 +477,18 @@ def _host_verify_items(tname: str, items, assume_miss: bool = False,
                 bits[i] = True
             else:
                 miss.append(i)
-    for i in miss:
-        bits[i] = items[i].pub.verify_signature(items[i].msg, items[i].sig)
+    if not miss:
+        return bits
+    sub = lanepool.verify_sharded(
+        tname,
+        [items[i].pub.bytes() for i in miss],
+        [items[i].msg for i in miss],
+        [items[i].sig for i in miss],
+        t_submit=t_submit)
+    if sub is None:
+        sub = [items[i].pub.verify_signature(items[i].msg, items[i].sig)
+               for i in miss]
+    bits[np.asarray(miss)] = sub
     return bits
 
 

@@ -565,6 +565,28 @@ def publish_route(path, outcome, n=None, nb=None, compile_s=None):
         pass
 
 
+def publish_host_pool(depth=None, tasks=None):
+    """Bridge from the host-lane pool (crypto/lanepool.py) into
+    CryptoMetrics: the admitted-task depth gauge and per-kind task
+    counters — ``tasks`` is an iterable of (kind, outcome, count).
+    Swallows everything, as publish_route: the pool must keep verifying
+    even when metrics are broken.  No-op until a runtime exists
+    (runtime_if_installed): the pool also serves sub-threshold batches
+    that must never construct one."""
+    try:
+        rt = runtime_if_installed()
+        if rt is None:
+            return
+        m = rt.metrics
+        if depth is not None:
+            m.host_pool_depth.set(float(depth))
+        for kind, outcome, count in tasks or ():
+            if count:
+                m.host_pool_tasks.inc(count, kind=kind, outcome=outcome)
+    except Exception:  # noqa: BLE001 - metrics are best-effort here
+        pass
+
+
 def publish_lane_overlap(ratio):
     """Bridge for the per-batch lane-overlap ratio (crypto/batch.py
     publishes it after a multi-lane window settles: 1 - wall/sum(lane

@@ -48,10 +48,43 @@ def _hash_level(level: List[bytes]) -> List[bytes]:
     return nxt
 
 
-def bulk_leaf_hashes(items: List[bytes]) -> List[bytes]:
-    """Leaf layer: SHA-256(0x00 || item) per row, serially in the caller
-    (byte-identical to the sharded leaf layer of the JAX package)."""
+def _leaf_chunk(items: List[bytes]) -> List[bytes]:
+    """Serial leaf layer over one contiguous chunk — row-wise pure, so
+    lanepool.map_sharded chunk boundaries cannot change any digest."""
     return [_sha256(_LEAF_PREFIX + it) for it in items]
+
+
+# rows smaller than this make the leaf layer handoff-bound (one SHA-256
+# of a ~100-byte tx costs well under a microsecond against ~50 us of
+# thread handoff), so small-row lists shard only in big slabs; 64KB
+# block parts amortize the handoff at the lanepool floor of 8
+_BULK_BIG_ROW = 4096
+_BULK_SMALL_ROW_CHUNK = 512
+
+
+def bulk_leaf_hashes(items: List[bytes]) -> List[bytes]:
+    """Leaf layer (SHA-256(0x00 || item) per row) for the whole list,
+    sharded across the crypto/lanepool host pool when the shape
+    justifies it.  Order-stable by construction (chunk i owns rows
+    [lo_i, hi_i)), and any pool-path fault — an injected fault at site
+    ``merkle.bulk_hash``, a chunk exception, a short chunk — recomputes
+    the whole layer serially in the caller: byte-identical output
+    either way."""
+    n = len(items)
+    if n >= 2 * 8:  # below two lanepool.MIN_CHUNKs nothing can shard
+        min_chunk = (8 if len(items[n // 2]) >= _BULK_BIG_ROW
+                     else _BULK_SMALL_ROW_CHUNK)
+        try:
+            from tendermint_tpu_torch.libs import fail
+            fail.inject("merkle.bulk_hash")
+            from tendermint_tpu_torch.crypto import lanepool
+            out = lanepool.map_sharded(_leaf_chunk, items,
+                                       min_chunk=min_chunk)
+            if out is not None:
+                return out
+        except Exception:  # noqa: BLE001 - any pool fault degrades to
+            pass           # the serial in-caller layer below
+    return _leaf_chunk(items)
 
 
 def hash_from_byte_slices(items: List[bytes]) -> bytes:
@@ -61,7 +94,9 @@ def hash_from_byte_slices(items: List[bytes]) -> bytes:
     point is the largest power of two strictly below n, its recursive
     tree is identical to pairwise reduction with the odd node promoted
     (pinned against the recursive oracle in tests/test_pipeline.py).
-    The leaf layer and the reduction levels run serially on the host.
+    The leaf layer — the dominant cost, all the input bytes — rides
+    the lanepool sharded path; reduction levels stay serial (32-byte
+    rows shrink geometrically).
     """
     n = len(items)
     if n == 0:

@@ -461,7 +461,8 @@ class VerifyScheduler(BaseService):
         # flag is rolled back), instead of reaching the executor's rescue
         # on the first window
         try:
-            _batch._load_kernels(self.device, self.max_batch)
+            _batch._load_kernels(self.device, self.max_batch,
+                                 ("ed25519", "secp256k1", "sr25519"))
         except BaseException:
             with self._mtx:
                 self._started = False
@@ -784,7 +785,8 @@ class VerifyScheduler(BaseService):
                         # built in on_start; a no-op unless RLC was turned
                         # on since (then its kernels build here)
                         try:
-                            _batch._load_kernels(dev, len(items))
+                            _batch._load_kernels(dev, len(items),
+                                                 (tname,))
                         except Exception as exc:  # noqa: BLE001
                             raise degrade.DeviceLaneError(
                                 f"sched.{tname}: kernel build failed: "
@@ -827,19 +829,27 @@ class VerifyScheduler(BaseService):
                 # drill, otherwise collect() raises DeviceLaneError (the
                 # _mark_fallback wrapper records that this window
                 # degraded, so the e2e latency is labeled
-                # path="sched-fallback", not mistaken for device speed)
+                # path="sched-fallback", not mistaken for device speed);
+                # a DeviceLaneError is raised once every lane is settled
+                card_fault = None
                 for tname, idxs, items, fut, t0, done_at in device_lanes:
-                    out[np.asarray(idxs)] = rt.collect(
-                        f"sched.{tname}", fut,
-                        host_fn=_mark_fallback(
-                            fell_back, tname,
-                            partial(_batch._host_verify_items,
-                                    tname, items, assume_miss=True)),
-                        spot_check=_batch._spot_check_items(items),
-                        on_card=on_card)
+                    try:
+                        out[np.asarray(idxs)] = rt.collect(
+                            f"sched.{tname}", fut,
+                            host_fn=_mark_fallback(
+                                fell_back, tname,
+                                partial(_batch._host_verify_items,
+                                        tname, items, assume_miss=True)),
+                            spot_check=_batch._spot_check_items(items),
+                            on_card=on_card)
+                    except degrade.DeviceLaneError as e:
+                        card_fault = card_fault or e
+                        continue
                     lane_times.append((tname, "device", t0,
                                        done_at[0] if done_at
                                        else time.monotonic()))
+                if card_fault is not None:
+                    raise card_fault
             lane_rep = _batch._publish_lane_report(lane_times, sp,
                                                    rt is not None)
             if tracing and len(device_lanes) == 1 and not fell_back:

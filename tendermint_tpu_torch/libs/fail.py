@@ -45,16 +45,25 @@ _fired: Dict[Tuple[str, str], int] = {}
 # ---------------------------------------------------------------------------
 
 REGISTERED_SITES = frozenset({
-    # the device-kernel entry seam (ops/ed25519.verify_batch): the
-    # per-signature, split and RLC routes all start behind it
+    # the device-kernel entry seams: ops/ed25519.verify_batch (the
+    # per-signature, split and RLC routes all start behind it), and the
+    # sr25519 and secp256k1 lanes' (ops/sr25519.py, ops/secp.py); each
+    # fires before any staging or launch
     "ops.ed25519.verify_batch",
+    "ops.sr25519.verify_batch",
+    "ops.secp.verify_batch",
     # degradation-runtime lane sites (crypto/degrade.py submit/run):
-    # BatchVerifier's ed25519 lane, the VerifyScheduler's coalesced
-    # ed25519 lane and the whole-commit bulk path (the sr25519 and
-    # secp256k1 lanes, and lanepool.verify, wait for those schemes)
-    "batch.ed25519",
-    "sched.ed25519",
+    # one per (consumer, scheme) lane — BatchVerifier's, the
+    # VerifyScheduler's coalesced lanes and the whole-commit bulk path
+    "batch.ed25519", "batch.sr25519", "batch.secp256k1",
+    "sched.ed25519", "sched.sr25519", "sched.secp256k1",
     "bulk.ed25519",
+    # host-lane pool (crypto/lanepool.py): the sharded native C verify
+    # (raise/latency/corrupt-bitmap degrade to the serial in-caller
+    # path with exact bitmaps) and the sharded Merkle leaf layer
+    # (crypto/merkle.py: a raise recomputes the layer serially)
+    "lanepool.verify",
+    "merkle.bulk_hash",
     # device observatory (crypto/devobs.py): fires on every launch-record
     # store.  raise = the record sheds (counted in
     # crypto_devobs_shed_total{reason=chaos}) while the device launch and

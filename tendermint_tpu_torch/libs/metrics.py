@@ -339,14 +339,26 @@ class CryptoMetrics:
             "overlapped an in-flight device launch (the double-"
             "buffered pipeline's effectiveness; 0 when idle).")
         # are a mixed batch's per-scheme lanes running side by side
-        # (wall = max over lanes) or serially (wall = sum over lanes).
-        # (The host-lane pool's families wait for its port.)
+        # (wall = max over lanes) or serially (wall = sum over lanes),
+        # and the host-lane pool (crypto/lanepool.py) that runs them
         self.lane_overlap = reg.gauge(
             "crypto", "lane_overlap_ratio",
             "Lane concurrency of the most recent multi-lane verify "
             "batch: 1 - wall/sum(per-lane wall times).  0 means the "
             "lanes ran serially; (k-1)/k means k lanes fully "
             "overlapped.")
+        self.host_pool_depth = reg.gauge(
+            "crypto", "host_pool_depth",
+            "Tasks currently admitted to the host-lane verify pool "
+            "(queued or running on a pool worker).")
+        self.host_pool_tasks = reg.counter(
+            "crypto", "host_pool_tasks_total",
+            "Host-lane pool work items, by kind (whole 'lane' thunks "
+            "vs C-call 'chunk' shards) and placement outcome ('pooled' "
+            "on a worker, 'inline' in the caller when the pool was "
+            "full or disabled, 'fallback' when a pool fault forced the "
+            "serial re-verify).",
+            labels=("kind", "outcome"))
         # per-request latency observatory (ADR-016): the lifecycle of a
         # verify request — time in the scheduler queue, end-to-end
         # submit-to-settle latency by priority and the path that

@@ -1,10 +1,14 @@
-"""ctypes loader for the native host-staging library (native/staging.c).
+"""ctypes loader for the native host library (native/staging.c and
+native/ecverify.c).
 
 The staging C code (batched SHA-512, mod-L reduction, s < L screening and
-the commit sign-bytes assembler) is compiled to a shared object at first
-use, cached in the package's `_build/` directory under a source hash, and
-called through ctypes with numpy buffers.  Every entry point returns None
-when no C toolchain exists, and the callers fall back to hashlib/numpy.
+the commit sign-bytes assembler) and the host verification lanes of the
+non-ed25519 schemes (BIP-340 secp256k1 and schnorrkel sr25519 batch
+verify, and the sr25519 merlin stager of the device lane) are compiled
+together to one shared object at first use, cached in the package's
+`_build/` directory under a source hash, and called through ctypes with
+numpy buffers.  Every entry point returns None when no C toolchain
+exists, and the callers fall back to hashlib/numpy/pure Python.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ import numpy as np
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_PKG_DIR, "native", "staging.c")
+_SRC_EC = os.path.join(_PKG_DIR, "native", "ecverify.c")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
 _lock = threading.Lock()
@@ -26,10 +31,13 @@ _tried = False
 
 
 def _build() -> str | None:
-    """Compile staging.c -> cached .so; returns path or None on failure."""
+    """Compile staging.c + ecverify.c -> cached .so; returns path or None
+    on failure."""
     try:
         with open(_SRC, "rb") as f:
             src = f.read()
+        with open(_SRC_EC, "rb") as f:
+            src += f.read()
     except OSError:
         return None
     import platform
@@ -53,7 +61,7 @@ def _build() -> str | None:
     try:
         for cc in ("cc", "gcc", "clang"):
             try:
-                r = subprocess.run([cc, *flags, "-o", tmp, _SRC],
+                r = subprocess.run([cc, *flags, "-o", tmp, _SRC, _SRC_EC],
                                    capture_output=True, timeout=120)
             except (OSError, subprocess.TimeoutExpired):
                 continue
@@ -95,6 +103,16 @@ def get_lib():
                 lib.tm_vote_sign_bytes.argtypes = [
                     i64p, i64p, u8p, u8p, u64, u8p, u64, u8p, u64,
                     u8p, u64p, u64]
+                lib.tm_secp_verify_batch.argtypes = [u8p, u8p, u64p, u8p,
+                                                     u8p, u8p, u64]
+                lib.tm_sr25519_verify_batch.argtypes = [u8p, u8p, u64p,
+                                                        u8p, u8p, u8p, u64]
+                lib.tm_sr25519_stage.argtypes = [u8p, u8p, u64p, u8p,
+                                                 u8p, u8p, u8p, u64]
+                for fn in (lib.tm_secp_verify_batch,
+                           lib.tm_sr25519_verify_batch,
+                           lib.tm_sr25519_stage):
+                    fn.restype = None
                 for fn in (lib.tm_sha512_prefixed, lib.tm_sha512_batch,
                            lib.tm_scalar_canonical, lib.tm_mod_l,
                            lib.tm_challenge_prefixed,
@@ -263,3 +281,64 @@ def scalar_canonical(s_bytes: np.ndarray) -> np.ndarray | None:
     out = np.empty(B, dtype=np.uint8)
     lib.tm_scalar_canonical(_u8p(s_bytes), _u8p(out), ctypes.c_uint64(B))
     return out.astype(bool)
+
+
+def _ec_verify(fn_name: str, keysize: int, pubs, msgs, sigs):
+    lib = get_lib()
+    if lib is None:
+        return None
+    n = len(pubs)
+    pub_arr = np.frombuffer(b"".join(bytes(p) for p in pubs),
+                            dtype=np.uint8)
+    if pub_arr.size != n * keysize:
+        return None  # malformed key length: caller's per-item path decides
+    sig_arr = np.frombuffer(b"".join(bytes(s) for s in sigs),
+                            dtype=np.uint8)
+    if sig_arr.size != n * 64:
+        return None
+    buf, offsets = _ragged(msgs, n)
+    out = np.empty(n, dtype=np.uint8)
+    # random-linear-combination batch verify (Pippenger MSM + bisection
+    # on failure; per-sig verdicts exactly match single verification).
+    # The seed must be unpredictable to whoever chose the signatures.
+    seed = np.frombuffer(os.urandom(32), dtype=np.uint8)
+    getattr(lib, fn_name)(_u8p(pub_arr), _u8p(buf), _u64p(offsets),
+                          _u8p(sig_arr), _u8p(seed), _u8p(out),
+                          ctypes.c_uint64(n))
+    return out.astype(bool)
+
+
+def sr25519_stage(pubs, msgs, sigs):
+    """Host staging for the device sr25519 lane: merlin challenge k (mod
+    L) and unmasked s per signature, host screens (marker bit, s < L) as
+    an ok bitmap.  Returns (k (n,32), s (n,32), ok (n,)) or None."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    n = len(pubs)
+    pub_arr = np.frombuffer(b"".join(bytes(p) for p in pubs),
+                            dtype=np.uint8)
+    sig_arr = np.frombuffer(b"".join(bytes(s) for s in sigs),
+                            dtype=np.uint8)
+    if pub_arr.size != n * 32 or sig_arr.size != n * 64:
+        return None
+    buf, offsets = _ragged(msgs, n)
+    out_k = np.empty((n, 32), dtype=np.uint8)
+    out_s = np.empty((n, 32), dtype=np.uint8)
+    ok = np.empty(n, dtype=np.uint8)
+    lib.tm_sr25519_stage(_u8p(pub_arr), _u8p(buf), _u64p(offsets),
+                         _u8p(sig_arr), _u8p(out_k), _u8p(out_s),
+                         _u8p(ok), ctypes.c_uint64(n))
+    return out_k, out_s, ok.astype(bool)
+
+
+def secp_verify(pubs, msgs, sigs) -> np.ndarray | None:
+    """Batch BIP-340 verify (33B compressed pubs, raw msgs, 64B sigs);
+    None when the C library is missing or inputs are irregular."""
+    return _ec_verify("tm_secp_verify_batch", 33, pubs, msgs, sigs)
+
+
+def sr25519_verify(pubs, msgs, sigs) -> np.ndarray | None:
+    """Batch schnorrkel verify (32B ristretto pubs, raw msgs, 64B sigs —
+    merlin transcript, ristretto MSM all in C)."""
+    return _ec_verify("tm_sr25519_verify_batch", 32, pubs, msgs, sigs)

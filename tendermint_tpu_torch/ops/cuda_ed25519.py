@@ -444,27 +444,11 @@ def _digits(b32: torch.Tensor) -> torch.Tensor:
 def _verify_digits(pub_b, r_b, sd, kd) -> torch.Tensor:
     """(32, B) byte rows of A and R, (64, B) digits of s and k -> (B,)
     bool; _verify_tile's verdict."""
-    dev = pub_b.device
-    B = pub_b.shape[1]
-    cols = torch.from_numpy(consts_packed()).to(dev)
-    base = [cols[:, c0:c0 + 9].t() for c0 in (_COL_BYPX, _COL_BYMX,
-                                              _COL_BT2D)]  # (9, NLIMB)
+    from .ed25519 import straus_ladder
     y_l, a_sign = F.bytes_to_limbs(pub_b)
     a, decode_ok = C.decompress(y_l, a_sign)
     neg_a = C.Ext(F.carry_lazy(-a.x), a.y, a.z, F.carry_lazy(-a.t))
-    tab = C.cached_window(neg_a)                     # fields (9, NLIMB, B)
-    p = C.identity((B,), dev)
-    for pos in range(63, -1, -1):
-        p = C.dbl(C.dbl(C.dbl(C.dbl(p, False), False), False), True)
-        db = sd[pos]
-        jb = db.abs()
-        nb = C.Niels(*(t[jb].t() for t in base))
-        p = C.madd_niels(p, C.cond_neg_niels(nb, db < 0))
-        da = kd[pos]
-        idx = da.abs().reshape(1, 1, B).expand(1, F.NLIMB, B)
-        q = C.Cached(*(torch.gather(t, 0, idx)[0] for t in tab))
-        p = C.add_cached(p, C.cond_neg_cached(q, da < 0))
-    enc = C.encode(p)
+    enc = C.encode(straus_ladder(neg_a, sd, kd))
     return decode_ok & (enc == (r_b.to(F.DTYPE) & 0xFF)).all(0)
 
 

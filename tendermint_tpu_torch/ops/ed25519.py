@@ -93,6 +93,44 @@ def _base_table_np():
     return _niels_rows(_window_pts((C.BX_INT, C.BY_INT)))
 
 
+_base_cache: dict = {}
+
+
+def _base_niels(dev: torch.device):
+    """The niels table j*B, j = 0..8, as three (9, NLIMB) tensors."""
+    key = str(dev)
+    if key not in _base_cache:
+        _base_cache[key] = tuple(torch.from_numpy(t).to(dev)
+                                 for t in _base_table_np())
+    return _base_cache[key]
+
+
+def straus_ladder(neg_a: C.Ext, s_digits: torch.Tensor,
+                  k_digits: torch.Tensor) -> C.Ext:
+    """The 64-step joint signed-radix-16 Straus ladder [s]B + [k]neg_a of
+    the plain verify versions (K1-K3 here, S2 in ops/sr25519.py), as the
+    JAX package shares ops/ed25519.straus_ladder: per step 4 doublings, a
+    niels add of B's entry and a cached add of neg_a's.  s_digits,
+    k_digits: (64, B) signed digits in [-8, 7], least significant
+    first."""
+    dev = neg_a.x.device
+    B = neg_a.x.shape[1]
+    base = _base_niels(dev)
+    tab = C.cached_window(neg_a)                     # fields (9, NLIMB, B)
+    p = C.identity((B,), dev)
+    for pos in range(63, -1, -1):
+        p = C.dbl(C.dbl(C.dbl(C.dbl(p, False), False), False), True)
+        db = s_digits[pos].long()
+        jb = db.abs()
+        nb = C.Niels(*(t[jb].t() for t in base))
+        p = C.madd_niels(p, C.cond_neg_niels(nb, db < 0))
+        da = k_digits[pos].long()
+        idx = da.abs().reshape(1, 1, B).expand(1, F.NLIMB, B)
+        q = C.Cached(*(torch.gather(t, 0, idx)[0] for t in tab))
+        p = C.add_cached(p, C.cond_neg_cached(q, da < 0))
+    return p
+
+
 # ---------------------------------------------------------------------------
 # host-side staging
 # ---------------------------------------------------------------------------
@@ -631,6 +669,10 @@ def verify_batch(pubkeys, msgs, sigs, cache_pubs: bool = False,
 def _verify_batch(pubkeys, msgs, sigs, cache_pubs: bool, dev):
     from . import msm
 
+    # the multi-GPU data planes (reference parallel/sharding.py _DataPlane,
+    # _GlobalDataPlane) attach here, sharding the batch before any route;
+    # the comb route (reference ops/ed25519.py:1194 _comb_try) attaches
+    # after RLC, before the ladder routes
     if msm.use_rlc(len(pubkeys)) and msm.verify_batch_rlc(
             pubkeys, msgs, sigs, device=dev):
         return np.ones(len(pubkeys), dtype=bool)

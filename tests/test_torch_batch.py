@@ -199,3 +199,136 @@ def test_host_verify_items_takes_the_reference_signature(triples,
     assert a == c == [_edref.verify(p, m, s)
                       for p, m, s in zip(pubs, msgs, sigs)]
     assert hits == (1, 47) and after == hits
+
+
+@pytest.fixture(scope="module")
+def mixed():
+    """Eight triples of each scheme, one bad in each, interleaved:
+    (scheme, pub bytes, msg, sig) rows."""
+    from tendermint_tpu_torch.crypto import secp256k1 as tsecp
+    from tendermint_tpu_torch.crypto import sr25519 as tsr
+    rows = []
+    for i in range(8):
+        seed = bytes([0x40 + i]) * 32
+        m = b"mixed ed %d" % i
+        s = _edref.sign(seed, m)
+        rows.append(("ed25519", _edref.pubkey_from_seed(seed), m,
+                     s if i != 2 else bytes([s[0] ^ 1]) + s[1:]))
+        k = tsecp.PrivKey.gen_from_secret(b"mixed secp %d" % i)
+        m = b"mixed secp %d" % i
+        s = k.sign(m)
+        rows.append(("secp256k1", k.pub_key().bytes(), m,
+                     s if i != 5 else s[:40] + bytes([s[40] ^ 2]) + s[41:]))
+        mini = (0x3A0 + i).to_bytes(32, "little")
+        m = b"mixed sr %d" % i
+        s = tsr.sign(mini, m)
+        rows.append(("sr25519", tsr.PrivKey(mini).pub_key().bytes(),
+                     m if i != 7 else m + b"!", s))
+    return rows
+
+
+def _mixed_verify(root, rows, **kw):
+    from importlib import import_module
+    cb = import_module(f"{root}.crypto.batch")
+    bv = cb.BatchVerifier(tpu_threshold=4, **kw)
+    for scheme, p, m, s in rows:
+        bv.add(import_module(f"{root}.crypto.{scheme}").PubKey(p), m, s)
+    ok, bits = bv.verify()
+    return ok, bits, cb.last_lane_report()
+
+
+def _lanes(report):
+    return sorted((r["scheme"], r["kind"]) for r in report["lanes"])
+
+
+def test_mixed_batch_on_the_device_lanes(mixed, monkeypatch):
+    """A mixed ed25519 + secp256k1 + sr25519 batch on device="cpu" with
+    the device lanes forced: K1, S1 and S2 run their plain versions
+    (each lane's launch counted at batch.<scheme>), and the bitmap equals
+    the JAX package's (its host lanes: the native C lanes through its
+    pool) and the oracle's; the lane report names three device lanes."""
+    from tendermint_tpu_torch.crypto import degrade as tdeg
+    monkeypatch.delenv("TM_TPU_FORCE_BATCH")
+    monkeypatch.setenv("TM_TPU_DISABLE_BATCH", "1")
+    _, jbits, jrep = _mixed_verify("tendermint_tpu", mixed)
+    monkeypatch.delenv("TM_TPU_DISABLE_BATCH")
+    monkeypatch.setenv("TM_TPU_FORCE_BATCH", "1")
+    m = tdeg.runtime().metrics
+    # the counters live in the process's default registry
+    before = {s: m.device_launches.value(site=f"batch.{s}")
+              for s in ("ed25519", "secp256k1", "sr25519")}
+    ok, bits, rep = _mixed_verify("tendermint_tpu_torch", mixed)
+    want = [not (s == "ed25519" and m.endswith(b" 2")
+                 or s == "secp256k1" and m.endswith(b" 5")
+                 or s == "sr25519" and m.endswith(b"!"))
+            for s, _, m, _ in mixed]
+    assert bits.tolist() == jbits.tolist() == want and not ok
+    assert _lanes(rep) == [("ed25519", "device"), ("secp256k1", "device"),
+                           ("sr25519", "device")]
+    assert _lanes(jrep) == [("ed25519", "host"), ("secp256k1", "host"),
+                            ("sr25519", "host")]
+    assert set(rep) == set(jrep) and 0.0 <= rep["overlap_ratio"] < 1.0
+    for scheme in ("ed25519", "secp256k1", "sr25519"):
+        assert m.device_launches.value(site=f"batch.{scheme}") - \
+            before[scheme] == 1
+
+
+def test_mixed_batch_on_the_host_lanes_and_the_rollback(mixed, monkeypatch):
+    """device="cpu" without the force takes the host lanes in both
+    packages (run concurrently through the pool: the native C lanes for
+    secp256k1 and sr25519); with the device lanes forced and the
+    secp256k1 rollback switch thrown, secp256k1 alone stays on the host
+    lane, in both packages.  Same bitmaps and lane kinds."""
+    from tendermint_tpu.ops import secp as jsecp_ops
+    from tendermint_tpu.ops import sr25519 as jsr_ops
+    from tendermint_tpu_torch.ops import secp as tsecp_ops
+    monkeypatch.delenv("TM_TPU_FORCE_BATCH")
+    monkeypatch.setenv("TM_TPU_DISABLE_BATCH", "1")
+    _, jbits, jrep = _mixed_verify("tendermint_tpu", mixed)
+    monkeypatch.delenv("TM_TPU_DISABLE_BATCH")
+    _, bits, rep = _mixed_verify("tendermint_tpu_torch", mixed,
+                                 device="cpu")
+    assert bits.tolist() == jbits.tolist()
+    assert _lanes(rep) == _lanes(jrep)
+    # the rollback: secp256k1 on the host lane; the other lanes stubbed
+    # by the oracle in both packages (their kernels are held elsewhere)
+    monkeypatch.setenv("TM_TPU_FORCE_BATCH", "1")
+    from tendermint_tpu.crypto import sr25519 as jsr
+    from tendermint_tpu_torch.crypto import sr25519 as tsr
+
+    def oracle(mod):
+        return lambda pubs, msgs, sigs, **kw: np.array([
+            mod.PubKey(bytes(p)).verify_signature(m, s)
+            for p, m, s in zip(pubs, msgs, sigs)])
+    monkeypatch.setattr(jsr_ops, "verify_batch_device", oracle(jsr))
+    monkeypatch.setattr(jbatch, "ed_ops_verify",
+                        lambda p, m, s, **kw: oracle(jkeys)(p, m, s))
+    monkeypatch.setattr(tbatch, "_verify_sr25519", oracle(tsr))
+    monkeypatch.setattr(tbatch, "ed_ops_verify",
+                        lambda p, m, s, **kw: oracle(tkeys)(p, m, s))
+    for mod in (jsecp_ops, tsecp_ops):
+        monkeypatch.setattr(mod, "_lane_override", False)
+    assert tbatch._device_verifier("secp256k1") is None
+    _, jbits2, jrep2 = _mixed_verify("tendermint_tpu", mixed)
+    _, bits2, rep2 = _mixed_verify("tendermint_tpu_torch", mixed)
+    assert bits2.tolist() == jbits2.tolist() == bits.tolist()
+    assert _lanes(rep2) == _lanes(jrep2) == [
+        ("ed25519", "device"), ("secp256k1", "host"), ("sr25519", "device")]
+    monkeypatch.setenv("TM_TPU_SECP_LANE", "1")
+    for mod in (jsecp_ops, tsecp_ops):
+        monkeypatch.setattr(mod, "_lane_override", None)
+    assert tsecp_ops.use_lane() and jsecp_ops.use_lane()
+    monkeypatch.setenv("TM_TPU_SECP_LANE", "off")
+    assert not tsecp_ops.use_lane() and not jsecp_ops.use_lane()
+
+
+def test_load_kernels_takes_the_schemes():
+    """On the CPU _load_kernels builds nothing and returns the device; the
+    lane verifiers are the ones the JAX package's _device_verifier
+    names."""
+    assert tbatch._load_kernels("cpu", 64, ("secp256k1", "sr25519")) == \
+        torch.device("cpu")
+    for scheme in ("ed25519", "secp256k1", "sr25519"):
+        assert (tbatch._device_verifier(scheme) is None) == \
+            (jbatch._device_verifier(scheme) is None)
+    assert tbatch._device_verifier("other") is None

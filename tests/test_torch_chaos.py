@@ -46,9 +46,9 @@ TRACERS = {"jax": jtrace.TRACER, "port": ttrace.TRACER}
 # published by the route seam of each package's kernels, not the runtime
 ROUTE_FAMILIES = ("crypto_msm_route_total", "crypto_batch_occupancy_ratio",
                   "crypto_device_compile_seconds")
-# families of modules the port has not ported yet (comb table cache,
-# host-lane pool); they stay 0 in the JAX package here
-UNPORTED_FAMILIES = ("crypto_table_", "crypto_host_pool_")
+# families of modules the port has not ported yet (the comb table
+# cache); they stay 0 in the JAX package here
+UNPORTED_FAMILIES = ("crypto_table_",)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -400,3 +400,71 @@ def test_concurrent_callers_share_the_lane(stub_port):
     assert m.device_launch_seconds.count(site="bulk.ed25519") == 60
     assert m.device_failures.render() == [f"{m.device_failures.name} 0"]
     assert rt.breaker.state == tdeg.CLOSED
+
+
+def _lane_batch():
+    """Eight secp256k1 and eight sr25519 triples (a bad one in each),
+    interleaved, as (PubKey-class, pub, msg, sig) rows per package."""
+    from tendermint_tpu_torch.crypto import secp256k1 as tsecp
+    from tendermint_tpu_torch.crypto import sr25519 as tsr
+    rows = []
+    for i in range(8):
+        k = tsecp.PrivKey.gen_from_secret(b"chaos secp %d" % i)
+        m = b"chaos secp msg %d" % i
+        s = k.sign(m)
+        if i == 5:
+            s = bytes([s[0] ^ 1]) + s[1:]
+        rows.append(("secp256k1", k.pub_key().bytes(), m, s))
+        mini = (0xC0 + i).to_bytes(32, "little")
+        m = b"chaos sr msg %d" % i
+        s = tsr.sign(mini, m)
+        if i == 2:
+            s = s[:40] + bytes([s[40] ^ 1]) + s[41:]
+        rows.append(("sr25519", tsr.PrivKey(mini).pub_key().bytes(), m, s))
+    return rows
+
+
+def _verify_lanes(pkg, rows):
+    from importlib import import_module
+    b = PKGS[pkg][0]
+    root = "tendermint_tpu" if pkg == "jax" else "tendermint_tpu_torch"
+    bv = b.BatchVerifier(tpu_threshold=4)
+    for scheme, p, m, s in rows:
+        bv.add(import_module(f"{root}.crypto.{scheme}").PubKey(p), m, s)
+    return bv.verify()
+
+
+@pytest.mark.parametrize("sites", [
+    ("ops.secp.verify_batch", "ops.sr25519.verify_batch"),
+    ("batch.secp256k1", "batch.sr25519")], ids=["ops-seams", "lane-sites"])
+def test_chaos_at_the_secp256k1_and_sr25519_sites(monkeypatch, sites):
+    """A raise at the new lanes' seams (ops.secp/ops.sr25519.verify_batch,
+    before any staging or launch) or at their runtime sites
+    (batch.secp256k1, batch.sr25519) in a drill: both packages re-verify
+    on the host with the host lanes' exact bitmap, and count the same
+    failures, fallbacks and launches per site."""
+    rows = _lane_batch()
+    monkeypatch.setenv("TM_TPU_DISABLE_BATCH", "1")
+    try:
+        base = {pkg: _verify_lanes(pkg, rows)[1] for pkg in PKGS}
+    finally:
+        monkeypatch.delenv("TM_TPU_DISABLE_BATCH")
+    np.testing.assert_array_equal(base["jax"], base["port"])
+    assert base["port"].sum() == len(rows) - 2
+    got = {}
+    for pkg in PKGS:
+        rt = _configure(pkg)
+        f = PKGS[pkg][3]
+        for site in sites:
+            f.set_mode(site, "raise")
+        ok, bits = _verify_lanes(pkg, rows)
+        np.testing.assert_array_equal(bits, base["port"])
+        assert not ok
+        for site, scheme in zip(sites, ("secp256k1", "sr25519")):
+            assert f.fired(site, "raise") == 1
+            assert rt.metrics.host_fallbacks.value(
+                site=f"batch.{scheme}", reason="raise") == 1
+        got[pkg] = _metrics(pkg)
+        # a wall-clock ratio of the lanes, not a count
+        got[pkg].pop("chaos_crypto_lane_overlap_ratio")
+    assert got["port"] == got["jax"]

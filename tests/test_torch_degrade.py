@@ -35,9 +35,8 @@ from tendermint_tpu_torch.libs.metrics import Registry as TRegistry
 from tendermint_tpu_torch.ops import cuda_ed25519 as ck
 
 # CryptoMetrics families of modules the port has not ported yet (the comb
-# table cache, the host-lane pool): the JAX package's exposition is
-# compared without them
-UNPORTED = re.compile(r"_crypto_(table_|host_pool_)")
+# table cache): the JAX package's exposition is compared without them
+UNPORTED = re.compile(r"_crypto_(table_)")
 
 
 def _ported(text: str) -> str:

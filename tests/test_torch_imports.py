@@ -195,3 +195,72 @@ def test_msm_bound_counts():
         pytest.approx(6_000_000 * 2 * 700 / rate * 1e3)
     assert cm.bound_ms_aggregate(32, 8) == pytest.approx(
         32 * 255 * 18 * 100 * 2 / rate * 1e3)
+
+
+def test_lane_modules_are_checked():
+    """The secp256k1 and sr25519 lanes, their kernels' wrappers, the keys
+    and the host-lane pool are among the modules the checks above
+    cover."""
+    mods = _port_modules()
+    for m in ("ops.field_secp", "ops.secp", "ops.cuda_secp",
+              "ops.ristretto", "ops.sr25519", "ops.cuda_sr25519",
+              "crypto.secp256k1", "crypto.sr25519", "crypto._ristretto",
+              "crypto._strobe", "crypto.lanepool", "libs.native"):
+        assert f"tendermint_tpu_torch.{m}" in mods, m
+
+
+def test_lanes_cuda_missing_raises(monkeypatch):
+    """The secp256k1 and sr25519 entry points raise without CUDA unless
+    the CPU is asked for."""
+    from tendermint_tpu_torch.ops import secp, sr25519
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(T, "_default_device", "cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        secp.verify_batch_device([b"\x02" + bytes(32)], [b"m"], [bytes(64)])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        sr25519.verify_batch_device([bytes(32)], [b"m"], [bytes(64)])
+
+
+def test_lane_wrappers_check_inputs_and_count_only_kernel_launches():
+    from tendermint_tpu_torch.ops import cuda_secp, cuda_sr25519
+    cuda_secp.reset_launches()
+    cuda_sr25519.reset_launches()
+    for fn in (cuda_secp.verify_rows, cuda_sr25519.verify_packed):
+        with pytest.raises(ValueError):
+            fn(torch.zeros((96, 8), dtype=torch.uint8))
+        with pytest.raises(ValueError):
+            fn(torch.zeros((128, 8), dtype=torch.int64))
+    with pytest.raises(ValueError):
+        cuda_secp.fe_secp_selftest(torch.zeros((4, 31), dtype=torch.uint8),
+                              torch.zeros((4, 31), dtype=torch.uint8))
+    # CPU tensors take the plain versions, which are not launches
+    out = cuda_sr25519.verify_packed(torch.zeros((128, 2),
+                                                 dtype=torch.uint8))
+    assert out.dtype == torch.bool and out.shape == (2,)
+    fs = cuda_secp.fe_secp_selftest(torch.zeros((2, 32), dtype=torch.uint8),
+                               torch.ones((2, 32), dtype=torch.uint8))
+    assert fs.shape == (7, 2, 32) and fs.dtype == torch.uint8
+    assert cuda_secp.launches == {"verify_rows": 0, "fe_secp_selftest": 0}
+    assert cuda_sr25519.launches == {"verify_packed": 0}
+
+
+def test_lane_bound_counts():
+    """S1: 689 field multiplies and 1,861 squarings a signature, plus
+    7 M + 4 S a nonzero digit of s and 11 M + 5 S a nonzero digit of e;
+    a multiply 72 products, a square 44; S2: K1's count with two
+    ristretto decodes and the four-product check."""
+    from tendermint_tpu_torch.ops import cuda_secp, cuda_sr25519
+    rate = 132 * 64 * 1.98e9
+
+    def halves(m, s):
+        return 2 * (72 * m + 44 * s)
+    assert cuda_secp.bound_ms(2048) == pytest.approx(
+        2048 * halves(689 + 18 * 60, 1861 + 9 * 60) / rate * 1e3)
+    rows = torch.zeros((128, 3), dtype=torch.uint8)
+    rows[64:96] = 0x11                        # every digit of s nonzero
+    assert cuda_secp.digit_adds(rows) == (3 * 64, 0)
+    assert cuda_secp.bound_ms(3, *cuda_secp.digit_adds(rows)) == \
+        pytest.approx(3 * halves(689 + 7 * 64, 1861 + 4 * 64) / rate * 1e3)
+    assert cuda_sr25519.IMADS_PER_SIG == 2 * (100 * 2024 + 55 * 1554)
+    assert cuda_sr25519.bound_ms(65536) == pytest.approx(
+        65536 * cuda_sr25519.IMADS_PER_SIG / rate * 1e3)

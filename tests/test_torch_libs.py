@@ -44,9 +44,12 @@ def fails():
 
 
 def test_fail_sites_of_the_port_are_registered_in_both(fails):
-    assert tfail.REGISTERED_SITES == {"ops.ed25519.verify_batch",
-                                      "batch.ed25519", "sched.ed25519",
-                                      "bulk.ed25519", "devobs.record"}
+    assert tfail.REGISTERED_SITES == {
+        "ops.ed25519.verify_batch", "ops.sr25519.verify_batch",
+        "ops.secp.verify_batch", "batch.ed25519", "batch.sr25519",
+        "batch.secp256k1", "sched.ed25519", "sched.sr25519",
+        "sched.secp256k1", "bulk.ed25519", "lanepool.verify",
+        "merkle.bulk_hash", "devobs.record"}
     assert all(jfail.is_registered(s) for s in tfail.REGISTERED_SITES)
 
 
@@ -109,9 +112,8 @@ def test_fail_point_counter_matches(fails, monkeypatch):
 # -- metrics ----------------------------------------------------------------
 
 # CryptoMetrics families of modules the port has not ported yet (the comb
-# table cache, the host-lane pool): the JAX package's exposition is
-# compared without them
-UNPORTED = re.compile(r"_crypto_(table_|host_pool_)")
+# table cache): the JAX package's exposition is compared without them
+UNPORTED = re.compile(r"_crypto_(table_)")
 
 
 def _ported(text: str) -> str:
@@ -172,7 +174,7 @@ def test_crypto_metrics_families_match():
     ported = _both(lambda m: [f for f in families(m)
                               if not UNPORTED.search(f[0])],
                    (jmetrics, tmetrics))
-    assert ported == families(tmetrics) and len(ported) == 22
+    assert ported == families(tmetrics) and len(ported) == 24
     assert len(families(jmetrics)) == 27
 
 

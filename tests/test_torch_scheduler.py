@@ -42,6 +42,8 @@ from tendermint_tpu_torch.libs import fail as tfail
 from tendermint_tpu_torch.libs import trace as ttrace
 from tendermint_tpu_torch.libs.metrics import Registry as TRegistry
 from tendermint_tpu_torch.ops import cuda_ed25519 as ck
+from tendermint_tpu_torch.ops import cuda_secp as cs1
+from tendermint_tpu_torch.ops import cuda_sr25519 as cs2
 from tendermint_tpu_torch.ops import ed25519 as ted
 
 JAX = types.SimpleNamespace(name="jax", vs=jvs, cb=jbatch, deg=jdeg,
@@ -589,7 +591,8 @@ def _on_card(monkeypatch, kernel_fn):
     for mod in (tvs, tbatch):
         monkeypatch.setattr(mod, "resolve_device",
                             lambda device=None: CUDA0)
-    monkeypatch.setattr(ck, "kernels", lambda: None)
+    for mod in (ck, cs1, cs2):
+        monkeypatch.setattr(mod, "kernels", lambda: None)
 
     def verifier(pubs, msgs, sigs, cache_pubs=False, device=None):
         assert device == CUDA0
@@ -850,3 +853,64 @@ def test_concurrent_submitters_stress(sched, device_lane):
     assert st["items"] == 3 * 24 * n_threads and st["shed"] == 0
     assert st["lanes"] + st["dedup"] + st["cache_hits"] == st["items"]
     assert st["submissions"] == 3 * n_threads and st["pending_items"] == 0
+
+
+def test_mixed_schemes_launch_at_the_secp256k1_and_sr25519_sites(
+        sched, device_lane, monkeypatch):
+    """One verify_items call of ed25519, secp256k1 and sr25519 triples
+    through each package's scheduler: a launch at sched.ed25519,
+    sched.secp256k1 and sched.sr25519 each (the port's secp256k1 and
+    sr25519 lanes on their real plain kernels S1 and S2, the JAX
+    package's stubbed by the oracle behind their chaos seams: their XLA
+    ladders take minutes to compile), and the same exact bitmap."""
+    from tendermint_tpu.crypto import secp256k1 as jsecp
+    from tendermint_tpu.crypto import sr25519 as jsr
+    from tendermint_tpu.ops import secp as jsecp_ops
+    from tendermint_tpu.ops import sr25519 as jsr_ops
+    from tendermint_tpu_torch.crypto import secp256k1 as tsecp
+    from tendermint_tpu_torch.crypto import sr25519 as tsr
+
+    def stub(mod, site):
+        def lane(pubs, msgs, sigs):
+            jfail.inject(site)
+            return np.array([mod.PubKey(bytes(p)).verify_signature(m, s)
+                             for p, m, s in zip(pubs, msgs, sigs)])
+        return lane
+    monkeypatch.setattr(jsecp_ops, "verify_batch_device",
+                        stub(jsecp, "ops.secp.verify_batch"))
+    monkeypatch.setattr(jsr_ops, "verify_batch_device",
+                        stub(jsr, "ops.sr25519.verify_batch"))
+    raw = [("ed", *t) for t in _raw(8, b"mixed", bad=(3,))]
+    for i in range(8):
+        k = tsecp.PrivKey.gen_from_secret(b"sched secp %d" % i)
+        m = b"sched secp %d" % i
+        s = k.sign(m)
+        raw.append(("secp", k.pub_key().bytes(), m,
+                    s if i != 6 else bytes([s[0] ^ 1]) + s[1:]))
+        mini = (0x5C0 + i).to_bytes(32, "little")
+        m = b"sched sr %d" % i
+        s = tsr.sign(mini, m)
+        raw.append(("sr", tsr.PrivKey(mini).pub_key().bytes(), m,
+                    s if i != 1 else s[:40] + bytes([s[40] ^ 1]) + s[41:]))
+    want = [not (t == "ed" and m.endswith(b" 3")
+                 or t == "secp" and m.endswith(b" 6")
+                 or t == "sr" and m.endswith(b" 1")) for t, _, m, _ in raw]
+    got = {}
+    for pkg in PKGS:
+        mods = {"ed": pkg.keys,
+                "secp": jsecp if pkg is JAX else tsecp,
+                "sr": jsr if pkg is JAX else tsr}
+        items = [(mods[t].PubKey(p), m, s) for t, p, m, s in raw]
+        kw = {} if pkg is JAX else {"device": "cpu"}
+        s = sched(pkg, window_s=0.05, tpu_threshold=4, **kw)
+        rt = pkg.deg.runtime()
+        sites = ("sched.ed25519", "sched.secp256k1", "sched.sr25519")
+        # the counters live in the process's default registry
+        before = [rt.metrics.device_launches.value(site=x) for x in sites]
+        ok, bits = pkg.vs.verify_items(items, **kw)
+        assert bits.tolist() == want and not ok
+        for site, b in zip(sites, before):
+            assert rt.metrics.device_launches.value(site=site) - b == 1, \
+                site
+        got[pkg.name] = _final(s)
+    assert got["port"] == got["jax"]

@@ -194,3 +194,56 @@ def test_not_enough_power(jax_state):
     for want, got in outcomes[:2]:
         assert want == got and want[0] == "NotEnoughVotingPowerError"
     assert outcomes[2][0] == outcomes[2][1]
+
+
+@pytest.mark.parametrize("bad", [None, "ed25519", "secp256k1", "sr25519"])
+def test_mixed_key_set_verify_commit(bad):
+    """A validator set holding ed25519, secp256k1 and sr25519 keys: the
+    keys round-trip through the PublicKey oneof, the set hashes alike,
+    and verify_commit passes, or names the same bad index, in both
+    packages (its list branch: the set is not all ed25519)."""
+    from importlib import import_module
+    out = {}
+    for root in ("tendermint_tpu", "tendermint_tpu_torch"):
+        def m(name):
+            return import_module(f"{root}.{name}")
+        pubs, signers = [], {}
+        for j in range(6):
+            scheme = ("ed25519", "secp256k1", "sr25519")[j % 3]
+            seed = bytes([0x60 + j]) * 32
+            keys = m(f"crypto.{scheme}")
+            priv = (keys.PrivKey.gen_from_secret(seed)
+                    if scheme == "secp256k1" else keys.PrivKey(seed))
+            pub = priv.pub_key()
+            proto = m("types.validator").pubkey_proto(pub)
+            assert m("types.validator").pubkey_from_proto(proto) == pub
+            pubs.append(pub)
+            signers[pub.bytes()] = priv.sign
+        vset = m("types.validator_set").ValidatorSet(
+            [m("types.validator").Validator.new(p, 10) for p in pubs])
+        b = m("types.basic")
+        bid = b.BlockID(b"\x41" * 32, b.PartSetHeader(1, b"\x42" * 32))
+        cm = m("types.commit")
+        sigs = [cm.CommitSig(block_id_flag=b.BlockIDFlag.COMMIT,
+                             validator_address=v.address,
+                             timestamp=b.Timestamp(1700000900, 17 * i))
+                for i, v in enumerate(vset.validators)]
+        commit = cm.Commit(height=9, round=0, block_id=bid, signatures=sigs)
+        msgs = m("types.canonical").commit_sign_bytes_batch(
+            CHAIN, commit, list(range(6)))
+        todo = bad   # the first signature of that scheme goes bad
+        for i, v in enumerate(vset.validators):
+            sigs[i].signature = signers[v.pub_key.bytes()](bytes(msgs[i]))
+            if v.pub_key.type_name == todo:
+                s = sigs[i].signature
+                sigs[i].signature = bytes([s[0] ^ 1]) + s[1:]
+                todo = None
+        try:
+            vset.verify_commit(CHAIN, bid, 9, commit)
+            res = None
+        except Exception as e:  # noqa: BLE001 - compared below
+            res = (type(e).__name__, str(e))
+        out[root] = (vset.hash(), res,
+                     [v.pub_key.type_name for v in vset.validators])
+    assert out["tendermint_tpu"] == out["tendermint_tpu_torch"]
+    assert (out["tendermint_tpu"][1] is None) == (bad is None)

@@ -6,7 +6,9 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
   0  the card: CUDA available, compute capability >= 9.0, nvidia-smi line
   1  build the kernels from csrc/ (nvcc, one process a source, side by
      side) and the host C (cc); registers, spills, stack and blocks per SM
-     of each verify kernel, of K4, K5 and A1, and of S1 and S2
+     of each verify kernel, of K4, K5 and A1, and of S1 and S2; S1 must
+     fit its design's 16 warps an SM (4 blocks of 128 threads), checked
+     after the report is written
   2  field: the CUDA field arithmetic (fe_selftest) against the plain
      PyTorch field on the card, on edge values and seeded elements
   3  K1, K2 and K3 on adversarial vectors (R edge vectors of the
@@ -95,7 +97,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      5 and staging back to 0 after every phase; the 150-validator
      verify_commit with devobs off and on
  14  the secp256k1 and sr25519 lanes: S1's field (fe_secp_selftest)
-     against the plain field; S1 and S2 against their plain versions (raw
+     against the plain field, its square also against fs_mul(a, a); S1
+     and S2 against their plain versions (raw
      bitmaps) and, behind the host screens, the pure-Python oracles and
      the native C lanes: S1 on the adversarial set (s = 0, s >= N,
      r >= P, x >= P, a non-square lift_x, an off-curve R_x), on rows
@@ -113,13 +116,15 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      (set_lane_enabled(False): the native host lane through the pool, at
      its default size and at one worker).  A mixed 150-validator commit
      (50 of each scheme) through ValidatorSet.verify_commit: 10 walls,
-     then one bad signature of each scheme named at its index.  Drills:
+     then one bad signature of each scheme named at its index; its S1
+     launch (64 lanes) against the plain version.  Drills:
      a raise at ops.secp/ops.sr25519.verify_batch re-verified on the host
      (exact bitmap); S1's and S2's wrappers raising outside a drill
      (DeviceLaneError, no host fallback); a clean pass after.  A mixed
      verify_items call through a VerifyScheduler on the card (launches
      at sched.secp256k1 and sched.sr25519).  S1's and S2's times at
-     2,048 and 65,536 lanes beside their bounds and their plain versions
+     2,048 and 65,536 lanes (S1 also at 64) beside their bounds and their
+     plain versions
  15  the kernels line; then the last line {"ok": true, "device": ...}
 
 Signatures come from a seeded incremental generator (a_i = a_0 + i, so
@@ -378,6 +383,13 @@ for mod in (cs1, cs2):
                                      threads_per_block=threads)
             log(phase=1, kernel=_name, **lane_build[_name])
 check(len(lane_build) == 2, f"ptxas report: {sorted(lane_build)}")
+# S1's design (csrc/secp256k1_verify.cu): 128-thread blocks, 4 an SM, 16
+# warps; checked at the end, after the report is written, so that this
+# script run in an earlier tree's checkout still times that tree's kernels
+S1_BUILD = lane_build["k_secp_verify"]
+S1_WARPS_PER_SM = (S1_BUILD["blocks_per_sm"]
+                   * S1_BUILD["threads_per_block"] // 32)
+log(phase=1, kernel="k_secp_verify", warps_per_sm=S1_WARPS_PER_SM)
 
 # -- phase 2: field ---------------------------------------------------------
 
@@ -2027,10 +2039,17 @@ for i, a in enumerate(vals_a[:len(edge_s)]):
         g = int.from_bytes(got[op, i].cpu().numpy().tobytes(), "little")
         check(g == exp[op],
               f"fe_secp_selftest op {op} on {hex(vals_a[i])}")
-log(phase=14, s1_field_elements=len(vals_a), ops=7, mismatches=fs_mism)
+# with b = a, op 1 is fs_mul(a, a): fs_sqr (op 2) must equal it
+got_aa = cs1.fe_secp_selftest(fa, fa)
+sqr_mism = int((got_aa[1] != got_aa[2]).any(-1).sum()
+               + (got_aa[2] != want[2]).any(-1).sum())
+log(phase=14, s1_field_elements=len(vals_a), ops=7, mismatches=fs_mism,
+    sqr_vs_mul_mismatches=sqr_mism)
 check(fs_mism == 0, "S1's field differs from the plain field")
+check(sqr_mism == 0, "S1's fs_sqr differs from fs_mul(a, a) or the plain "
+      "square")
 lanes14["s1_field"] = dict(elements=len(vals_a), ops=7,
-                           mismatches=fs_mism)
+                           mismatches=fs_mism, sqr_vs_mul=sqr_mism)
 
 # BASELINE config 5: 4,096 triples round-robined over ed25519, secp256k1
 # and sr25519 (scripts/bench_report.py's mixed shape: "mixed bench %6d"
@@ -2339,6 +2358,8 @@ msgsm = commit_sign_bytes_batch(CHAIN, commitm, list(range(150)))
 for i, v in enumerate(vsetm.validators):
     sigsm[i].signature = signer[v.pub_key.bytes()](bytes(msgsm[i]))
 wm = []
+cs1.verify_rows = capture14("S1_150")
+REAL14["S1_150"] = REAL14["S1"]
 for rnd in range(11):
     cs1.reset_launches()
     cs2.reset_launches()
@@ -2346,6 +2367,8 @@ for rnd in range(11):
     _, got = main_path(lambda: vsetm.verify_commit(CHAIN, bidm, 9, commitm,
                                                    device=DEV))
     w = time.perf_counter() - t
+    if rnd == 0:
+        cs1.verify_rows = REAL14["S1"]
     check(got["verify_packed"] == 1 and cs1.launches["verify_rows"] == 1
           and cs2.launches["verify_packed"] == 1,
           f"mixed 150 commit: K1 {got['verify_packed']}, S1 "
@@ -2367,6 +2390,17 @@ for s in SITES5:
     runtime_clean("mixed 150 commit", s)
 lanes14["mixed_150"] = dict(walls_s=wm, median_wall_s=pctl(wm, 0.5),
                             bad_index={k: v[0] for k, v in bad_m.items()})
+# the commit's S1 launch (50 secp256k1 lanes padded to 64) against the
+# plain version
+rows150, out150 = cap14["S1_150"]
+mism = int((out150.cpu().numpy() != cs1.verify_rows_plain(
+    rows150).cpu().numpy()).sum())
+check(mism == 0 and out150[:50].all(),
+      f"S1 on the mixed 150 commit's launch ({rows150.shape[1]} lanes): "
+      f"{mism} mismatches")
+s1_cmp.append(("S1 mixed 150 launch", rows150.shape[1], mism,
+               float(mism > 0)))
+ROWS5["S1_150"] = rows150
 times["verify_commit_mixed_150_wall_s"] = pctl(wm, 0.5)
 log(phase=14, card=CARD, verify_commit_mixed_150_s=pctl(wm, 0.5),
     bad_index=lanes14["mixed_150"]["bad_index"])
@@ -2447,11 +2481,14 @@ check(ok and bits.all() and all(v >= 1 for v in sched_sites.values())
 cbatch._SpotCheck.prepare = _prepare
 
 # kernel times: S1 and S2 by CUDA events at 2,048 (config 5's launch) and
-# 65,536 lanes, beside their bounds and their plain versions at 2,048
+# 65,536 lanes, S1 also at 64 (the mixed 150-validator commit's launch),
+# beside their bounds and their plain versions at 2,048
 for name, fn, plain in (("s1", REAL14["S1"], cs1.verify_rows_plain),
                         ("s2", REAL14["S2"], cs2.verify_packed_plain)):
     rows = ROWS5["S1" if name == "s1" else "S2"]
     big = rows.repeat(1, 32).contiguous()
+    if name == "s1":
+        times["s1_64_ms"] = time_events(lambda: fn(ROWS5["S1_150"]), 20)
     times[f"{name}_2048_ms"] = time_events(lambda: fn(rows), 20)
     times[f"{name}_65536_ms"] = time_events(lambda: fn(big), 3)
     torch.cuda.synchronize()
@@ -2462,6 +2499,7 @@ for name, fn, plain in (("s1", REAL14["S1"], cs1.verify_rows_plain),
 ga, pa = cs1.digit_adds(ROWS5["S1"])
 times["s1_2048_bound_ms"] = cs1.bound_ms(2048, ga, pa)
 times["s1_65536_bound_ms"] = cs1.bound_ms(65536, 32 * ga, 32 * pa)
+times["s1_64_bound_ms"] = cs1.bound_ms(64, *cs1.digit_adds(ROWS5["S1_150"]))
 times["s2_2048_bound_ms"] = cs2.bound_ms(2048)
 times["s2_65536_bound_ms"] = cs2.bound_ms(65536)
 log(phase=14, card=CARD, **{k: v for k, v in times.items()
@@ -2579,6 +2617,8 @@ with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
     json.dump(REPORT, f, indent=1, default=str)
 check(all(k["mismatches"] == 0 and k["launches"] > 0 for k in kernels),
       "a kernel of the path mismatched or never launched")
+check(S1_BUILD["threads_per_block"] == 128 and S1_WARPS_PER_SM >= 16,
+      f"S1 occupancy below its design's 16 warps an SM: {S1_BUILD}")
 print(json.dumps({"kernels": kernels}), flush=True)
 print(json.dumps({"ok": True, "device": {
     "platform": "gpu", "kind": KIND, "count": torch.cuda.device_count()}}),

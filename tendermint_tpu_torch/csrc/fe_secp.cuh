@@ -1,6 +1,5 @@
-// GF(2^256 - 2^32 - 977), the secp256k1 base field, one element per thread,
-// and the secp256k1 group law in Jacobian coordinates (kernel S1,
-// csrc/secp256k1_verify.cu).
+// GF(2^256 - 2^32 - 977), the secp256k1 base field, one element per thread
+// (kernel S1, csrc/secp256k1_verify.cu; its group law is secp4.cuh).
 //
 // Counterpart of tendermint_tpu/ops/field_secp.py and of the curve
 // functions of tendermint_tpu/ops/secp.py.  The TPU keeps an element as 22
@@ -13,13 +12,14 @@
 // ops/field_secp.py).
 //
 // Reduction.  p = 2^256 - C with C = 2^32 + 977, so 2^256 = C (mod p).
-//   fs_mul   the 512-bit schoolbook product L + 2^256 H (64 products,
-//            uint64 accumulation) folds once to L + C H < 2^289, the top
+//   fs_mul   the 512-bit schoolbook product L + 2^256 H (64 products in
+//            carry chains; fs_sqr 36: the cross products once, doubled,
+//            and the diagonal) folds once to L + C H < 2^289, the top
 //            word t (< 2^33) folds again as t C, a last carry (then the
 //            value is below 2^67) adds C once more, and one conditional
-//            subtraction of p leaves [0, p).
-//   fs_add   a + b < 2p: a carry out of 2^256 adds C (the sum is then
-//            a + b - p < p), otherwise one conditional subtraction.
+//            subtraction of p leaves [0, p) (fs_fold).
+//   fs_add   a + b < 2p: s = a + b and t = s + C, and t when either
+//            carries out of 2^256 (then t = a + b - p), else s.
 //   fs_sub   a - b: a borrow subtracts C (the result a - b + p >= 1).
 //   a >= p exactly when a + C carries out of 2^256, which is how
 //   fs_reduce_once decides; it takes any value below 2^256 to [0, p).
@@ -65,71 +65,247 @@ FS_DEV bool fs_eq(const fs a, const fs b) {
   return acc == 0;
 }
 
+// ---------------------------------------------------------------------------
+// carry chains: each primitive is one chain of the card's carry flag
+// (add.cc / addc / mad.lo.cc / madc.hi.cc in one asm block) on the card,
+// and the same arithmetic with 64-bit sums on the host, so that the host
+// rehearsal runs the field's every step but the instruction mapping
+// ---------------------------------------------------------------------------
+
+// r = a + b + cin (mod 2^256), cin 0 or 1; returns the carry out of 2^256
+FS_DEV uint32_t fs_add8(uint32_t *r, const uint32_t *a, const uint32_t *b,
+                        uint32_t cin) {
+  uint32_t c;
+#ifdef __CUDA_ARCH__
+  uint32_t z;
+  asm("add.cc.u32 %9, %26, 0xFFFFFFFF;\n\t"
+      "addc.cc.u32 %0, %10, %18;\n\taddc.cc.u32 %1, %11, %19;\n\t"
+      "addc.cc.u32 %2, %12, %20;\n\taddc.cc.u32 %3, %13, %21;\n\t"
+      "addc.cc.u32 %4, %14, %22;\n\taddc.cc.u32 %5, %15, %23;\n\t"
+      "addc.cc.u32 %6, %16, %24;\n\taddc.cc.u32 %7, %17, %25;\n\t"
+      "addc.u32 %8, 0, 0;"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]), "=r"(r[4]),
+        "=r"(r[5]), "=r"(r[6]), "=r"(r[7]), "=r"(c), "=r"(z)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]),
+        "r"(a[6]), "r"(a[7]), "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]),
+        "r"(b[4]), "r"(b[5]), "r"(b[6]), "r"(b[7]), "r"(cin));
+#else
+  uint64_t v = (uint64_t)cin << 32;
+  for (int i = 0; i < 8; i++) {
+    v = (uint64_t)a[i] + b[i] + (v >> 32);
+    r[i] = (uint32_t)v;
+  }
+  c = (uint32_t)(v >> 32);
+#endif
+  return c;
+}
+
+// r = a + (c0 + 2^32 c1) (mod 2^256); returns the carry out
+FS_DEV uint32_t fs_add2(fs r, const fs a, uint32_t c0, uint32_t c1) {
+  uint32_t c;
+#ifdef __CUDA_ARCH__
+  asm("add.cc.u32 %0, %9, %17;\n\taddc.cc.u32 %1, %10, %18;\n\t"
+      "addc.cc.u32 %2, %11, 0;\n\taddc.cc.u32 %3, %12, 0;\n\t"
+      "addc.cc.u32 %4, %13, 0;\n\taddc.cc.u32 %5, %14, 0;\n\t"
+      "addc.cc.u32 %6, %15, 0;\n\taddc.cc.u32 %7, %16, 0;\n\t"
+      "addc.u32 %8, 0, 0;"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]), "=r"(r[4]),
+        "=r"(r[5]), "=r"(r[6]), "=r"(r[7]), "=r"(c)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]),
+        "r"(a[6]), "r"(a[7]), "r"(c0), "r"(c1));
+#else
+  uint64_t v = (uint64_t)a[0] + c0;
+  r[0] = (uint32_t)v;
+  v = (uint64_t)a[1] + c1 + (v >> 32);
+  r[1] = (uint32_t)v;
+  for (int i = 2; i < 8; i++) {
+    v = (uint64_t)a[i] + (v >> 32);
+    r[i] = (uint32_t)v;
+  }
+  c = (uint32_t)(v >> 32);
+#endif
+  return c;
+}
+
+// r = a - b (mod 2^256); returns the borrow (0 or 1)
+FS_DEV uint32_t fs_sub8(fs r, const fs a, const fs b) {
+  uint32_t c;
+#ifdef __CUDA_ARCH__
+  asm("sub.cc.u32 %0, %9, %17;\n\tsubc.cc.u32 %1, %10, %18;\n\t"
+      "subc.cc.u32 %2, %11, %19;\n\tsubc.cc.u32 %3, %12, %20;\n\t"
+      "subc.cc.u32 %4, %13, %21;\n\tsubc.cc.u32 %5, %14, %22;\n\t"
+      "subc.cc.u32 %6, %15, %23;\n\tsubc.cc.u32 %7, %16, %24;\n\t"
+      "subc.u32 %8, 0, 0;"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]), "=r"(r[4]),
+        "=r"(r[5]), "=r"(r[6]), "=r"(r[7]), "=r"(c)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]),
+        "r"(a[6]), "r"(a[7]), "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]),
+        "r"(b[4]), "r"(b[5]), "r"(b[6]), "r"(b[7]));
+  c &= 1u;
+#else
+  int64_t v = 0;
+  for (int i = 0; i < 8; i++) {
+    v = (int64_t)a[i] - b[i] + (v >> 32);
+    r[i] = (uint32_t)v;
+  }
+  c = v < 0 ? 1u : 0u;
+#endif
+  return c;
+}
+
+// r = a - (c0 + 2^32 c1) (mod 2^256)
+FS_DEV void fs_sub2(fs r, const fs a, uint32_t c0, uint32_t c1) {
+#ifdef __CUDA_ARCH__
+  asm("sub.cc.u32 %0, %8, %16;\n\tsubc.cc.u32 %1, %9, %17;\n\t"
+      "subc.cc.u32 %2, %10, 0;\n\tsubc.cc.u32 %3, %11, 0;\n\t"
+      "subc.cc.u32 %4, %12, 0;\n\tsubc.cc.u32 %5, %13, 0;\n\t"
+      "subc.cc.u32 %6, %14, 0;\n\tsubc.u32 %7, %15, 0;"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]), "=r"(r[4]),
+        "=r"(r[5]), "=r"(r[6]), "=r"(r[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]),
+        "r"(a[6]), "r"(a[7]), "r"(c0), "r"(c1));
+#else
+  int64_t v = (int64_t)a[0] - c0;
+  r[0] = (uint32_t)v;
+  v = (int64_t)a[1] - c1 + (v >> 32);
+  r[1] = (uint32_t)v;
+  for (int i = 2; i < 8; i++) {
+    v = (int64_t)a[i] + (v >> 32);
+    r[i] = (uint32_t)v;
+  }
+#endif
+}
+
+// w[0 .. 2N-1] = x b[0], x b[2], ..., x b[2N-2] as N 64-bit products on
+// consecutive word pairs (disjoint, so no carries): the first row of an
+// accumulator, which then needs no zeros
+template <int N>
+FS_DEV void fs_mulrow(uint32_t *w, uint32_t x, const uint32_t *b) {
+#pragma unroll
+  for (int k = 0; k < N; k++) {
+#ifdef __CUDA_ARCH__
+    w[2 * k] = x * b[2 * k];
+    w[2 * k + 1] = __umulhi(x, b[2 * k]);
+#else
+    uint64_t p = (uint64_t)x * b[2 * k];
+    w[2 * k] = (uint32_t)p;
+    w[2 * k + 1] = (uint32_t)(p >> 32);
+#endif
+  }
+}
+
+// w[0 .. 2N-1] += x b[0], x b[2], ..., x b[2N-2] as N 64-bit products on
+// consecutive word pairs (lo, hi), the carry added into w[2N], which the
+// caller guarantees does not overflow (it holds at most a few carries)
+template <int N>
+FS_DEV void fs_madrow(uint32_t *w, uint32_t x, const uint32_t *b);
+
+#ifdef __CUDA_ARCH__
+template <>
+FS_DEV void fs_madrow<1>(uint32_t *w, uint32_t x, const uint32_t *b) {
+  asm("mad.lo.cc.u32 %0, %3, %4, %0;\n\tmadc.hi.cc.u32 %1, %3, %4, %1;\n\t"
+      "addc.u32 %2, %2, 0;"
+      : "+r"(w[0]), "+r"(w[1]), "+r"(w[2])
+      : "r"(x), "r"(b[0]));
+}
+template <>
+FS_DEV void fs_madrow<2>(uint32_t *w, uint32_t x, const uint32_t *b) {
+  asm("mad.lo.cc.u32 %0, %5, %6, %0;\n\tmadc.hi.cc.u32 %1, %5, %6, %1;\n\t"
+      "madc.lo.cc.u32 %2, %5, %7, %2;\n\tmadc.hi.cc.u32 %3, %5, %7, %3;\n\t"
+      "addc.u32 %4, %4, 0;"
+      : "+r"(w[0]), "+r"(w[1]), "+r"(w[2]), "+r"(w[3]), "+r"(w[4])
+      : "r"(x), "r"(b[0]), "r"(b[2]));
+}
+template <>
+FS_DEV void fs_madrow<3>(uint32_t *w, uint32_t x, const uint32_t *b) {
+  asm("mad.lo.cc.u32 %0, %7, %8, %0;\n\tmadc.hi.cc.u32 %1, %7, %8, %1;\n\t"
+      "madc.lo.cc.u32 %2, %7, %9, %2;\n\tmadc.hi.cc.u32 %3, %7, %9, %3;\n\t"
+      "madc.lo.cc.u32 %4, %7, %10, %4;\n\tmadc.hi.cc.u32 %5, %7, %10, %5;\n\t"
+      "addc.u32 %6, %6, 0;"
+      : "+r"(w[0]), "+r"(w[1]), "+r"(w[2]), "+r"(w[3]), "+r"(w[4]),
+        "+r"(w[5]), "+r"(w[6])
+      : "r"(x), "r"(b[0]), "r"(b[2]), "r"(b[4]));
+}
+template <>
+FS_DEV void fs_madrow<4>(uint32_t *w, uint32_t x, const uint32_t *b) {
+  asm("mad.lo.cc.u32 %0, %9, %10, %0;\n\tmadc.hi.cc.u32 %1, %9, %10, %1;\n\t"
+      "madc.lo.cc.u32 %2, %9, %11, %2;\n\tmadc.hi.cc.u32 %3, %9, %11, %3;\n\t"
+      "madc.lo.cc.u32 %4, %9, %12, %4;\n\tmadc.hi.cc.u32 %5, %9, %12, %5;\n\t"
+      "madc.lo.cc.u32 %6, %9, %13, %6;\n\tmadc.hi.cc.u32 %7, %9, %13, %7;\n\t"
+      "addc.u32 %8, %8, 0;"
+      : "+r"(w[0]), "+r"(w[1]), "+r"(w[2]), "+r"(w[3]), "+r"(w[4]),
+        "+r"(w[5]), "+r"(w[6]), "+r"(w[7]), "+r"(w[8])
+      : "r"(x), "r"(b[0]), "r"(b[2]), "r"(b[4]), "r"(b[6]));
+}
+#else
+template <int N>
+FS_DEV void fs_madrow(uint32_t *w, uint32_t x, const uint32_t *b) {
+  uint64_t c = 0;
+  for (int k = 0; k < N; k++) {
+    uint64_t p = (uint64_t)x * b[2 * k];
+    uint64_t v = (uint64_t)w[2 * k] + (uint32_t)p + c;
+    w[2 * k] = (uint32_t)v;
+    v = (uint64_t)w[2 * k + 1] + (p >> 32) + (v >> 32);
+    w[2 * k + 1] = (uint32_t)v;
+    c = v >> 32;
+  }
+  w[2 * N] += (uint32_t)c;
+}
+#endif
+
 // any value below 2^256 -> [0, p): subtract p iff a + C carries out
 FS_DEV void fs_reduce_once(fs a) {
   fs t;
-  uint64_t v = (uint64_t)a[0] + FS_C977;
-  t[0] = (uint32_t)v;
-  v = (uint64_t)a[1] + 1u + (v >> 32);
-  t[1] = (uint32_t)v;
-#pragma unroll
-  for (int i = 2; i < 8; i++) {
-    v = (uint64_t)a[i] + (v >> 32);
-    t[i] = (uint32_t)v;
-  }
-  bool ge = (v >> 32) != 0;
+  bool ge = fs_add2(t, a, FS_C977, 1) != 0;
 #pragma unroll
   for (int i = 0; i < 8; i++) a[i] = ge ? t[i] : a[i];
 }
 
-// r = a + k C (mod 2^256) for k < 2^34; returns the carry out of 2^256
-FS_DEV uint32_t fs_add_kc(fs r, const fs a, uint64_t k) {
-  uint64_t v = (uint64_t)a[0] + k * FS_C977;
-  r[0] = (uint32_t)v;
-  v = (uint64_t)a[1] + (k & 0xFFFFFFFFu) + (v >> 32);
-  r[1] = (uint32_t)v;
-  v = (uint64_t)a[2] + (k >> 32) + (v >> 32);
-  r[2] = (uint32_t)v;
+// r = L + 2^256 H mod p for the 512-bit value t = L + 2^256 H (16 words,
+// little-endian): w = L + C H (< 2^289: the products 977 H_k, even k and
+// odd k in two rows, and H shifted by a word), then the top t' = w / 2^256
+// (< 2^33) folds as t' C, a last carry (then the value is below 2^67)
+// adds C once more, and one conditional subtraction of p leaves [0, p)
+FS_DEV void fs_fold(fs r, const uint32_t t[16]) {
+  uint32_t w[10];
+  const uint32_t *H = t + 8;
 #pragma unroll
-  for (int i = 3; i < 8; i++) {
-    v = (uint64_t)a[i] + (v >> 32);
-    r[i] = (uint32_t)v;
-  }
-  return (uint32_t)(v >> 32);
-}
-
-FS_DEV void fs_add(fs r, const fs a, const fs b) {
-  fs s;
-  uint64_t v = 0;
-#pragma unroll
-  for (int i = 0; i < 8; i++) {
-    v = (uint64_t)a[i] + b[i] + (v >> 32);
-    s[i] = (uint32_t)v;
-  }
-  fs_add_kc(r, s, v >> 32);   // carry: + C (then already below p)
+  for (int i = 0; i < 8; i++) w[i] = t[i];
+  w[8] = 0;
+  w[9] = 0;
+  fs_madrow<4>(w, FS_C977, H);              // 977 H_k, k even
+  fs_madrow<4>(w + 1, FS_C977, H + 1);      // 977 H_k, k odd
+  w[9] += fs_add8(w + 1, w + 1, H, 0);     // 2^32 H
+  // t' C = t' 977 + 2^32 t', t' = w8 + 2^32 w9: word 1 gets
+  // hi(977 w8) + 977 w9 + w8 (below 2^33), word 2 w9 and that carry
+#ifdef __CUDA_ARCH__
+  uint64_t q1 = (uint64_t)__umulhi(w[8], FS_C977) + FS_C977 * w[9] + w[8];
+#else
+  uint64_t q1 = (((uint64_t)w[8] * FS_C977) >> 32) + FS_C977 * w[9] + w[8];
+#endif
+  uint32_t q[8] = {w[8] * FS_C977, (uint32_t)q1,
+                   w[9] + (uint32_t)(q1 >> 32), 0, 0, 0, 0, 0};
+  uint32_t c = fs_add8(r, w, q, 0);
+  // a carry out leaves r below 2^67, so adding C once more cannot carry
+  fs_add2(r, r, FS_C977 & (0u - c), c);
   fs_reduce_once(r);
 }
+// a + b < 2p: s = a + b, t = s + C; a + b >= p exactly when one of the
+// two carries out of 2^256, and then t = a + b - p (mod 2^256)
+FS_DEV void fs_add(fs r, const fs a, const fs b) {
+  fs s, t;
+  uint32_t c = fs_add8(s, a, b, 0);
+  c |= fs_add2(t, s, FS_C977, 1);
+#pragma unroll
+  for (int i = 0; i < 8; i++) r[i] = c ? t[i] : s[i];
+}
 
+// a - b: a borrow subtracts C (d = a - b + 2^256, and a - b + p = d - C
+// >= 1)
 FS_DEV void fs_sub(fs r, const fs a, const fs b) {
   fs d;
-  int64_t v = 0;
-#pragma unroll
-  for (int i = 0; i < 8; i++) {
-    v = (int64_t)a[i] - b[i] + (v >> 32);
-    d[i] = (uint32_t)v;
-  }
-  // borrow: d = a - b + 2^256, and a - b + p = d - C >= 1
-  uint32_t bw = v < 0 ? 1u : 0u;
-  uint32_t m0 = bw * FS_C977, m1 = bw;
-  int64_t w = (int64_t)d[0] - m0;
-  r[0] = (uint32_t)w;
-  w = (int64_t)d[1] - m1 + (w >> 32);
-  r[1] = (uint32_t)w;
-#pragma unroll
-  for (int i = 2; i < 8; i++) {
-    w = (int64_t)d[i] + (w >> 32);
-    r[i] = (uint32_t)w;
-  }
+  uint32_t bw = fs_sub8(d, a, b);
+  fs_sub2(r, d, FS_C977 & (0u - bw), bw);
 }
 
 FS_DEV void fs_neg(fs r, const fs a) {
@@ -138,40 +314,73 @@ FS_DEV void fs_neg(fs r, const fs a) {
   fs_sub(r, z, a);
 }
 
-// r = a * b (canonical in, canonical out; r may alias a or b)
+// r = a * b (canonical in, canonical out; r may alias a or b): the
+// schoolbook product, 64 products, as two accumulators (the products
+// a_i b_j with j even land on disjoint word pairs, so a row is one carry
+// chain; the same for j odd), added, then the fold
 FS_DEV void fs_mul(fs r, const fs a, const fs b) {
-  uint32_t t[16];
+  uint32_t e[17], o[17], t[17];
+  fs_mulrow<4>(e, a[0], b);
+  fs_mulrow<4>(o + 1, a[0], b + 1);
 #pragma unroll
-  for (int i = 0; i < 16; i++) t[i] = 0;
+  for (int i = 8; i < 17; i++) e[i] = 0;
 #pragma unroll
-  for (int i = 0; i < 8; i++) {
-    uint64_t c = 0;
+  for (int i = 9; i < 17; i++) o[i] = 0;
 #pragma unroll
-    for (int j = 0; j < 8; j++) {
-      uint64_t v = (uint64_t)a[i] * b[j] + t[i + j] + c;
-      t[i + j] = (uint32_t)v;
-      c = v >> 32;
-    }
-    t[i + 8] = (uint32_t)c;
+  for (int i = 1; i < 8; i++) {
+    fs_madrow<4>(e + i, a[i], b);
+    fs_madrow<4>(o + i + 1, a[i], b + 1);
   }
-  // L + C H: word i gets 977 H_i + H_{i-1} (the 2^32 part)
-  fs w;
-  uint64_t c = 0;
-#pragma unroll
-  for (int i = 0; i < 8; i++) {
-    uint64_t v = (uint64_t)t[8 + i] * FS_C977 + t[i] + c +
-                 (i > 0 ? t[7 + i] : 0u);
-    w[i] = (uint32_t)v;
-    c = v >> 32;
-  }
-  uint64_t top = c + t[15];           // weight 2^256, below 2^33
-  uint32_t c2 = fs_add_kc(w, w, top);
-  // a carry out leaves w below 2^67, so adding C once more cannot carry
-  fs_add_kc(r, w, c2);
-  fs_reduce_once(r);
+  t[0] = e[0];
+  uint32_t c = fs_add8(t + 1, e + 1, o + 1, 0);
+  fs_add8(t + 9, e + 9, o + 9, c);         // t[16] = 0: a b < 2^512
+  fs_fold(r, t);
 }
 
-FS_DEV void fs_sqr(fs r, const fs a) { fs_mul(r, a, a); }
+// r = a^2 (r may alias a): the 28 cross products a_i a_j, i < j, once, in
+// two accumulators by the parity of j - i (a row of each is one carry
+// chain), doubled by a shift, plus the 8 diagonal products a_i^2, then
+// the fold: 36 + 8 products where fs_mul(a, a) takes 64 + 8
+FS_DEV void fs_sqr(fs r, const fs a) {
+  uint32_t x[17], y[17], s[17], t[16];
+  // row i: j - i odd into x at words 2i + 1 .., j - i even into y at 2i + 2 ..
+  fs_mulrow<4>(x + 1, a[0], a + 1);
+  fs_mulrow<3>(y + 2, a[0], a + 2);
+  x[0] = y[0] = y[1] = 0;
+#pragma unroll
+  for (int i = 9; i < 17; i++) x[i] = 0;
+#pragma unroll
+  for (int i = 8; i < 17; i++) y[i] = 0;
+  fs_madrow<3>(x + 3, a[1], a + 2);
+  fs_madrow<3>(y + 4, a[1], a + 3);
+  fs_madrow<3>(x + 5, a[2], a + 3);
+  fs_madrow<2>(y + 6, a[2], a + 4);
+  fs_madrow<2>(x + 7, a[3], a + 4);
+  fs_madrow<2>(y + 8, a[3], a + 5);
+  fs_madrow<2>(x + 9, a[4], a + 5);
+  fs_madrow<1>(y + 10, a[4], a + 6);
+  fs_madrow<1>(x + 11, a[5], a + 6);
+  fs_madrow<1>(y + 12, a[5], a + 7);
+  fs_madrow<1>(x + 13, a[6], a + 7);
+  // s = the cross sum (words 1..15), below 2^511
+  s[0] = 0;
+  uint32_t c = fs_add8(s + 1, x + 1, y + 1, 0);
+  fs_add8(s + 9, x + 9, y + 9, c);
+  // t = the diagonal, then t += 2 s (s shifted left by one bit)
+  uint32_t d[16];
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+    uint64_t q = (uint64_t)a[i] * a[i];
+    t[2 * i] = (uint32_t)q;
+    t[2 * i + 1] = (uint32_t)(q >> 32);
+  }
+#pragma unroll
+  for (int k = 0; k < 16; k++)
+    d[k] = (s[k] << 1) | (k > 0 ? s[k - 1] >> 31 : 0u);
+  c = fs_add8(t, t, d, 0);
+  fs_add8(t + 8, t + 8, d + 8, c);
+  fs_fold(r, t);
+}
 
 // r = a^(2^n) by n squarings
 FS_DEV void fs_sqrn(fs r, const fs a, int n) {
@@ -235,268 +444,14 @@ FS_DEV void fs_invert(fs r, const fs a) {
   fs_mul(r, r, a);
 }
 
-// ---------------------------------------------------------------------------
-// the group law on y^2 = x^3 + 7, Jacobian (X : Y : Z), x = X/Z^2,
-// y = Y/Z^3; Z = 0 is the point at infinity
-// ---------------------------------------------------------------------------
-
-struct jpt {
-  fs X, Y, Z;
-};
-
-// dbl-2009-l (a = 0): 5 squarings, 2 multiplies.  No point of the curve
-// has y = 0 (-7 is not a cube mod p), and Z = 0 maps to Z = 0.
-FS_DEV void jac_dbl(jpt &r, const jpt &p) {
-  fs a, b, c, d, e, f, t;
-  fs_sqr(a, p.X);
-  fs_sqr(b, p.Y);
-  fs_sqr(c, b);
-  fs_add(t, p.X, b);
-  fs_sqr(d, t);
-  fs_sub(d, d, a);
-  fs_sub(d, d, c);
-  fs_add(d, d, d);            // D = 2 ((X + B)^2 - A - C)
-  fs_add(e, a, a);
-  fs_add(e, e, a);            // E = 3 A
-  fs_sqr(f, e);
-  fs_mul(t, p.Y, p.Z);
-  fs_add(r.Z, t, t);          // Z3 = 2 Y Z (p.Y, p.Z read before)
-  fs_sub(f, f, d);
-  fs_sub(r.X, f, d);          // X3 = F - 2 D
-  fs_sub(t, d, r.X);
-  fs_mul(t, e, t);
-  fs_add(c, c, c);
-  fs_add(c, c, c);
-  fs_add(c, c, c);            // 8 C
-  fs_sub(r.Y, t, c);          // Y3 = E (D - X3) - 8 C
+// r = c ? a : b, limb by limb (a select, not a branch)
+FS_DEV void fs_sel(fs r, bool c, const fs a, const fs b) {
+#pragma unroll
+  for (int i = 0; i < 8; i++) r[i] = c ? a[i] : b[i];
 }
-
-FS_DEV void jac_set_inf(jpt &r) {
-  fs_set_small(r.X, 1);
-  fs_set_small(r.Y, 1);
-  fs_set_small(r.Z, 0);
-}
-
-FS_DEV void jac_copy(jpt &r, const jpt &p) {
-  fs_copy(r.X, p.X);
-  fs_copy(r.Y, p.Y);
-  fs_copy(r.Z, p.Z);
-}
-
-// The tail shared by both additions: from U1, S1 (of p), H = U2 - U1 and
-// R = 2 (S2 - S1) and the Z3 factor zh, X3 = R^2 - J - 2V,
-// Y3 = R (V - X3) - 2 S1 J, with I = (2H)^2, J = H I, V = U1 I.
-FS_DEV void jac_add_tail(jpt &r, const fs u1, const fs s1, const fs h,
-                         const fs rr, const fs z3) {
-  fs i, j, v, t;
-  fs_add(t, h, h);
-  fs_sqr(i, t);
-  fs_mul(j, h, i);
-  fs_mul(v, u1, i);
-  fs_sqr(t, rr);
-  fs_sub(t, t, j);
-  fs_sub(t, t, v);
-  fs_sub(t, t, v);            // X3
-  fs_sub(v, v, t);
-  fs_mul(v, rr, v);           // R (V - X3)
-  fs_mul(j, s1, j);
-  fs_add(j, j, j);            // 2 S1 J
-  fs_copy(r.X, t);
-  fs_sub(r.Y, v, j);
-  fs_copy(r.Z, z3);
-}
-
-// Complete addition r = p + q (r may alias p): add-2007-bl, 11 multiplies
-// and 5 squarings, with branches for the degenerate cases the reference
-// selects (ops/secp.py add): an infinity operand returns the other, P = Q
-// doubles, P = -Q gives infinity.  The branches are taken only for those
-// inputs, which an attacker can force but which cost one divergent path.
-FS_DEV void jac_add(jpt &r, const jpt &p, const jpt &q) {
-  if (fs_iszero(q.Z)) {
-    if (&r != &p) jac_copy(r, p);
-    return;
-  }
-  if (fs_iszero(p.Z)) {
-    jac_copy(r, q);
-    return;
-  }
-  fs z1z1, z2z2, u1, u2, s1, s2, h, rr, t;
-  fs_sqr(z1z1, p.Z);
-  fs_sqr(z2z2, q.Z);
-  fs_mul(u1, p.X, z2z2);
-  fs_mul(u2, q.X, z1z1);
-  fs_mul(s1, p.Y, q.Z);
-  fs_mul(s1, s1, z2z2);
-  fs_mul(s2, q.Y, p.Z);
-  fs_mul(s2, s2, z1z1);
-  fs_sub(h, u2, u1);
-  fs_sub(rr, s2, s1);
-  if (fs_iszero(h)) {
-    if (fs_iszero(rr)) {
-      jpt d;
-      jac_dbl(d, p);
-      jac_copy(r, d);
-    } else {
-      jac_set_inf(r);
-    }
-    return;
-  }
-  fs_add(rr, rr, rr);
-  fs_add(t, p.Z, q.Z);
-  fs_sqr(t, t);
-  fs_sub(t, t, z1z1);
-  fs_sub(t, t, z2z2);
-  fs_mul(t, t, h);            // Z3 = ((Z1 + Z2)^2 - Z1Z1 - Z2Z2) H
-  jac_add_tail(r, u1, s1, h, rr, t);
-}
-
-// Complete mixed addition r = p + (x2, y2) for an affine point (Z2 = 1;
-// r may alias p): madd-2007-bl, 7 multiplies and 4 squarings, with the
-// same degenerate branches.
-FS_DEV void jac_madd(jpt &r, const jpt &p, const fs x2, const fs y2) {
-  if (fs_iszero(p.Z)) {
-    fs_copy(r.X, x2);
-    fs_copy(r.Y, y2);
-    fs_set_small(r.Z, 1);
-    return;
-  }
-  fs z1z1, u2, s2, h, rr, t;
-  fs_sqr(z1z1, p.Z);
-  fs_mul(u2, x2, z1z1);
-  fs_mul(s2, y2, p.Z);
-  fs_mul(s2, s2, z1z1);
-  fs_sub(h, u2, p.X);
-  fs_sub(rr, s2, p.Y);
-  if (fs_iszero(h)) {
-    if (fs_iszero(rr)) {
-      jpt d;
-      jac_dbl(d, p);
-      jac_copy(r, d);
-    } else {
-      jac_set_inf(r);
-    }
-    return;
-  }
-  fs_add(rr, rr, rr);
-  fs_add(t, p.Z, h);
-  fs_sqr(t, t);
-  fs_sub(t, t, z1z1);
-  fs_sqr(s2, h);
-  fs_sub(t, t, s2);           // Z3 = (Z1 + H)^2 - Z1Z1 - HH = 2 Z1 H
-  fs u1, s1;
-  fs_copy(u1, p.X);
-  fs_copy(s1, p.Y);
-  jac_add_tail(r, u1, s1, h, rr, t);
-}
-
-// ---------------------------------------------------------------------------
-// one BIP-340 verdict: kernel S1's body (the kernel runs it one signature a
-// thread; tests/test_torch_secp.py runs it under g++ on the host)
-// ---------------------------------------------------------------------------
 
 // nibble i, most significant first (i = 0..63), of a 256-bit value
-FS_DEV int fs_nibble_msb(const fs w, int i) {
+FS_DEV int fs_nibble_msb(const uint32_t w[8], int i) {
   int b = 63 - i;
   return (int)((w[b >> 3] >> ((b & 7) * 4)) & 15u);
-}
-
-// word w of table entry j lives at tab[(24 j + w) * stride]
-FS_DEV void tab_store(uint32_t *tab, int stride, int j, const jpt &p) {
-  uint32_t *e = tab + 24 * j * stride;
-  for (int i = 0; i < 8; i++) {
-    e[i * stride] = p.X[i];
-    e[(8 + i) * stride] = p.Y[i];
-    e[(16 + i) * stride] = p.Z[i];
-  }
-}
-
-FS_DEV void tab_load(jpt &p, const uint32_t *tab, int stride, int j) {
-  const uint32_t *e = tab + 24 * j * stride;
-  for (int i = 0; i < 8; i++) {
-    p.X[i] = e[i * stride];
-    p.Y[i] = e[(8 + i) * stride];
-    p.Z[i] = e[(16 + i) * stride];
-  }
-}
-
-// The verdict of one signature.
-//   load  a callable load(k, w) that fills the 8 little-endian words of
-//         input k (0 px, 1 rx, 2 s, 3 e), each any value below 2^256; it
-//         is called where the value is needed, so that nothing waits in a
-//         register (rx only at the end)
-//   g     jG, j = 0..15, affine x then y (16 x 16 words; entry 0 unused)
-//   tab   the thread's table scratch (16 x 24 words at `stride`)
-// lift_x(px) with even y (a non-square x^3 + 7 rejects); R' = [s]G +
-// [e](-P), 64 steps of 4 doublings, a mixed add of G's entry and a
-// complete add of -P's, a zero digit skipping its add; accept iff R' is
-// finite, x(R') = rx mod p and y(R') is even.
-template <class L>
-FS_DEV bool secp_verify1(L load, const uint32_t *g, uint32_t *tab,
-                         int stride) {
-  jpt np;
-  bool ok;
-  {
-    fs c, y, t;
-    load(0, np.X);
-    fs_reduce_once(np.X);
-    fs_sqr(t, np.X);
-    fs_mul(c, t, np.X);
-    fs_set_small(t, 7);
-    fs_add(c, c, t);
-    fs_sqrt(y, c);
-    fs_sqr(t, y);
-    ok = fs_eq(t, c);
-    if (y[0] & 1) fs_neg(y, y);
-    fs_neg(np.Y, y);
-    fs_set_small(np.Z, 1);
-  }
-  {
-    jpt acc;
-    tab_store(tab, stride, 1, np);
-    jac_dbl(acc, np);
-    tab_store(tab, stride, 2, acc);
-#pragma unroll 1
-    for (int j = 3; j < 16; j++) {
-      tab_load(np, tab, stride, 1);
-      jac_add(acc, acc, np);
-      tab_store(tab, stride, j, acc);
-    }
-  }
-  jpt acc;
-  {
-    fs sw, ew;
-    load(2, sw);
-    load(3, ew);
-    jac_set_inf(acc);
-#pragma unroll 1
-    for (int i = 0; i < 64; i++) {
-#pragma unroll 1
-      for (int k = 0; k < 4; k++) jac_dbl(acc, acc);
-      int ds = fs_nibble_msb(sw, i);
-      if (ds) {
-        fs gx, gy;
-        for (int w = 0; w < 8; w++) {
-          gx[w] = g[16 * ds + w];
-          gy[w] = g[16 * ds + 8 + w];
-        }
-        jac_madd(acc, acc, gx, gy);
-      }
-      int de = fs_nibble_msb(ew, i);
-      if (de) {
-        jpt q;
-        tab_load(q, tab, stride, de);
-        jac_add(acc, acc, q);
-      }
-    }
-  }
-  bool fin = !fs_iszero(acc.Z);
-  fs zi, zz, x, rx;
-  fs_invert(zi, acc.Z);
-  fs_sqr(zz, zi);
-  fs_mul(x, acc.X, zz);
-  fs_mul(zz, zz, zi);
-  fs_mul(acc.Y, acc.Y, zz);
-  load(1, rx);
-  fs_reduce_once(rx);
-  return ok && fin && fs_eq(x, rx) && !(acc.Y[0] & 1);
 }

@@ -32,79 +32,35 @@
 // SM).  The decode runs on all four lanes in one instruction stream: lane
 // 1 decodes R while lanes 0, 2 and 3 decode A, each parking s across the
 // square-root power.  The check needs no inversion: lanes 0-3 form the
-// four cross products of the ristretto equality, one multiply each.  This
-// file copies ed25519_verify.cu's group primitive and launch helpers
-// rather than sharing them, so that K1-K3's sources and build stay as
-// they are.
+// four cross products of the ristretto equality, one multiply each.  The
+// group primitive and the launch helpers are K1's (ed25519_verify.cu),
+// shared with S1 through group4.cuh.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "fe25519.cuh"
+#include "group4.cuh"
 #include "launch.cuh"
 #include "ristretto4.cuh"
 #include "verify4.cuh"
 
-#define THREADS 128                 // 32 signatures a block
-#define GROUPS (THREADS / 4)
+#define THREADS G4_THREADS          // 32 signatures a block
+#define GROUPS G4_GROUPS
 #define MIN_BLOCKS 4                // -> at most 128 registers a thread
 
-// dynamic shared memory of a block: the table of B, then each group's
-// V4_SIG_WORDS
-extern __shared__ int32_t smem[];
+// dynamic shared memory of a block (group4.cuh's smem): the table of B,
+// then each group's V4_SIG_WORDS
 #define VERIFY_SMEM_BYTES ((9 * 3 * 10 + GROUPS * V4_SIG_WORDS) * 4)
 
-__device__ __forceinline__ unsigned tid_again() {
-  unsigned v;
-  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(v));
-  return v;
-}
-__device__ __forceinline__ unsigned ctaid_again() {
-  unsigned v;
-  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(v));
-  return v;
-}
-
-// the group primitive of verify4.cuh on the card (ed25519_verify.cu's)
-struct ShflXch {
-  int slot;
-  __device__ __forceinline__ explicit ShflXch(unsigned tid)
-      : slot(9 * 3 * 10 + (int)(tid >> 2) * V4_SIG_WORDS + 10 * (int)(tid & 3)) {}
-  __device__ __forceinline__ int lane() const {
-    return ((slot - 9 * 3 * 10) % V4_SIG_WORDS) / 10;
-  }
-  __device__ __forceinline__ int32_t get(int32_t v, int src) const {
-    return __shfl_sync(0xFFFFFFFFu, v, src, 4);
-  }
-  __device__ __forceinline__ void sync() const { __syncwarp(); }
-  __device__ __forceinline__ int32_t *scratch() const {
-    return smem + slot - 10 * lane();
-  }
-};
-
-__device__ __forceinline__ void load_base(int32_t *s_base,
-                                          const int32_t *__restrict__ tab) {
-#pragma unroll
-  for (int k = 0; k < (9 * 3 * 10 + THREADS - 1) / THREADS; k++) {
-    int i = threadIdx.x + THREADS * k;
-    if (i < 9 * 3 * 10) s_base[i] = tab[i];
-  }
-  __syncthreads();
-}
-
-__device__ __forceinline__ int64_t sig_index() {
-  return ((int64_t)ctaid_again() * THREADS + tid_again()) >> 2;
-}
-__device__ __forceinline__ int64_t load_index(int64_t B) {
-  int64_t sig = sig_index();
-  return sig < B ? sig : B - 1;
-}
+// the group primitive of verify4.cuh on the card (K1's)
+typedef ShflXch<9 * 3 * 10, V4_SIG_WORDS, 10> Xch;
 
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 k_sr25519_verify(const uint8_t *__restrict__ in, int64_t B,
                  const int32_t *__restrict__ base_tab,
                  uint8_t *__restrict__ out) {
-  load_base(smem, base_tab);
-  ShflXch x(tid_again());
+  load_base<9 * 3 * 10>(smem, base_tab);
+  Xch x(tid_again());
   auto enc = [&](uint32_t w[8]) {
     load_lane32(w, in + (x.lane() == 1 ? 32 * B : 0), B, load_index(B));
   };

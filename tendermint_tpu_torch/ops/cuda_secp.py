@@ -7,9 +7,10 @@ wrapper verify_rows takes lane-major (128, B) uint8 rows px | rx | s | e,
 each 32 bytes big-endian (ops/secp.stage, transposed), and returns a (B,)
 bool verdict tensor on the input's device.  For a CUDA tensor it launches
 the hand-written kernel of csrc/secp256k1_verify.cu (one signature per
-thread, the body secp_verify1 in csrc/fe_secp.cuh; built with nvcc for
-sm_90a on first use, cached by source hash under the package's _build/
-directory, loaded with ctypes) or raises; for a CPU tensor it runs the
+group of four lanes, the body secp_verify4 in csrc/secp4.cuh over the
+field of csrc/fe_secp.cuh; built with nvcc for sm_90a on first use,
+cached by source hash under the package's _build/ directory, loaded with
+ctypes) or raises; for a CPU tensor it runs the
 plain PyTorch version (verify_rows_plain: ops/secp._verify_core over
 ops/field_secp.py, the JAX package's formulas).
 
@@ -31,7 +32,8 @@ from . import _nvcc
 from . import field_secp as FS
 
 SOURCES = tuple(os.path.join(_nvcc.CSRC_DIR, f) for f in (
-    "fe_secp.cuh", "launch.cuh", "secp256k1_verify.cu"))
+    "fe_secp.cuh", "group4.cuh", "launch.cuh", "secp4.cuh",
+    "secp256k1_verify.cu"))
 
 # ---------------------------------------------------------------------------
 # work per signature, for the bound (the kernel's own formulas, see the

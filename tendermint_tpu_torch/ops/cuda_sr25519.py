@@ -28,8 +28,8 @@ from . import cuda_ed25519 as ck
 from . import field as F
 
 SOURCES = tuple(os.path.join(_nvcc.CSRC_DIR, f) for f in (
-    "fe25519.cuh", "launch.cuh", "verify4.cuh", "ristretto4.cuh",
-    "sr25519_verify.cu"))
+    "fe25519.cuh", "group4.cuh", "launch.cuh", "verify4.cuh",
+    "ristretto4.cuh", "sr25519_verify.cu"))
 
 # ---------------------------------------------------------------------------
 # work per signature, for the bound, counted one lane at a time as K1's

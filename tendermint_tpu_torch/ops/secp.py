@@ -3,7 +3,7 @@
 The counterpart of tendermint_tpu/ops/secp.py.  The host stages each
 signature (range screens, the BIP-340 tagged-hash challenge) and kernel S1
 (ops/cuda_secp.py, csrc/secp256k1_verify.cu) computes the verdicts, one
-signature per thread: lift_x(P) with even y, R' = [s]G + [e](-P) by a
+signature per group of four lanes: lift_x(P) with even y, R' = [s]G + [e](-P) by a
 64-step unsigned radix-16 Straus ladder with complete Jacobian additions,
 then R' finite, y(R') even and x(R') = r.
 

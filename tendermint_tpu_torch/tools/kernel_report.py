@@ -1,11 +1,14 @@
 """SASS report of the port's kernels as built for the card: opcode counts
-per kernel of the verify kernels (K1, K2, K3) and of the MSM kernels (K4,
-K5, A1), with the instructions of each loop body (each backward branch's
-span, longest first: K5's are a tree round and a madd step, K4's one
-square of its power chain), from cuobjdump -sass of the built libraries;
-and the instructions of one field multiply and one square (a probe kernel
-built from the same csrc/fe25519.cuh), and of K4's own (fe_mul2, fe_sq2
-of csrc/decompress.cuh) where the checkout has them.
+per kernel of the verify kernels (K1, K2, K3), of the MSM kernels (K4,
+K5, A1) and of the secp256k1 and sr25519 kernels (S1, S2), with the
+instructions of each loop body (each backward branch's span, longest
+first: K5's are a tree round and a madd step, K4's one square of its
+power chain), from cuobjdump -sass of the built libraries; and the
+instructions of one field multiply and one square (a probe kernel built
+from the same csrc/fe25519.cuh), of K4's own (fe_mul2, fe_sq2 of
+csrc/decompress.cuh) and of S1's (fs_mul, fs_sqr of csrc/fe_secp.cuh and
+its four-lane mixed add jac_madd4 of csrc/secp4.cuh) where the checkout
+has them.
 
     python3 tendermint_tpu_torch/tools/kernel_report.py [--root DIR]
 
@@ -67,6 +70,50 @@ __global__ void k_probe_sq2(const int32_t *a, const int32_t *b, int32_t *o) {
 }
 """
 
+# S1's multiply, square and four-lane mixed add (csrc/fe_secp.cuh,
+# csrc/secp4.cuh), the same way; the madd's exchange is the kernel's
+# (group4.cuh's GroupXch over dynamic shared memory)
+_PROBE3 = r"""
+#include "fe_secp.cuh"
+__global__ void k_probe_s_copy(const uint32_t *a, const uint32_t *b, uint32_t *o) {
+  fs f; for (int i = 0; i < 8; i++) f[i] = a[8 * threadIdx.x + i] + b[i];
+  for (int i = 0; i < 8; i++) o[8 * threadIdx.x + i] = f[i];
+}
+__global__ void k_probe_s_mul(const uint32_t *a, const uint32_t *b, uint32_t *o) {
+  fs f, g, h;
+  for (int i = 0; i < 8; i++) f[i] = a[8 * threadIdx.x + i], g[i] = b[i];
+  fs_mul(h, f, g);
+  for (int i = 0; i < 8; i++) o[8 * threadIdx.x + i] = h[i];
+}
+__global__ void k_probe_s_sqr(const uint32_t *a, const uint32_t *b, uint32_t *o) {
+  fs f, h;
+  for (int i = 0; i < 8; i++) f[i] = a[8 * threadIdx.x + i] + b[i];
+  fs_sqr(h, f);
+  for (int i = 0; i < 8; i++) o[8 * threadIdx.x + i] = h[i];
+}
+"""
+_PROBE4 = r"""
+#include "group4.cuh"
+#include "secp4.cuh"
+__global__ void k_probe_p_copy(const uint32_t *a, const uint32_t *b, uint32_t *o) {
+  jpt p;
+  for (int i = 0; i < 8; i++) p.X[i] = a[24 * threadIdx.x + i],
+      p.Y[i] = a[24 * threadIdx.x + 8 + i], p.Z[i] = a[24 * threadIdx.x + 16 + i];
+  GroupXch<16, 24> x(threadIdx.x);
+  for (int i = 0; i < 8; i++) o[24 * threadIdx.x + i] = p.X[i] + x.lane(),
+      o[24 * threadIdx.x + 8 + i] = p.Y[i], o[24 * threadIdx.x + 16 + i] = p.Z[i];
+}
+__global__ void k_probe_p_madd(const uint32_t *a, const uint32_t *b, uint32_t *o) {
+  jpt p;
+  for (int i = 0; i < 8; i++) p.X[i] = a[24 * threadIdx.x + i],
+      p.Y[i] = a[24 * threadIdx.x + 8 + i], p.Z[i] = a[24 * threadIdx.x + 16 + i];
+  GroupXch<16, 24> x(threadIdx.x);
+  jac_madd4(x, p, b);
+  for (int i = 0; i < 8; i++) o[24 * threadIdx.x + i] = p.X[i] + x.lane(),
+      o[24 * threadIdx.x + 8 + i] = p.Y[i], o[24 * threadIdx.x + 16 + i] = p.Z[i];
+}
+"""
+
 _SASS_LINE = re.compile(
     r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)")
 _SELECTED = ("IMAD.WIDE", "IMAD.WIDE.U32", "IMAD", "IMAD.HI", "IMAD.X",
@@ -121,24 +168,39 @@ def _summary(c: collections.Counter) -> dict:
             "selected": {k: c[k] for k in _SELECTED if c.get(k)}}
 
 
-def probe_counts(csrc: str, build_dir: str) -> dict:
-    src = os.path.join(build_dir, "probe_fe.cu")
-    cubin = os.path.join(build_dir, "probe_fe.cubin")
-    names = ["mul", "sq"]
-    text = _PROBE
-    if os.path.exists(os.path.join(csrc, "decompress.cuh")):
-        names += ["mul2", "sq2"]
-        text += _PROBE2
+def _probe(csrc: str, build_dir: str, tag: str, text: str) -> dict:
+    """Build a probe source for the card; the SASS counts of its kernels."""
+    src = os.path.join(build_dir, f"probe_{tag}.cu")
+    cubin = os.path.join(build_dir, f"probe_{tag}.cubin")
     with open(src, "w") as f:
         f.write(text)
     _run(["nvcc", "-cubin", "-gencode", "arch=compute_90a,code=sm_90a",
           "-O3", "-std=c++17", "-I", csrc, "-o", cubin, src])
-    c, _ = sass_counts(cubin)
+    return sass_counts(cubin)[0]
+
+
+def probe_counts(csrc: str, build_dir: str) -> dict:
+    """{op: SASS summary} of each probed operation: its probe kernel less
+    the probe kernel that only loads and stores."""
+    # (source, {reported name: (probe kernel, its load-and-store kernel)})
+    probes = []
+    ops = {"fe_mul": ("mul", "copy"), "fe_sq": ("sq", "copy")}
+    text = _PROBE
+    if os.path.exists(os.path.join(csrc, "decompress.cuh")):
+        ops.update(fe_mul2=("mul2", "copy"), fe_sq2=("sq2", "copy"))
+        text += _PROBE2
+    probes.append(("fe", text, ops))
+    if os.path.exists(os.path.join(csrc, "secp4.cuh")):
+        probes.append(("fs", _PROBE3 + _PROBE4, {
+            "fs_mul": ("s_mul", "s_copy"), "fs_sqr": ("s_sqr", "s_copy"),
+            "jac_madd4": ("p_madd", "p_copy")}))
     out = {}
-    for name in names:
-        d = collections.Counter(c[f"k_probe_{name}"])
-        d.subtract(c["k_probe_copy"])
-        out[f"fe_{name}"] = _summary(+d)
+    for tag, text, ops in probes:
+        c = _probe(csrc, build_dir, tag, text)
+        for name, (kernel, copy) in ops.items():
+            d = collections.Counter(c[f"k_probe_{kernel}"])
+            d.subtract(c[f"k_probe_{copy}"])
+            out[name] = _summary(+d)
     return out
 
 
@@ -149,13 +211,17 @@ def main() -> None:
     sys.path.insert(0, root)
     from tendermint_tpu_torch.ops import cuda_ed25519 as ck
     from tendermint_tpu_torch.ops import cuda_msm as cm
+    from tendermint_tpu_torch.ops import cuda_secp as cs1
+    from tendermint_tpu_torch.ops import cuda_sr25519 as cs2
     if not ck.__file__.startswith(root + os.sep):
         sys.exit(f"kernel_report: imported {ck.__file__}, not from {root}")
     kernels = {}
     for mod, names in ((ck, ("k_verify_packed", "k_verify_packed_split",
                              "k_verify_staged")),
                        (cm, ("k_decompress_niels", "k_bucket_scan",
-                             "k_aggregate"))):
+                             "k_aggregate")),
+                       (cs1, ("k_secp_verify",)),
+                       (cs2, ("k_sr25519_verify",))):
         so = mod.build()
         sass, loops = sass_counts(so)
         for name in names:

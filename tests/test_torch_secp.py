@@ -3,12 +3,16 @@
 for limb (the JAX functions run eager), the host staging, the keys, the
 plain S1 core against the JAX package's host oracles (crypto/secp256k1 and
 native.secp_verify) on the adversarial set, the port's native lane, and
-kernel S1's body (csrc/fe_secp.cuh) compiled with g++ and run on the host
-against the plain version (raw bitmaps, degenerate additions included) and
-its field against the JAX field's values.  Inputs are made from seeds; the
-comparisons are exact.  The plain core against the JAX _verify_core costs
-an XLA compile of the 64-step complete-add ladder (tens of seconds on a
-CPU) and is marked slow, as the JAX package's own lane test is."""
+kernel S1's four-lane body (csrc/secp4.cuh over csrc/fe_secp.cuh)
+compiled with g++ and run on four host threads that meet at a barrier
+where the card's lanes shuffle: its round-split doubling and additions
+against the JAX group law, its verdicts against the plain version and
+the JAX _verify_core (raw bitmaps, degenerate additions included), and
+its field, the square included, against the JAX field's values.  Inputs
+are made from seeds; the comparisons are exact.  The JAX _verify_core
+costs an XLA compile of the 64-step complete-add ladder (tens of seconds
+on a CPU), made once for the module; the plain core against it is marked
+slow, as the JAX package's own lane test is."""
 from __future__ import annotations
 
 import ctypes
@@ -72,9 +76,26 @@ def field_pairs():
 
 @pytest.mark.parametrize("op", [
     "mul", "sqr", "carry", "carry_lazy", "freeze", "eq", "is_zero", "is_odd",
-    "mul_small", "select", "invert", "sqrt"])
-def test_field_ops_limb_for_limb(field_pairs, op):
+    "mul_small", "select", "invert", "sqrt", "fs_sqr"])
+def test_field_ops_limb_for_limb(field_pairs, op, request):
+    """The plain field against the JAX field limb for limb; "fs_sqr": S1's
+    square (csrc/fe_secp.cuh under g++) against the JAX square's values and
+    fs_mul(a, a)."""
     a, b = field_pairs
+    if op == "fs_sqr":
+        lib = request.getfixturevalue("harness")
+        n = a.shape[1]
+        vals = [JF.limbs_to_int(a[:, i]) for i in range(n)]
+        enc = np.ascontiguousarray(np.stack([np.frombuffer(
+            v.to_bytes(32, "little"), np.uint8) for v in vals]))
+        out = np.zeros((8, n, 32), np.uint8)
+        lib.s1_field(enc.ctypes.data, enc.ctypes.data, out.ctypes.data, n)
+        want = np.asarray(JF.freeze(JF.sqr(jnp.asarray(a))))
+        assert [int.from_bytes(out[2, i].tobytes(), "little")
+                for i in range(n)] == [JF.limbs_to_int(want[:, i])
+                                       for i in range(n)]
+        assert np.array_equal(out[2], out[7])
+        return
     ja, jb = jnp.asarray(a), jnp.asarray(b)
     ta, tb = torch.from_numpy(a.astype(np.int64)), \
         torch.from_numpy(b.astype(np.int64))
@@ -142,22 +163,62 @@ def group_cases():
     return want_add, got_add, want_dbl, got_dbl, left, right
 
 
-def test_add_and_dbl_limb_for_limb(group_cases):
-    want_add, got_add, want_dbl, got_dbl, _, _ = group_cases
+def _jax_ints(pt):
+    """A JAX Jac of (NLIMB, n) limbs -> per point, its (x, y, z) ints."""
+    cols = [np.asarray(JF.freeze(c)) for c in pt]
+    return [tuple(JF.limbs_to_int(c[:, i]) for c in cols)
+            for i in range(cols[0].shape[1])]
+
+
+def test_add_and_dbl_limb_for_limb(group_cases, harness):
+    """The plain dbl and complete add limb for limb, and S1's round-split
+    jac_dbl4 and jac_add4 on the host group (every lane) as canonical
+    values, against the JAX functions: generic, P = Q, P = -Q, infinity."""
+    want_add, got_add, want_dbl, got_dbl, left, right = group_cases
     for w, g in zip(want_add + want_dbl, got_add + got_dbl):
         assert np.array_equal(g.numpy(), np.asarray(w).astype(np.int64))
+    for op, want in ((0, want_dbl), (1, want_add)):
+        got = group4(harness, op, left, right)
+        assert [lanes[0] for lanes in got] == _jax_ints(want)
+        assert all(len(set(lanes)) == 1 for lanes in got)
 
 
-def test_add_is_the_group_law(group_cases):
-    """The complete add on the degenerate pairs: P + P = 2P, P + (-P) and
-    infinity + infinity are infinity, P + infinity = P."""
+def test_add_is_the_group_law(group_cases, harness):
+    """The complete add on the degenerate pairs, plain and round-split:
+    P + P = 2P, P + (-P) and infinity + infinity are infinity, P +
+    infinity = P."""
     _, got, _, _, left, right = group_cases
     zs = [TF.limbs_to_int(TF.freeze(got.z)[:, i].numpy()) % P
           for i in range(len(left))]
+    four = [lanes[0] for lanes in group4(harness, 1, left, right)]
     n = 8
-    assert all(zs[i] == 0 for i in range(n, 2 * n))       # P + (-P)
-    assert zs[3 * n + 1] == 0                             # inf + inf
-    assert all(zs[i] != 0 for i in range(n))              # P + P
+    for z in (zs, [p[2] for p in four]):
+        assert all(z[i] == 0 for i in range(n, 2 * n))       # P + (-P)
+        assert z[3 * n + 1] == 0                             # inf + inf
+        assert all(z[i] != 0 for i in range(n))              # P + P
+    dbl = group4(harness, 0, left[:n], left[:n])
+    assert four[:n] == [lanes[0] for lanes in dbl]           # P + P = 2P
+    assert four[3 * n + 2:] == left[3 * n + 2:]              # P + inf = P
+
+
+def test_group_madd_matches_the_jax_add(group_cases, harness):
+    """S1's round-split mixed add jac_madd4 (Q affine) on the host group
+    against the JAX complete add with Z2 = 1: generic, P = Q, P = -Q and
+    an infinity P."""
+    _, _, _, _, left, right = group_cases
+    pairs = [(p, q) for p, q in zip(left, right) if q[2] % P]
+    ps = [p for p, _ in pairs]
+    qs = []
+    for _, (x, y, z) in pairs:
+        zi = pow(z, P - 2, P)
+        qs.append((x * zi * zi % P, y * zi ** 3 % P, 1))
+    lim = lambda pts, k: jnp.asarray(_cols([p[k] for p in pts]))  # noqa
+    want = jsecp.add(jsecp.Jac(*(lim(ps, k) for k in range(3))),
+                     jsecp.Jac(*(lim(qs, k) for k in range(3))))
+    got = group4(harness, 2, ps, qs)
+    assert [lanes[0] for lanes in got] == _jax_ints(want)
+    assert all(len(set(lanes)) == 1 for lanes in got)
+    assert any(p[2] == 0 for p in ps)
 
 
 # ---------------------------------------------------------------------------
@@ -301,29 +362,110 @@ def test_native_secp_lane_matches_the_jax_package(lane_cases):
 
 
 HARNESS = r"""
+#include <atomic>
+#include <cstring>
+#include <thread>
+#include <vector>
+
 #include "fe_secp.cuh"
-extern "C" {
-// rows (n, 128) row-major, px | rx | s | e big-endian; g: 256 words
-void s1_verify(const uint8_t *rows, const uint32_t *g, uint8_t *out,
-               int n) {
-  uint32_t tab[16 * 24];
-  for (int i = 0; i < n; i++) {
-    const uint8_t *r = rows + 128 * i;
-    auto load = [&](int k, fs w) {
-      for (int q = 0; q < 8; q++) {
-        uint32_t v = 0;
-        for (int b = 0; b < 4; b++)
-          v |= (uint32_t)r[32 * k + 31 - 4 * q - b] << (8 * b);
-        w[q] = v;
-      }
-    };
-    out[i] = secp_verify1(load, g, tab, 1);
+#include "secp4.cuh"
+
+struct Barrier {
+  std::atomic<int> count{0}, gen{0};
+  void wait() {
+    int g = gen.load();
+    if (count.fetch_add(1) == 3) {
+      count.store(0);
+      gen.fetch_add(1);
+    } else {
+      while (gen.load() == g) std::this_thread::yield();
+    }
   }
+};
+
+struct Group {
+  Barrier bar;
+  uint32_t word[4][8];
+  uint32_t tab[S4_SIG_WORDS];
+};
+
+// the group primitives of secp4.cuh: a barrier in place of the shuffles
+struct HostXch {
+  int t;
+  Group *g;
+  int lane() const { return t; }
+  void get8(uint32_t out[8], const uint32_t v[8], int src) {
+    memcpy(g->word[t], v, 32);
+    g->bar.wait();
+    memcpy(out, g->word[src], 32);
+    g->bar.wait();
+  }
+  void sync() { g->bar.wait(); }
+  uint32_t *scratch() { return g->tab; }
+};
+
+// f(x) on the four lanes of one group, each on its own thread
+template <class F>
+static void on_four(F f) {
+  Group g;
+  std::vector<std::thread> lanes;
+  for (int t = 0; t < 4; t++)
+    lanes.emplace_back([&, t] {
+      HostXch x{t, &g};
+      f(x);
+    });
+  for (auto &th : lanes) th.join();
 }
-// the field ops of fe_secp_selftest (secp256k1_verify.cu)
+
+extern "C" {
+// rows (n, 128) row-major, px | rx | s | e big-endian; g: 256 words;
+// out (n, 4): the verdict of each lane of the group
+void s1_verify4(const uint8_t *rows, const uint32_t *g, uint8_t *out,
+                int n) {
+  on_four([&](HostXch &x) {
+    for (int i = 0; i < n; i++) {
+      const uint8_t *r = rows + 128 * i;
+      auto load = [&](int k, fs w) {
+        for (int q = 0; q < 8; q++) {
+          uint32_t v = 0;
+          for (int b = 0; b < 4; b++)
+            v |= (uint32_t)r[32 * k + 31 - 4 * q - b] << (8 * b);
+          w[q] = v;
+        }
+      };
+      out[4 * i + x.t] = secp_verify4(x, load, g);
+    }
+  });
+}
+// one group operation: op 0 jac_dbl4, 1 jac_add4, 2 jac_madd4.  in (n, 6,
+// 8) words: P's X, Y, Z, then Q's X, Y, Z (jac_madd4 reads Q's X and Y as
+// an affine point); out (n, 4, 3, 8): each lane's X, Y, Z
+void s1_group4(int op, const uint32_t *in, uint32_t *out, int n) {
+  on_four([&](HostXch &x) {
+    for (int i = 0; i < n; i++) {
+      jpt p;
+      fs_load(p.X, in + 48 * i);
+      fs_load(p.Y, in + 48 * i + 8);
+      fs_load(p.Z, in + 48 * i + 16);
+      const uint32_t *q = in + 48 * i + 24;
+      if (op == 0)
+        jac_dbl4(x, p);
+      else if (op == 1)
+        jac_add4(x, p, q);
+      else
+        jac_madd4(x, p, q);
+      uint32_t *o = out + 24 * (4 * i + x.t);
+      memcpy(o, p.X, 32);
+      memcpy(o + 8, p.Y, 32);
+      memcpy(o + 16, p.Z, 32);
+    }
+  });
+}
+// the field ops of fe_secp_selftest (secp256k1_verify.cu), and an eighth:
+// a a by fs_mul, which fs_sqr must equal
 void s1_field(const uint8_t *a, const uint8_t *b, uint8_t *out, int n) {
   for (int i = 0; i < n; i++) {
-    fs fa, fb, r[7];
+    fs fa, fb, r[8];
     for (int q = 0; q < 8; q++) {
       uint32_t va = 0, vb = 0;
       for (int k = 0; k < 4; k++) {
@@ -342,7 +484,8 @@ void s1_field(const uint8_t *a, const uint8_t *b, uint8_t *out, int n) {
     fs_sub(r[4], fa, fb);
     fs_invert(r[5], fa);
     fs_sqrt(r[6], fa);
-    for (int k = 0; k < 7; k++)
+    fs_mul(r[7], fa, fa);
+    for (int k = 0; k < 8; k++)
       for (int q = 0; q < 32; q++)
         out[(k * n + i) * 32 + q] = (uint8_t)(r[k][q >> 2] >> (8 * (q & 3)));
   }
@@ -360,32 +503,63 @@ def harness(tmp_path_factory):
     d = tmp_path_factory.mktemp("s1")
     src, so = d / "s1.cpp", d / "s1.so"
     src.write_text(HARNESS)
-    r = subprocess.run([cxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-I",
-                        CSRC, "-o", str(so), str(src)],
+    r = subprocess.run([cxx, "-O2", "-std=c++17", "-pthread", "-shared",
+                        "-fPIC", "-I", CSRC, "-o", str(so), str(src)],
                        capture_output=True, text=True, timeout=600)
     assert r.returncode == 0, r.stderr
     lib = ctypes.CDLL(str(so))
     vp = ctypes.c_void_p
-    lib.s1_verify.argtypes = [vp, vp, vp, ctypes.c_int]
+    lib.s1_verify4.argtypes = [vp, vp, vp, ctypes.c_int]
+    lib.s1_group4.argtypes = [ctypes.c_int, vp, vp, ctypes.c_int]
     lib.s1_field.argtypes = [vp, vp, vp, ctypes.c_int]
     return lib
 
 
-def test_s1_body_on_the_host_matches_plain(harness, lane_cases):
-    """S1's body (secp_verify1 under g++) gives the plain version's raw
-    bitmap on every lane: adversarial, sweep and degenerate rows."""
-    _, _, _, raw, plain = lane_cases
+def _words(vals):
+    """ints below 2^256 -> (n, 8) uint32 little-endian words."""
+    return np.stack([np.frombuffer(v.to_bytes(32, "little"), np.uint32)
+                     for v in vals])
+
+
+def group4(lib, op, ps, qs):
+    """One jac_dbl4 (op 0), jac_add4 (1) or jac_madd4 (2) of each (p, q) of
+    Python-int triples on the host group -> per pair, the (X, Y, Z) ints
+    of the four lanes."""
+    n = len(ps)
+    inp = np.ascontiguousarray(np.concatenate(
+        [_words([p[k] for p in ps]) for k in range(3)]
+        + [_words([q[k] for q in qs]) for k in range(3)], axis=1))
+    out = np.zeros((n, 4, 3, 8), np.uint32)
+    lib.s1_group4(op, inp.ctypes.data, out.ctypes.data, n)
+    return [[tuple(int.from_bytes(out[i, t, k].tobytes(), "little")
+                   for k in range(3)) for t in range(4)] for i in range(n)]
+
+
+def verify4(lib, raw):
+    """S1's four-lane body on the host: (n, 128) raw rows -> (n, 4) uint8,
+    each lane's verdict."""
     rows = np.ascontiguousarray(raw)
     g = np.ascontiguousarray(cuda_secp.g_table8().reshape(-1))
-    out = np.zeros(rows.shape[0], np.uint8)
-    harness.s1_verify(rows.ctypes.data, g.ctypes.data, out.ctypes.data,
-                      rows.shape[0])
-    assert out.astype(bool).tolist() == plain.tolist()
+    out = np.zeros((rows.shape[0], 4), np.uint8)
+    lib.s1_verify4(rows.ctypes.data, g.ctypes.data, out.ctypes.data,
+                   rows.shape[0])
+    return out
+
+
+def test_s1_body_on_the_host_matches_plain(harness, lane_cases):
+    """S1's body (secp_verify4 on four host threads) gives the plain
+    version's raw bitmap on every lane, adversarial, sweep and degenerate
+    rows, and every lane of the group the same verdict."""
+    _, _, _, raw, plain = lane_cases
+    out = verify4(harness, raw)
+    assert (out == out[:, :1]).all()
+    assert out[:, 0].astype(bool).tolist() == plain.tolist()
 
 
 def test_s1_field_on_the_host_matches_the_jax_field(harness):
     """fe_secp.cuh's canonical results equal the JAX field's values, frozen,
-    on EDGE and seeded values (values up to 2^256 - 1 come in reduced)."""
+    on EDGE and seeded values (values up to 2^256 - 1 come in reduced);
+    fs_sqr equals fs_mul(a, a)."""
     rng = random.Random(3)
     vals = [v for v in EDGE if v < (1 << 256)] + \
         [rng.getrandbits(256) for _ in range(24)]
@@ -393,8 +567,9 @@ def test_s1_field_on_the_host_matches_the_jax_field(harness):
                   for v in vals])
     b = np.ascontiguousarray(a[::-1])
     n = len(vals)
-    out = np.zeros((7, n, 32), np.uint8)
+    out = np.zeros((8, n, 32), np.uint8)
     harness.s1_field(a.ctypes.data, b.ctypes.data, out.ctypes.data, n)
+    assert np.array_equal(out[2], out[7])
     ja = jnp.asarray(_cols(vals))
     jb = jnp.asarray(_cols(vals[::-1]))
     want = [JF.freeze(x) for x in (ja, JF.mul(ja, jb), JF.sqr(ja),
@@ -408,16 +583,32 @@ def test_s1_field_on_the_host_matches_the_jax_field(harness):
     # and the wrapper's plain version agrees byte for byte
     plain = cuda_secp.fe_secp_selftest(torch.from_numpy(a),
                                        torch.from_numpy(b))
-    assert np.array_equal(plain.numpy(), out)
+    assert np.array_equal(plain.numpy(), out[:7])
 
 
-@pytest.mark.slow
-def test_plain_s1_core_matches_the_jax_core(lane_cases):
-    """The plain core against the JAX _verify_core on the same raw rows
-    (an XLA compile of the whole ladder)."""
-    _, _, _, raw, plain = lane_cases
+@pytest.fixture(scope="module")
+def jax_core(lane_cases):
+    """The JAX _verify_core's raw bitmap on lane_cases (an XLA compile of
+    the whole ladder, ~100 s on a CPU)."""
+    raw = lane_cases[3]
     want = jsecp._verify_core(jnp.asarray(jsecp._limbs_of_be(raw[:, :32])),
                               jnp.asarray(jsecp._limbs_of_be(raw[:, 32:64])),
                               jnp.asarray(jsecp._nibbles_be(raw[:, 64:96])),
                               jnp.asarray(jsecp._nibbles_be(raw[:, 96:])))
-    assert np.asarray(want).tolist() == plain.tolist()
+    return np.asarray(want).tolist()
+
+
+def test_s1_body_on_the_host_matches_the_jax_core(harness, lane_cases,
+                                                  jax_core):
+    """S1's four-lane body on the host gives the JAX _verify_core's raw
+    bitmap on every lane of lane_cases, degenerate-add rows included."""
+    out = verify4(harness, lane_cases[3])
+    assert out[:, 0].astype(bool).tolist() == jax_core
+    assert any(jax_core) and not all(jax_core)
+
+
+@pytest.mark.slow
+def test_plain_s1_core_matches_the_jax_core(lane_cases, jax_core):
+    """The plain core against the JAX _verify_core on the same raw rows
+    (an XLA compile of the whole ladder)."""
+    assert jax_core == lane_cases[4].tolist()

@@ -6,9 +6,9 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
   0  the card: CUDA available, compute capability >= 9.0, nvidia-smi line
   1  build the kernels from csrc/ (nvcc, one process a source, side by
      side) and the host C (cc); registers, spills, stack and blocks per SM
-     of each verify kernel, of K4, K5 and A1, and of S1 and S2; S1 must
-     fit its design's 16 warps an SM (4 blocks of 128 threads), checked
-     after the report is written
+     of each verify kernel, of K4, K5 and A1, and of S1 and S2; S1 and S2
+     must each fit their design's 16 warps an SM (4 blocks of 128
+     threads), checked after the report is written
   2  field: the CUDA field arithmetic (fe_selftest) against the plain
      PyTorch field on the card, on edge values and seeded elements
   3  K1, K2 and K3 on adversarial vectors (R edge vectors of the
@@ -97,7 +97,9 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      5 and staging back to 0 after every phase; the 150-validator
      verify_commit with devobs off and on
  14  the secp256k1 and sr25519 lanes: S1's field (fe_secp_selftest)
-     against the plain field, its square also against fs_mul(a, a); S1
+     against the plain field, its square also against fs_mul(a, a); S2's
+     field (fe2_selftest: fe_mul2 both ways, fe_sq2 and the power chain
+     on them) against the plain field; S1
      and S2 against their plain versions (raw
      bitmaps) and, behind the host screens, the pure-Python oracles and
      the native C lanes: S1 on the adversarial set (s = 0, s >= N,
@@ -117,14 +119,14 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      its default size and at one worker).  A mixed 150-validator commit
      (50 of each scheme) through ValidatorSet.verify_commit: 10 walls,
      then one bad signature of each scheme named at its index; its S1
-     launch (64 lanes) against the plain version.  Drills:
+     and S2 launches (64 lanes) against their plain versions.  Drills:
      a raise at ops.secp/ops.sr25519.verify_batch re-verified on the host
      (exact bitmap); S1's and S2's wrappers raising outside a drill
      (DeviceLaneError, no host fallback); a clean pass after.  A mixed
      verify_items call through a VerifyScheduler on the card (launches
      at sched.secp256k1 and sched.sr25519).  S1's and S2's times at
-     2,048 and 65,536 lanes (S1 also at 64) beside their bounds and their
-     plain versions
+     64, 2,048 and 65,536 lanes beside their bounds and their plain
+     versions
  15  the kernels line; then the last line {"ok": true, "device": ...}
 
 Signatures come from a seeded incremental generator (a_i = a_0 + i, so
@@ -390,6 +392,12 @@ S1_BUILD = lane_build["k_secp_verify"]
 S1_WARPS_PER_SM = (S1_BUILD["blocks_per_sm"]
                    * S1_BUILD["threads_per_block"] // 32)
 log(phase=1, kernel="k_secp_verify", warps_per_sm=S1_WARPS_PER_SM)
+# S2's design (csrc/sr25519_verify.cu): the same shape, 128-thread
+# blocks, 4 an SM (16 warps) within 128 registers; checked at the end
+S2_BUILD = lane_build["k_sr25519_verify"]
+S2_WARPS_PER_SM = (S2_BUILD["blocks_per_sm"]
+                   * S2_BUILD["threads_per_block"] // 32)
+log(phase=1, kernel="k_sr25519_verify", warps_per_sm=S2_WARPS_PER_SM)
 
 # -- phase 2: field ---------------------------------------------------------
 
@@ -2050,6 +2058,25 @@ check(sqr_mism == 0, "S1's fs_sqr differs from fs_mul(a, a) or the plain "
       "square")
 lanes14["s1_field"] = dict(elements=len(vals_a), ops=7,
                            mismatches=fs_mism, sqr_vs_mul=sqr_mism)
+# S2's field (fe2_selftest: fe_mul2 both ways, fe_sq2, the power chain on
+# them) against the plain field, and against Python integers on the edge
+# values of phase 2
+vals_a = edge + [rng.randrange(1 << 255) for _ in range(4096)]
+vals_b = [rng.randrange(1 << 255) for _ in vals_a[:-len(edge)]] + edge
+fa, fb = to_u8(vals_a), to_u8(vals_b)
+got = cs2.fe2_selftest(fa, fb)
+want = cs2.fe2_selftest_plain(fa, fb)
+torch.cuda.synchronize()
+fe2_mism = int((got != want).any(-1).sum())
+for i, a in enumerate(vals_a[:len(edge)]):
+    a, b = a % (1 << 255), vals_b[i] % (1 << 255)
+    exp = [a % P, a * b % P, a * b % P, a * a % P, pow(a, (P - 5) // 8, P)]
+    for op in range(5):
+        g = int.from_bytes(got[op, i].cpu().numpy().tobytes(), "little")
+        check(g == exp[op], f"fe2_selftest op {op} on {hex(vals_a[i])}")
+log(phase=14, s2_field_elements=len(vals_a), ops=5, mismatches=fe2_mism)
+check(fe2_mism == 0, "S2's field differs from the plain field")
+lanes14["s2_field"] = dict(elements=len(vals_a), ops=5, mismatches=fe2_mism)
 
 # BASELINE config 5: 4,096 triples round-robined over ed25519, secp256k1
 # and sr25519 (scripts/bench_report.py's mixed shape: "mixed bench %6d"
@@ -2359,7 +2386,9 @@ for i, v in enumerate(vsetm.validators):
     sigsm[i].signature = signer[v.pub_key.bytes()](bytes(msgsm[i]))
 wm = []
 cs1.verify_rows = capture14("S1_150")
+cs2.verify_packed = capture14("S2_150")
 REAL14["S1_150"] = REAL14["S1"]
+REAL14["S2_150"] = REAL14["S2"]
 for rnd in range(11):
     cs1.reset_launches()
     cs2.reset_launches()
@@ -2369,6 +2398,7 @@ for rnd in range(11):
     w = time.perf_counter() - t
     if rnd == 0:
         cs1.verify_rows = REAL14["S1"]
+        cs2.verify_packed = REAL14["S2"]
     check(got["verify_packed"] == 1 and cs1.launches["verify_rows"] == 1
           and cs2.launches["verify_packed"] == 1,
           f"mixed 150 commit: K1 {got['verify_packed']}, S1 "
@@ -2390,17 +2420,18 @@ for s in SITES5:
     runtime_clean("mixed 150 commit", s)
 lanes14["mixed_150"] = dict(walls_s=wm, median_wall_s=pctl(wm, 0.5),
                             bad_index={k: v[0] for k, v in bad_m.items()})
-# the commit's S1 launch (50 secp256k1 lanes padded to 64) against the
-# plain version
-rows150, out150 = cap14["S1_150"]
-mism = int((out150.cpu().numpy() != cs1.verify_rows_plain(
-    rows150).cpu().numpy()).sum())
-check(mism == 0 and out150[:50].all(),
-      f"S1 on the mixed 150 commit's launch ({rows150.shape[1]} lanes): "
-      f"{mism} mismatches")
-s1_cmp.append(("S1 mixed 150 launch", rows150.shape[1], mism,
-               float(mism > 0)))
-ROWS5["S1_150"] = rows150
+# the commit's S1 and S2 launches (50 lanes each, padded to 64) against
+# their plain versions
+for name, plain, cmps in (("S1", cs1.verify_rows_plain, s1_cmp),
+                          ("S2", cs2.verify_packed_plain, s2_cmp)):
+    rows150, out150 = cap14[f"{name}_150"]
+    mism = int((out150.cpu().numpy() != plain(rows150).cpu().numpy()).sum())
+    check(mism == 0 and out150[:50].all(),
+          f"{name} on the mixed 150 commit's launch ({rows150.shape[1]} "
+          f"lanes): {mism} mismatches")
+    cmps.append((f"{name} mixed 150 launch", rows150.shape[1], mism,
+                 float(mism > 0)))
+    ROWS5[f"{name}_150"] = rows150
 times["verify_commit_mixed_150_wall_s"] = pctl(wm, 0.5)
 log(phase=14, card=CARD, verify_commit_mixed_150_s=pctl(wm, 0.5),
     bad_index=lanes14["mixed_150"]["bad_index"])
@@ -2480,15 +2511,15 @@ check(ok and bits.all() and all(v >= 1 for v in sched_sites.values())
       f"scheduler: {lanes14['scheduler']}")
 cbatch._SpotCheck.prepare = _prepare
 
-# kernel times: S1 and S2 by CUDA events at 2,048 (config 5's launch) and
-# 65,536 lanes, S1 also at 64 (the mixed 150-validator commit's launch),
-# beside their bounds and their plain versions at 2,048
+# kernel times: S1 and S2 by CUDA events at 2,048 (config 5's launch),
+# 65,536 lanes and 64 (the mixed 150-validator commit's launch), beside
+# their bounds and their plain versions at 2,048
 for name, fn, plain in (("s1", REAL14["S1"], cs1.verify_rows_plain),
                         ("s2", REAL14["S2"], cs2.verify_packed_plain)):
-    rows = ROWS5["S1" if name == "s1" else "S2"]
+    rows = ROWS5[name.upper()]
     big = rows.repeat(1, 32).contiguous()
-    if name == "s1":
-        times["s1_64_ms"] = time_events(lambda: fn(ROWS5["S1_150"]), 20)
+    times[f"{name}_64_ms"] = time_events(
+        lambda: fn(ROWS5[f"{name.upper()}_150"]), 20)
     times[f"{name}_2048_ms"] = time_events(lambda: fn(rows), 20)
     times[f"{name}_65536_ms"] = time_events(lambda: fn(big), 3)
     torch.cuda.synchronize()
@@ -2500,8 +2531,10 @@ ga, pa = cs1.digit_adds(ROWS5["S1"])
 times["s1_2048_bound_ms"] = cs1.bound_ms(2048, ga, pa)
 times["s1_65536_bound_ms"] = cs1.bound_ms(65536, 32 * ga, 32 * pa)
 times["s1_64_bound_ms"] = cs1.bound_ms(64, *cs1.digit_adds(ROWS5["S1_150"]))
-times["s2_2048_bound_ms"] = cs2.bound_ms(2048)
-times["s2_65536_bound_ms"] = cs2.bound_ms(65536)
+ba, aa = cs2.digit_adds(ROWS5["S2"])
+times["s2_2048_bound_ms"] = cs2.bound_ms(2048, ba, aa)
+times["s2_65536_bound_ms"] = cs2.bound_ms(65536, 32 * ba, 32 * aa)
+times["s2_64_bound_ms"] = cs2.bound_ms(64, *cs2.digit_adds(ROWS5["S2_150"]))
 log(phase=14, card=CARD, **{k: v for k, v in times.items()
                             if k.startswith(("s1_", "s2_", "plain_s"))})
 REPORT["lanes"] = lanes14
@@ -2619,6 +2652,8 @@ check(all(k["mismatches"] == 0 and k["launches"] > 0 for k in kernels),
       "a kernel of the path mismatched or never launched")
 check(S1_BUILD["threads_per_block"] == 128 and S1_WARPS_PER_SM >= 16,
       f"S1 occupancy below its design's 16 warps an SM: {S1_BUILD}")
+check(S2_BUILD["threads_per_block"] == 128 and S2_WARPS_PER_SM >= 16,
+      f"S2 occupancy below its design's 16 warps an SM: {S2_BUILD}")
 print(json.dumps({"kernels": kernels}), flush=True)
 print(json.dumps({"ok": True, "device": {
     "platform": "gpu", "kind": KIND, "count": torch.cuda.device_count()}}),

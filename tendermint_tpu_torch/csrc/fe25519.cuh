@@ -348,47 +348,57 @@ struct NoPark {
   FE_MEMBER int32_t *park() const { return nullptr; }
 };
 
+// The field a power chain runs on: K1's square and multiply (fe_sq,
+// fe_mul) here; K4 and S2 pass Fe2Ops (csrc/fe25519_2.cuh), the
+// two-round-carry pair.
+struct FeOps {
+  static FE_MEMBER void sq(fe h, const fe f) { fe_sq(h, f); }
+  static FE_MEMBER void mul(fe h, const fe f, const fe g) { fe_mul(h, f, g); }
+};
+
 // f^(2^n) by n squarings
+template <class Fd = FeOps>
 FE_DEV void fe_sqn(fe h, const fe f, int n) {
-  fe_sq(h, f);
+  Fd::sq(h, f);
 #pragma unroll 1
-  for (int i = 1; i < n; i++) fe_sq(h, h);
+  for (int i = 1; i < n; i++) Fd::sq(h, h);
 }
 
 // (f^(2^250 - 1), f^11): the shared prefix of the inversion and
-// square-root exponent ladders (field._chain_250).  Parking: t1, the value
-// that waits for a later multiply, waits in park() + off.
-template <class Park = NoPark>
+// square-root exponent ladders (field._chain_250), on the field Fd.
+// Parking: t1, the value that waits for a later multiply, waits in
+// park() + off.
+template <class Fd = FeOps, class Park = NoPark>
 FE_DEV void fe_chain_250(fe z250, fe z11, const fe z, Park pk = Park(),
                          int off = 0) {
   constexpr bool PARK = Park::parks;
   fe t0, t1, t2, t3;
-  fe_sq(t0, z);              // 2
-  fe_sqn(t1, t0, 2);         // 8
-  fe_mul(t1, z, t1);         // 9
-  fe_mul(z11, t0, t1);       // 11
-  fe_sq(t2, z11);            // 22
-  fe_mul(t1, t1, t2);        // 2^5 - 1
-  fe_sqn(t2, t1, 5);
-  fe_mul(t1, t2, t1);        // 2^10 - 1
+  Fd::sq(t0, z);             // 2
+  fe_sqn<Fd>(t1, t0, 2);     // 8
+  Fd::mul(t1, z, t1);        // 9
+  Fd::mul(z11, t0, t1);      // 11
+  Fd::sq(t2, z11);           // 22
+  Fd::mul(t1, t1, t2);       // 2^5 - 1
+  fe_sqn<Fd>(t2, t1, 5);
+  Fd::mul(t1, t2, t1);       // 2^10 - 1
   if constexpr (PARK) fe_park(pk.park() + off, t1);
-  fe_sqn(t2, t1, 10);
+  fe_sqn<Fd>(t2, t1, 10);
   if constexpr (PARK) fe_unpark(t1, pk.park() + off);
-  fe_mul(t2, t2, t1);        // 2^20 - 1
-  fe_sqn(t3, t2, 20);
-  fe_mul(t2, t3, t2);        // 2^40 - 1
-  fe_sqn(t2, t2, 10);
+  Fd::mul(t2, t2, t1);       // 2^20 - 1
+  fe_sqn<Fd>(t3, t2, 20);
+  Fd::mul(t2, t3, t2);       // 2^40 - 1
+  fe_sqn<Fd>(t2, t2, 10);
   if constexpr (PARK) fe_unpark(t1, pk.park() + off);
-  fe_mul(t1, t2, t1);        // 2^50 - 1
+  Fd::mul(t1, t2, t1);       // 2^50 - 1
   if constexpr (PARK) fe_park(pk.park() + off, t1);
-  fe_sqn(t2, t1, 50);
+  fe_sqn<Fd>(t2, t1, 50);
   if constexpr (PARK) fe_unpark(t1, pk.park() + off);
-  fe_mul(t2, t2, t1);        // 2^100 - 1
-  fe_sqn(t3, t2, 100);
-  fe_mul(t2, t3, t2);        // 2^200 - 1
-  fe_sqn(t2, t2, 50);
+  Fd::mul(t2, t2, t1);       // 2^100 - 1
+  fe_sqn<Fd>(t3, t2, 100);
+  Fd::mul(t2, t3, t2);       // 2^200 - 1
+  fe_sqn<Fd>(t2, t2, 50);
   if constexpr (PARK) fe_unpark(t1, pk.park() + off);
-  fe_mul(z250, t2, t1);      // 2^250 - 1
+  Fd::mul(z250, t2, t1);     // 2^250 - 1
 }
 
 // z^(p - 2) = z^(2^255 - 21); 0 maps to 0
@@ -399,21 +409,21 @@ FE_DEV void fe_invert(fe out, const fe z) {
   fe_mul(out, z250, z11);    // 2^255 - 21
 }
 
-// z^((p - 5) / 8) = z^(2^252 - 3)
+// z^((p - 5) / 8) = z^(2^252 - 3) on the field Fd
 // (parking: z waits out the chain in park() + off, the chain's own value
 // in park() + off + 40)
-template <class Park = NoPark>
+template <class Fd = FeOps, class Park = NoPark>
 FE_DEV void fe_pow22523(fe out, const fe z, Park pk = Park(), int off = 0) {
   fe z250, z11;
   if constexpr (Park::parks) fe_park(pk.park() + off, z);
-  fe_chain_250(z250, z11, z, pk, off + 40);
-  fe_sqn(z250, z250, 2);     // 2^252 - 4
+  fe_chain_250<Fd>(z250, z11, z, pk, off + 40);
+  fe_sqn<Fd>(z250, z250, 2); // 2^252 - 4
   if constexpr (Park::parks) {
     fe zz;
     fe_unpark(zz, pk.park() + off);
-    fe_mul(out, z250, zz);   // 2^252 - 3
+    Fd::mul(out, z250, zz);  // 2^252 - 3
   } else {
-    fe_mul(out, z250, z);
+    Fd::mul(out, z250, z);
   }
 }
 

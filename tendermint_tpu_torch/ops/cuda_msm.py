@@ -41,8 +41,8 @@ from . import field as F
 from .cuda_ed25519 import H100_IMAD_PER_S, MEM_BYTES_PER_S, fe10_limbs
 
 SOURCES = tuple(os.path.join(_nvcc.CSRC_DIR, f) for f in (
-    "fe25519.cuh", "decompress.cuh", "launch.cuh", "msm_steps.cuh",
-    "msm.cu"))
+    "fe25519.cuh", "fe25519_2.cuh", "decompress.cuh", "launch.cuh",
+    "msm_steps.cuh", "msm.cu"))
 
 # ---------------------------------------------------------------------------
 # work per call (csrc/msm.cu header note), for the bounds: a field multiply

@@ -3,30 +3,41 @@ per kernel of the verify kernels (K1, K2, K3), of the MSM kernels (K4,
 K5, A1) and of the secp256k1 and sr25519 kernels (S1, S2), with the
 instructions of each loop body (each backward branch's span, longest
 first: K5's are a tree round and a madd step, K4's one square of its
-power chain), from cuobjdump -sass of the built libraries; and the
-instructions of one field multiply and one square (a probe kernel built
-from the same csrc/fe25519.cuh), of K4's own (fe_mul2, fe_sq2 of
-csrc/decompress.cuh) and of S1's (fs_mul, fs_sqr of csrc/fe_secp.cuh and
-its four-lane mixed add jac_madd4 of csrc/secp4.cuh) where the checkout
-has them.
+power chain) and the SHFL.IDX in each, from cuobjdump -sass of the built
+libraries; and the instructions of one field multiply and one square (a
+probe kernel built from the same csrc/fe25519.cuh), of the two-round-carry
+pair that K4 and S2 use (fe_mul2, fe_sq2 of csrc/fe25519_2.cuh, or of
+csrc/decompress.cuh in a checkout from before it), of S1's (fs_mul,
+fs_sqr of csrc/fe_secp.cuh and its four-lane mixed add jac_madd4 of
+csrc/secp4.cuh) and of one four-lane doubling and addition of S2 (sr_dbl,
+sr_add of csrc/ristretto4.cuh, or K1's dbl4, add4 that S2 ran before
+them) where the checkout has them.
 
     python3 tendermint_tpu_torch/tools/kernel_report.py [--root DIR]
+        [--compare DIR]
 
 --root names the checkout whose kernels are built and read (default:
 this one), so that an earlier tree, unpacked with `git archive`, can be
-read in the same run.  Prints one JSON line.  Needs nvcc and cuobjdump;
-registers, spills, blocks per SM and times are chip_smoke.py's.
+read in the same run.  Each kernel's `sass_sha256` hashes its whole
+cuobjdump -sass text, every instruction with its encoding, with only the
+address comments taken out.  --compare DIR reads DIR the same way (in a
+child process) and adds, per kernel, whether the two hashes are equal:
+the same machine code.  Prints one JSON line.  Needs nvcc and
+cuobjdump; registers, spills, blocks per SM and times are
+chip_smoke.py's.
 """
 from __future__ import annotations
 
 import argparse
 import collections
+import hashlib
 import json
 import os
 import re
 import shutil
 import subprocess
 import sys
+import threading
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -53,9 +64,9 @@ __global__ void k_probe_sq(const int32_t *a, const int32_t *b, int32_t *o) {
   for (int i = 0; i < 10; i++) o[10 * threadIdx.x + i] = h[i];
 }
 """
-# K4's multiply and square (csrc/decompress.cuh), the same way
+# the two-round-carry multiply and square (K4's and S2's), the same way
 _PROBE2 = r"""
-#include "decompress.cuh"
+#include "%s"
 __global__ void k_probe_mul2(const int32_t *a, const int32_t *b, int32_t *o) {
   fe f, g, h;
   for (int i = 0; i < 10; i++) f[i] = a[10 * threadIdx.x + i], g[i] = b[i];
@@ -114,6 +125,36 @@ __global__ void k_probe_p_madd(const uint32_t *a, const uint32_t *b, uint32_t *o
 }
 """
 
+# one four-lane doubling and one addition of S2 on the kernel's exchange
+# (group4.cuh's ShflXch over dynamic shared memory), and the same load
+# and store alone; %(hdr)s, %(dbl)s and %(add)s name the checkout's own
+_PROBE5 = r"""
+#include "group4.cuh"
+#include "%(hdr)s"
+typedef ShflXch<9 * 3 * 10, V4_SIG_WORDS, 10> PX;
+__global__ void k_probe_g_copy(const int32_t *a, const int32_t *b, int32_t *o) {
+  PX x(threadIdx.x);
+  fe p;
+  for (int i = 0; i < 10; i++) p[i] = a[10 * threadIdx.x + i] + b[i];
+  for (int i = 0; i < 10; i++) o[10 * threadIdx.x + i] = p[i] + x.lane();
+}
+__global__ void k_probe_g_dbl(const int32_t *a, const int32_t *b, int32_t *o) {
+  PX x(threadIdx.x);
+  fe p;
+  for (int i = 0; i < 10; i++) p[i] = a[10 * threadIdx.x + i] + b[i];
+  %(dbl)s(x, p);
+  for (int i = 0; i < 10; i++) o[10 * threadIdx.x + i] = p[i] + x.lane();
+}
+__global__ void k_probe_g_add(const int32_t *a, const int32_t *b, int32_t *o) {
+  PX x(threadIdx.x);
+  fe p, q;
+  for (int i = 0; i < 10; i++) p[i] = a[10 * threadIdx.x + i] + b[i],
+      q[i] = b[10 + 10 * threadIdx.x + i];
+  %(add)s(x, p, q);
+  for (int i = 0; i < 10; i++) o[10 * threadIdx.x + i] = p[i] + x.lane();
+}
+"""
+
 _SASS_LINE = re.compile(
     r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)")
 _SELECTED = ("IMAD.WIDE", "IMAD.WIDE.U32", "IMAD", "IMAD.HI", "IMAD.X",
@@ -139,25 +180,44 @@ def _short(mangled: str) -> str:
 _BACK_BRA = re.compile(r"/\*([0-9a-f]{4,})\*/.*\bBRA\s+(?:`\()?0x([0-9a-f]+)")
 
 
+_ADDR = re.compile(r"/\*[0-9a-f]{4,}\*/")
+
+
 def sass_counts(path: str) -> tuple:
     """cuobjdump -sass of a library or cubin -> ({kernel: Counter(opcode)},
-    {kernel: instructions of each backward-branch body, longest first})."""
+    {kernel: [(instructions, SHFL.IDX) of each backward-branch body],
+    longest first}, {kernel: sha256 of its instruction and encoding lines
+    without the address comments})."""
     out: dict = {}
+    ops: dict = {}
     loops: dict = {}
+    text: dict = {}
     cur = None
     for ln in _run(["cuobjdump", "-sass", path]).splitlines():
         m = re.search(r"Function : (\w+)", ln)
         if m:
             cur = _short(m.group(1))
             out.setdefault(cur, collections.Counter())
+            ops.setdefault(cur, [])
             loops.setdefault(cur, [])
-        elif cur is not None and (m := _SASS_LINE.search(ln)):
+            text.setdefault(cur, hashlib.sha256())
+            continue
+        if cur is not None and ln.lstrip().startswith("/*"):
+            # an instruction line or its encoding's second word
+            text[cur].update((" ".join(_ADDR.sub("", ln).split()) + "\n")
+                             .encode())
+        if cur is not None and (m := _SASS_LINE.search(ln)):
             out[cur][m.group(1)] += 1
+            addr = int(re.search(r"/\*([0-9a-f]{4,})\*/", ln).group(1), 16)
+            ops[cur].append((addr, m.group(1)))
             b = _BACK_BRA.search(ln)
             if b and int(b.group(2), 16) < int(b.group(1), 16):
-                span = (int(b.group(1), 16) - int(b.group(2), 16)) // 16 + 1
-                loops[cur].append(span)
-    return out, {k: sorted(v, reverse=True) for k, v in loops.items()}
+                lo, hi = int(b.group(2), 16), int(b.group(1), 16)
+                shfl = sum(1 for a, op in ops[cur]
+                           if lo <= a <= hi and op == "SHFL.IDX")
+                loops[cur].append(((hi - lo) // 16 + 1, shfl))
+    return (out, {k: sorted(v, reverse=True) for k, v in loops.items()},
+            {k: h.hexdigest() for k, h in text.items()})
 
 
 def _summary(c: collections.Counter) -> dict:
@@ -186,10 +246,16 @@ def probe_counts(csrc: str, build_dir: str) -> dict:
     probes = []
     ops = {"fe_mul": ("mul", "copy"), "fe_sq": ("sq", "copy")}
     text = _PROBE
-    if os.path.exists(os.path.join(csrc, "decompress.cuh")):
+    new = os.path.exists(os.path.join(csrc, "fe25519_2.cuh"))
+    if new or os.path.exists(os.path.join(csrc, "decompress.cuh")):
         ops.update(fe_mul2=("mul2", "copy"), fe_sq2=("sq2", "copy"))
-        text += _PROBE2
+        text += _PROBE2 % ("fe25519_2.cuh" if new else "decompress.cuh")
     probes.append(("fe", text, ops))
+    if os.path.exists(os.path.join(csrc, "ristretto4.cuh")):
+        names = (dict(hdr="ristretto4.cuh", dbl="sr_dbl", add="sr_add") if new
+                 else dict(hdr="verify4.cuh", dbl="dbl4", add="add4"))
+        probes.append(("g", _PROBE5 % names, {
+            "s2_dbl": ("g_dbl", "g_copy"), "s2_add": ("g_add", "g_copy")}))
     if os.path.exists(os.path.join(csrc, "secp4.cuh")):
         probes.append(("fs", _PROBE3 + _PROBE4, {
             "fs_mul": ("s_mul", "s_copy"), "fs_sqr": ("s_sqr", "s_copy"),
@@ -207,7 +273,15 @@ def probe_counts(csrc: str, build_dir: str) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=_ROOT)
-    root = os.path.abspath(ap.parse_args().root)
+    ap.add_argument("--compare", default=None)
+    args = ap.parse_args()
+    root = os.path.abspath(args.root)
+    other = None
+    if args.compare:
+        other = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--root",
+             os.path.abspath(args.compare)], stdout=subprocess.PIPE,
+            text=True)
     sys.path.insert(0, root)
     from tendermint_tpu_torch.ops import cuda_ed25519 as ck
     from tendermint_tpu_torch.ops import cuda_msm as cm
@@ -216,21 +290,42 @@ def main() -> None:
     if not ck.__file__.startswith(root + os.sep):
         sys.exit(f"kernel_report: imported {ck.__file__}, not from {root}")
     kernels = {}
-    for mod, names in ((ck, ("k_verify_packed", "k_verify_packed_split",
-                             "k_verify_staged")),
-                       (cm, ("k_decompress_niels", "k_bucket_scan",
-                             "k_aggregate")),
-                       (cs1, ("k_secp_verify",)),
-                       (cs2, ("k_sr25519_verify",))):
+    mods = ((ck, ("k_verify_packed", "k_verify_packed_split",
+                  "k_verify_staged")),
+            (cm, ("k_decompress_niels", "k_bucket_scan", "k_aggregate")),
+            (cs1, ("k_secp_verify",)),
+            (cs2, ("k_sr25519_verify",)))
+    # one nvcc a source, side by side
+    pool = [threading.Thread(target=mod.build) for mod, _ in mods]
+    for th in pool:
+        th.start()
+    for th in pool:
+        th.join()
+    for mod, names in mods:
         so = mod.build()
-        sass, loops = sass_counts(so)
+        sass, loops, sha = sass_counts(so)
         for name in names:
+            lp = loops.get(name, [])
             kernels[name] = dict(
                 _summary(sass.get(name, collections.Counter())),
-                loop_instructions=loops.get(name, []))
+                loop_instructions=[n for n, _ in lp],
+                loop_shfl=[k for _, k in lp], sass_sha256=sha.get(name))
     rep = {"root": root, "kernels": kernels,
            "probe": probe_counts(os.path.join(root, "tendermint_tpu_torch",
                                               "csrc"), os.path.dirname(so))}
+    if other is not None:
+        out, _ = other.communicate()
+        if other.returncode != 0:
+            sys.exit(f"kernel_report: --compare {args.compare} failed")
+        theirs = json.loads(out.strip().splitlines()[-1])
+        rep["compare"] = {"root": theirs["root"], "kernels": theirs["kernels"],
+                          "probe": theirs["probe"],
+                          "identical": {
+                              k: v["sass_sha256"] is not None and
+                              v["sass_sha256"] == theirs["kernels"][k].get(
+                                  "sass_sha256")
+                              for k, v in kernels.items()
+                              if k in theirs["kernels"]}}
     print(json.dumps(rep), flush=True)
 
 

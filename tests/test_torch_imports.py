@@ -230,9 +230,10 @@ def test_lane_wrappers_check_inputs_and_count_only_kernel_launches():
             fn(torch.zeros((96, 8), dtype=torch.uint8))
         with pytest.raises(ValueError):
             fn(torch.zeros((128, 8), dtype=torch.int64))
-    with pytest.raises(ValueError):
-        cuda_secp.fe_secp_selftest(torch.zeros((4, 31), dtype=torch.uint8),
-                              torch.zeros((4, 31), dtype=torch.uint8))
+    for fn in (cuda_secp.fe_secp_selftest, cuda_sr25519.fe2_selftest):
+        with pytest.raises(ValueError):
+            fn(torch.zeros((4, 31), dtype=torch.uint8),
+               torch.zeros((4, 31), dtype=torch.uint8))
     # CPU tensors take the plain versions, which are not launches
     out = cuda_sr25519.verify_packed(torch.zeros((128, 2),
                                                  dtype=torch.uint8))
@@ -240,15 +241,19 @@ def test_lane_wrappers_check_inputs_and_count_only_kernel_launches():
     fs = cuda_secp.fe_secp_selftest(torch.zeros((2, 32), dtype=torch.uint8),
                                torch.ones((2, 32), dtype=torch.uint8))
     assert fs.shape == (7, 2, 32) and fs.dtype == torch.uint8
+    f2 = cuda_sr25519.fe2_selftest(torch.zeros((2, 32), dtype=torch.uint8),
+                                   torch.ones((2, 32), dtype=torch.uint8))
+    assert f2.shape == (5, 2, 32) and f2.dtype == torch.uint8
     assert cuda_secp.launches == {"verify_rows": 0, "fe_secp_selftest": 0}
-    assert cuda_sr25519.launches == {"verify_packed": 0}
+    assert cuda_sr25519.launches == {"verify_packed": 0, "fe2_selftest": 0}
 
 
 def test_lane_bound_counts():
     """S1: 689 field multiplies and 1,861 squarings a signature, plus
     7 M + 4 S a nonzero digit of s and 11 M + 5 S a nonzero digit of e;
-    a multiply 72 products, a square 44; S2: K1's count with two
-    ristretto decodes and the four-product check."""
+    a multiply 72 products, a square 44; S2: two ristretto decodes, K1's
+    table, 256 doublings and the four-product check, plus 7 multiplies a
+    nonzero digit of s (radix 256) and of k (radix 16)."""
     from tendermint_tpu_torch.ops import cuda_secp, cuda_sr25519
     rate = 132 * 64 * 1.98e9
 
@@ -261,6 +266,20 @@ def test_lane_bound_counts():
     assert cuda_secp.digit_adds(rows) == (3 * 64, 0)
     assert cuda_secp.bound_ms(3, *cuda_secp.digit_adds(rows)) == \
         pytest.approx(3 * halves(689 + 7 * 64, 1861 + 4 * 64) / rate * 1e3)
-    assert cuda_sr25519.IMADS_PER_SIG == 2 * (100 * 2024 + 55 * 1554)
+
+    def sr_halves(b_adds, a_adds):
+        return 2 * (100 * (1128 + 7 * (b_adds + a_adds)) + 55 * 1554)
     assert cuda_sr25519.bound_ms(65536) == pytest.approx(
-        65536 * cuda_sr25519.IMADS_PER_SIG / rate * 1e3)
+        65536 * sr_halves(32, 60) / rate * 1e3)
+    rows = torch.zeros((128, 3), dtype=torch.uint8)
+    assert cuda_sr25519.digit_adds(rows) == (0, 0)
+    rows[64:96] = 0x7F                        # s + 0x80..80: bytes 0xff
+    rows[96:128] = 0x77                       # k + 0x88..8: nibbles 0xf
+    assert cuda_sr25519.digit_adds(rows) == (3 * 32, 3 * 64)
+    rows[64:96] = 0
+    rows[64] = 0x01                           # one nonzero digit of s
+    assert cuda_sr25519.digit_adds(rows) == (3, 3 * 64)
+    rows[64] = 0x80                           # digits -128 and 1 (carry)
+    assert cuda_sr25519.digit_adds(rows) == (6, 3 * 64)
+    assert cuda_sr25519.bound_ms(3, 6, 3 * 64) == pytest.approx(
+        3 * sr_halves(2, 64) / rate * 1e3)

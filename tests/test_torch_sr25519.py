@@ -8,7 +8,13 @@ S2's body (csrc/ristretto4.cuh over verify4.cuh) compiled with g++ and run
 by four host threads that meet at a barrier where the card's lanes
 shuffle: its raw verdicts against the plain version's and its one-lane
 decode against the plain decode.  The JAX functions run once each, over
-all the inputs (module-scoped fixtures).  Inputs are made from seeds; the
+all the inputs (module-scoped fixtures).  Kernel S2's own field
+(fe_sq2, fe_mul2 of csrc/fe25519_2.cuh) runs at the operand bounds of
+every product S2 forms, its four-lane doubling and addition against the
+one-lane formulas on coordinates at the 0.503 bound and against the JAX
+package's ops/curve.py on curve points, and the one power chain of
+csrc/fe25519.cuh in each instantiation (K1's, K4's, S2's parked) against
+the JAX package's ops/field.py.  Inputs are made from seeds; the
 comparisons are exact."""
 from __future__ import annotations
 
@@ -17,16 +23,21 @@ import os
 import random
 import shutil
 import subprocess
+import zlib
 
-import numpy as np
+import jax
 import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
+from tendermint_tpu.crypto import _edref
 from tendermint_tpu.crypto import _ristretto as rr
 from tendermint_tpu.crypto import sr25519 as jkeys
 from tendermint_tpu.libs import native as jnative
+from tendermint_tpu.ops import curve as jC
 from tendermint_tpu.ops import ed25519 as jed
+from tendermint_tpu.ops import field as jF
 from tendermint_tpu.ops import ristretto as jrist
 from tendermint_tpu.ops import sr25519 as jsr
 
@@ -194,8 +205,10 @@ def test_keys_sign_verify_address_match():
         == tk.pub_key()
 
 
+
+
 # ---------------------------------------------------------------------------
-# kernel S2's body on the host
+# kernel S2 on the host: its body, decode, steps, field and power chain
 # ---------------------------------------------------------------------------
 
 HARNESS = r"""
@@ -205,6 +218,7 @@ HARNESS = r"""
 #include <vector>
 
 #include "fe25519.cuh"
+#include "fe25519_2.cuh"
 #include "verify4.cuh"
 #include "ristretto4.cuh"
 
@@ -227,7 +241,8 @@ struct Group {
   int32_t tab[V4_SIG_WORDS];
 };
 
-// the group primitives of verify4.cuh: a barrier in place of a shuffle
+// the group primitives of ristretto4.cuh: a barrier in place of a shuffle
+// (a lane reads lane src & 3, as a shuffle of width 4 does)
 struct HostXch {
   int t;
   Group *g;
@@ -235,7 +250,7 @@ struct HostXch {
   int32_t get(int32_t v, int src) {
     g->word[t] = v;
     g->bar.wait();
-    int32_t r = g->word[src];
+    int32_t r = g->word[src & 3];
     g->bar.wait();
     return r;
   }
@@ -243,27 +258,41 @@ struct HostXch {
   int32_t *scratch() { return g->tab; }
 };
 
-extern "C" {
-// rows (n, 128) row-major A | R | s | k little-endian; base 270 ints
-void s2_verify(const uint8_t *rows, const int32_t *base, uint8_t *out,
-               int n) {
+// parking slots of a one-lane chain
+struct HostPark {
+  static constexpr bool parks = true;
+  int32_t *buf;
+  int32_t *park() const { return buf; }
+};
+
+template <class F>
+static void on_group(F body) {
   Group g;
   std::vector<std::thread> lanes;
   for (int t = 0; t < 4; t++)
     lanes.emplace_back([&, t] {
       HostXch x{t, &g};
-      for (int i = 0; i < n; i++) {
-        const uint8_t *r = rows + 128 * i;
-        auto enc = [&](uint32_t w[8]) { memcpy(w, r + (t == 1 ? 32 : 0), 32); };
-        auto scalars = [&](uint32_t s[8], uint32_t k[8]) {
-          memcpy(s, r + 64, 32);
-          memcpy(k, r + 96, 32);
-        };
-        bool v = verify_sr4(x, enc, scalars, base);
-        if (t == 0) out[i] = v;
-      }
+      body(x, t);
     });
   for (auto &th : lanes) th.join();
+}
+
+extern "C" {
+// rows (n, 128) row-major A | R | s | k little-endian; base 270 ints
+void s2_verify(const uint8_t *rows, const int32_t *base, uint8_t *out,
+               int n) {
+  on_group([&](HostXch &x, int t) {
+    for (int i = 0; i < n; i++) {
+      const uint8_t *r = rows + 128 * i;
+      auto enc = [&](uint32_t w[8]) { memcpy(w, r + (t == 1 ? 32 : 0), 32); };
+      auto scalars = [&](uint32_t s[8], uint32_t k[8]) {
+        memcpy(s, r + 64, 32);
+        memcpy(k, r + 96, 32);
+      };
+      bool v = verify_sr4(x, enc, scalars, base);
+      if (t == 0) out[i] = v;
+    }
+  });
 }
 // one-lane decode: ok, and x, y as canonical bytes
 void s2_decode(const uint8_t *enc, uint8_t *ok, uint8_t *xo, uint8_t *yo,
@@ -277,8 +306,56 @@ void s2_decode(const uint8_t *enc, uint8_t *ok, uint8_t *xo, uint8_t *yo,
     fe_tobytes(yo + 32 * i, y);
   }
 }
+// op 0: fe_mul2(f, g), op 1: fe_sq2(f); (n, 10) limbs
+void s2_field(int op, const int32_t *f, const int32_t *g, int32_t *h,
+              int n) {
+  for (int i = 0; i < n; i++) {
+    if (op == 0)
+      fe_mul2(h + 10 * i, f + 10 * i, g + 10 * i);
+    else
+      fe_sq2(h + 10 * i, f + 10 * i);
+  }
+}
+// one group step on n points: kind 0 sr_dbl(p), 1 sr_add(p, q), 2
+// sr_to_cached(p); p, q, out (n, 4, 10) limbs, lane t coordinate t
+void s2_step(int kind, const int32_t *p, const int32_t *q, int32_t *out,
+             int n) {
+  on_group([&](HostXch &x, int t) {
+    for (int i = 0; i < n; i++) {
+      fe pt, qt, c;
+      memcpy(pt, p + 40 * i + 10 * t, 40);
+      memcpy(qt, q + 40 * i + 10 * t, 40);
+      if (kind == 0) sr_dbl(x, pt);
+      if (kind == 1) sr_add(x, pt, qt);
+      if (kind == 2) {
+        sr_to_cached(x, c, pt);
+        memcpy(pt, c, 40);
+      }
+      memcpy(out + 40 * i + 10 * t, pt, 40);
+    }
+  });
+}
+// the power chains: which 0 fe_pow22523 (K1's field), 1 the same parked,
+// 2 fe_pow22523<Fe2Ops> (K4's), 3 the same parked (S2's), 4 fe_invert
+void s2_chain(int which, const int32_t *in, int32_t *out, int n) {
+  int32_t buf[200];
+  HostPark pk{buf};
+  for (int i = 0; i < n; i++) {
+    const int32_t *z = in + 10 * i;
+    int32_t *h = out + 10 * i;
+    if (which == 0) fe_pow22523(h, z);
+    if (which == 1) fe_pow22523(h, z, pk, 80);
+    if (which == 2) fe_pow22523<Fe2Ops>(h, z);
+    if (which == 3) fe_pow22523<Fe2Ops>(h, z, pk, 80);
+    if (which == 4) fe_invert(h, z);
+  }
+}
 }
 """
+
+U = [1 << (26 - (k & 1)) for k in range(10)]
+W10 = [0, 26, 51, 77, 102, 128, 153, 179, 204, 230]
+D_INT = (-121665 * pow(121666, P - 2, P)) % P
 
 
 @pytest.fixture(scope="module")
@@ -295,10 +372,261 @@ def harness(tmp_path_factory):
                        capture_output=True, text=True, timeout=600)
     assert r.returncode == 0, r.stderr
     lib = ctypes.CDLL(str(so))
-    vp = ctypes.c_void_p
-    lib.s2_verify.argtypes = [vp, vp, vp, ctypes.c_int]
-    lib.s2_decode.argtypes = [vp, vp, vp, vp, ctypes.c_int]
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.s2_verify.argtypes = [vp, vp, vp, i]
+    lib.s2_decode.argtypes = [vp, vp, vp, vp, i]
+    lib.s2_field.argtypes = [i, vp, vp, vp, i]
+    lib.s2_step.argtypes = [i, vp, vp, vp, i]
+    lib.s2_chain.argtypes = [i, vp, vp, i]
     return lib
+
+
+def _value(limbs) -> int:
+    return sum(int(v) << w for v, w in zip(limbs, W10))
+
+
+def _bounded(limbs, frac: float) -> bool:
+    return all(abs(int(v)) <= frac * u for v, u in zip(limbs, U))
+
+
+def _fe10(v: int):
+    """canonical limbs of v mod p (each in [0, U_k))."""
+    v %= P
+    out = []
+    for w, u in zip(W10, U):
+        out.append((v >> w) & (u - 1))
+    return out
+
+
+def _fe10c(v: int):
+    """limbs of v mod p centred in [-U_k/2, U_k/2) (limb 0 up to 19 more),
+    the 0.503-bounded form S2 keeps a point in."""
+    h = _fe10(v)
+    for k in range(10):
+        if h[k] >= U[k] // 2:
+            h[k] -= U[k]
+            if k < 9:
+                h[k + 1] += 1
+            else:
+                h[0] += 19
+    return h
+
+
+def _arr(rows) -> np.ndarray:
+    return np.ascontiguousarray(np.asarray(rows, dtype=np.int32))
+
+
+def _extreme(bound: float, signs):
+    return [s * int(bound * u) for s, u in zip(signs, U)]
+
+
+def _sign_sets(rng):
+    return [[1] * 10, [-1] * 10, [(-1) ** k for k in range(10)],
+            [(-1) ** (k + 1) for k in range(10)]] + \
+        [[rng.choice((-1, 1)) for _ in range(10)] for _ in range(4)]
+
+
+def _random_limbs(rng, bound: float):
+    return [rng.randint(-int(bound * u), int(bound * u)) for u in U]
+
+
+# The operand bounds of every product S2 forms (ristretto4.cuh's carry
+# note), as (f bound, g bound) of fe_mul2(out, f, g), g the folded side,
+# or (f bound, None) for fe_sq2; and the contract's own extremes.
+S2_PRODUCTS = {
+    "decode": [(0.501, None), (0.5031, None), (0.503, 0.503),
+               (1.006, 0.503), (0.503, 1.006), (1.002, 0.503),
+               (0.503, 0.5)],
+    "doubling": [(1.006, None), (0.503, None), (2.012, 1.509),
+                 (1.006, 1.006), (2.012, 1.006), (1.509, 1.006)],
+    "addition": [(1.006, 1.0), (0.503, 1.0), (0.503, 0.503),
+                 (1.509, 1.006), (1.509, 1.509), (1.006, 1.006)],
+    "table-and-check": [(1.006, 1.0), (0.503, 0.503)],
+    "contract": [(16 / (32 / 19), 32 / 19), (32 / 19, None)],
+}
+
+
+@pytest.mark.parametrize("where", sorted(S2_PRODUCTS))
+def test_s2_field_at_its_operand_bounds(harness, where):
+    """fe_mul2 / fe_sq2 (csrc/fe25519_2.cuh) at the operand bounds each S2
+    product feeds them, at the limb extremes and on seeded limbs within
+    them: the value mod p, and every output 0.503-bounded."""
+    rng = random.Random(zlib.crc32(where.encode()))
+    for fb, gb in S2_PRODUCTS[where]:
+        fs, gs = [], []
+        for signs in _sign_sets(rng):
+            fs.append(_extreme(fb, signs))
+            gs.append(_extreme(gb or 1.0, signs[::-1]))
+        for _ in range(24):
+            fs.append(_random_limbs(rng, fb))
+            gs.append(_random_limbs(rng, gb or 1.0))
+        f, g = _arr(fs), _arr(gs)
+        h = np.zeros_like(f)
+        harness.s2_field(0 if gb else 1, f.ctypes.data, g.ctypes.data,
+                         h.ctypes.data, len(f))
+        for fi, gi, hi in zip(fs, gs, h):
+            want = _value(fi) * _value(gi if gb else fi) % P
+            assert _value(hi) % P == want, (where, fb, gb, fi, gi)
+            assert _bounded(hi, 0.503), (where, fb, gb, hi.tolist())
+
+
+def _dbl_formula(p):
+    x, y, z, _ = (_value(c) for c in p)
+    a, b, c = x * x, y * y, z * z
+    e = (x + y) ** 2 - a - b
+    g = b - a
+    f = g - 2 * c
+    h = -a - b
+    return [v % P for v in (e * f, g * h, f * g, e * h)]
+
+
+def _add_formula(p, q):
+    x, y, z, t = (_value(c) for c in p)
+    q0, q1, q2, q3 = (_value(c) for c in q)
+    a, b = (y + x) * q0, (y - x) * q1
+    c, d = t * q3, 2 * z * q2
+    e, f, g, h = a - b, d - c, d + c, a + b
+    return [v % P for v in (e * f, g * h, f * g, e * h)]
+
+
+def _bound_points(rng, n, bound):
+    """n points (4 coordinates of 10 limbs), not on the curve: limbs at
+    +-bound U_k in sign patterns, then seeded within the bound."""
+    pts = []
+    for signs in _sign_sets(rng):
+        pts.append([_extreme(bound, signs[j:] + signs[:j]) for j in range(4)])
+    while len(pts) < n:
+        pts.append([_random_limbs(rng, bound) for _ in range(4)])
+    return pts
+
+
+@pytest.mark.parametrize("kind", ["dbl", "add-cached", "add-niels",
+                                  "to-cached"])
+def test_s2_steps_match_the_one_lane_formulas(harness, kind):
+    """S2's four-lane doubling, addition and cached conversion
+    (ristretto4.cuh) on coordinates at the 0.503 bound (and a table
+    operand at its own: 0.503 for the cached table of -A, 1 for the
+    canonical niels table of B, Z2 = 1): exactly the one-lane formulas of
+    dbl-2008-hwcd (times -1, the doubling's documented scale) and
+    add-2008-hwcd-3, mod p, and every output limb 0.503-bounded."""
+    rng = random.Random(len(kind))
+    n = 24
+    ps = _bound_points(rng, n, 0.503)
+    if kind == "add-niels":
+        qs = [[[rng.randrange(u) for u in U] for _ in range(4)]
+              for _ in range(n)]
+        for q in qs:
+            q[2] = [1] + [0] * 9
+        for q in qs[:4]:
+            q[0], q[1], q[3] = ([u - 1 for u in U] for _ in range(3))
+    else:
+        qs = _bound_points(rng, n, 0.503)
+    out = np.zeros((n, 4, 10), np.int32)
+    p_arr, q_arr = _arr(ps), _arr(qs)
+    harness.s2_step({"dbl": 0, "to-cached": 2}.get(kind, 1),
+                    p_arr.ctypes.data, q_arr.ctypes.data, out.ctypes.data,
+                    n)
+    for p, q, o in zip(ps, qs, out):
+        got = [_value(c) % P for c in o]
+        if kind == "dbl":
+            want = [-v % P for v in _dbl_formula(p)]
+        elif kind == "to-cached":
+            x, y, z, t = (_value(c) for c in p)
+            want = [(y + x) % P, (y - x) % P, z % P, 2 * D_INT * t % P]
+        else:
+            want = _add_formula(p, q)
+        assert got == want, kind
+        assert all(_bounded(c, 0.503) for c in o), (kind, o.tolist())
+
+
+def _seeded_points(n, seed):
+    """n points [r]B as extended (X, Y, Z, T) with a random Z, ints."""
+    rng = random.Random(seed)
+    pts = []
+    for _ in range(n):
+        x, y, z, _t = _edref._mul(rng.randrange(1, _edref.L), _edref.BASE)
+        zi = pow(z, P - 2, P)
+        x, y = x * zi % P, y * zi % P
+        w = rng.randrange(1, P)
+        pts.append((x * w % P, y * w % P, w, x * y % P * w % P))
+    return pts
+
+
+def test_s2_steps_match_the_jax_curve(harness):
+    """On points of the curve: S2's doubling and its addition of a cached
+    point and of a niels point, each sign, give the JAX package's
+    ops/curve.py dbl / add_cached / madd_niels as points (X1 Z2 = X2 Z1,
+    Y1 Z2 = Y2 Z1, T1 Z2 = T2 Z1)."""
+    n = 6
+    ps, qs = _seeded_points(n, 1), _seeded_points(n, 2)
+
+    def jl(vals):
+        return jnp.asarray(jF.batch_int_to_limbs([v % P for v in vals]))
+
+    def ext(pts):
+        return jC.Ext(*(jl([p[i] for p in pts]) for i in range(4)))
+
+    def ints(e):
+        return [[jF.limbs_to_int(np.asarray(c)[:, i]) % P for c in e]
+                for i in range(n)]
+
+    pe, qe = ext(ps), ext(qs)
+    qc = jC.to_cached(qe)
+    aff = []
+    for x, y, z, _t in qs:
+        zi = pow(z, P - 2, P)
+        ax, ay = x * zi % P, y * zi % P
+        aff.append(((ay + ax) % P, (ay - ax) % P, 2 * D_INT * ax * ay % P))
+    qn = jC.Niels(*(jl([a[i] for a in aff]) for i in range(3)))
+    # (step, points, table operands in the table's limb form, want): the
+    # table of -A holds 0.503-bounded limbs, the niels table of B
+    # canonical ones
+    cases = [(0, ps, ps, _fe10c, ints(jC.dbl(pe)))]
+    qc_i = ints(qc)
+    for neg in (False, True):
+        negs = jnp.full((n,), neg)
+        qcn = [[c[1], c[0], c[2], -c[3] % P] if neg else c for c in qc_i]
+        qnn = [[a[1], a[0], 1, -a[2] % P] if neg else [a[0], a[1], 1, a[2]]
+               for a in aff]
+        cases.append((1, ps, qcn, _fe10c,
+                       ints(jC.add_cached(pe, jC.cond_neg_cached(qc, negs)))))
+        cases.append((1, ps, qnn, _fe10,
+                       ints(jC.madd_niels(pe, jC.cond_neg_niels(qn, negs)))))
+    for kind, pin, qin, qform, want in cases:
+        out = np.zeros((n, 4, 10), np.int32)
+        p_arr = _arr([[_fe10c(v) for v in p] for p in pin])
+        q_arr = _arr([[qform(v) for v in q] for q in qin])
+        harness.s2_step(kind, p_arr.ctypes.data, q_arr.ctypes.data,
+                        out.ctypes.data, n)
+        for o, w in zip(out, want):
+            g = [_value(c) % P for c in o]
+            for j in (0, 1, 3):
+                assert g[j] * w[2] % P == w[j] * g[2] % P, (kind, j)
+
+
+@pytest.mark.parametrize("which,name", [
+    (0, "K1 fe_sq/fe_mul"), (1, "K1 parked"), (2, "K4 Fe2Ops"),
+    (3, "S2 Fe2Ops parked"), (4, "K1 fe_invert")])
+def test_power_chain_matches_the_jax_field(harness, which, name):
+    """The one power chain of fe25519.cuh (fe_chain_250, fe_pow22523,
+    templated over the field) in each instantiation the kernels use:
+    z^((p-5)/8) (fe_invert: z^(p-2)) equals the JAX package's
+    ops/field.py pow_p58 (invert) on edge and seeded elements, as values
+    mod p, and stays 0.503-bounded."""
+    rng = random.Random(which)
+    vals = [0, 1, 2, P - 1, P + 1, 19, (1 << 255) - 20] + \
+        [rng.randrange(P) for _ in range(25)]
+    z = _arr([_fe10(v) for v in vals])
+    out = np.zeros_like(z)
+    harness.s2_chain(which, z.ctypes.data, out.ctypes.data, len(vals))
+    fn = jF.invert if which == 4 else jF.pow_p58
+    jout = np.asarray(jax.jit(fn)(jnp.asarray(jF.batch_int_to_limbs(vals))))
+    e = P - 2 if which == 4 else (P - 5) // 8
+    for i, v in enumerate(vals):
+        got = _value(out[i]) % P
+        assert got == jF.limbs_to_int(jout[:, i]) % P == pow(v, e, P), \
+            (name, v)
+        assert _bounded(out[i], 0.503 if which in (2, 3) else 0.501)
 
 
 def test_s2_decode_on_the_host_matches_plain(harness, decodes):
@@ -324,9 +652,93 @@ def test_s2_body_on_the_host_matches_plain(harness, lane):
     plain = cs.verify_packed(torch.from_numpy(
         np.ascontiguousarray(rows.T))).numpy()
     rows = np.ascontiguousarray(rows)
-    base = np.ascontiguousarray(ck.base_table10().reshape(-1))
+    base = np.ascontiguousarray(cs.base_table_b().reshape(-1))
     out = np.zeros(rows.shape[0], np.uint8)
     harness.s2_verify(rows.ctypes.data, base.ctypes.data, out.ctypes.data,
                       rows.shape[0])
     assert out.astype(bool).tolist() == plain.tolist()
     assert plain.any() and not plain.all()
+
+
+def test_fe2_selftest_plain_matches_the_host_field(harness):
+    """chip_smoke.py holds S2's field on the card against
+    cuda_sr25519.fe2_selftest_plain: on the CPU that yardstick equals the
+    host build of fe_mul2 / fe_sq2 / the Fe2Ops power chain and Python's
+    integers, on edge and seeded elements (bit 255 ignored)."""
+    rng = random.Random(14)
+    edge = [0, 1, P - 1, P, P + 1, P + 18, (1 << 255) - 1, 2, 19, P - 19]
+    va = edge + [rng.randrange(1 << 256) for _ in range(22)]
+    vb = [rng.randrange(1 << 256) for _ in va]
+
+    def u8(xs):
+        return torch.from_numpy(np.frombuffer(b"".join(
+            x.to_bytes(32, "little") for x in xs), np.uint8).reshape(
+                -1, 32).copy())
+    got = cs.fe2_selftest(u8(va), u8(vb)).numpy()
+    assert got.shape == (5, len(va), 32)
+    m = (1 << 255) - 1
+    fa = _arr([_fe10(a & m) for a in va])
+    fb = _arr([_fe10(b & m) for b in vb])
+    host = [np.zeros_like(fa) for _ in range(4)]
+    harness.s2_field(0, fa.ctypes.data, fb.ctypes.data, host[0].ctypes.data,
+                     len(va))
+    harness.s2_field(0, fb.ctypes.data, fa.ctypes.data, host[1].ctypes.data,
+                     len(va))
+    harness.s2_field(1, fa.ctypes.data, fa.ctypes.data, host[2].ctypes.data,
+                     len(va))
+    harness.s2_chain(2, fa.ctypes.data, host[3].ctypes.data, len(va))
+    for i, (a, b) in enumerate(zip(va, vb)):
+        a, b = a & m, b & m
+        want = [a % P, a * b % P, a * b % P, a * a % P,
+                pow(a, (P - 5) // 8, P)]
+        plain = [int.from_bytes(got[k, i].tobytes(), "little")
+                 for k in range(5)]
+        assert plain == want
+        assert [_value(h[i]) % P for h in host] == want[1:]
+
+
+def test_base_table_b_matches_the_jax_reference():
+    """The 129 niels multiples jB that S2 reads for s's radix-256 digits
+    are (y + x, y - x, 2dxy) of the JAX package's reference multiples, in
+    canonical limbs; the first nine are K1's base_table10."""
+    tab = cs.base_table_b()
+    assert tab.shape == (129, 3, 10)
+    assert np.array_equal(tab[:9], ck.base_table10())
+    for j in list(range(12)) + [63, 64, 100, 127, 128]:
+        x, y, z, _ = _edref._mul(j, _edref.BASE) if j else (0, 1, 1, 0)
+        zi = pow(z, P - 2, P)
+        x, y = x * zi % P, y * zi % P
+        want = [(y + x) % P, (y - x) % P, 2 * D_INT * x * y % P]
+        for f in range(3):
+            assert tab[j, f].tolist() == _fe10(want[f]), (j, f)
+
+
+def test_s2_body_on_digit_edges_matches_plain(harness):
+    """S2's body on rows whose s has the extreme signed radix-256 digits
+    (bytes 0x7F, 0x80, 0xFF, 0x00 in runs, digits -128 and 127) and k the
+    extreme radix-16 ones, with R = [s]B - [k]A from the JAX package's
+    ristretto reference (so valid) and with R off by B (invalid): the
+    plain version's bitmap, which is the reference's."""
+    rng = random.Random(256)
+    patterns = [b"\x80" * 31, b"\x7f" * 31, b"\xff" * 31, b"\x00" * 31,
+                b"\x80\x7f" * 15 + b"\x80", b"\xff\x00" * 15 + b"\xff"]
+    rows = []
+    for i, pat in enumerate(patterns * 2):
+        s = int.from_bytes(pat + b"\x00", "little") % rr.L
+        k = (int.from_bytes(bytes([0x88 if i % 2 else 0x77] * 31),
+                            "little") + i) % rr.L
+        a = rr.Point.base().mul(rng.randrange(1, rr.L))
+        r = rr.Point.base().mul(s).add(a.mul(k).neg())
+        if i >= len(patterns):
+            r = r.add(rr.Point.base())
+        rows.append(a.encode() + r.encode() + s.to_bytes(32, "little")
+                    + k.to_bytes(32, "little"))
+    rows = np.frombuffer(b"".join(rows), np.uint8).reshape(-1, 128).copy()
+    plain = cs.verify_packed(torch.from_numpy(
+        np.ascontiguousarray(rows.T))).numpy()
+    assert plain[:len(patterns)].all() and not plain[len(patterns):].any()
+    base = np.ascontiguousarray(cs.base_table_b().reshape(-1))
+    out = np.zeros(rows.shape[0], np.uint8)
+    harness.s2_verify(rows.ctypes.data, base.ctypes.data, out.ctypes.data,
+                      rows.shape[0])
+    assert out.astype(bool).tolist() == plain.tolist()

@@ -6,7 +6,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
   0  the card: CUDA available, compute capability >= 9.0, nvidia-smi line
   1  build the kernels from csrc/ (nvcc, one process a source, side by
      side) and the host C (cc); registers, spills, stack and blocks per SM
-     of each verify kernel, of K4, K5 and A1, and of S1 and S2; S1 and S2
+     of each verify kernel, of K4, K5 and A1, of S1 and S2, and of C1 and
+     C2; S1 and S2
      must each fit their design's 16 warps an SM (4 blocks of 128
      threads), checked after the report is written
   2  field: the CUDA field arithmetic (fe_selftest) against the plain
@@ -127,7 +128,23 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      at sched.secp256k1 and sched.sr25519).  S1's and S2's times at
      64, 2,048 and 65,536 lanes beside their bounds and their plain
      versions
- 15  the kernels line; then the last line {"ok": true, "device": ...}
+ 15  the comb (C1, C2, ops/ed25519's table cache and prewarm), after
+     phases 4-14 ran with it on (its default) and never launched it: C1
+     against its plain version as field values on adversarial encodings
+     (y = p, y = p + 1, a non-square, negative zero, order-8, order-4,
+     identity) and on a 1,024-key set; prewarms through the entry point
+     (the 150-validator set and the 1,024-key set built, a 2,048-key set
+     declined by the 256 MiB budget), the card's bytes beside the charged
+     ones; the prewarmed 150-validator verify_commit on path comb (C2 once,
+     K1 never, no doublings in the record), its bad signature named and
+     its bitmap the ladder's; 65,536 triples over the 1,024-key set
+     through BatchVerifier (one C2 launch at MAX_CHUNK); one unknown key
+     sends a batch to K1; C2 against its plain version on its main-path
+     launches and on the phase-3 vectors, and against K1 and the oracle
+     there; C1 and C2 times beside their bounds and plain versions, the
+     prewarm wall, the 150-validator wall prewarmed and on the ladder, the
+     100k commit with the comb on and off
+ 16  the kernels line; then the last line {"ok": true, "device": ...}
 
 Signatures come from a seeded incremental generator (a_i = a_0 + i, so
 A_i = A_{i-1} + B), because signing 100k triples one by one in pure
@@ -187,6 +204,7 @@ from tendermint_tpu_torch.libs import native  # noqa: E402
 from tendermint_tpu_torch.libs import slo  # noqa: E402
 from tendermint_tpu_torch.libs import trace  # noqa: E402
 from tendermint_tpu_torch.libs.metrics import Registry  # noqa: E402
+from tendermint_tpu_torch.ops import cuda_comb as cc  # noqa: E402
 from tendermint_tpu_torch.ops import cuda_ed25519 as ck  # noqa: E402
 from tendermint_tpu_torch.ops import cuda_msm as cm  # noqa: E402
 from tendermint_tpu_torch.ops import cuda_secp as cs1  # noqa: E402
@@ -338,14 +356,15 @@ threads = [threading.Thread(target=_build, args=(fn, what)) for fn, what in (
      "cc"),
     (ck.kernels, "nvcc ed25519_verify.cu"), (cm.kernels, "nvcc msm.cu"),
     (cs1.kernels, "nvcc secp256k1_verify.cu"),
-    (cs2.kernels, "nvcc sr25519_verify.cu"))]
+    (cs2.kernels, "nvcc sr25519_verify.cu"), (cc.kernels, "nvcc comb.cu"))]
 for th in threads:
     th.start()
 for th in threads:
     th.join()
 check(not errs, "; ".join(errs))
 ptxas = [ln.strip() for info in (ck.build_info, cm.build_info,
-                                 cs1.build_info, cs2.build_info)
+                                 cs1.build_info, cs2.build_info,
+                                 cc.build_info)
          for ln in info.get("ptxas", "").splitlines()
          if any(w in ln for w in ("registers", "spill", "Compiling entry",
                                   "Function properties"))]
@@ -353,7 +372,8 @@ log(phase=1, build_s=round(time.perf_counter() - t, 3),
     nvcc_s={"ed25519_verify": round(ck.build_info["seconds"], 3),
             "msm": round(cm.build_info["seconds"], 3),
             "secp256k1_verify": round(cs1.build_info["seconds"], 3),
-            "sr25519_verify": round(cs2.build_info["seconds"], 3)},
+            "sr25519_verify": round(cs2.build_info["seconds"], 3),
+            "comb": round(cc.build_info["seconds"], 3)},
     ptxas=ptxas)
 # registers, spills and stack of each verify kernel, and blocks per SM
 occ = ck.occupancy()
@@ -385,6 +405,16 @@ for mod in (cs1, cs2):
                                      threads_per_block=threads)
             log(phase=1, kernel=_name, **lane_build[_name])
 check(len(lane_build) == 2, f"ptxas report: {sorted(lane_build)}")
+# C1 and C2 (csrc/comb.cu): registers, spills, stack and blocks per SM
+occ = cc.occupancy()
+comb_build_rep = {}
+for _name, _row in parse_ptxas(cc.build_info.get("ptxas", "")).items():
+    if _name[2:] in occ:
+        blocks, threads = occ[_name[2:]]
+        comb_build_rep[_name] = dict(_row, blocks_per_sm=blocks,
+                                     threads_per_block=threads)
+        log(phase=1, kernel=_name, **comb_build_rep[_name])
+check(len(comb_build_rep) == 2, f"ptxas report: {sorted(comb_build_rep)}")
 # S1's design (csrc/secp256k1_verify.cu): 128-thread blocks, 4 an SM, 16
 # warps; checked at the end, after the report is written, so that this
 # script run in an earlier tree's checkout still times that tree's kernels
@@ -556,7 +586,8 @@ def commit_error_index(vset, bid, commit, height=9):
 
 KERNEL_MOD = {"verify_packed": ck, "verify_packed_split": ck,
               "verify_staged": ck, "decompress_niels": cm,
-              "bucket_scan": cm, "aggregate": cm}
+              "bucket_scan": cm, "aggregate": cm, "comb_build": cc,
+              "comb_verify": cc}
 launches_main = {name: 0 for name in KERNEL_MOD}
 PLAIN = {"verify_packed": ck.verify_packed_plain,
          "verify_packed_split": ck.verify_packed_split_plain,
@@ -625,8 +656,9 @@ def main_path(fn, capture=(), site=None):
                  if site is not None else 0.0)
     ck.reset_launches()
     cm.reset_launches()
+    cc.reset_launches()
     out = fn()
-    got = {**ck.launches, **cm.launches}
+    got = {**ck.launches, **cm.launches, **cc.launches}
     for k in launches_main:
         launches_main[k] += got[k]
     for name, label in capture:
@@ -2541,7 +2573,286 @@ REPORT["lanes"] = lanes14
 runtime_clean("phase 14")
 staging_clear(14)
 
-# -- phase 15: the kernels line -----------------------------------------------
+# -- phase 15: the comb (C1, C2, the table cache, prewarm) ---------------------
+
+# phases 4-14 ran with the comb on (its default) and never launched it: no
+# set was prewarmed, and the 100k and 4,096-validator commits were declined
+# by the budget before any build
+check(cc.launches == {"comb_build": 0, "comb_verify": 0}
+      and len(E._table_cache) == 0 and E.comb_enabled(),
+      f"phases 4-14 reached the comb: {cc.launches}")
+degrade.configure(degrade.DegradeConfig.from_env(),
+                  registry=Registry("comb15"))
+comb15: dict = {}
+rng = random.Random(SEED + 15)
+
+
+def u8(rows, width):
+    return torch.from_numpy(np.frombuffer(b"".join(rows), dtype=np.uint8)
+                            .reshape(-1, width).copy()).to(DEV)
+
+
+def c1_cmp(label, keys):
+    """C1 on the card against its plain version on the same keys: table
+    entries whose field values differ, and decode verdicts that do."""
+    pub = u8(keys, 32)
+    tab, ok = REAL["comb_build"](pub)
+    ptab, pok = cc.comb_build_plain(pub)
+    row = (label, len(keys), cc.tables_mismatch(tab, ptab)
+           + int((ok != pok).sum()))
+    comb15.setdefault("c1_vs_plain", []).append(row)
+    log(phase=15, c1_vs_plain=row)
+    return row
+
+
+# C1 on the adversarial encodings (valid keys, y = p, y = p + 1, the
+# non-square y, negative zero, an order-8 and an order-4 point, the
+# identity) and on the 1,024-key set
+y_ord8 = 2
+while True:
+    q8 = _edref._decode(y_ord8.to_bytes(32, "little"))
+    if q8 is not None:
+        t8 = _edref._mul(L, q8)
+        if _edref._encode(_edref._mul(4, t8)) != ident:
+            break
+    y_ord8 += 1
+a8_list, p8 = gen_keys(3, rng)
+adv_keys = p8 + [P.to_bytes(32, "little"), (P + 1).to_bytes(32, "little"),
+                 y_ns.to_bytes(32, "little"),
+                 (1 | (1 << 255)).to_bytes(32, "little"),
+                 _edref._encode(t8), bytes(32), ident]
+a1k, keys1k = gen_keys(1024, rng)
+cmp15 = [c1_cmp("adversarial", adv_keys), c1_cmp("1,024-key set", keys1k)]
+check(all(r[2] == 0 for r in cmp15), f"C1 differs from plain: {cmp15}")
+
+# prewarms through the entry point: the phase-4 150-validator set
+# (k_pad 256) and the 1,024-key set are built, a 2,048-key set is
+# declined by the 256 MiB budget (2,048 x 202,752 B charged)
+rt15 = degrade.runtime()
+vp150 = [v.pub_key.bytes() for v in vset150.validators]
+_, keys2k = gen_keys(2048, rng)
+prewarm15 = {}
+for label, keys in (("150", vp150), ("1,024", keys1k), ("2,048", keys2k)):
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated(DEV)
+    t = time.perf_counter()
+    (ok, got) = main_path(lambda: E.prewarm(keys, device=DEV))
+    wall_s = time.perf_counter() - t
+    prewarm15[label] = dict(
+        built=ok, wall_s=wall_s, launches=got,
+        card_bytes=torch.cuda.memory_allocated(DEV) - mem0,
+        charged_bytes=E._table_cache.total_bytes,
+        ledger_bytes=devobs.ledger_report().get("table_cache", {})
+        .get("bytes"))
+    log(phase=15, prewarm=label, **prewarm15[label])
+declined15 = rt15.metrics.msm_route.value(path="comb", outcome="declined")
+check(prewarm15["150"]["built"] and prewarm15["1,024"]["built"]
+      and not prewarm15["2,048"]["built"] and declined15 == 1,
+      f"prewarms: {prewarm15}, declined {declined15}")
+check(prewarm15["1,024"]["charged_bytes"] == (256 + 1024) * 202_752
+      == prewarm15["1,024"]["ledger_bytes"]
+      and prewarm15["150"]["card_bytes"] >= 256 * cc.TABLE_BYTES_PER_KEY,
+      f"table bytes: {prewarm15}")
+comb15["prewarm"] = prewarm15
+
+# the 150-validator commit of the prewarmed set through verify_commit: the
+# comb, C2 launched and K1 not; with one bad signature its error names the
+# lane, and its bitmap (the bulk lane on the set's key matrix) is the
+# ladder's (the comb off)
+_, c15a = main_path(lambda: vset150.verify_commit(CHAIN, bid150, 9, commit150,
+                                                  device=DEV),
+                    site="bulk.ed25519")
+rec15 = dict(E.last_launch())
+check(rec15["path"] == "comb" and rec15["nb"] == 256
+      and rec15["group_ops"] == {"doublings": 0, "adds": 128}
+      and c15a["comb_verify"] == 1 and c15a["verify_packed"] == 0,
+      f"prewarmed 150-validator commit: {rec15}, {c15a}")
+orig15 = commit150.signatures[bad_i].signature
+commit150.signatures[bad_i].signature = corrupt(orig15, rng)
+err15, c15b = main_path(lambda: commit_error_index(vset150, bid150,
+                                                   commit150),
+                        capture=("comb_verify", "150-validator commit"),
+                        site="bulk.ed25519")
+mat150 = vset150._pub_matrix()[0]
+msgs150 = commit_sign_bytes_batch(CHAIN, commit150, list(range(150)))
+sig150 = [cs.signature for cs in commit150.signatures]
+bits_comb, _ = main_path(lambda: cbatch.verify_sigs_bulk(
+    mat150, msgs150, sig150, device=DEV), site="bulk.ed25519")
+E.set_comb_config(enabled=False)
+bits_ladder, c15c = main_path(lambda: cbatch.verify_sigs_bulk(
+    mat150, msgs150, sig150, device=DEV), site="bulk.ed25519")
+E.set_comb_config(enabled=True)
+commit150.signatures[bad_i].signature = orig15
+log(phase=15, validators=150, launches=c15a, launches_bad=c15b,
+    record=rec15, error=err15, ladder_launches=c15c)
+check(err15 is not None and f"(#{bad_i})" in err15, f"bad index: {err15}")
+check(np.array_equal(bits_comb, bits_ladder)
+      and np.array_equal(bits_comb, expect4) and c15c["verify_packed"] == 1
+      and c15c["comb_verify"] == 0, "150-validator comb bitmap != ladder's")
+
+# 65,536 triples over the 1,024-key set through BatchVerifier: one C2
+# launch at MAX_CHUNK lanes; 1 in 1,000 corrupted
+n15 = E.MAX_CHUNK
+idx15 = [i % 1024 for i in range(n15)]
+msgs15 = [rng.randbytes(64) for _ in range(n15)]
+sigs15 = sign_batch([a1k[j] for j in idx15], [keys1k[j] for j in idx15],
+                    msgs15, rng)
+bad15 = set(rng.sample(range(n15), 66))
+sigs15 = [corrupt(s, rng) if i in bad15 else s for i, s in enumerate(sigs15)]
+pk1k = [edkeys.PubKey(p) for p in keys1k]
+cbatch.verified_sigs = cbatch.SigCache()
+bv = cbatch.BatchVerifier(device=DEV)
+for i in range(n15):
+    bv.add(pk1k[idx15[i]], msgs15[i], sigs15[i])
+(ok15, bits15), c15d = main_path(
+    bv.verify, capture=("comb_verify", "65,536 over 1,024 keys"),
+    site="batch.ed25519")
+rec15d = dict(E.last_launch())
+expect15 = np.ones(n15, dtype=bool)
+expect15[list(bad15)] = False
+log(phase=15, triples=n15, launches=c15d, record=rec15d,
+    mismatches=int((bits15 != expect15).sum()))
+check(rec15d["path"] == "comb" and rec15d["nb"] == n15
+      and c15d["comb_verify"] == 1 and c15d["verify_packed"] == 0
+      and np.array_equal(bits15, expect15), f"65,536 comb batch: {rec15d}")
+
+# a batch with one key outside the set falls to K1
+mix_p = keys1k[:255] + [vp150[0]]
+mix_m = msgs15[:255] + [b"outside"]
+mix_s = sigs15[:255] + [sig100k[0]]
+bits_mix, c15e = main_path(lambda: E.verify_batch(mix_p, mix_m, mix_s,
+                                                  device=DEV))
+check(E.last_launch()["path"] == "cuda" and c15e["verify_packed"] == 1
+      and c15e["comb_verify"] == 0, f"mixed keys: {c15e}")
+
+# C2 against its plain version on the captured launches, and on the
+# phase-3 vectors (tables built on the card for their keys) beside K1
+# a set's table rows follow its distinct keys in np.unique's order, which
+# is the keys' bytes sorted
+SET_KEYS = {"150-validator commit": vp150, "65,536 over 1,024 keys": keys1k}
+
+
+def plain_tables(keys):
+    """The plain C1 of a set as the table cache builds it."""
+    uniq = sorted(set(keys))
+    return cc.comb_build_plain(u8(uniq + [bytes(32)] * (
+        E._comb_k_pad(len(uniq)) - len(uniq)), 32))
+
+
+c2_cmp = []
+for label, args, out in captured["comb_verify"]:
+    r_, sd_, kd_, v_ = args[:4]
+    ptab, pok = plain_tables(SET_KEYS[label])
+    plain = cc.comb_verify_plain(r_, sd_, kd_, v_, ptab, pok).cpu().numpy()
+    got = out.cpu().numpy()
+    c2_cmp.append((label, len(got), int((got != plain).sum()),
+                   float(np.abs(got.astype(int) - plain.astype(int)).max())))
+vk = sorted(set(vec_p))
+vidx3 = np.array([vk.index(p) for p in vec_p], dtype=np.int32)
+tab3, ok3c = REAL["comb_build"](u8(vk + [bytes(32)] * (
+    E._comb_k_pad(len(vk)) - len(vk)), 32))
+ptab3, pok3 = plain_tables(vec_p)
+_, r3, s3_, k3_, hok3 = E._stage_rows(vec_p, vec_s, vec_m)
+a3 = [torch.from_numpy(np.ascontiguousarray(x)).to(DEV) for x in (
+    r3, E.scalars_to_digits(s3_), E.scalars_to_digits(k3_), vidx3)]
+c2v = REAL["comb_verify"](*a3, tab3, ok3c).cpu().numpy()
+c2v_plain = cc.comb_verify_plain(*a3, ptab3, pok3).cpu().numpy()
+pk3, hk3 = E.prepare_batch_packed(vec_p, vec_s, vec_m)
+k1v = REAL["verify_packed"](torch.from_numpy(pk3.view(np.uint8)).to(DEV)
+                            ).cpu().numpy()
+c2_cmp.append(("phase-3 vectors", n_vec, int((c2v != c2v_plain).sum()),
+               float(np.abs(c2v.astype(int) - c2v_plain.astype(int)).max())))
+c2_vs_k1 = int(((c2v & hok3) != (k1v & hk3)).sum())
+log(phase=15, c2_vs_plain=c2_cmp, c2_vs_k1_vectors=c2_vs_k1,
+    c1_c2_launches_compared=dict(cc.launches))
+check(all(c[2] == 0 for c in c2_cmp), f"C2 differs from plain: {c2_cmp}")
+check(c2_vs_k1 == 0 and np.array_equal(c2v & hok3, oracle_vec),
+      "C2 on the phase-3 vectors != K1 and the oracle")
+comb15.update(c2_vs_plain=c2_cmp, c2_vs_k1_vectors=c2_vs_k1)
+
+# times (CUDA events): C1 at 150 (k_pad 256) and 1,024 keys; C2 at 256
+# (the 150-validator launch), 1,024 and 65,536 lanes (the batch's launch
+# and its first 1,024 lanes); each beside its bound and its plain version
+pub150 = u8(vp150 + [bytes(32)] * 106, 32)
+pub1k = u8(keys1k, 32)
+times["c1_150_ms"] = time_events(lambda: REAL["comb_build"](pub150), 10)
+times["c1_1024_ms"] = time_events(lambda: REAL["comb_build"](pub1k), 10)
+times["c1_150_bound_ms"] = cc.bound_ms_build(256)   # 106 padding keys
+times["c1_1024_bound_ms"] = cc.bound_ms_build(1024)
+torch.cuda.synchronize()
+t = time.perf_counter()
+cc.comb_build_plain(pub1k)
+torch.cuda.synchronize()
+times["plain_c1_1024_ms"] = 1e3 * (time.perf_counter() - t)
+cap = {label: args for label, args, _ in captured["comb_verify"]}
+c2_shapes = {256: cap["150-validator commit"],
+             65536: cap["65,536 over 1,024 keys"]}
+c2_shapes[1024] = [a[:1024].contiguous() for a in c2_shapes[65536][:4]] + \
+    list(c2_shapes[65536][4:])
+c2_work = {}
+for lanes, args in sorted(c2_shapes.items()):
+    times[f"c2_{lanes}_ms"] = time_events(
+        lambda: REAL["comb_verify"](*args), 20 if lanes < 65536 else 5)
+    c2_work[lanes] = cc.verify_work(*(a.cpu().numpy() for a in args[1:4]))
+    times[f"c2_{lanes}_bound_ms"] = cc.bound_ms_verify(c2_work[lanes])
+for lanes, label in ((256, "150-validator commit"),
+                     (65536, "65,536 over 1,024 keys")):
+    ptab, pok = plain_tables(SET_KEYS[label])
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    cc.comb_verify_plain(*c2_shapes[lanes][:4], ptab, pok)
+    torch.cuda.synchronize()
+    times[f"plain_c2_{lanes}_ms"] = 1e3 * (time.perf_counter() - t)
+
+# walls (host clock): the prewarm of a fresh 1,024-key set; the prewarmed
+# 150-validator verify_commit against the same call on the ladder (the
+# comb off), 10 each in turns; the 100k commit with the comb on and off,
+# 3 each in turns (on: its distinct-key sort before the budget declines)
+_, keys1k_b = gen_keys(1024, rng)
+E.table_cache_clear()
+E.prewarm(vp150, device=DEV)
+t = time.perf_counter()
+check(E.prewarm(keys1k_b, device=DEV), "fresh 1,024-key prewarm declined")
+times["prewarm_1024_wall_s"] = time.perf_counter() - t
+w15 = {"comb": [], "ladder": []}
+w15k = {"on": [], "off": []}
+for rnd in range(11):
+    for key in (("comb", "ladder") if rnd % 2 else ("ladder", "comb")):
+        E.set_comb_config(enabled=key == "comb")
+        t = time.perf_counter()
+        vset150.verify_commit(CHAIN, bid150, 9, commit150, device=DEV)
+        if rnd:
+            w15[key].append(time.perf_counter() - t)
+        check(E.last_launch()["path"] == ("comb" if key == "comb"
+                                          else "cuda"), f"150 wall {key}")
+for rnd in range(4):
+    for key in (("on", "off") if rnd % 2 else ("off", "on")):
+        E.set_comb_config(enabled=key == "on")
+        t = time.perf_counter()
+        vset100k.verify_commit(CHAIN, bid100k, 9, commit100k, device=DEV)
+        if rnd:
+            w15k[key].append(time.perf_counter() - t)
+        check(E.last_launch()["path"] == "cuda-split", "100k wall route")
+E.set_comb_config(enabled=True)
+times["verify_commit_150_comb_wall_s"] = pctl(w15["comb"], 0.5)
+times["verify_commit_150_ladder_wall_s"] = pctl(w15["ladder"], 0.5)
+times["verify_commit_100k_comb_on_wall_s"] = pctl(w15k["on"], 0.5)
+times["verify_commit_100k_comb_off_wall_s"] = pctl(w15k["off"], 0.5)
+comb15.update(walls_150_s=w15, walls_100k_s=w15k, work=c2_work,
+              declined=rt15.metrics.msm_route.value(path="comb",
+                                                    outcome="declined"))
+log(phase=15, card=CARD, **{k: v for k, v in times.items()
+                            if "c1_" in k or "c2_" in k or "prewarm" in k
+                            or "comb" in k or "ladder" in k})
+for s_ in ("bulk.ed25519", "batch.ed25519"):
+    runtime_clean("phase 15", s_)
+staging_clear(15)
+E.table_cache_clear()
+check(devobs.ledger_report().get("table_cache", {}).get("bytes") == 0,
+      "phase 15: the table_cache pool is not back to 0")
+REPORT["comb"] = comb15
+
+# -- phase 16: the kernels line -----------------------------------------------
 
 src = "tendermint_tpu_torch/csrc/ed25519_verify.cu"
 # each comparison: (input, lanes, mismatching lanes, max |kernel - plain|)
@@ -2636,10 +2947,39 @@ for name, key, src_f, replaces, cmps, bound in (
          "lanes": 2048, "ms": times[f"{key}_2048_ms"],
          "plain_ms": times[f"plain_{key}_2048_ms"], "bound_ms": bound,
          "bound_by": "operations", "library_ms": None})
+# C1 and C2 (XLA functions of the JAX package, not Pallas kernels): C1 at
+# the 1,024-key set, held as field values; C2 at 65,536 lanes, as bitmaps
+comb_src = "tendermint_tpu_torch/csrc/comb.cu"
+kernels.append(
+    {"name": "C1 comb_build (XLA comb_build_kernel_impl, not a Pallas "
+     "kernel)", "route": "cuda", "source": comb_src,
+     "replaces": "tendermint_tpu/ops/ed25519.py:495",
+     "launches": launches_main["comb_build"],
+     "compared": "table field values and decode verdicts",
+     "lanes_compared": [c[1] for c in cmp15],
+     "mismatches": sum(c[2] for c in cmp15),
+     "max_abs_err": float(min(1, sum(c[2] for c in cmp15))),
+     "lanes": 1024, "ms": times["c1_1024_ms"],
+     "plain_ms": times["plain_c1_1024_ms"],
+     "bound_ms": times["c1_1024_bound_ms"],
+     "bound_by": cc.bound_by_build(1024), "library_ms": None})
+kernels.append(
+    {"name": "C2 comb_verify (XLA comb_verify_staged, not a Pallas kernel)",
+     "route": "cuda", "source": comb_src,
+     "replaces": "tendermint_tpu/ops/ed25519.py:542",
+     "launches": launches_main["comb_verify"],
+     "compared": "verdict bitmaps",
+     "lanes_compared": [c[1] for c in c2_cmp],
+     "mismatches": sum(c[2] for c in c2_cmp) + c2_vs_k1,
+     "max_abs_err": max(c[3] for c in c2_cmp),
+     "lanes": 65536, "ms": times["c2_65536_ms"],
+     "plain_ms": times["plain_c2_65536_ms"],
+     "bound_ms": times["c2_65536_bound_ms"],
+     "bound_by": cc.bound_by_verify(c2_work[65536]), "library_ms": None})
 REPORT.update(times=times, kernels=kernels, ptxas=ptxas, k4_span=k4_span,
               runtime=runtime12, scheduler=sched13,
               verify_build=verify_build, msm_build=msm_build,
-              lane_build=lane_build,
+              lane_build=lane_build, comb_build=comb_build_rep,
               segment_sweep=segment_sweep,
               records={"150": rec150, "100k": rec5b, "pipelined": rec6,
                        "rlc_100k": rec8, "rlc_16384": rec9,

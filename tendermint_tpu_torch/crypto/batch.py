@@ -70,8 +70,9 @@ def _load_kernels(device, n: int, schemes=(ed.KEY_TYPE,)):
     """The torch.device a device lane launches on, resolved HERE on the
     caller's thread (the lane worker must not resolve it: its current
     CUDA device is 0), with the kernels that the lanes of `schemes` will
-    launch built and loaded here too: K1-K3 (and the RLC kernels when
-    msm.use_rlc(n)) for ed25519, S1 for secp256k1 while its lane is on,
+    launch built and loaded here too: K1-K3 (the comb's C1 and C2 while
+    the comb is on, the RLC kernels when msm.use_rlc(n)) for ed25519, S1
+    for secp256k1 while its lane is on,
     S2 for sr25519.  An nvcc build takes tens of seconds to minutes:
     inside the lane worker it would run under the launch deadline, time
     out and fall back to the host with the kernel never run.  Called
@@ -79,11 +80,14 @@ def _load_kernels(device, n: int, schemes=(ed.KEY_TYPE,)):
     and is never counted as a device failure."""
     dev = resolve_device(device)
     if dev.type == "cuda":
-        from tendermint_tpu_torch.ops import (cuda_ed25519, cuda_msm,
-                                              cuda_secp, cuda_sr25519, msm,
-                                              secp)
+        from tendermint_tpu_torch.ops import (cuda_comb, cuda_ed25519,
+                                              cuda_msm, cuda_secp,
+                                              cuda_sr25519, msm, secp)
+        from tendermint_tpu_torch.ops import ed25519 as edops
         if ed.KEY_TYPE in schemes:
             cuda_ed25519.kernels()
+            if edops.comb_enabled():
+                cuda_comb.kernels()
             if msm.use_rlc(n):
                 cuda_msm.kernels()
         if "secp256k1" in schemes and secp.use_lane():

@@ -565,6 +565,24 @@ def publish_route(path, outcome, n=None, nb=None, compile_s=None):
         pass
 
 
+def publish_table_cache(bytes_=None, hit=None, evicted=None):
+    """Bridge from the comb table cache (ops/ed25519) into CryptoMetrics:
+    the resident-bytes gauge (the bytes the cache charges) and the
+    hit/eviction counters.  Comb launches publish through publish_route
+    (path comb) like every other route.  Swallows everything, as
+    publish_route."""
+    try:
+        m = runtime().metrics
+        if bytes_ is not None:
+            m.table_cache_bytes.set(float(bytes_))
+        if hit:
+            m.table_hits.inc()
+        if evicted:
+            m.table_evictions.inc()
+    except Exception:  # noqa: BLE001 - metrics are best-effort here
+        pass
+
+
 def publish_host_pool(depth=None, tasks=None):
     """Bridge from the host-lane pool (crypto/lanepool.py) into
     CryptoMetrics: the admitted-task depth gauge and per-kind task

@@ -4,8 +4,8 @@ decomposition, device-memory residency ledger, and compile inventory.
 The counterpart of tendermint_tpu/crypto/devobs.py (ADR-021).  A bounded
 ring of per-launch records with a phase decomposition, fed by every
 dispatch that funnels through ops/ed25519._set_last_launch: the K1/K2
-routes via _record_launch, verify_batch_staged (K3), and the RLC route
-mirror from ops/msm._set_route (K4, K5, A1).
+routes and the comb route (C2) via _record_launch, verify_batch_staged
+(K3), and the RLC route mirror from ops/msm._set_route (K4, K5, A1).
 
 Per-launch phases (seconds; a path records the ones it measures — on a
 CUDA device the transfer and kernel times are CUDA-event times, see
@@ -81,10 +81,11 @@ _MAX_PENDING = 4096
 PHASES = ("stage_s", "h2d_s", "compute_s", "collect_s", "drain_s")
 
 # ledger pools of the node, in the report's stable order; ledger_set/add
-# accept any pool name (the gauge is labeled).  The port feeds pub_cache
-# (ops/ed25519's DeviceLRU of pubkey rows) and staging (its chunk feed's
-# pinned and device buffers); base_comb, table_cache and mesh_tables wait
-# for the comb tables and the sharded paths
+# accept any pool name (the gauge is labeled).  The port feeds table_cache
+# (ops/ed25519's comb table cache, the bytes it charges), pub_cache (its
+# DeviceLRU of pubkey rows), base_comb (B's static comb of the route's
+# device), and staging (the chunk feed's pinned and device buffers, the
+# comb route's per-launch rows); mesh_tables waits for the sharded paths
 KNOWN_POOLS = ("table_cache", "pub_cache", "base_comb", "staging",
                "mesh_tables")
 

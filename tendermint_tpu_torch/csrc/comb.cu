@@ -1,0 +1,178 @@
+// The fixed-base comb on Hopper (sm_90a): kernel C1 builds the window
+// tables of -A for a validator set, kernel C2 verifies signatures against
+// them with no doubling.  Plain C interface for ctypes (ops/cuda_comb.py).
+//
+// Replaces (both XLA functions of tendermint_tpu/ops/ed25519.py, not
+// Pallas kernels):
+//   C1  comb_build_kernel_impl (:495, with ops/curve.py cached_window
+//       :213 and comb_table_scan :239) -> tm_comb_build: (K, 32) uint8
+//       pubkeys -> the table [window][digit][key][coord][limb] int32
+//       (64, 9, K, 4, 10), entry [i][j] = [j 16^i](-A) in cached form
+//       (Y+X, Y-X, Z, 2dT), and the decode verdict per key (uint8)
+//   C2  comb_verify_staged (:542, with _gather_comb_cached :511 and
+//       _gather_base_comb :528) -> tm_comb_verify: R (B, 32) uint8, the
+//       signed radix-16 digits of s and k (B, 64) int8 as the host stages
+//       them (ops/ed25519.scalars_to_digits), the table row of each
+//       signature's key (B,) int32, C1's table and verdicts, and B's comb
+//       (64, 9, 3, 10) int32 in niels form -> one uint8 verdict per
+//       signature: encode([s]B + [k](-A)) == R, AND A's decode verdict
+// The bodies are comb_build4 and comb_verify4 (comb4.cuh), on the
+// four-lane group law of K1 (verify4.cuh): one key or one signature on a
+// group of four lanes, lane t holding coordinate t, the values exchanged
+// by __shfl_sync of width 4 between the two rounds of each doubling and
+// addition.
+//
+// What bounds them on the H100.  Both are integer multiply-adds, and at
+// the main path's sizes the length of one group's dependency chain.
+// - C1 per key: the decode (255 squares, ~20 multiplies) and 64 windows of
+//   5 doublings, 3 additions and 8 cached conversions: per lane 5 x 2 +
+//   3 x 2 + 8 = 24 rounds a window, ~1,800 rounds a key.  A 1,024-key set
+//   is 4,096 threads, under one warp a scheduler: the chain, not the
+//   card's multiply rate, sets its time.  Its output is 92,160 B a key
+//   (94 MB for 1,024 keys, more than the 50 MB L2), written once, each
+//   group's 160-byte entry contiguous.
+// - C2 per signature: 64 windows of two additions (4 rounds), then the
+//   inversion of Z (~265 operations) and two compares: ~530 rounds.  It
+//   reads 64 gathered entries of -A's table (10,240 B) and 64 entries of
+//   B's comb, and 165 B of its own rows.
+// What the design does about it.
+// - Four lanes a key or a signature, as K1: an addition is two rounds of
+//   four independent products instead of ~12 dependent ones.
+// - C1's layout lets C2's group read one entry as one 160-byte run
+//   (lane t reads its coordinate's 40 B): table index
+//   ((win * 9 + j) * K + key) * 40 + 10 * coord + limb.
+// - B's comb (69,120 B) stays in device memory and is read through the
+//   read-only path (const __restrict__), not copied into shared memory per
+//   block: at 256 lanes the copy would cost each of the two blocks more
+//   than the reads it saves, and 69 KB of shared memory a block would
+//   hold an SM to three blocks.  A window's 9 entries (1,080 B) are shared
+//   by every signature of the launch, so they stay in L1/L2.
+// - No shared memory at all: the running point, the entry being added and
+//   the round's products live in registers (C2 within 128 registers, so
+//   4 blocks of 128 threads fit an SM).
+// - Ragged tails: every lane of a warp reaches every shuffle; a group
+//   past the end works on the last key or signature again and stores
+//   nothing.  A table row index outside [0, K) reads row 0 and fails.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "comb4.cuh"
+#include "fe25519.cuh"
+#include "launch.cuh"
+
+#define THREADS 128                 // 32 keys or signatures a block
+#define MIN_BLOCKS_C2 4             // -> at most 128 registers a thread
+
+// the exchange of verify4.cuh on the card: a shuffle within the 4-lane
+// group (comb4.cuh uses lane() and get() only)
+struct CombXch {
+  __device__ __forceinline__ int lane() const { return threadIdx.x & 3; }
+  __device__ __forceinline__ int32_t get(int32_t v, int src) const {
+    return __shfl_sync(0xFFFFFFFFu, v, src, 4);
+  }
+};
+
+__device__ __forceinline__ int64_t group_index() {
+  return ((int64_t)blockIdx.x * THREADS + threadIdx.x) >> 2;
+}
+
+__device__ __forceinline__ void load_row32(uint32_t w[8],
+                                           const uint8_t *__restrict__ row) {
+  const uint32_t *r = (const uint32_t *)row;
+#pragma unroll
+  for (int q = 0; q < 8; q++) w[q] = r[q];
+}
+
+__global__ void __launch_bounds__(THREADS)
+k_comb_build(const uint8_t *__restrict__ pub, int64_t K,
+             int32_t *__restrict__ tab, uint8_t *__restrict__ dec_ok) {
+  CombXch x;
+  const int64_t key = group_index();
+  const int64_t kl = key < K ? key : K - 1;
+  const bool store = key < K;
+  uint32_t w[8];
+  load_row32(w, pub + 32 * kl);
+  const int t = x.lane();
+  auto put = [&](int win, int j, const fe c) {
+    if (store) {
+      int32_t *dst = tab + (((int64_t)win * COMB_DIGITS + j) * K + key) * 40
+                     + 10 * t;
+#pragma unroll
+      for (int i = 0; i < 10; i++) dst[i] = c[i];
+    }
+  };
+  bool ok = comb_build4(x, w, put);
+  if (store && t == 0) dec_ok[key] = ok;
+}
+
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS_C2)
+k_comb_verify(const uint8_t *__restrict__ r_rows,
+              const int8_t *__restrict__ sd, const int8_t *__restrict__ kd,
+              const int32_t *__restrict__ vidx, int64_t B,
+              const int32_t *__restrict__ tab,
+              const uint8_t *__restrict__ dec_ok, int64_t K,
+              const int32_t *__restrict__ base, uint8_t *__restrict__ out) {
+  CombXch x;
+  const int64_t sig = group_index();
+  const int64_t sl = sig < B ? sig : B - 1;
+  int32_t v = vidx[sl];
+  const bool in_range = v >= 0 && v < K;
+  v = in_range ? v : 0;
+  uint32_t r[8];
+  load_row32(r, r_rows + 32 * sl);
+  const int8_t *s_d = sd + 64 * sl;
+  const int8_t *k_d = kd + 64 * sl;
+  auto digit = [&](int win, int h) -> int {
+    return h == 0 ? s_d[win] : k_d[win];
+  };
+  auto a_entry = [&](int win, int j) -> const int32_t * {
+    return tab + (((int64_t)win * COMB_DIGITS + j) * K + v) * 40;
+  };
+  bool ok = comb_verify4(x, digit, a_entry, base, r);
+  if (sig < B && x.lane() == 0)
+    out[sig] = ok && in_range && dec_ok[v] != 0;
+}
+
+extern "C" {
+
+int tm_comb_build(const void *pub, long long K, void *tab, void *dec_ok,
+                  int device, void *stream) {
+  DeviceScope scope(device);
+  if (scope.err != cudaSuccess) return (int)scope.err;
+  if (K > 0)
+    k_comb_build<<<blocks_for(4 * K, THREADS), THREADS, 0,
+                   (cudaStream_t)stream>>>(
+        (const uint8_t *)pub, K, (int32_t *)tab, (uint8_t *)dec_ok);
+  return (int)cudaGetLastError();
+}
+
+int tm_comb_verify(const void *r, const void *sd, const void *kd,
+                   const void *vidx, long long B, const void *tab,
+                   const void *dec_ok, long long K, const void *base,
+                   void *out, int device, void *stream) {
+  DeviceScope scope(device);
+  if (scope.err != cudaSuccess) return (int)scope.err;
+  if (B > 0)
+    k_comb_verify<<<blocks_for(4 * B, THREADS), THREADS, 0,
+                    (cudaStream_t)stream>>>(
+        (const uint8_t *)r, (const int8_t *)sd, (const int8_t *)kd,
+        (const int32_t *)vidx, B, (const int32_t *)tab,
+        (const uint8_t *)dec_ok, K, (const int32_t *)base, (uint8_t *)out);
+  return (int)cudaGetLastError();
+}
+
+// blocks of THREADS threads that fit on one SM for kernel `which`
+// (0 C1, 1 C2), as the occupancy calculator of the runtime says
+int tm_comb_occupancy(int which, int *blocks, int *threads) {
+  const void *fn = which == 0 ? (const void *)k_comb_build
+                              : (const void *)k_comb_verify;
+  *threads = THREADS;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn,
+                                                            THREADS, 0);
+}
+
+const char *tm_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+}  // extern "C"

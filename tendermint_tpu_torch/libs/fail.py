@@ -52,6 +52,9 @@ REGISTERED_SITES = frozenset({
     "ops.ed25519.verify_batch",
     "ops.sr25519.verify_batch",
     "ops.secp.verify_batch",
+    # the fixed-base comb route inside ops/ed25519.verify_batch, after its
+    # table lookup and before its staging and launches
+    "ops.ed25519.comb",
     # degradation-runtime lane sites (crypto/degrade.py submit/run):
     # one per (consumer, scheme) lane — BatchVerifier's, the
     # VerifyScheduler's coalesced lanes and the whole-commit bulk path

@@ -314,11 +314,28 @@ class CryptoMetrics:
             "dominated by jit compile; steady-state launches land in "
             "crypto_device_launch_seconds instead.",
             labels=("site",), buckets=exp_buckets(0.01, 4, 10))
+        # fixed-base comb table cache (ops/ed25519): is the zero-doubling
+        # path engaging (crypto_msm_route_total path="comb" counts the
+        # launches), what the tables cost on the device, and whether sets
+        # are thrashing in and out
+        self.table_cache_bytes = reg.gauge(
+            "crypto", "table_cache_bytes",
+            "Device-resident comb window tables currently cached, "
+            "bytes (bounded by [batch_verifier] table_cache_mb; one "
+            "padded validator key costs ~198 KB).")
+        self.table_hits = reg.counter(
+            "crypto", "table_hits_total",
+            "Verify batches that resolved to an already-built comb "
+            "table set (the zero-doubling fixed-base path engaged "
+            "with no table build).")
+        self.table_evictions = reg.counter(
+            "crypto", "table_evictions_total",
+            "Comb table sets evicted from the device cache (LRU by "
+            "validator-set content hash when over the byte budget).")
         # VerifyScheduler (crypto/scheduler.py): the cross-consumer
         # coalescing service — is the queue backing up, how full are the
         # coalesced launches, is the shed class actually being shed, and
-        # is host staging hiding under device execution.  (The comb
-        # table cache's families wait for its port.)
+        # is host staging hiding under device execution
         self.sched_queue_depth = reg.gauge(
             "crypto", "sched_queue_depth",
             "Triples pending in the VerifyScheduler queue, all "

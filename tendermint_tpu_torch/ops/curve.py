@@ -137,7 +137,9 @@ def cond_neg_niels(q: Niels, neg: torch.Tensor) -> Niels:
 
 def cached_window(p: Ext):
     """Cached multiples j*p for j = 0..8 stacked on axis 0 (each field
-    (9, NLIMB, *batch)): 4 doublings + 3 additions, identity at j = 0."""
+    (9, NLIMB, *batch)), plus 8*p in extended form: 4 doublings + 3
+    additions, identity at j = 0.  The signed-radix-16 window unit of the
+    ladder's per-launch table and of the comb's table scan."""
     a1 = p
     a2 = dbl(a1)
     c1 = to_cached(a1)
@@ -154,6 +156,23 @@ def cached_window(p: Ext):
     entries = [ident, c1] + [to_cached(q) for q in (a2, a3, a4, a5, a6, a7)]
     entries.append(to_cached(a8))
     return Cached(*(torch.stack([getattr(e, f) for e in entries])
+                    for f in ("ypx", "ymx", "z", "t2d"))), a8
+
+
+def comb_table_scan(p: Ext, windows: int = 64) -> Cached:
+    """Fixed-base comb tables for a batch of base points: entry [i, j] =
+    [j * 16^i] p in cached form, each field (windows, 9, NLIMB, *batch).
+    The loop carries the running base [16^i] p: each window emits
+    cached_window of it and advances it by one doubling of the 8x entry
+    (16^{i+1} = 2 * 8 * 16^i).  The plain arithmetic of kernel C1 (the
+    JAX package's lax.scan of the same steps)."""
+    rows = []
+    g = p
+    for _ in range(windows):
+        tab, a8 = cached_window(g)
+        rows.append(tab)
+        g = dbl(a8)
+    return Cached(*(torch.stack([getattr(r, f) for r in rows])
                     for f in ("ypx", "ymx", "z", "t2d")))
 
 

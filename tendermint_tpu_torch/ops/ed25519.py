@@ -22,14 +22,21 @@ least PUB_CACHE_MIN signatures) with the pubkey rows resident on the
 device, SPLIT_CHUNK lanes per K2 launch; "rlc-single" — the opt-in RLC
 batch check of ops/msm.py (kernels K4, K5, A1), tried first when
 msm.use_rlc(n), with a fall-through to the routes above unless it vouches
-for the whole batch; "cuda-staged" — verify_batch_staged, K3 on raw
+for the whole batch; "comb" — the fixed-base comb (kernels C1 and C2 of
+ops/cuda_comb.py): a batch whose keys all resolve to one validator set
+with device-resident window tables (built by `prewarm`, or by a
+cache_pubs batch of at least comb_min_batch() signatures within the
+table budget) verifies with zero doublings, tried after RLC and before
+the ladder routes; "cuda-staged" — verify_batch_staged, K3 on raw
 SHA-512 digests (no node path uses it).  On device="cpu" the same routes
 run the kernels' plain PyTorch versions.
 """
 from __future__ import annotations
 
+import atexit
 import collections
 import hashlib
+import os
 import threading
 import time
 from types import MappingProxyType
@@ -40,6 +47,7 @@ import torch
 from tendermint_tpu_torch import resolve_device
 from tendermint_tpu_torch.libs import fail
 from tendermint_tpu_torch.libs import trace
+from . import cuda_comb as cc
 from . import cuda_ed25519 as ck
 from . import curve as C
 from . import field as F
@@ -116,7 +124,7 @@ def straus_ladder(neg_a: C.Ext, s_digits: torch.Tensor,
     dev = neg_a.x.device
     B = neg_a.x.shape[1]
     base = _base_niels(dev)
-    tab = C.cached_window(neg_a)                     # fields (9, NLIMB, B)
+    tab, _ = C.cached_window(neg_a)                  # fields (9, NLIMB, B)
     p = C.identity((B,), dev)
     for pos in range(63, -1, -1):
         p = C.dbl(C.dbl(C.dbl(C.dbl(p, False), False), False), True)
@@ -129,6 +137,126 @@ def straus_ladder(neg_a: C.Ext, s_digits: torch.Tensor,
         q = C.Cached(*(torch.gather(t, 0, idx)[0] for t in tab))
         p = C.add_cached(p, C.cond_neg_cached(q, da < 0))
     return p
+
+
+# ---------------------------------------------------------------------------
+# the fixed-base comb: with [j 16^i](-A) resident for every key of a
+# validator set, [s]B + [k](-A) is 64 windows of one niels addition from
+# B's static comb and one cached addition gathered from -A's table, and no
+# doubling.  The static comb of B is built on first comb use (~512 bignum
+# additions), so a process that only runs the ladder never pays for it.
+# ---------------------------------------------------------------------------
+
+COMB_WINDOWS = 64
+
+_base_comb_lock = threading.Lock()
+_base_comb_np_cache = None
+_base_comb_cache: dict = {}
+
+
+def _base_comb_np():
+    """(64, 9, NLIMB) niels limb rows (ypx, ymx, t2d) of [j 16^i] B."""
+    global _base_comb_np_cache
+    with _base_comb_lock:
+        if _base_comb_np_cache is not None:
+            return _base_comb_np_cache
+    ypx = np.zeros((COMB_WINDOWS, 9, F.NLIMB), dtype=np.int64)
+    ymx = np.zeros_like(ypx)
+    t2d = np.zeros_like(ypx)
+    base = (C.BX_INT, C.BY_INT)
+    for i in range(COMB_WINDOWS):
+        pts = _window_pts(base)
+        ypx[i], ymx[i], t2d[i] = _niels_rows(pts)
+        # 16^{i+1} B = 2 * (8 * 16^i B)
+        base = _edwards_add_int(pts[8], pts[8])
+    with _base_comb_lock:
+        if _base_comb_np_cache is None:
+            _base_comb_np_cache = (ypx, ymx, t2d)
+        return _base_comb_np_cache
+
+
+def _base_comb(dev: torch.device):
+    """B's static comb as the plain C2's three (64, 9, NLIMB) tensors on
+    `dev` (C2 on the card reads its own 10-limb copy,
+    cuda_comb.base_comb_dev).  The device observatory's base_comb pool is
+    refreshed on every access."""
+    key = str(dev)
+    with _base_comb_lock:
+        cache = _base_comb_cache.get(key)
+    if cache is None:
+        cache = tuple(torch.from_numpy(t).to(dev) for t in _base_comb_np())
+        with _base_comb_lock:
+            cache = _base_comb_cache.setdefault(key, cache)
+    from tendermint_tpu_torch.crypto import devobs
+    devobs.ledger_set("base_comb", sum(
+        t.numel() * t.element_size() for t in cache))
+    return cache
+
+
+def comb_build_kernel_impl(pub: torch.Tensor):
+    """Plain C1: (K, 32) uint8 pubkeys -> (Cached tables of -A, fields
+    (64, 9, NLIMB, K); (K,) bool decode verdict).  Decode (Go semantics),
+    negate, and scan out the 64 signed-radix-16 window tables
+    (curve.comb_table_scan); the JAX package's comb_build_kernel_impl."""
+    y_l, a_sign = F.bytes_to_limbs(pub.t())
+    a, ok = C.decompress(y_l, a_sign)
+    neg_a = C.Ext(F.carry_lazy(-a.x), a.y, a.z, F.carry_lazy(-a.t))
+    return C.comb_table_scan(neg_a, windows=COMB_WINDOWS), ok
+
+
+def _gather_comb_cached(tab: C.Cached, i: int, digit: torch.Tensor,
+                        vidx: torch.Tensor) -> C.Cached:
+    """Entry [i, |digit|, :, vidx] of the per-validator comb tables per
+    lane, negated for a negative digit."""
+    j = digit.abs()
+    B = digit.shape[0]
+    idx = j.reshape(1, 1, B).expand(1, F.NLIMB, B)
+
+    def sel(t):
+        lane = t[i][:, :, vidx]                      # (9, NLIMB, B)
+        return torch.gather(lane, 0, idx)[0]
+
+    q = C.Cached(sel(tab.ypx), sel(tab.ymx), sel(tab.z), sel(tab.t2d))
+    return C.cond_neg_cached(q, digit < 0)
+
+
+def _gather_base_comb(base, i: int, digit: torch.Tensor) -> C.Niels:
+    """Entry [i, |digit|] of B's static comb per lane, negated for a
+    negative digit."""
+    j = digit.abs()
+    return C.cond_neg_niels(C.Niels(*(t[i][j].t() for t in base)),
+                            digit < 0)
+
+
+def comb_verify_staged(r, s_digits, k_digits, vidx, tab_ypx, tab_ymx,
+                       tab_z, tab_t2d, dec_ok, base_ypx, base_ymx,
+                       base_t2d) -> torch.Tensor:
+    """Plain C2, the JAX package's comb_verify_staged: the cofactorless
+    verdict with zero doublings.  Batch-major inputs: r (B, 32) uint8,
+    s_digits and k_digits (B, 64) int8 signed radix-16 digits, vidx (B,)
+    int32 rows of the table axis, tab_* (64, 9, NLIMB, K) cached tables
+    of -A, dec_ok (K,) bool, base_* (64, 9, NLIMB) B's comb.  A lane whose
+    vidx lies outside [0, K) fails (C2 reads no table row for it).  Per
+    window one niels addition of B's entry and one cached addition of
+    -A's, from the identity; then encode and compare with R byte for
+    byte.  Returns (B,) bool."""
+    dev = r.device
+    B = r.shape[0]
+    K = dec_ok.shape[0]
+    vidx = vidx.long()
+    in_range = (vidx >= 0) & (vidx < K)
+    vidx = torch.where(in_range, vidx, torch.zeros_like(vidx))
+    sd = s_digits.long().clamp(-8, 8).t()
+    kd = k_digits.long().clamp(-8, 8).t()
+    tab = C.Cached(tab_ypx, tab_ymx, tab_z, tab_t2d)
+    base = (base_ypx, base_ymx, base_t2d)
+    p = C.identity((B,), dev)
+    for i in range(COMB_WINDOWS):
+        p = C.madd_niels(p, _gather_base_comb(base, i, sd[i]))
+        p = C.add_cached(p, _gather_comb_cached(tab, i, kd[i], vidx))
+    enc = C.encode(p)
+    r_rows = r.t().to(F.DTYPE) & 0xFF
+    return (enc == r_rows).all(0) & dec_ok[vidx].bool() & in_range
 
 
 # ---------------------------------------------------------------------------
@@ -351,12 +479,27 @@ def _set_last_launch(path: str, dev: torch.device, n: int, nb: int,
     return first
 
 
+# group operations a lane of each route performs, in its launch record
+# (group_ops): the ladder pays the per-launch window of -A (4 doublings,
+# 3 additions) and 64 steps of 4 doublings and 2 additions; the comb 2
+# additions a window and nothing else
+LADDER_GROUP_OPS = {"doublings": 4 * 64 + 4, "adds": 2 * 64 + 3}
+COMB_GROUP_OPS = {"doublings": 0, "adds": 2 * COMB_WINDOWS}
+_GROUP_OPS_BY_PATH = {
+    "cuda": LADDER_GROUP_OPS, "cuda-split": LADDER_GROUP_OPS,
+    "cuda-staged": LADDER_GROUP_OPS, "comb": COMB_GROUP_OPS,
+}
+
+
 def _record_launch(path: str, dev: torch.device, n: int, nb: int,
                    wall_s: float, phases: dict):
     """Store the launch record and publish the route: the
     crypto_msm_route_total{path, outcome="executed"} counter, the lane
     occupancy and (on a bucket's first launch) the compile split, and
     the route attrs on the innermost live span."""
+    ops = _GROUP_OPS_BY_PATH.get(path)
+    if ops is not None:
+        phases = dict(phases, group_ops=dict(ops))
     first = _set_last_launch(path, dev, n, nb, wall_s, phases)
     from tendermint_tpu_torch.crypto import degrade
     degrade.publish_route(path, "executed", n=n, nb=nb,
@@ -507,13 +650,21 @@ def verify_packed_pipelined(packed: np.ndarray, nsub: int,
 class DeviceLRU:
     """Bounded, thread-safe LRU of device-resident uploads.
 
-    Eviction is oldest-first beyond `max_entries` and never evicts the
-    entry just inserted.  put() is first-wins: when two threads race the
-    same key, the loser's upload is dropped and both use the winner's
-    tensors, so a double upload cannot leave two resident copies."""
+    Bounds: `max_entries` (count) and/or `max_bytes` (sum of the nbytes
+    passed to put), whichever is set; eviction is oldest-first and never
+    evicts the entry just inserted (a single entry larger than the budget
+    is kept rather than thrashed; callers check the budget before they
+    build).  Every mutation enforces the bound inside the same critical
+    section, so no observer sees it exceeded.  put() is first-wins: when
+    two threads race the same key, the loser's upload is dropped and both
+    use the winner's tensors, so a double upload cannot leave two
+    resident copies.  `on_evict(key, value)` fires outside the lock."""
 
-    def __init__(self, max_entries: int):
+    def __init__(self, max_entries: int = None, max_bytes: int = None,
+                 on_evict=None):
         self.max_entries = max_entries
+        self.max_bytes = max_bytes
+        self._on_evict = on_evict
         self._od: "collections.OrderedDict" = collections.OrderedDict()
         self._bytes = 0
         self._lock = threading.Lock()
@@ -533,6 +684,7 @@ class DeviceLRU:
 
     def put(self, key, value, nbytes: int = 0):
         """Insert `value` (charged `nbytes` in total_bytes)."""
+        evicted = []
         with self._lock:
             ent = self._od.get(key)
             if ent is not None:  # racing upload lost: first wins
@@ -540,11 +692,34 @@ class DeviceLRU:
                 return ent[0]
             self._od[key] = (value, nbytes)
             self._bytes += nbytes
-            while len(self._od) > max(1, self.max_entries):
-                _, (_, b) = self._od.popitem(last=False)
+            while len(self._od) > 1 and self._over_locked():
+                k, (v, b) = self._od.popitem(last=False)
                 self._bytes -= b
                 self.evictions += 1
+                evicted.append((k, v))
+        if self._on_evict is not None:
+            for k, v in evicted:
+                self._on_evict(k, v)
         return value
+
+    def _over_locked(self) -> bool:
+        if self.max_entries is not None and \
+                len(self._od) > self.max_entries:
+            return True
+        return self.max_bytes is not None and self._bytes > self.max_bytes
+
+    def pop(self, key):
+        with self._lock:
+            ent = self._od.pop(key, None)
+            if ent is None:
+                return None
+            self._bytes -= ent[1]
+        return ent[0]
+
+    def clear(self):
+        with self._lock:
+            self._od.clear()
+            self._bytes = 0
 
     @property
     def total_bytes(self) -> int:
@@ -558,6 +733,13 @@ class DeviceLRU:
     def __contains__(self, key) -> bool:
         with self._lock:
             return key in self._od
+
+    def peek(self, key):
+        """get() without touching recency or the hit/miss counters, for
+        bookkeeping scans that must not change the eviction order."""
+        with self._lock:
+            ent = self._od.get(key)
+            return None if ent is None else ent[0]
 
     def keys(self):
         with self._lock:
@@ -585,6 +767,194 @@ def _pub_cache_get(pub_rows: np.ndarray, nsub: int, dev: torch.device):
     from tendermint_tpu_torch.crypto import devobs
     devobs.ledger_set("pub_cache", _pub_cache.total_bytes)
     return chunks
+
+
+# -- comb table cache: per-validator window tables of -A, device-resident,
+# keyed by the content hash of the set's sorted distinct pubkey rows and by
+# device (a CPU call never resolves to a card entry, nor the reverse).
+# Bounded in bytes: a key is charged the JAX package's 22-limb row,
+# 64 windows x 9 entries x 4 cached fields x NLIMB x 4 B = 202,752 B,
+# whatever the device holds (C2's 10-limb table is 92,160 B a key), so
+# builds, declines and evictions are the reference's; the 256 MiB default
+# holds ~1.3k keys.  The table_cache gauge and ledger pool report these
+# charged bytes.
+
+PREWARM_MIN_KEYS = 32     # the device-lane batch floor (crypto/batch
+# tpu_threshold): a smaller set never reaches the device, so prewarming it
+# would build tables nothing uses; comb_min_batch() lowers the floor
+_TABLE_BYTES_PER_KEY = COMB_WINDOWS * 9 * 4 * F.NLIMB * 4
+TABLE_CACHE_MB_DEFAULT = 256
+
+_comb_enabled_override = None   # set_comb_config wins over the env
+_comb_min_override = None
+_table_budget_override = None
+
+
+def set_comb_config(enabled: bool = None, table_cache_mb: int = None,
+                    min_batch: int = None):
+    """Override the comb knobs (None leaves a knob on its env/default)."""
+    global _comb_enabled_override, _comb_min_override, \
+        _table_budget_override
+    if enabled is not None:
+        _comb_enabled_override = bool(enabled)
+    if table_cache_mb is not None:
+        _table_budget_override = int(table_cache_mb) << 20
+    if min_batch is not None:
+        _comb_min_override = int(min_batch)
+
+
+def comb_enabled() -> bool:
+    """TM_TPU_COMB (default 1)."""
+    if _comb_enabled_override is not None:
+        return _comb_enabled_override
+    return os.environ.get("TM_TPU_COMB", "1") != "0"
+
+
+def comb_min_batch() -> int:
+    """Smallest batch that triggers a table BUILD (TM_TPU_COMB_MIN, default
+    PUB_CACHE_MIN); a cache hit engages at any size."""
+    if _comb_min_override is not None:
+        return _comb_min_override
+    return int(os.environ.get("TM_TPU_COMB_MIN", PUB_CACHE_MIN))
+
+
+def table_cache_budget_bytes() -> int:
+    """TM_TPU_TABLE_CACHE_MB (default 256) in bytes."""
+    if _table_budget_override is not None:
+        return _table_budget_override
+    return int(os.environ.get("TM_TPU_TABLE_CACHE_MB",
+                              TABLE_CACHE_MB_DEFAULT)) << 20
+
+
+class CombTables:
+    """One cached validator set: its comb tables on one device.  `tables`
+    is C1's output: on a GPU one (64, 9, K_pad, 4, 10) int32 tensor, on
+    the CPU the plain version's Cached fields (64, 9, NLIMB, K_pad)."""
+    __slots__ = ("set_hash", "index", "tables", "dec_ok", "nbytes",
+                 "k", "k_pad", "device")
+
+    def __init__(self, set_hash, index, tables, dec_ok, nbytes, k, k_pad,
+                 device):
+        self.set_hash = set_hash
+        self.index = index        # pubkey bytes -> table row
+        self.tables = tables
+        self.dec_ok = dec_ok      # (K_pad,) bool tensor
+        self.nbytes = nbytes      # charged bytes (_TABLE_BYTES_PER_KEY)
+        self.k = k
+        self.k_pad = k_pad
+        self.device = device      # str(torch.device)
+
+
+_table_key_lock = threading.Lock()
+# (pubkey bytes, device) -> the cache key (set hash, device) of its owner
+_table_key_index: dict = {}
+
+
+def _table_evicted(key, entry):
+    with _table_key_lock:
+        for kb in entry.index:
+            ik = (kb, entry.device)
+            if _table_key_index.get(ik) != key:
+                continue
+            # overlapping sets (a validator-set change keeps most keys):
+            # repoint the key to a surviving resident owner instead of
+            # dropping it, or the survivor's subset lookups, gated on this
+            # index, would stop engaging the comb
+            for owner in _table_cache.keys():
+                surv = _table_cache.peek(owner)
+                if surv is not None and surv.device == entry.device \
+                        and kb in surv.index:
+                    _table_key_index[ik] = owner
+                    break
+            else:
+                del _table_key_index[ik]
+    from tendermint_tpu_torch.crypto import degrade
+    from tendermint_tpu_torch.crypto import devobs
+    degrade.publish_table_cache(bytes_=_table_cache.total_bytes,
+                                evicted=True)
+    devobs.ledger_set("table_cache", _table_cache.total_bytes)
+
+
+_table_cache = DeviceLRU(max_bytes=None, on_evict=_table_evicted)
+
+
+def table_cache_clear():
+    """Drop every cached set (tests, operator tooling)."""
+    for h in _table_cache.keys():
+        entry = _table_cache.pop(h)
+        if entry is not None:
+            _table_evicted(h, entry)
+
+
+def _comb_k_pad(k: int) -> int:
+    """Validator-axis bucket: a power of two, at least 8."""
+    return max(8, 1 << (k - 1).bit_length())
+
+
+def _set_hash(uniq: np.ndarray) -> bytes:
+    return hashlib.sha256(uniq.tobytes()).digest()
+
+
+def _table_build(uniq: np.ndarray, set_hash: bytes, dev: torch.device):
+    """Build and cache the comb tables (C1) of a distinct-key matrix
+    (K, 32) on `dev`.  Returns the CombTables entry, or None when the
+    budget says no (route comb/declined: the ladder takes the batch)."""
+    from tendermint_tpu_torch.crypto import degrade
+
+    k = uniq.shape[0]
+    k_pad = _comb_k_pad(k)
+    nbytes = k_pad * _TABLE_BYTES_PER_KEY
+    budget = table_cache_budget_bytes()
+    if nbytes > budget:
+        degrade.publish_route("comb", "declined")
+        return None
+    _table_cache.max_bytes = budget  # the config may have changed
+    pub_pad = np.zeros((k_pad, 32), dtype=np.uint8)
+    pub_pad[:k] = uniq
+    t0 = time.perf_counter()
+    with trace.span("table_build", k=k, k_pad=k_pad, bytes=nbytes) as sp:
+        tab, dec_ok = cc.comb_build(torch.from_numpy(pub_pad).to(dev))
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        sp.add(wall_s=round(time.perf_counter() - t0, 4))
+    index = {uniq[i].tobytes(): i for i in range(k)}
+    entry = CombTables(set_hash, index, tab, dec_ok, nbytes, k, k_pad,
+                       str(dev))
+    key = (set_hash, str(dev))
+    entry = _table_cache.put(key, entry, nbytes)
+    with _table_key_lock:
+        for kb in entry.index:
+            _table_key_index[(kb, entry.device)] = key
+    degrade.publish_table_cache(bytes_=_table_cache.total_bytes)
+    from tendermint_tpu_torch.crypto import devobs
+    devobs.ledger_set("table_cache", _table_cache.total_bytes)
+    return entry
+
+
+def _table_lookup(uniq: np.ndarray, dev: torch.device):
+    """Resolve a distinct-key matrix against the table cache on `dev`.
+    Returns (entry, remap), remap mapping the uniq rows onto the entry's
+    table rows, or (None, None).  A batch whose keys are a SUBSET of a
+    cached set (a partial vote window, the VerifyScheduler's coalesced
+    lanes) resolves through the key-level index; any unknown or
+    cross-set key sends the whole batch to the ladder."""
+    entry = _table_cache.get((_set_hash(uniq), str(dev)))
+    if entry is not None:
+        return entry, np.arange(uniq.shape[0], dtype=np.int32)
+    with _table_key_lock:
+        owner = _table_key_index.get((uniq[0].tobytes(), str(dev)))
+    if owner is None:
+        return None, None
+    entry = _table_cache.get(owner)
+    if entry is None:
+        return None, None
+    remap = np.empty(uniq.shape[0], dtype=np.int32)
+    for i in range(uniq.shape[0]):
+        row = entry.index.get(uniq[i].tobytes())
+        if row is None:  # mixed known and unknown keys: the ladder
+            return None, None
+        remap[i] = row
+    return entry, remap
 
 
 def _msgs_slice(msgs, a: int, b: int):
@@ -644,6 +1014,173 @@ def split_chunked_launch(pubkeys, msgs, sigs, dev, feed: _ChunkFeed):
     return outs, host_ok[:n], n, nb, stage_s[0]
 
 
+def prewarm(pubkeys, warm_kernel: bool = True, device=None) -> bool:
+    """Build the comb tables of a validator set OFF the request path (a
+    node calls it on every validator-set change), so that the first
+    verify against the new set pays gathers, not a table build.
+
+    `warm_kernel` also runs one tiny verify against the cached set, so
+    the (comb, 64) launch bucket is seen and the first real request
+    records first_launch=False.  Returns True when the tables are
+    resident (already or newly built); False when the comb is disabled,
+    the budget declined, or the set is below the device-lane floor (such
+    batches never reach the device)."""
+    dev = resolve_device(device)
+    if not comb_enabled() or table_cache_budget_bytes() <= 0:
+        return False
+    keys = list(pubkeys)
+    if not keys or len(keys) < min(PREWARM_MIN_KEYS, comb_min_batch()):
+        return False
+    pub_m = _to_u8_matrix(keys, 32)
+    if pub_m.shape != (len(keys), 32):
+        return False
+    uniq = np.unique(pub_m, axis=0)
+    entry, _ = _table_lookup(uniq, dev)
+    if entry is None:
+        entry = _table_build(uniq, _set_hash(uniq), dev)
+        if entry is None:
+            return False
+    if warm_kernel:
+        k = min(4, uniq.shape[0])
+        try:
+            verify_batch([uniq[i].tobytes() for i in range(k)],
+                         [b"tm-tpu-prewarm"] * k, [b"\x01" * 64] * k,
+                         device=dev)
+        except Exception:  # noqa: BLE001 - the warm-up is best-effort;
+            pass           # the tables above are resident already
+    return True
+
+
+def prewarm_async(pubkeys, device=None) -> None:
+    """Run `prewarm` on a host-lane pool worker (or on a daemon thread of
+    its own when host verification is serial, joined at exit): the
+    off-path seam a validator-set change calls.  The device is resolved
+    here, on the caller's thread."""
+    keys = [bytes(k) for k in pubkeys]
+    dev = resolve_device(device)
+
+    def _run():
+        try:
+            prewarm(keys, device=dev)
+        except Exception:  # noqa: BLE001 - the warm path never raises
+            pass
+
+    from tendermint_tpu_torch.crypto import lanepool
+    p = lanepool.pool()
+    if p is not None and p.try_submit(_run) is not None:
+        return
+    # joined at exit, so that interpreter teardown never freezes a thread
+    # in the middle of a table build
+    t = threading.Thread(target=_run, name="comb-prewarm", daemon=True)
+    atexit.register(t.join)
+    t.start()
+
+
+def _comb_try(pubkeys, msgs, sigs, cache_pubs: bool, dev: torch.device):
+    """The comb route: engage iff every key resolves to one cached set on
+    `dev` (building the set on a cache_pubs batch of at least
+    comb_min_batch()).  Returns the bitmap, or None to fall through to
+    the ladder routes.  It runs under the caller's degradation lane, so
+    the breaker, the deadline, the host fallback of a drill and the
+    integrity spot check apply unchanged (chaos site ops.ed25519.comb)."""
+    from tendermint_tpu_torch.crypto import degrade
+    from tendermint_tpu_torch.crypto import devobs
+
+    n = len(pubkeys)
+    if n == 0 or not comb_enabled():
+        return None
+    can_build = cache_pubs and n >= comb_min_batch()
+    # with nothing cached and no build possible, skip the key matrix
+    if len(_table_cache) == 0 and not can_build:
+        return None
+    pub_m = _to_u8_matrix(pubkeys, 32)
+    if pub_m.shape != (n, 32):
+        return None
+    if not can_build:
+        # a batch resolves only if EVERY key is in the key-level index, so
+        # one probe on the first key gates the distinct-key sort below: a
+        # large ladder-bound batch must not pay it because some other set
+        # is cached
+        with _table_key_lock:
+            if (pub_m[0].tobytes(), str(dev)) not in _table_key_index:
+                return None
+    uniq, inverse = np.unique(pub_m, axis=0, return_inverse=True)
+    inverse = np.asarray(inverse).reshape(-1)
+    entry, remap = _table_lookup(uniq, dev)
+    built = False
+    if entry is None:
+        if not can_build:
+            return None
+        entry = _table_build(uniq, _set_hash(uniq), dev)
+        if entry is None:
+            return None
+        remap = np.arange(uniq.shape[0], dtype=np.int32)
+        built = True
+    else:
+        degrade.publish_table_cache(hit=True)
+    # chaos seam: a raise or latency armed here fails exactly the comb
+    # dispatch; the degradation runtime owns the fallback
+    fail.inject("ops.ed25519.comb")
+    vidx = remap[inverse].astype(np.int32)
+    t0 = time.perf_counter()
+    _, r_b, s_b, kscal, host_ok = _stage_rows(
+        pub_m, _to_u8_matrix(sigs, 64), msgs)
+    s_digits = scalars_to_digits(s_b)
+    k_digits = scalars_to_digits(kscal)
+    phases = {"stage_s": time.perf_counter() - t0, "h2d_s": 0.0,
+              "compute_s": 0.0, "collect_s": 0.0}
+    # events on the stream the wrappers launch on (that of `dev`, which
+    # need not be the calling thread's current device)
+    stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+    parts, nb, charged = [], 0, 0
+    try:
+        # MAX_CHUNK-lane launches at bucket_size(m) lanes, as every other
+        # device route chunks
+        for a in range(0, n, MAX_CHUNK):
+            b = min(a + MAX_CHUNK, n)
+            m = b - a
+            cnb = bucket_size(m)
+            rows = [r_b[a:b], s_digits[a:b], k_digits[a:b], vidx[a:b]]
+            if cnb != m:
+                rows = [np.pad(x, [(0, cnb - m)] + [(0, 0)] * (x.ndim - 1))
+                        for x in rows]
+            host = [torch.from_numpy(np.ascontiguousarray(x)) for x in rows]
+            nbytes = sum(t.numel() * t.element_size() for t in host)
+            devobs.ledger_add("staging", nbytes)
+            charged += nbytes
+            t_put = time.perf_counter()
+            if stream is not None:
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+                ev[0].record(stream)
+            args = [t.to(dev) for t in host]
+            t_launch = time.perf_counter()
+            if stream is not None:
+                ev[1].record(stream)
+            out = cc.comb_verify(*args, entry.tables, entry.dec_ok)
+            if stream is not None:
+                ev[2].record(stream)
+            t_col = time.perf_counter()
+            parts.append(out.cpu().numpy()[:m])   # synchronises
+            phases["collect_s"] += time.perf_counter() - t_col
+            if stream is not None:
+                phases["h2d_s"] += ev[0].elapsed_time(ev[1]) / 1e3
+                phases["compute_s"] += ev[1].elapsed_time(ev[2]) / 1e3
+            else:
+                phases["h2d_s"] += t_launch - t_put
+                phases["compute_s"] += t_col - t_launch
+            nb += cnb
+    finally:
+        if charged:
+            devobs.ledger_add("staging", -charged)
+    res = parts[0] if len(parts) == 1 else np.concatenate(parts)
+    _record_launch("comb", dev, n, nb, time.perf_counter() - t0,
+                   dict(phases, chunks=len(parts), table_build=built,
+                        set_k=entry.k, k_pad=entry.k_pad))
+    res = fail.corrupt_bitmap("ops.ed25519.comb",
+                              np.asarray(res[:n], dtype=bool))
+    return res & host_ok
+
+
 def verify_batch(pubkeys, msgs, sigs, cache_pubs: bool = False,
                  device=None) -> np.ndarray:
     """End-to-end batched verify (host staging + device kernel).
@@ -670,12 +1207,27 @@ def _verify_batch(pubkeys, msgs, sigs, cache_pubs: bool, dev):
     from . import msm
 
     # the multi-GPU data planes (reference parallel/sharding.py _DataPlane,
-    # _GlobalDataPlane) attach here, sharding the batch before any route;
-    # the comb route (reference ops/ed25519.py:1194 _comb_try) attaches
-    # after RLC, before the ladder routes
+    # _GlobalDataPlane) attach here, sharding the batch before any route
     if msm.use_rlc(len(pubkeys)) and msm.verify_batch_rlc(
             pubkeys, msgs, sigs, device=dev):
         return np.ones(len(pubkeys), dtype=bool)
+    # the fixed-base comb: engages when every key resolves to one resident
+    # table set; unknown keys, mixed sets, evicted tables or a declined
+    # budget fall through to the ladder.  A device fault (RuntimeError,
+    # which a failed launch raises) or an injected one propagates to the
+    # degradation runtime wrapping this dispatch; any other exception is
+    # a comb bug: routed comb/error, and the ladder verifies the batch
+    try:
+        out = _comb_try(pubkeys, msgs, sigs, cache_pubs, dev)
+    except (fail.InjectedFault, RuntimeError):
+        raise
+    except Exception as e:  # noqa: BLE001 - see above
+        from tendermint_tpu_torch.crypto import degrade
+        degrade.publish_route("comb", "error")
+        trace.current().add(comb_error=type(e).__name__)
+        out = None
+    if out is not None:
+        return out
     t0 = time.perf_counter()
     phases = {}
     feed = None

@@ -1,6 +1,7 @@
 """SASS report of the port's kernels as built for the card: opcode counts
 per kernel of the verify kernels (K1, K2, K3), of the MSM kernels (K4,
-K5, A1) and of the secp256k1 and sr25519 kernels (S1, S2), with the
+K5, A1), of the secp256k1 and sr25519 kernels (S1, S2) and of the comb's
+(C1, C2, where the checkout has csrc/comb.cu), with the
 instructions of each loop body (each backward branch's span, longest
 first: K5's are a tree round and a madd step, K4's one square of its
 power chain) and the SHFL.IDX in each, from cuobjdump -sass of the built
@@ -290,11 +291,15 @@ def main() -> None:
     if not ck.__file__.startswith(root + os.sep):
         sys.exit(f"kernel_report: imported {ck.__file__}, not from {root}")
     kernels = {}
-    mods = ((ck, ("k_verify_packed", "k_verify_packed_split",
+    mods = [(ck, ("k_verify_packed", "k_verify_packed_split",
                   "k_verify_staged")),
             (cm, ("k_decompress_niels", "k_bucket_scan", "k_aggregate")),
             (cs1, ("k_secp_verify",)),
-            (cs2, ("k_sr25519_verify",)))
+            (cs2, ("k_sr25519_verify",))]
+    if os.path.exists(os.path.join(root, "tendermint_tpu_torch", "csrc",
+                                   "comb.cu")):
+        from tendermint_tpu_torch.ops import cuda_comb as cc
+        mods.append((cc, ("k_comb_build", "k_comb_verify")))
     # one nvcc a source, side by side
     pool = [threading.Thread(target=mod.build) for mod, _ in mods]
     for th in pool:

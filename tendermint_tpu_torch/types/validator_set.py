@@ -30,7 +30,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from tendermint_tpu_torch.crypto import merkle
-from tendermint_tpu_torch.crypto.batch import verify_sigs_bulk
+from tendermint_tpu_torch.crypto.batch import _use_device, verify_sigs_bulk
 from tendermint_tpu_torch.libs.safemath import (
     INT64_MAX, INT64_MIN, safe_add_clip, safe_mul, safe_sub_clip, trunc_div)
 
@@ -477,9 +477,11 @@ class ValidatorSet:
 
         msgs = commit_sign_bytes_batch(chain_id, commit, idxs)
         # the raw-pubkey matrix only helps the device route (batches of
-        # at least verify_sigs_bulk's threshold); the host lane verifies
-        # through the validators' existing PubKey objects
-        mat, all_ed = (self._pub_matrix() if len(idxs) >= 32
+        # at least verify_sigs_bulk's threshold); the host lanes verify
+        # through the validators' existing PubKey objects, and a list
+        # input reaches a running VerifyScheduler, which a matrix skips
+        mat, all_ed = (self._pub_matrix()
+                       if len(idxs) >= 32 and _use_device(device)
                        else (None, False))
         # the matrix rows are index-aligned with self.validators; that
         # matches idxs only on the check-all/light paths.  The trusting

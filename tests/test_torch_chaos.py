@@ -46,9 +46,6 @@ TRACERS = {"jax": jtrace.TRACER, "port": ttrace.TRACER}
 # published by the route seam of each package's kernels, not the runtime
 ROUTE_FAMILIES = ("crypto_msm_route_total", "crypto_batch_occupancy_ratio",
                   "crypto_device_compile_seconds")
-# families of modules the port has not ported yet (the comb table
-# cache); they stay 0 in the JAX package here
-UNPORTED_FAMILIES = ("crypto_table_",)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -150,8 +147,7 @@ def _configure(pkg, clk=None, **kw):
 
 def _metrics(pkg) -> dict:
     """Every counter and gauge sample and every histogram count of the
-    package's runtime registry, the route-seam families and those of
-    unported modules excepted."""
+    package's runtime registry, the route-seam families excepted."""
     out = {}
     for line in _REG[pkg].render_text().splitlines():
         if line.startswith("#"):
@@ -159,7 +155,7 @@ def _metrics(pkg) -> dict:
         name, value = line.rsplit(" ", 1)
         base = name.split("{", 1)[0]
         if base.endswith(("_bucket", "_sum")) or any(
-                fam in base for fam in ROUTE_FAMILIES + UNPORTED_FAMILIES):
+                fam in base for fam in ROUTE_FAMILIES):
             continue
         out[name] = float(value)
     return out

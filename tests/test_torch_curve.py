@@ -77,7 +77,7 @@ def test_curve_ops():
     for f in range(4):
         _eq(jcn[f], tcn[f])
     jtab, _ = JC.cached_window(j2)
-    ttab = TC.cached_window(t2)
+    ttab, _ = TC.cached_window(t2)
     for f in range(4):
         _eq(jtab[f], ttab[f])
     jbits = np.asarray(JC.encode_bits(j4))

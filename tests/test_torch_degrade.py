@@ -13,7 +13,6 @@ failure raises to the caller without being counted as a device fault.
 """
 from __future__ import annotations
 
-import re
 import sys
 import threading
 import types
@@ -32,23 +31,8 @@ from tendermint_tpu_torch.crypto import degrade as tdeg
 from tendermint_tpu_torch.crypto import ed25519 as tkeys
 from tendermint_tpu_torch.libs import fail as tfail
 from tendermint_tpu_torch.libs.metrics import Registry as TRegistry
+from tendermint_tpu_torch.ops import cuda_comb as ccomb
 from tendermint_tpu_torch.ops import cuda_ed25519 as ck
-
-# CryptoMetrics families of modules the port has not ported yet (the comb
-# table cache): the JAX package's exposition is compared without them
-UNPORTED = re.compile(r"_crypto_(table_)")
-
-
-def _ported(text: str) -> str:
-    """The exposition text without the families of unported modules."""
-    keep, out = True, []
-    for line in text.splitlines(keepends=True):
-        if line.startswith("# HELP "):
-            keep = not UNPORTED.search(line.split()[2])
-        if keep:
-            out.append(line)
-    return "".join(out)
-
 
 JAX = types.SimpleNamespace(name="jax", degrade=jdeg, fail=jfail,
                             Registry=JRegistry)
@@ -320,7 +304,7 @@ def test_runtime_matches_reference(scenario):
         texts[pkg.name] = reg["r"].render_text()
         return out
     _both(play)
-    assert texts["port"] == _ported(texts["jax"])
+    assert texts["port"] == texts["jax"]
     assert "crypto_device_launch_total" in texts["port"]
 
 
@@ -610,7 +594,8 @@ def test_card_entry_points_raise_a_launch_fault(monkeypatch, entry):
     monkeypatch.setenv("TM_TPU_FORCE_BATCH", "1")
     monkeypatch.setattr(tbatch, "resolve_device",
                         lambda device=None: torch.device("cuda", 0))
-    monkeypatch.setattr(ck, "kernels", lambda: None)
+    for mod in (ck, ccomb):
+        monkeypatch.setattr(mod, "kernels", lambda: None)
 
     def launch_failed(*args, **kwargs):
         assert kwargs["device"] == torch.device("cuda", 0)

@@ -310,6 +310,8 @@ def test_pub_cache_and_staging_pools_over_a_real_launch(monkeypatch):
     monkeypatch.setattr(ted, "PUB_CACHE_MIN", 16)
     monkeypatch.setattr(ted, "_pub_cache",
                         ted.DeviceLRU(max_entries=ted._PUB_CACHE_MAX))
+    # the comb would build tables for a cache_pubs batch this size
+    monkeypatch.setattr(ted, "_comb_enabled_override", False)
     pubs, msgs, sigs = _batch(20, bad=(4,))
     cur = tdevobs.cursor()
     out = ted.verify_batch(pubs, msgs, sigs, cache_pubs=True, device="cpu")

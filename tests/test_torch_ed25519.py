@@ -120,6 +120,8 @@ def test_split_route(vectors, monkeypatch):
     monkeypatch.setattr(ted, "TILE", 16)
     monkeypatch.setattr(ted, "_pub_cache",
                         ted.DeviceLRU(max_entries=ted._PUB_CACHE_MAX))
+    # the comb would build tables for a cache_pubs batch this size
+    monkeypatch.setattr(ted, "_comb_enabled_override", False)
     out = ted.verify_batch(pubs, msgs, sigs, cache_pubs=True)
     np.testing.assert_array_equal(out, ref)
     rec = ted.last_launch()

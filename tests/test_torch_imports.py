@@ -283,3 +283,72 @@ def test_lane_bound_counts():
     assert cuda_sr25519.digit_adds(rows) == (6, 3 * 64)
     assert cuda_sr25519.bound_ms(3, 6, 3 * 64) == pytest.approx(
         3 * sr_halves(2, 64) / rate * 1e3)
+
+
+def test_comb_modules_are_checked():
+    """The comb's kernel wrappers are among the modules the checks above
+    cover."""
+    assert "tendermint_tpu_torch.ops.cuda_comb" in _port_modules()
+
+
+def test_comb_cuda_missing_raises(monkeypatch):
+    """prewarm and prewarm_async raise without CUDA unless the CPU is
+    asked for."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(T, "_default_device", "cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        E.prewarm([bytes(32)] * 40)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        E.prewarm_async([bytes(32)] * 40)
+
+
+def test_comb_wrappers_check_inputs_and_count_only_kernel_launches():
+    from tendermint_tpu_torch.ops import cuda_comb as cc
+    cc.reset_launches()
+    with pytest.raises(ValueError):
+        cc.comb_build(torch.zeros((8, 31), dtype=torch.uint8))
+    with pytest.raises(TypeError):
+        cc.comb_build(torch.zeros((8, 32), dtype=torch.int8))
+    tab, dec_ok = cc.comb_build(torch.zeros((8, 32), dtype=torch.uint8))
+    assert dec_ok.dtype == torch.bool and dec_ok.all()   # y = 0 decodes
+    r = torch.zeros((2, 32), dtype=torch.uint8)
+    d = torch.zeros((2, 64), dtype=torch.int8)
+    v = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(TypeError):
+        cc.comb_verify(r, d.to(torch.int32), d, v, tab, dec_ok)
+    with pytest.raises(ValueError):
+        cc.comb_verify(r, d[:1], d, v, tab, dec_ok)
+    # a CPU tensor takes the plain version, which is not a launch; a row
+    # outside the table fails its lane
+    out = cc.comb_verify(r, d, d, torch.tensor([0, 8], dtype=torch.int32),
+                         tab, dec_ok)
+    assert out.dtype == torch.bool and out.shape == (2,) and not out.any()
+    assert cc.launches == {"comb_build": 0, "comb_verify": 0}
+
+
+def test_comb_bound_counts():
+    """C1: the decode, -A's T and 64 windows of 5 doublings, 3 cached
+    additions and 8 conversions a key, 92,193 bytes moved; C2: the
+    inversion and 7 or 8 multiplies a nonzero digit, its own rows and
+    the table entries its data touches."""
+    from tendermint_tpu_torch.ops import cuda_comb as cc
+    rate = 132 * 64 * 1.98e9
+    assert (cc.C1_MULS_PER_KEY, cc.C1_SQS_PER_KEY) == (3349, 1535)
+    assert cc.bound_ms_build(1024) == pytest.approx(
+        1024 * 2 * (100 * 3349 + 55 * 1535) / rate * 1e3)
+    assert cc.bound_by_build(1024) == "operations"
+    sd = np.zeros((4, 64), np.int8)
+    kd = np.zeros((4, 64), np.int8)
+    sd[:, 0] = 3
+    kd[:2, 5] = -8
+    work = cc.verify_work(sd, kd, np.array([0, 1, 1, 0], np.int32))
+    assert work == {"lanes": 4, "b_adds": 4, "a_adds": 2,
+                    "a_entries": 2 * 65, "b_entries": 64}
+    muls = 4 * 13 + 7 * 4 + 8 * 2
+    ops_ms = 2 * (100 * muls + 55 * 4 * 254) / rate * 1e3
+    bytes_ms = (4 * 165 + 130 * 160 + 64 * 120) / 3.35e12 * 1e3
+    assert bytes_ms > ops_ms      # four lanes touch 130 entries of -A
+    assert cc.bound_ms_verify(work) == pytest.approx(bytes_ms)
+    assert cc.bound_by_verify(work) == "bytes"
+    big = dict(work, lanes=65536, b_adds=65536 * 60, a_adds=65536 * 60)
+    assert cc.bound_by_verify(big) == "operations"

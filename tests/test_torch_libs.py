@@ -6,7 +6,6 @@ stream; span names, parents and attributes of a traced call tree."""
 from __future__ import annotations
 
 import random
-import re
 import threading
 
 import numpy as np
@@ -46,7 +45,8 @@ def fails():
 def test_fail_sites_of_the_port_are_registered_in_both(fails):
     assert tfail.REGISTERED_SITES == {
         "ops.ed25519.verify_batch", "ops.sr25519.verify_batch",
-        "ops.secp.verify_batch", "batch.ed25519", "batch.sr25519",
+        "ops.secp.verify_batch", "ops.ed25519.comb", "batch.ed25519",
+        "batch.sr25519",
         "batch.secp256k1", "sched.ed25519", "sched.sr25519",
         "sched.secp256k1", "bulk.ed25519", "lanepool.verify",
         "merkle.bulk_hash", "devobs.record"}
@@ -111,22 +111,6 @@ def test_fail_point_counter_matches(fails, monkeypatch):
 
 # -- metrics ----------------------------------------------------------------
 
-# CryptoMetrics families of modules the port has not ported yet (the comb
-# table cache): the JAX package's exposition is compared without them
-UNPORTED = re.compile(r"_crypto_(table_)")
-
-
-def _ported(text: str) -> str:
-    """The exposition text without the families of unported modules."""
-    keep, out = True, []
-    for line in text.splitlines(keepends=True):
-        if line.startswith("# HELP "):
-            keep = not UNPORTED.search(line.split()[2])
-        if keep:
-            out.append(line)
-    return "".join(out)
-
-
 def _updates(m):
     reg = m.Registry("tm")
     c = reg.counter("crypto", "hits_total", 'say "hi"\nback\\slash',
@@ -151,7 +135,7 @@ def _updates(m):
     cm.slo_target.set(0.05, stream="commit")
     tr = m.TraceMetrics(reg)
     tr.dropped_spans.inc()
-    return (_ported(reg.render_text()), h.count(site="s"),
+    return (reg.render_text(), h.count(site="s"),
             h.total(site="t"), c.value(site="a", reason='q"uote'))
 
 
@@ -163,19 +147,17 @@ def test_metrics_exposition_matches():
 
 def test_crypto_metrics_families_match():
     """CryptoMetrics registers the same families, with the same help,
-    labels and buckets, as the JAX package's, but for those of the
-    modules not ported yet, which the port leaves out."""
+    labels and buckets, as the JAX package's (the comb table cache's
+    three included)."""
     def families(m):
         reg = m.Registry("x")
         m.CryptoMetrics(reg)
         return [(k, type(v).__name__, v.help, v.label_names,
                  getattr(v, "buckets", None))
                 for k, v in sorted(reg._metrics.items())]
-    ported = _both(lambda m: [f for f in families(m)
-                              if not UNPORTED.search(f[0])],
-                   (jmetrics, tmetrics))
-    assert ported == families(tmetrics) and len(ported) == 24
-    assert len(families(jmetrics)) == 27
+    ported = _both(families, (jmetrics, tmetrics))
+    assert len(ported) == 27
+    assert sum("crypto_table_" in f[0] for f in ported) == 3
 
 
 # -- slo --------------------------------------------------------------------

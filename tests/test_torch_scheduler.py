@@ -41,10 +41,13 @@ from tendermint_tpu_torch.crypto import scheduler as tvs
 from tendermint_tpu_torch.libs import fail as tfail
 from tendermint_tpu_torch.libs import trace as ttrace
 from tendermint_tpu_torch.libs.metrics import Registry as TRegistry
+from tendermint_tpu_torch.ops import cuda_comb as ccomb
 from tendermint_tpu_torch.ops import cuda_ed25519 as ck
 from tendermint_tpu_torch.ops import cuda_secp as cs1
 from tendermint_tpu_torch.ops import cuda_sr25519 as cs2
 from tendermint_tpu_torch.ops import ed25519 as ted
+from test_torch_validator_set import CHAIN as VS_CHAIN
+from test_torch_validator_set import _export, _tbid, jax_state  # noqa: F401
 
 JAX = types.SimpleNamespace(name="jax", vs=jvs, cb=jbatch, deg=jdeg,
                             keys=jkeys, fail=jfail, trace=jtrace,
@@ -247,6 +250,37 @@ def test_bulk_routes_through_scheduler(sched):
     bits, bits2, n1, n2 = _both(play)
     assert bits == bits2 == [True] * 4 + [False] + [True] * 4
     assert n1 == n2 == 1
+
+
+@pytest.mark.parametrize("check", ["verify_commit", "verify_commit_light"])
+def test_verify_commit_on_the_host_lanes_goes_through_the_scheduler(
+        sched, jax_state, check):
+    """The 64-validator commit of test_torch_validator_set (62 signatures)
+    checked while a scheduler runs on the host lanes (the port on
+    device="cpu", the JAX package on its CPU backend): the signatures
+    reach the scheduler as one submission, and the SigCache stays empty
+    (a scheduled bulk batch does not fill it), in both packages."""
+    j_vset, j_commit = jax_state
+    t_vset, t_commit = _export(j_vset, j_commit)
+
+    def play(pkg):
+        s = sched(pkg, window_s=0.0)
+        if pkg is JAX:
+            vset, commit, bid = j_vset, j_commit, j_commit.block_id
+        else:
+            vset, commit, bid = t_vset, t_commit, _tbid(t_commit)
+        getattr(vset, check)(VS_CHAIN, bid, commit.height, commit)
+        cache = pkg.cb.verified_sigs
+        cached = sum(cache.hit(v.pub_key.bytes(),
+                               commit.vote_sign_bytes(VS_CHAIN, i),
+                               sg.signature)
+                     for i, (v, sg) in enumerate(zip(vset.validators,
+                                                     commit.signatures))
+                     if not sg.is_absent())
+        return _final(s), cached
+    st, cached = _both(play)
+    assert st["submissions"] == 1 and st["launches"] == 1
+    assert cached == 0
 
 
 # ---------------------------------------------------------------------------
@@ -591,7 +625,7 @@ def _on_card(monkeypatch, kernel_fn):
     for mod in (tvs, tbatch):
         monkeypatch.setattr(mod, "resolve_device",
                             lambda device=None: CUDA0)
-    for mod in (ck, cs1, cs2):
+    for mod in (ck, ccomb, cs1, cs2):
         monkeypatch.setattr(mod, "kernels", lambda: None)
 
     def verifier(pubs, msgs, sigs, cache_pubs=False, device=None):

@@ -7,7 +7,7 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
   1  build the kernels from csrc/ (nvcc, one process a source, side by
      side) and the host C (cc); registers, spills, stack and blocks per SM
      of each verify kernel, of K4, K5 and A1, of S1 and S2, and of C1 and
-     C2; S1 and S2
+     C2; S1, S2 and C2
      must each fit their design's 16 warps an SM (4 blocks of 128
      threads), checked after the report is written
   2  field: the CUDA field arithmetic (fe_selftest) against the plain
@@ -129,7 +129,9 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      64, 2,048 and 65,536 lanes beside their bounds and their plain
      versions
  15  the comb (C1, C2, ops/ed25519's table cache and prewarm), after
-     phases 4-14 ran with it on (its default) and never launched it: C1
+     phases 4-14 ran with it on (its default) and never launched it (the
+     100k and 4,096-validator commits declined early, before their
+     distinct-key sort): C1
      against its plain version as field values on adversarial encodings
      (y = p, y = p + 1, a non-square, negative zero, order-8, order-4,
      identity) and on a 1,024-key set; prewarms through the entry point
@@ -140,10 +142,14 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      its bitmap the ladder's; 65,536 triples over the 1,024-key set
      through BatchVerifier (one C2 launch at MAX_CHUNK); one unknown key
      sends a batch to K1; C2 against its plain version on its main-path
-     launches and on the phase-3 vectors, and against K1 and the oracle
-     there; C1 and C2 times beside their bounds and plain versions, the
-     prewarm wall, the 150-validator wall prewarmed and on the ladder, the
-     100k commit with the comb on and off
+     launches, and at each G (1, 2, 4, 8 groups a signature) on the
+     phase-3 vectors with s of extreme digits added and at 64, 256,
+     1,024, 2,048, 4,096, 8,192, 16,384 and 65,536 lanes, each launch also
+     against K1 and the oracle or the expected bitmap on the same triples;
+     C1 and C2 times beside their bounds and plain versions (C2 at each G
+     and at the wrapper's, with its design count at each G beside the
+     bound), the prewarm wall, the 150-validator wall
+     prewarmed and on the ladder, the 100k commit with the comb on and off
  16  the kernels line; then the last line {"ok": true, "device": ...}
 
 Signatures come from a seeded incremental generator (a_i = a_0 + i, so
@@ -2726,7 +2732,8 @@ check(E.last_launch()["path"] == "cuda" and c15e["verify_packed"] == 1
       and c15e["comb_verify"] == 0, f"mixed keys: {c15e}")
 
 # C2 against its plain version on the captured launches, and on the
-# phase-3 vectors (tables built on the card for their keys) beside K1
+# phase-3 vectors (tables built on the card for their keys) beside K1 and
+# the oracle, at every G
 # a set's table rows follow its distinct keys in np.unique's order, which
 # is the keys' bytes sorted
 SET_KEYS = {"150-validator commit": vp150, "65,536 over 1,024 keys": keys1k}
@@ -2739,40 +2746,71 @@ def plain_tables(keys):
         E._comb_k_pad(len(uniq)) - len(uniq)), 32))
 
 
-c2_cmp = []
-for label, args, out in captured["comb_verify"]:
-    r_, sd_, kd_, v_ = args[:4]
+def k1_on_rows(rows, keys):
+    """K1's raw bitmap and the host's s < L screen on the triples of C2's
+    rows, their keys found by table row among a set's sorted keys."""
+    r = rows.cpu().numpy()
+    uniq = np.frombuffer(b"".join(sorted(set(keys))), np.uint8).reshape(-1,
+                                                                        32)
+    v = r[:, 96:100].copy().view("<i4").reshape(-1)
+    packed = np.ascontiguousarray(np.concatenate(
+        [uniq[np.clip(v, 0, len(uniq) - 1)].T, r[:, :96].T]))
+    k1 = REAL["verify_packed"](torch.from_numpy(packed).to(DEV))
+    return k1.cpu().numpy(), E._s_canonical(np.ascontiguousarray(
+        r[:, 32:64]))
+
+
+def c2_row(label, got, plain):
+    return (label, len(got), int((got != plain).sum()),
+            float(np.abs(got.astype(int) - plain.astype(int)).max()))
+
+
+c2_cmp, c2_vs_k1 = [], 0
+cap = {label: (args, out) for label, args, out in captured["comb_verify"]}
+plain_cap = {}
+for label, (args, out) in cap.items():
     ptab, pok = plain_tables(SET_KEYS[label])
-    plain = cc.comb_verify_plain(r_, sd_, kd_, v_, ptab, pok).cpu().numpy()
-    got = out.cpu().numpy()
-    c2_cmp.append((label, len(got), int((got != plain).sum()),
-                   float(np.abs(got.astype(int) - plain.astype(int)).max())))
-vk = sorted(set(vec_p))
-vidx3 = np.array([vk.index(p) for p in vec_p], dtype=np.int32)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    plain_cap[label] = cc.comb_verify_plain(args[0], ptab, pok).cpu().numpy()
+    torch.cuda.synchronize()
+    times[f"plain_c2_{args[0].shape[0]}_ms"] = 1e3 * (time.perf_counter()
+                                                       - t)
+    c2_cmp.append(c2_row(f"{label}, G {cc.groups_for(args[0].shape[0])}",
+                         out.cpu().numpy(), plain_cap[label]))
+# the phase-3 vectors, and s with extreme digits (0, L - 1, 2^252, every
+# digit 7 but the top one, every byte 0x88, 2^256 - 1: the last two are
+# screened on the host, C2 still computes their raw verdicts)
+vec15 = list(zip(vec_p, vec_m, vec_s)) + [
+    (p0, m0, s0[:32] + v.to_bytes(32, "little")) for v in (
+        0, L - 1, 1 << 252, int("7" * 63, 16),
+        int.from_bytes(b"\x88" * 32, "little"), (1 << 256) - 1)]
+p15v, m15v, s15v = (list(c) for c in zip(*vec15))
+oracle15v = np.array([_edref.verify(p, m, s) for p, m, s in vec15])
+vk = sorted(set(p15v))
+vidx3 = np.array([vk.index(p) for p in p15v], dtype=np.int32)
 tab3, ok3c = REAL["comb_build"](u8(vk + [bytes(32)] * (
     E._comb_k_pad(len(vk)) - len(vk)), 32))
-ptab3, pok3 = plain_tables(vec_p)
-_, r3, s3_, k3_, hok3 = E._stage_rows(vec_p, vec_s, vec_m)
-a3 = [torch.from_numpy(np.ascontiguousarray(x)).to(DEV) for x in (
-    r3, E.scalars_to_digits(s3_), E.scalars_to_digits(k3_), vidx3)]
-c2v = REAL["comb_verify"](*a3, tab3, ok3c).cpu().numpy()
-c2v_plain = cc.comb_verify_plain(*a3, ptab3, pok3).cpu().numpy()
-pk3, hk3 = E.prepare_batch_packed(vec_p, vec_s, vec_m)
+ptab3, pok3 = plain_tables(p15v)
+_, r3, s3_, k3_, hok3 = E._stage_rows(p15v, s15v, m15v)
+rows3 = torch.from_numpy(cc.pack_rows(r3, s3_, k3_, vidx3)).to(DEV)
+c2v_plain = cc.comb_verify_plain(rows3, ptab3, pok3).cpu().numpy()
+pk3, hk3 = E.prepare_batch_packed(p15v, s15v, m15v)
 k1v = REAL["verify_packed"](torch.from_numpy(pk3.view(np.uint8)).to(DEV)
                             ).cpu().numpy()
-c2_cmp.append(("phase-3 vectors", n_vec, int((c2v != c2v_plain).sum()),
-               float(np.abs(c2v.astype(int) - c2v_plain.astype(int)).max())))
-c2_vs_k1 = int(((c2v & hok3) != (k1v & hk3)).sum())
-log(phase=15, c2_vs_plain=c2_cmp, c2_vs_k1_vectors=c2_vs_k1,
-    c1_c2_launches_compared=dict(cc.launches))
-check(all(c[2] == 0 for c in c2_cmp), f"C2 differs from plain: {c2_cmp}")
-check(c2_vs_k1 == 0 and np.array_equal(c2v & hok3, oracle_vec),
-      "C2 on the phase-3 vectors != K1 and the oracle")
-comb15.update(c2_vs_plain=c2_cmp, c2_vs_k1_vectors=c2_vs_k1)
+check(np.array_equal(k1v & hk3, oracle15v) and np.array_equal(hk3, hok3),
+      "K1 on the phase-15 vectors != the oracle")
+for G in cc.GROUPS:
+    c2v = REAL["comb_verify"](rows3, tab3, ok3c, G).cpu().numpy()
+    c2_cmp.append(c2_row(f"phase-3 vectors + extreme s, G {G}", c2v,
+                         c2v_plain))
+    c2_vs_k1 += int(((c2v & hok3) != (k1v & hk3)).sum())
 
-# times (CUDA events): C1 at 150 (k_pad 256) and 1,024 keys; C2 at 256
-# (the 150-validator launch), 1,024 and 65,536 lanes (the batch's launch
-# and its first 1,024 lanes); each beside its bound and its plain version
+# times (CUDA events): C1 at 150 (k_pad 256) and 1,024 keys; C2 at the
+# 150-validator launch (256 lanes) and at 64 to 65,536 lanes (the batch's
+# launch and its first rows), at each G and at the wrapper's; every launch
+# held against the plain version, K1 and the expected bitmap on the same
+# triples; each beside its bound
 pub150 = u8(vp150 + [bytes(32)] * 106, 32)
 pub1k = u8(keys1k, 32)
 times["c1_150_ms"] = time_events(lambda: REAL["comb_build"](pub150), 10)
@@ -2784,30 +2822,58 @@ t = time.perf_counter()
 cc.comb_build_plain(pub1k)
 torch.cuda.synchronize()
 times["plain_c1_1024_ms"] = 1e3 * (time.perf_counter() - t)
-cap = {label: args for label, args, _ in captured["comb_verify"]}
-c2_shapes = {256: cap["150-validator commit"],
-             65536: cap["65,536 over 1,024 keys"]}
-c2_shapes[1024] = [a[:1024].contiguous() for a in c2_shapes[65536][:4]] + \
-    list(c2_shapes[65536][4:])
-c2_work = {}
-for lanes, args in sorted(c2_shapes.items()):
-    times[f"c2_{lanes}_ms"] = time_events(
-        lambda: REAL["comb_verify"](*args), 20 if lanes < 65536 else 5)
-    c2_work[lanes] = cc.verify_work(*(a.cpu().numpy() for a in args[1:4]))
-    times[f"c2_{lanes}_bound_ms"] = cc.bound_ms_verify(c2_work[lanes])
-for lanes, label in ((256, "150-validator commit"),
-                     (65536, "65,536 over 1,024 keys")):
-    ptab, pok = plain_tables(SET_KEYS[label])
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    cc.comb_verify_plain(*c2_shapes[lanes][:4], ptab, pok)
-    torch.cuda.synchronize()
-    times[f"plain_c2_{lanes}_ms"] = 1e3 * (time.perf_counter() - t)
+big, big_out = cap["65,536 over 1,024 keys"]
+small, _ = cap["150-validator commit"]
+k1_big, hk_big = k1_on_rows(big[0], keys1k)
+k1_small, hk_small = k1_on_rows(small[0], vp150)
+check(np.array_equal(k1_big & hk_big, expect15)
+      and np.array_equal(big_out.cpu().numpy() & hk_big, expect15),
+      "K1 or C2 on the 65,536 triples != the expected bitmap")
+c2_sizes = {}          # lanes -> (rows, tables, dec_ok, plain, K1, screen)
+for lanes in (64, 1024, 2048, 4096, 8192, 16384, 65536):
+    c2_sizes[lanes] = (big[0][:lanes].contiguous(), big[1], big[2],
+                       plain_cap["65,536 over 1,024 keys"][:lanes],
+                       k1_big[:lanes], hk_big[:lanes])
+c2_sizes[256] = (*small[:3], plain_cap["150-validator commit"], k1_small,
+                 hk_small)
+c2_work, c2_grid = {}, {}
+for lanes in sorted(c2_sizes):
+    rows_, tab_, ok_, plain_, k1_, hk_ = c2_sizes[lanes]
+    c2_work[lanes] = work = cc.verify_work(
+        *cc.unpack_rows(rows_.cpu().numpy())[1:])
+    times[f"c2_{lanes}_bound_ms"] = cc.bound_ms_verify(work)
+    for G in cc.GROUPS:
+        got = REAL["comb_verify"](rows_, tab_, ok_, G).cpu().numpy()
+        c2_cmp.append(c2_row(f"{lanes} lanes, G {G}", got, plain_))
+        c2_vs_k1 += int(((got & hk_) != (k1_ & hk_)).sum())
+        c2_grid[(lanes, G)] = dict(
+            ms=time_events(lambda: REAL["comb_verify"](rows_, tab_, ok_, G),
+                           20 if lanes < 65536 else 5),
+            design_ms=cc.design_ms_verify(work, G))
+        if G == cc.groups_for(lanes):
+            times[f"c2_{lanes}_ms"] = c2_grid[(lanes, G)]["ms"]
+    best = min(cc.GROUPS, key=lambda g: c2_grid[(lanes, g)]["ms"])
+    log(phase=15, c2_lanes=lanes, groups_chosen=cc.groups_for(lanes),
+        groups_fastest=best, card=CARD,
+        ms={G: round(c2_grid[(lanes, G)]["ms"], 5) for G in cc.GROUPS},
+        bound_ms=round(times[f"c2_{lanes}_bound_ms"], 6),
+        design_ms={G: round(c2_grid[(lanes, G)]["design_ms"], 5)
+                   for G in cc.GROUPS})
+log(phase=15, c2_vs_plain=c2_cmp, c2_vs_k1=c2_vs_k1,
+    c1_c2_launches_compared=dict(cc.launches))
+check(all(c[2] == 0 for c in c2_cmp), f"C2 differs from plain: "
+      f"{[c for c in c2_cmp if c[2]]}")
+check(c2_vs_k1 == 0, "C2 != K1 behind the host screen")
+check(all(np.array_equal(c2_sizes[n][4] & c2_sizes[n][5],
+                         expect15[:n]) for n in c2_sizes if n != 256),
+      "K1 on the 65,536 rows != the expected bitmap")
+comb15.update(c2_vs_plain=c2_cmp, c2_vs_k1=c2_vs_k1,
+              c2_grid={f"{n}x{g}": v for (n, g), v in c2_grid.items()})
 
 # walls (host clock): the prewarm of a fresh 1,024-key set; the prewarmed
 # 150-validator verify_commit against the same call on the ladder (the
 # comb off), 10 each in turns; the 100k commit with the comb on and off,
-# 3 each in turns (on: its distinct-key sort before the budget declines)
+# 7 each in turns (on: declined early, from its keys' first 8 bytes)
 _, keys1k_b = gen_keys(1024, rng)
 E.table_cache_clear()
 E.prewarm(vp150, device=DEV)
@@ -2825,7 +2891,19 @@ for rnd in range(11):
             w15[key].append(time.perf_counter() - t)
         check(E.last_launch()["path"] == ("comb" if key == "comb"
                                           else "cuda"), f"150 wall {key}")
-for rnd in range(4):
+# the comb-on runs decline the 100k set early: no 2-D distinct-key sort
+sorts15 = []
+_np_unique = np.unique
+
+
+def _unique_counted(a, *args, **kw):
+    if kw.get("axis") is not None:
+        sorts15.append(np.shape(a))
+    return _np_unique(a, *args, **kw)
+
+
+np.unique = _unique_counted
+for rnd in range(8):
     for key in (("on", "off") if rnd % 2 else ("off", "on")):
         E.set_comb_config(enabled=key == "on")
         t = time.perf_counter()
@@ -2833,6 +2911,8 @@ for rnd in range(4):
         if rnd:
             w15k[key].append(time.perf_counter() - t)
         check(E.last_launch()["path"] == "cuda-split", "100k wall route")
+np.unique = _np_unique
+check(not sorts15, f"the 100k commit ran the distinct-key sort: {sorts15}")
 E.set_comb_config(enabled=True)
 times["verify_commit_150_comb_wall_s"] = pctl(w15["comb"], 0.5)
 times["verify_commit_150_ladder_wall_s"] = pctl(w15["ladder"], 0.5)
@@ -2994,6 +3074,9 @@ check(S1_BUILD["threads_per_block"] == 128 and S1_WARPS_PER_SM >= 16,
       f"S1 occupancy below its design's 16 warps an SM: {S1_BUILD}")
 check(S2_BUILD["threads_per_block"] == 128 and S2_WARPS_PER_SM >= 16,
       f"S2 occupancy below its design's 16 warps an SM: {S2_BUILD}")
+C2_BUILD = comb_build_rep["k_comb_verify"]
+check(C2_BUILD["threads_per_block"] == 128 and C2_BUILD["blocks_per_sm"] >= 4,
+      f"C2 occupancy below its design's 4 blocks of 128 an SM: {C2_BUILD}")
 print(json.dumps({"kernels": kernels}), flush=True)
 print(json.dumps({"ok": True, "device": {
     "platform": "gpu", "kind": KIND, "count": torch.cuda.device_count()}}),

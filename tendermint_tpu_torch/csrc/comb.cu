@@ -10,17 +10,14 @@
 //       (64, 9, K, 4, 10), entry [i][j] = [j 16^i](-A) in cached form
 //       (Y+X, Y-X, Z, 2dT), and the decode verdict per key (uint8)
 //   C2  comb_verify_staged (:542, with _gather_comb_cached :511 and
-//       _gather_base_comb :528) -> tm_comb_verify: R (B, 32) uint8, the
-//       signed radix-16 digits of s and k (B, 64) int8 as the host stages
-//       them (ops/ed25519.scalars_to_digits), the table row of each
-//       signature's key (B,) int32, C1's table and verdicts, and B's comb
-//       (64, 9, 3, 10) int32 in niels form -> one uint8 verdict per
-//       signature: encode([s]B + [k](-A)) == R, AND A's decode verdict
-// The bodies are comb_build4 and comb_verify4 (comb4.cuh), on the
-// four-lane group law of K1 (verify4.cuh): one key or one signature on a
-// group of four lanes, lane t holding coordinate t, the values exchanged
-// by __shfl_sync of width 4 between the two rounds of each doubling and
-// addition.
+//       _gather_base_comb :528) -> tm_comb_verify: one row of 100 bytes a
+//       signature (R | s | k | its table row as a little-endian int32),
+//       C1's table and verdicts, and B's comb (64, 9, 3, 10) int32 in
+//       niels form -> one uint8 verdict per signature:
+//       encode([s]B + [k](-A)) == R, AND A's decode verdict, AND the row
+//       within [0, K); the signed radix-16 digits of s and k are formed
+//       on the card, as K1 forms them
+// The bodies are comb_build4 and comb_verify4 (comb4.cuh).
 //
 // What bounds them on the H100.  Both are integer multiply-adds, and at
 // the main path's sizes the length of one group's dependency chain.
@@ -31,28 +28,52 @@
 //   card's multiply rate, sets its time.  Its output is 92,160 B a key
 //   (94 MB for 1,024 keys, more than the 50 MB L2), written once, each
 //   group's 160-byte entry contiguous.
-// - C2 per signature: 64 windows of two additions (4 rounds), then the
-//   inversion of Z (~265 operations) and two compares: ~530 rounds.  It
-//   reads 64 gathered entries of -A's table (10,240 B) and 64 entries of
-//   B's comb, and 165 B of its own rows.
+// - C2 per signature: 64 windows of two additions (128 additions of two
+//   rounds), the inversion of Z (254 squares, 11 multiplies) and x, y.
+//   It reads 64 gathered entries of -A's table (10,240 B), 64 entries of
+//   B's comb and its 100-byte row.  At the per-block launch (256 lanes,
+//   1,024 threads on one group a signature: under one warp a scheduler)
+//   its time is one group's chain, ~530 rounds in the first design, half
+//   of them the inversion; at 65,536 lanes (16 warps an SM) the issue of
+//   the integer pipes, ~170k instructions a lane in the first design, a
+//   third of them the inversion, repeated on every lane.
 // What the design does about it.
-// - Four lanes a key or a signature, as K1: an addition is two rounds of
-//   four independent products instead of ~12 dependent ones.
+// - A signature's windows are split over G groups of four lanes in one
+//   warp (G = 8 at small launches: a chain of 16 additions, then three
+//   levels of a butterfly that adds the partial sums); the wrapper
+//   chooses G from the launch's lanes (ops/cuda_comb.py groups_for), G = 1
+//   where the card is full and the butterfly would only add work.
+// - One inversion a block, not one a signature: each signature's Z goes to
+//   shared memory, the block's first warp inverts them one a lane (one
+//   instruction stream for up to 32 signatures, where the first design ran
+//   one on every lane of every group), and each group reads its Z^-1
+//   back; the compare reads the same field values x and y as before, so
+//   the verdict is the same, with no product tree and no zero-Z case.
+// - S2's addition (ristretto4.cuh sr_add: one exchange in round 1, three
+//   in round 2, 40 shuffles where K1's add4 takes 60) on the two-round
+//   carry field (fe_mul2, 211 instructions against fe_mul's 261), and the
+//   inversion on fe_sq2 (164 against fe_sq's 221); C1 keeps K1's steps
+//   and their field values.
+// - The digits come from s and k on the card (verify4.cuh digit_words),
+//   so the host stages 100 bytes a signature in one buffer, not 165 in
+//   four.
 // - C1's layout lets C2's group read one entry as one 160-byte run
 //   (lane t reads its coordinate's 40 B): table index
 //   ((win * 9 + j) * K + key) * 40 + 10 * coord + limb.
 // - B's comb (69,120 B) stays in device memory and is read through the
 //   read-only path (const __restrict__), not copied into shared memory per
-//   block: at 256 lanes the copy would cost each of the two blocks more
-//   than the reads it saves, and 69 KB of shared memory a block would
-//   hold an SM to three blocks.  A window's 9 entries (1,080 B) are shared
-//   by every signature of the launch, so they stay in L1/L2.
-// - No shared memory at all: the running point, the entry being added and
-//   the round's products live in registers (C2 within 128 registers, so
-//   4 blocks of 128 threads fit an SM).
-// - Ragged tails: every lane of a warp reaches every shuffle; a group
-//   past the end works on the last key or signature again and stores
-//   nothing.  A table row index outside [0, K) reads row 0 and fails.
+//   block: at 256 lanes the copy would cost each block more than the
+//   reads it saves, and 69 KB of shared memory a block would hold an SM
+//   to three blocks.  A window's 9 entries (1,080 B) are shared by every
+//   signature of the launch, so they stay in L1/L2.
+// - The running point, the entry being added and the round's products
+//   live in registers (C2 within 128 registers, so 4 blocks of 128
+//   threads fit an SM); shared memory holds only the digit words and the
+//   Zs, 108 B a signature.
+// - Ragged tails: every lane of a warp reaches every shuffle and every
+//   thread every barrier; a group past the end works on the last key or
+//   signature again and stores nothing.  A table row index outside
+//   [0, K) reads row 0 and fails.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -60,7 +81,7 @@
 #include "fe25519.cuh"
 #include "launch.cuh"
 
-#define THREADS 128                 // 32 keys or signatures a block
+#define THREADS 128                 // 32 keys or 32 / G signatures a block
 #define MIN_BLOCKS_C2 4             // -> at most 128 registers a thread
 
 // the exchange of verify4.cuh on the card: a shuffle within the 4-lane
@@ -105,31 +126,46 @@ k_comb_build(const uint8_t *__restrict__ pub, int64_t K,
   if (store && t == 0) dec_ok[key] = ok;
 }
 
+// C2's exchange (comb4.cuh): a shuffle within the 4-lane group, a
+// shuffle at a lane distance within the warp, __syncthreads, and the
+// block's shared words
+struct C2Xch {
+  uint32_t *w;
+  __device__ __forceinline__ int lane() const { return threadIdx.x & 3; }
+  __device__ __forceinline__ int tid() const { return threadIdx.x; }
+  __device__ __forceinline__ int threads() const { return THREADS; }
+  __device__ __forceinline__ int32_t get(int32_t v, int src) const {
+    return __shfl_sync(0xFFFFFFFFu, v, src, 4);
+  }
+  __device__ __forceinline__ int32_t xor_get(int32_t v, int d) const {
+    return __shfl_xor_sync(0xFFFFFFFFu, v, d);
+  }
+  __device__ __forceinline__ void sync() const { __syncthreads(); }
+  __device__ __forceinline__ uint32_t *words() const { return w; }
+};
+
+// rows: B rows of COMB_ROW_WORDS words; log_g: log2 of the groups a
+// signature, so a block serves THREADS >> (2 + log_g) signatures
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS_C2)
-k_comb_verify(const uint8_t *__restrict__ r_rows,
-              const int8_t *__restrict__ sd, const int8_t *__restrict__ kd,
-              const int32_t *__restrict__ vidx, int64_t B,
+k_comb_verify(const uint32_t *__restrict__ rows, int64_t B, int log_g,
               const int32_t *__restrict__ tab,
               const uint8_t *__restrict__ dec_ok, int64_t K,
               const int32_t *__restrict__ base, uint8_t *__restrict__ out) {
-  CombXch x;
-  const int64_t sig = group_index();
+  __shared__ uint32_t words[(THREADS / 4) * C2_SIG_WORDS];
+  C2Xch x{words};
+  const int64_t sig = (int64_t)blockIdx.x * (THREADS >> (2 + log_g)) +
+                      (threadIdx.x >> (2 + log_g));
   const int64_t sl = sig < B ? sig : B - 1;
-  int32_t v = vidx[sl];
+  const uint32_t *row = rows + COMB_ROW_WORDS * sl;
+  int32_t v = (int32_t)row[COMB_ROW_KEY];
   const bool in_range = v >= 0 && v < K;
   v = in_range ? v : 0;
-  uint32_t r[8];
-  load_row32(r, r_rows + 32 * sl);
-  const int8_t *s_d = sd + 64 * sl;
-  const int8_t *k_d = kd + 64 * sl;
-  auto digit = [&](int win, int h) -> int {
-    return h == 0 ? s_d[win] : k_d[win];
-  };
   auto a_entry = [&](int win, int j) -> const int32_t * {
     return tab + (((int64_t)win * COMB_DIGITS + j) * K + v) * 40;
   };
-  bool ok = comb_verify4(x, digit, a_entry, base, r);
-  if (sig < B && x.lane() == 0)
+  fe xy;
+  bool ok = comb_verify4(x, log_g, row, a_entry, base, xy);
+  if (sig < B && (threadIdx.x & ((4 << log_g) - 1)) == 0)
     out[sig] = ok && in_range && dec_ok[v] != 0;
 }
 
@@ -146,17 +182,16 @@ int tm_comb_build(const void *pub, long long K, void *tab, void *dec_ok,
   return (int)cudaGetLastError();
 }
 
-int tm_comb_verify(const void *r, const void *sd, const void *kd,
-                   const void *vidx, long long B, const void *tab,
-                   const void *dec_ok, long long K, const void *base,
-                   void *out, int device, void *stream) {
+int tm_comb_verify(const void *rows, long long B, int log_g,
+                   const void *tab, const void *dec_ok, long long K,
+                   const void *base, void *out, int device, void *stream) {
   DeviceScope scope(device);
   if (scope.err != cudaSuccess) return (int)scope.err;
+  if (log_g < 0 || log_g > 3) return (int)cudaErrorInvalidValue;
   if (B > 0)
-    k_comb_verify<<<blocks_for(4 * B, THREADS), THREADS, 0,
+    k_comb_verify<<<blocks_for(B << (2 + log_g), THREADS), THREADS, 0,
                     (cudaStream_t)stream>>>(
-        (const uint8_t *)r, (const int8_t *)sd, (const int8_t *)kd,
-        (const int32_t *)vidx, B, (const int32_t *)tab,
+        (const uint32_t *)rows, B, log_g, (const int32_t *)tab,
         (const uint8_t *)dec_ok, K, (const int32_t *)base, (uint8_t *)out);
   return (int)cudaGetLastError();
 }

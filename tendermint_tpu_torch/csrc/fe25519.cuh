@@ -349,8 +349,8 @@ struct NoPark {
 };
 
 // The field a power chain runs on: K1's square and multiply (fe_sq,
-// fe_mul) here; K4 and S2 pass Fe2Ops (csrc/fe25519_2.cuh), the
-// two-round-carry pair.
+// fe_mul) here; K4, S2 and C2's inversion pass Fe2Ops
+// (csrc/fe25519_2.cuh), the two-round-carry pair.
 struct FeOps {
   static FE_MEMBER void sq(fe h, const fe f) { fe_sq(h, f); }
   static FE_MEMBER void mul(fe h, const fe f, const fe g) { fe_mul(h, f, g); }
@@ -401,12 +401,13 @@ FE_DEV void fe_chain_250(fe z250, fe z11, const fe z, Park pk = Park(),
   Fd::mul(z250, t2, t1);     // 2^250 - 1
 }
 
-// z^(p - 2) = z^(2^255 - 21); 0 maps to 0
+// z^(p - 2) = z^(2^255 - 21) on the field Fd; 0 maps to 0
+template <class Fd = FeOps>
 FE_DEV void fe_invert(fe out, const fe z) {
   fe z250, z11;
-  fe_chain_250(z250, z11, z);
-  fe_sqn(z250, z250, 5);     // 2^255 - 32
-  fe_mul(out, z250, z11);    // 2^255 - 21
+  fe_chain_250<Fd>(z250, z11, z);
+  fe_sqn<Fd>(z250, z250, 5); // 2^255 - 32
+  Fd::mul(out, z250, z11);   // 2^255 - 21
 }
 
 // z^((p - 5) / 8) = z^(2^252 - 3) on the field Fd

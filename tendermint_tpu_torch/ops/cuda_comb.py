@@ -5,8 +5,7 @@ The counterparts of two XLA functions of tendermint_tpu/ops/ed25519.py
 (the JAX package has no Pallas kernel for them):
 
   C1  comb_build_kernel_impl (:495)  -> comb_build(pub)
-  C2  comb_verify_staged (:542)      -> comb_verify(r, s_digits, k_digits,
-                                                    vidx, tables, dec_ok)
+  C2  comb_verify_staged (:542)      -> comb_verify(rows, tables, dec_ok)
 
 comb_build takes a (K, 32) uint8 pubkey matrix and returns (tables,
 dec_ok): for a CUDA tensor it launches the hand-written kernel of
@@ -14,19 +13,23 @@ csrc/comb.cu and the tables are one (64, 9, K, 4, 10) int32 tensor, entry
 [i][j] = [j 16^i](-A) in cached form in the kernel's 10-limb layout
 (ops/cuda_ed25519.fe10_limbs); for a CPU tensor it runs the plain version
 (ops/ed25519.comb_build_kernel_impl) and the tables are its Cached fields
-(64, 9, NLIMB, K).  comb_verify takes R (B, 32) uint8, the signed
-radix-16 digits of s and k (B, 64) int8 (ops/ed25519.scalars_to_digits),
-each signature's table row (B,) int32 and comb_build's output on the same
-device, and returns the (B,) bool verdicts; B's static comb comes from
-base_comb_dev (CUDA) or ops/ed25519._base_comb (CPU).  Both kernels run
-one key or one signature on a group of four lanes (csrc/comb4.cuh on
-K1's group law, csrc/verify4.cuh); the library is built with nvcc for
-sm_90a on first use, cached by source hash under the package's _build/
-directory, and loaded with ctypes.  A CUDA tensor launches or raises.
+(64, 9, NLIMB, K).  comb_verify takes one (B, ROW_BYTES) uint8 row a
+signature (pack_rows: R | s | k | its table row as a little-endian int32)
+and comb_build's output on the same device, and returns the (B,) bool
+verdicts; B's static comb comes from base_comb_dev (CUDA) or
+ops/ed25519._base_comb (CPU).  The kernel forms the signed radix-16
+digits of s and k itself; the plain version takes them from
+ops/ed25519.scalars_to_digits.  C1 runs one key on a group of four lanes
+(csrc/comb4.cuh on K1's group law, csrc/verify4.cuh), C2 one signature on
+groups_for(B) groups of four lanes (on S2's steps, csrc/ristretto4.cuh);
+the library is built with nvcc for sm_90a on first use, cached by source
+hash under the package's _build/ directory, and loaded with ctypes.  A
+CUDA tensor launches or raises.
 
 `launches` counts kernel launches per wrapper; bound_ms_build and
 bound_ms_verify give the least time the card could take for the same
-work; tables_mismatch holds C1's table against the plain version's as
+work, design_ms_verify the multiply-add time of C2's own layout beside
+it; tables_mismatch holds C1's table against the plain version's as
 field values.
 """
 from __future__ import annotations
@@ -43,7 +46,8 @@ from . import cuda_ed25519 as ck
 from . import field as F
 
 SOURCES = tuple(os.path.join(_nvcc.CSRC_DIR, f) for f in (
-    "fe25519.cuh", "launch.cuh", "verify4.cuh", "comb4.cuh", "comb.cu"))
+    "fe25519.cuh", "fe25519_2.cuh", "launch.cuh", "verify4.cuh",
+    "ristretto4.cuh", "comb4.cuh", "comb.cu"))
 
 WINDOWS = 64
 DIGITS = 9
@@ -62,13 +66,31 @@ BASE_ENTRY_BYTES = 3 * 10 * 4                            # one niels entry
 C1_MULS_PER_KEY = 20 + 1 + WINDOWS * (5 * 4 + 3 * 8 + 8)
 C1_SQS_PER_KEY = 255 + WINDOWS * 5 * 4
 C1_BYTES_PER_KEY = 32 + TABLE_BYTES_PER_KEY + 1
-# C2 per signature: the inversion of Z (254 sq + 11 mul) and x, y (2 mul),
-# then 7 multiplies a niels addition of B and 8 a cached addition of -A,
-# one for each nonzero digit of s and of k (a zero digit adds the
-# identity)
-C2_MULS_FIXED = 11 + 2
-C2_SQS_FIXED = 254
-C2_BYTES_PER_SIG = 32 + 64 + 64 + 4 + 1
+# C2 per signature: 7 multiplies a niels addition of B and 8 a cached
+# addition of -A, one for each nonzero digit of s and of k (a zero digit
+# adds the identity); the affine point at the function's least, one
+# inversion of Z a launch shared by Montgomery's trick (3 (B - 1)
+# multiplies) and x and y (2 multiplies a signature).  None of it depends
+# on how the kernel lays a signature out.  The design's own work beside it
+# (design_ms_verify): with G groups a signature, G - 1 additions of the
+# butterfly (a cached conversion and a cached addition, 9 multiplies), and
+# a block's inversion (254 squares, 11 multiplies) on each of its first
+# warp's 32 lanes, whether or not the lane holds a signature's Z
+C2_BATCH_INV_MULS = 3
+C2_AFFINE_MULS = 2
+C2_INV_MULS = 11
+C2_INV_SQS = 254
+C2_TREE_MULS = 1 + 8
+# a signature's row: R | s | k | its table row (little-endian int32)
+ROW_BYTES = 32 + 32 + 32 + 4
+C2_BYTES_PER_SIG = ROW_BYTES + 1
+C2_THREADS = 128                 # csrc/comb.cu THREADS
+GROUPS = (1, 2, 4, 8)
+# G by the launch's lanes: (most lanes, G), then G = 1.  From C2's times
+# at each G on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase 15):
+# G = 8 is fastest up to 1,024 lanes, 4 at 2,048, 2 at 4,096, 1 from
+# 16,384
+GROUPS_BY_LANES = ((1024, 8), (2048, 4), (4096, 2))
 
 launches = {"comb_build": 0, "comb_verify": 0}
 _count_lock = threading.Lock()
@@ -108,11 +130,27 @@ def bound_by_build(keys: int) -> str:
     return "operations" if ops_s >= bytes_s else "bytes"
 
 
+def groups_for(lanes: int) -> int:
+    """The groups of four lanes C2 gives a signature in a launch of
+    `lanes` lanes: many where one group's chain would leave the card
+    idle, one where the card is full (GROUPS_BY_LANES)."""
+    for most, g in GROUPS_BY_LANES:
+        if lanes <= most:
+            return g
+    return 1
+
+
+def verify_blocks(lanes: int, groups: int) -> int:
+    """Blocks of a C2 launch: C2_THREADS / (4 groups) signatures each."""
+    per_block = C2_THREADS // (4 * groups)
+    return -(-lanes // per_block)
+
+
 def verify_work(s_digits, k_digits, vidx) -> dict:
-    """What C2 must do on this data: the nonzero digits of s and of k
-    (its additions) and the distinct table entries it must read (each
-    (window, |k digit|, row) of -A's tables, each (window, |s digit|) of
-    B's comb), from the (B, 64) digit arrays and the (B,) rows."""
+    """What C2 must do on this data: the nonzero digits of s and of k (its
+    additions) and the distinct table entries it must read (each (window,
+    |k digit|, row) of -A's tables, each (window, |s digit|) of B's comb),
+    from the (B, 64) digit arrays and the (B,) rows (unpack_rows)."""
     sd = np.asarray(s_digits).astype(np.int64)
     kd = np.asarray(k_digits).astype(np.int64)
     v = np.asarray(vidx).astype(np.int64).reshape(-1, 1)
@@ -124,20 +162,38 @@ def verify_work(s_digits, k_digits, vidx) -> dict:
             "b_entries": int(b_keys.size)}
 
 
+def _digit_muls(work: dict) -> int:
+    return 7 * work["b_adds"] + 8 * work["a_adds"]
+
+
 def _verify_s(work: dict) -> tuple:
     """C2's (operation time, byte time) in seconds on `work`."""
-    muls = work["lanes"] * C2_MULS_FIXED + 7 * work["b_adds"] + \
-        8 * work["a_adds"]
-    nbytes = work["lanes"] * C2_BYTES_PER_SIG + \
+    lanes = work["lanes"]
+    muls = C2_INV_MULS + C2_BATCH_INV_MULS * max(lanes - 1, 0) \
+        + C2_AFFINE_MULS * lanes + _digit_muls(work)
+    nbytes = lanes * C2_BYTES_PER_SIG + \
         work["a_entries"] * ENTRY_BYTES + work["b_entries"] * BASE_ENTRY_BYTES
-    return (_imads(muls, work["lanes"] * C2_SQS_FIXED) / ck.H100_IMAD_PER_S,
+    return (_imads(muls, C2_INV_SQS) / ck.H100_IMAD_PER_S,
             nbytes / ck.MEM_BYTES_PER_S)
 
 
 def bound_ms_verify(work: dict) -> float:
     """Least time the card could take for C2 on the data `work`
-    (verify_work) describes."""
+    (verify_work) describes, whatever its layout."""
     return 1e3 * max(_verify_s(work))
+
+
+def design_ms_verify(work: dict, groups: int) -> float:
+    """The multiply-add time of what this design does on `work` at
+    `groups` groups a signature: the digits' additions, the butterfly's
+    G - 1 additions and x and y a signature, and a block's inversion on
+    the 32 lanes of its first warp.  Not a bound: reported beside it, it
+    shows what the layout costs."""
+    lanes = work["lanes"]
+    inversions = 32 * verify_blocks(lanes, groups)
+    muls = inversions * C2_INV_MULS + lanes * (
+        C2_AFFINE_MULS + (groups - 1) * C2_TREE_MULS) + _digit_muls(work)
+    return 1e3 * _imads(muls, inversions * C2_INV_SQS) / ck.H100_IMAD_PER_S
 
 
 def bound_by_verify(work: dict) -> str:
@@ -171,8 +227,8 @@ def kernels() -> ctypes.CDLL:
             lib = ctypes.CDLL(build())
             vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
             lib.tm_comb_build.argtypes = [vp, ll, vp, vp, i, vp]
-            lib.tm_comb_verify.argtypes = [vp, vp, vp, vp, ll, vp, vp, ll,
-                                           vp, vp, i, vp]
+            lib.tm_comb_verify.argtypes = [vp, ll, i, vp, vp, ll, vp, vp,
+                                           i, vp]
             ip = ctypes.POINTER(ctypes.c_int)
             lib.tm_comb_occupancy.argtypes = [i, ip, ip]
             for fn in (lib.tm_comb_build, lib.tm_comb_verify,
@@ -285,25 +341,26 @@ def comb_build(pub: torch.Tensor):
     return tab, dec_ok.view(torch.bool)
 
 
-def comb_verify(r: torch.Tensor, s_digits: torch.Tensor,
-                k_digits: torch.Tensor, vidx: torch.Tensor, tables,
-                dec_ok: torch.Tensor) -> torch.Tensor:
-    """C2: R (B, 32) uint8, digits of s and k (B, 64) int8 in [-8, 7],
-    table rows (B,) int32, and comb_build's (tables, dec_ok) on the same
-    device -> (B,) bool.  A row outside [0, K) fails its lane."""
-    if r.dim() != 2:
-        raise ValueError(f"r: expected (B, 32), got {tuple(r.shape)}")
-    B = r.shape[0]
-    _check(r, torch.uint8, (B, 32), "r")
-    _check(s_digits, torch.int8, (B, 64), "s_digits")
-    _check(k_digits, torch.int8, (B, 64), "k_digits")
-    _check(vidx, torch.int32, (B,), "vidx")
+def comb_verify(rows: torch.Tensor, tables, dec_ok: torch.Tensor,
+                groups: int = None) -> torch.Tensor:
+    """C2: (B, ROW_BYTES) uint8 rows (pack_rows) and comb_build's
+    (tables, dec_ok) on the same device -> (B,) bool.  groups: the
+    groups of four lanes a signature (1, 2, 4 or 8; default
+    groups_for(B)).  A row outside [0, K) fails its lane."""
+    if rows.dim() != 2:
+        raise ValueError(f"rows: expected (B, {ROW_BYTES}), got "
+                         f"{tuple(rows.shape)}")
+    B = rows.shape[0]
+    _check(rows, torch.uint8, (B, ROW_BYTES), "rows")
     K = dec_ok.shape[0]
-    dev = r.device
-    if any(t.device != dev for t in (s_digits, k_digits, vidx, dec_ok)):
+    dev = rows.device
+    if dec_ok.device != dev:
         raise ValueError("comb_verify: every input must be on one device")
+    G = groups_for(B) if groups is None else groups
+    if G not in GROUPS:
+        raise ValueError(f"groups: expected one of {GROUPS}, got {G}")
     if dev.type == "cpu":
-        return comb_verify_plain(r, s_digits, k_digits, vidx, tables, dec_ok)
+        return comb_verify_plain(rows, tables, dec_ok)
     if not isinstance(tables, torch.Tensor) or tables.device != dev:
         raise ValueError("comb_verify: tables must be C1's tensor on "
                          f"{dev}")
@@ -311,14 +368,42 @@ def comb_verify(r: torch.Tensor, s_digits: torch.Tensor,
     _check(dec_ok, torch.bool, (K,), "dec_ok")
     out = torch.empty(B, dtype=torch.uint8, device=dev)
     lib = kernels()
-    rc = lib.tm_comb_verify(r.data_ptr(), s_digits.data_ptr(),
-                            k_digits.data_ptr(), vidx.data_ptr(), B,
+    rc = lib.tm_comb_verify(rows.data_ptr(), B, G.bit_length() - 1,
                             tables.data_ptr(), dec_ok.data_ptr(), K,
                             base_comb_dev(dev).data_ptr(), out.data_ptr(),
                             dev.index, _stream(dev))
     _nvcc.check_rc(lib, rc, "comb_verify")
     _count("comb_verify")
     return out.view(torch.bool)
+
+
+# ---------------------------------------------------------------------------
+# C2's rows
+# ---------------------------------------------------------------------------
+
+def pack_rows(r, s, k, vidx, lanes: int = None) -> np.ndarray:
+    """(lanes, ROW_BYTES) uint8 rows R | s | k | table row (little-endian
+    int32) from (B, 32) uint8 R, s and k and (B,) table rows; the rows
+    past B (lanes >= B, default B) are zero."""
+    B = len(vidx)
+    rows = np.zeros((B if lanes is None else lanes, ROW_BYTES),
+                    dtype=np.uint8)
+    rows[:B, 0:32] = r
+    rows[:B, 32:64] = s
+    rows[:B, 64:96] = k
+    rows[:B, 96:100] = np.asarray(vidx, dtype="<i4").reshape(B, 1) \
+        .view(np.uint8)
+    return rows
+
+
+def unpack_rows(rows: np.ndarray) -> tuple:
+    """pack_rows's rows -> (R (B, 32) uint8, the signed radix-16 digits of
+    s and of k (B, 64) int8, the table rows (B,) int32)."""
+    from . import ed25519 as edops
+    rows = np.ascontiguousarray(rows, dtype=np.uint8)
+    return (rows[:, 0:32].copy(), edops.scalars_to_digits(rows[:, 32:64]),
+            edops.scalars_to_digits(rows[:, 64:96]),
+            rows[:, 96:100].copy().view("<i4").reshape(-1).astype(np.int32))
 
 
 # ---------------------------------------------------------------------------
@@ -331,13 +416,16 @@ def comb_build_plain(pub: torch.Tensor):
     return edops.comb_build_kernel_impl(pub)
 
 
-def comb_verify_plain(r, s_digits, k_digits, vidx, tables,
-                      dec_ok) -> torch.Tensor:
-    """Plain C2 on any device, on comb_build_plain's Cached tables."""
+def comb_verify_plain(rows, tables, dec_ok) -> torch.Tensor:
+    """Plain C2 on any device, on comb_build_plain's Cached tables: the
+    digits formed on the host (unpack_rows), then
+    ops/ed25519.comb_verify_staged on the rows' device."""
     from . import ed25519 as edops
-    return edops.comb_verify_staged(
-        r, s_digits, k_digits, vidx, *tables, dec_ok,
-        *edops._base_comb(r.device))
+    dev = rows.device
+    r, sd, kd, vidx = (torch.from_numpy(a).to(dev)
+                       for a in unpack_rows(rows.cpu().numpy()))
+    return edops.comb_verify_staged(r, sd, kd, vidx, *tables, dec_ok,
+                                    *edops._base_comb(dev))
 
 
 # ---------------------------------------------------------------------------

@@ -931,6 +931,22 @@ def _table_build(uniq: np.ndarray, set_hash: bytes, dev: torch.device):
     return entry
 
 
+def _lookup_touch(set_hash, first_key: bytes, dev: torch.device):
+    """The table cache's side of a lookup on `dev`: a get by set hash
+    (None: a batch no resident set equals, a miss), then on a miss a get
+    of the set that owns the batch's first (smallest) key.  Returns
+    (entry, exact): the set of that hash, or its first key's owner, or
+    None."""
+    entry = _table_cache.get((set_hash, str(dev)))
+    if entry is not None:
+        return entry, True
+    with _table_key_lock:
+        owner = _table_key_index.get((first_key, str(dev)))
+    if owner is None:
+        return None, False
+    return _table_cache.get(owner), False
+
+
 def _table_lookup(uniq: np.ndarray, dev: torch.device):
     """Resolve a distinct-key matrix against the table cache on `dev`.
     Returns (entry, remap), remap mapping the uniq rows onto the entry's
@@ -938,14 +954,9 @@ def _table_lookup(uniq: np.ndarray, dev: torch.device):
     cached set (a partial vote window, the VerifyScheduler's coalesced
     lanes) resolves through the key-level index; any unknown or
     cross-set key sends the whole batch to the ladder."""
-    entry = _table_cache.get((_set_hash(uniq), str(dev)))
-    if entry is not None:
+    entry, exact = _lookup_touch(_set_hash(uniq), uniq[0].tobytes(), dev)
+    if exact:
         return entry, np.arange(uniq.shape[0], dtype=np.int32)
-    with _table_key_lock:
-        owner = _table_key_index.get((uniq[0].tobytes(), str(dev)))
-    if owner is None:
-        return None, None
-    entry = _table_cache.get(owner)
     if entry is None:
         return None, None
     remap = np.empty(uniq.shape[0], dtype=np.int32)
@@ -1076,6 +1087,35 @@ def prewarm_async(pubkeys, device=None) -> None:
     t.start()
 
 
+def _declined_early(pub_m: np.ndarray, dev: torch.device) -> bool:
+    """Whether the budget declines a buildable batch for certain, before
+    its distinct keys are sorted.  The distinct first 8 bytes of its keys
+    (a 1-D sort of one uint64 column) are a lower bound on its distinct
+    keys; if a set of that many keys is over the budget and no set
+    resident on `dev` holds that many keys, no lookup can succeed and the
+    build would be declined.  The cache then sees what the exact path's
+    lookup does to it (_lookup_touch: its set hash misses, and the
+    owner of the batch's smallest key is touched)."""
+    budget = table_cache_budget_bytes()
+    if _comb_k_pad(pub_m.shape[0]) * _TABLE_BYTES_PER_KEY <= budget:
+        return False      # even all keys distinct would fit
+    prefix = np.ascontiguousarray(pub_m[:, :8]).view(">u8").reshape(-1)
+    bound = np.unique(prefix).size
+    if _comb_k_pad(bound) * _TABLE_BYTES_PER_KEY <= budget:
+        return False
+    for key in _table_cache.keys():
+        entry = _table_cache.peek(key)
+        if entry is not None and entry.device == str(dev) and \
+                entry.k >= bound:
+            return False
+    # np.unique's first row is the smallest in byte order: the smallest
+    # big-endian prefix, then the smallest of the rows that share it
+    first = min(pub_m[i].tobytes()
+                for i in np.flatnonzero(prefix == prefix.min()))
+    _lookup_touch(None, first, dev)
+    return True
+
+
 def _comb_try(pubkeys, msgs, sigs, cache_pubs: bool, dev: torch.device):
     """The comb route: engage iff every key resolves to one cached set on
     `dev` (building the set on a cache_pubs batch of at least
@@ -1104,6 +1144,9 @@ def _comb_try(pubkeys, msgs, sigs, cache_pubs: bool, dev: torch.device):
         with _table_key_lock:
             if (pub_m[0].tobytes(), str(dev)) not in _table_key_index:
                 return None
+    elif _declined_early(pub_m, dev):
+        degrade.publish_route("comb", "declined")
+        return None
     uniq, inverse = np.unique(pub_m, axis=0, return_inverse=True)
     inverse = np.asarray(inverse).reshape(-1)
     entry, remap = _table_lookup(uniq, dev)
@@ -1125,8 +1168,6 @@ def _comb_try(pubkeys, msgs, sigs, cache_pubs: bool, dev: torch.device):
     t0 = time.perf_counter()
     _, r_b, s_b, kscal, host_ok = _stage_rows(
         pub_m, _to_u8_matrix(sigs, 64), msgs)
-    s_digits = scalars_to_digits(s_b)
-    k_digits = scalars_to_digits(kscal)
     phases = {"stage_s": time.perf_counter() - t0, "h2d_s": 0.0,
               "compute_s": 0.0, "collect_s": 0.0}
     # events on the stream the wrappers launch on (that of `dev`, which
@@ -1140,23 +1181,22 @@ def _comb_try(pubkeys, msgs, sigs, cache_pubs: bool, dev: torch.device):
             b = min(a + MAX_CHUNK, n)
             m = b - a
             cnb = bucket_size(m)
-            rows = [r_b[a:b], s_digits[a:b], k_digits[a:b], vidx[a:b]]
-            if cnb != m:
-                rows = [np.pad(x, [(0, cnb - m)] + [(0, 0)] * (x.ndim - 1))
-                        for x in rows]
-            host = [torch.from_numpy(np.ascontiguousarray(x)) for x in rows]
-            nbytes = sum(t.numel() * t.element_size() for t in host)
-            devobs.ledger_add("staging", nbytes)
-            charged += nbytes
+            t_pack = time.perf_counter()
+            # one padded (cnb, 100) buffer: R | s | k | table row
+            rows = cc.pack_rows(r_b[a:b], s_b[a:b], kscal[a:b], vidx[a:b],
+                                cnb)
+            phases["stage_s"] += time.perf_counter() - t_pack
+            devobs.ledger_add("staging", rows.nbytes)
+            charged += rows.nbytes
             t_put = time.perf_counter()
             if stream is not None:
                 ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
                 ev[0].record(stream)
-            args = [t.to(dev) for t in host]
+            arg = torch.from_numpy(rows).to(dev)
             t_launch = time.perf_counter()
             if stream is not None:
                 ev[1].record(stream)
-            out = cc.comb_verify(*args, entry.tables, entry.dec_ok)
+            out = cc.comb_verify(arg, entry.tables, entry.dec_ok)
             if stream is not None:
                 ev[2].record(stream)
             t_col = time.perf_counter()

@@ -12,17 +12,19 @@ tests/test_comb.py), on the CPU.
     cofactorless check) against the JAX comb, both ladders and the
     pure-Python oracle; then the comb route end to end.
 (b) The group bodies of C1 and C2 (csrc/comb4.cuh) compiled with g++ and
-    run by four host threads that meet at a barrier where the card's lanes
-    exchange values: C1's table as field values and its verdicts, C2's
-    bitmap, against the plain versions.
+    run by host threads that meet at a barrier where the card's lanes
+    exchange values (C1 on four, C2 on 4 G for G = 1, 2, 4, 8): C1's table
+    as field values and its verdicts, C2's bitmap and P's affine
+    coordinates, against the plain versions; the digits C2 forms from s
+    against scalars_to_digits.
 (c) Routing and runtime through both packages with the kernels stubbed (as
     tests/test_comb.py stubs them; each package's ladder is stubbed by the
     bignum oracle on its staged scalars): build, hit, subset, mixed keys,
     disabled and declined, eviction, repointing, chunking, the chaos
     matrix at ops.ed25519.comb, a real RuntimeError, the skipped distinct
-    key sort, the knobs, prewarm; the route counters, table metrics,
-    launch records and ledgers of the two packages are equal.  DeviceLRU
-    in both packages.
+    key sort, the early decline, the knobs, prewarm; the route counters,
+    table metrics, launch records and ledgers of the two packages are
+    equal.  DeviceLRU in both packages.
 """
 from __future__ import annotations
 
@@ -218,13 +220,31 @@ def ref():
         jnp.asarray(r_b), jnp.asarray(sd), jnp.asarray(kd),
         jnp.asarray(vidx), jtab.ypx, jtab.ymx, jtab.z, jtab.t2d, jok,
         *jed._base_comb()))
-    tbits = cc.comb_verify(torch.from_numpy(r_b), torch.from_numpy(sd),
-                           torch.from_numpy(kd), torch.from_numpy(vidx),
-                           ttab, tok).numpy()
+    rows = cc.pack_rows(r_b, s_b, k, vidx)
+    # the plain C2 through the wrapper (its digits formed on the host),
+    # keeping the point it encodes
+    points = []
+    real_encode = C.encode
+
+    def encode(p):
+        points.append(p)
+        return real_encode(p)
+    mp = pytest.MonkeyPatch()
+    mp.setattr(C, "encode", encode)
+    try:
+        tbits = cc.comb_verify(torch.from_numpy(rows), ttab, tok).numpy()
+    finally:
+        mp.undo()
+    (p,) = points
+    zinv = F.invert(p.z)
+    px, py = (F.to_bytes(F.mul(c, zinv)).t().to(torch.uint8).numpy()
+              for c in (p.x, p.y))
     return dict(pub=pub, jtab=[np.asarray(t) for t in jtab],
                 jok=np.asarray(jok), ttab=ttab, tok=tok.numpy(), pubs=pubs,
                 msgs=msgs, sigs=sigs, vidx=vidx, want=want, r=r_b, sd=sd,
-                kd=kd, host_ok=host_ok, jbits=jbits, tbits=tbits)
+                kd=kd, rows=rows, host_ok=host_ok, jbits=jbits, tbits=tbits,
+                px=[bytes(b).hex() for b in px],
+                py=[bytes(b).hex() for b in py])
 
 
 # ---------------------------------------------------------------------------
@@ -345,10 +365,19 @@ def test_group_op_inventory_counted():
 #   B <17280 ints>                   B's comb (64 x 9 x 3 x 10 limbs)
 #   K <enc A hex>                    C1 on one key -> "<ok> <2304 hex>"
 #                                    (entries [win][j][coord], canonical)
-#   V <key> <R hex> <64 s digits> <64 k digits>
-#                                    C2 against key's table -> 0/1
-#                                    (ANDed with the key's verdict)
+#   V <G> <key> <row hex>            C2 on 4 G threads (one block of one
+#                                    signature) against key's table ->
+#                                    "<0/1> <x hex> <y hex>" (the verdict
+#                                    ANDed with the key's, P's affine x, y)
+#   W <G> <m> (<key> <row hex>) x m  C2 on one full block of 128 threads:
+#                                    32 / G signatures, signature i on row
+#                                    min(i, m - 1) as a ragged tail of the
+#                                    kernel works on its last row again ->
+#                                    "<0/1> <x hex> <y hex>" a signature,
+#                                    all on one line
+#   D <s hex>                        the digits C2 forms from s -> 64 ints
 HARNESS = r"""
+#include <array>
 #include <atomic>
 #include <cstdio>
 #include <cstring>
@@ -362,10 +391,11 @@ HARNESS = r"""
 #include "comb4.cuh"
 
 struct Barrier {
+  int n;
   std::atomic<int> count{0}, gen{0};
   void wait() {
     int g = gen.load();
-    if (count.fetch_add(1) == 3) {
+    if (count.fetch_add(1) == n - 1) {
       count.store(0);
       gen.fetch_add(1);
     } else {
@@ -374,14 +404,18 @@ struct Barrier {
   }
 };
 
-struct Group {
+#define BLOCK_THREADS 128   // csrc/comb.cu THREADS
+
+struct Block {
   Barrier bar;
-  int32_t word[4];
+  int32_t word[BLOCK_THREADS];
+  uint32_t words[(BLOCK_THREADS / 4) * C2_SIG_WORDS];
 };
 
+// C1's four lanes
 struct HostXch {
   int t;
-  Group *g;
+  Block *g;
   int lane() const { return t; }
   int32_t get(int32_t v, int src) {
     g->word[t] = v;
@@ -392,15 +426,29 @@ struct HostXch {
   }
 };
 
-struct Cmd {
-  char op;
-  uint32_t w[8];
-  int key;
-  int sd[64], kd[64];
+// C2's block of n threads: a width-4 shuffle reads lane src & 3 of
+// the thread's group, xor_get thread t ^ d, sync() is the barrier
+struct HostC2 {
+  int t, n;
+  Block *b;
+  int lane() const { return t & 3; }
+  int tid() const { return t; }
+  int threads() const { return n; }
+  int32_t swap(int32_t v, int src) {
+    b->word[t] = v;
+    b->bar.wait();
+    int32_t r = b->word[src];
+    b->bar.wait();
+    return r;
+  }
+  int32_t get(int32_t v, int src) { return swap(v, (t & ~3) + (src & 3)); }
+  int32_t xor_get(int32_t v, int d) { return swap(v, t ^ d); }
+  void sync() { b->bar.wait(); }
+  uint32_t *words() { return b->words; }
 };
 
-static void words(uint32_t w[8], const std::string &hex) {
-  for (int q = 0; q < 8; q++) {
+static void words(uint32_t *w, const std::string &hex, int n) {
+  for (int q = 0; q < n; q++) {
     uint32_t v = 0;
     for (int b = 0; b < 4; b++)
       v |= (uint32_t)std::stoul(hex.substr(2 * (4 * q + b), 2), nullptr, 16)
@@ -421,72 +469,115 @@ static std::string hex(const fe f) {
 
 int main() {
   std::vector<int32_t> base(COMB_WINDOWS * COMB_DIGITS * 30);
-  std::vector<Cmd> cmds;
+  std::vector<int32_t> tab;
+  std::vector<int> key_ok;
   std::string line;
-  int nkeys = 0;
   while (std::getline(std::cin, line)) {
     std::istringstream in(line);
-    Cmd c{};
-    if (!(in >> c.op)) continue;
-    if (c.op == 'B') {
-      for (auto &v : base) in >> v;
-      continue;
-    }
+    char op;
+    if (!(in >> op)) continue;
     std::string h;
-    if (c.op == 'K') {
+    if (op == 'B') {
+      for (auto &v : base) in >> v;
+    } else if (op == 'K') {
       in >> h;
-      words(c.w, h);
-      nkeys++;
-    } else {
-      in >> c.key >> h;
-      words(c.w, h);
-      for (int i = 0; i < 64; i++) in >> c.sd[i];
-      for (int i = 0; i < 64; i++) in >> c.kd[i];
-    }
-    cmds.push_back(c);
-  }
-  std::vector<int32_t> tab((size_t)nkeys * ENTRY_WORDS);
-  std::vector<int> key_ok(nkeys), verdict(cmds.size());
-  Group g;
-  std::vector<std::thread> lanes;
-  for (int t = 0; t < 4; t++)
-    lanes.emplace_back([&, t] {
-      HostXch x{t, &g};
-      int key = 0;
-      for (size_t i = 0; i < cmds.size(); i++) {
-        const Cmd &c = cmds[i];
-        if (c.op == 'K') {
-          int32_t *own = tab.data() + (size_t)key * ENTRY_WORDS;
+      uint32_t w[8];
+      words(w, h, 8);
+      tab.resize(tab.size() + ENTRY_WORDS);
+      int32_t *own = tab.data() + tab.size() - ENTRY_WORDS;
+      Block g;
+      g.bar.n = 4;
+      int ok = 0;
+      std::vector<std::thread> lanes;
+      for (int t = 0; t < 4; t++)
+        lanes.emplace_back([&, t] {
+          HostXch x{t, &g};
           auto put = [&](int win, int j, const fe e) {
             for (int l = 0; l < 10; l++)
               own[(win * COMB_DIGITS + j) * 40 + 10 * t + l] = e[l];
           };
-          bool ok = comb_build4(x, c.w, put);
-          if (t == 0) key_ok[key] = ok;
-          key++;
-          continue;
-        }
-        const int32_t *kt = tab.data() + (size_t)c.key * ENTRY_WORDS;
-        auto digit = [&](int win, int h) { return h ? c.kd[win] : c.sd[win]; };
-        auto a_entry = [&](int win, int j) {
-          return kt + (win * COMB_DIGITS + j) * 40;
-        };
-        bool ok = comb_verify4(x, digit, a_entry, base.data(), c.w);
-        if (t == 0) verdict[i] = ok;
-      }
-    });
-  for (auto &th : lanes) th.join();
-  int key = 0;
-  for (size_t i = 0; i < cmds.size(); i++) {
-    if (cmds[i].op == 'K') {
-      std::cout << key_ok[key];
-      const int32_t *kt = tab.data() + (size_t)key * ENTRY_WORDS;
+          bool r = comb_build4(x, w, put);
+          if (t == 0) ok = r;
+        });
+      for (auto &th : lanes) th.join();
+      key_ok.push_back(ok);
+      std::cout << ok;
       for (int e = 0; e < COMB_WINDOWS * COMB_DIGITS * 4; e++)
-        std::cout << " " << hex(kt + 10 * e);
+        std::cout << " " << hex(own + 10 * e);
       std::cout << "\n";
-      key++;
-    } else {
-      std::cout << (verdict[i] && key_ok[cmds[i].key]) << "\n";
+    } else if (op == 'V') {
+      int G, key;
+      in >> G >> key >> h;
+      uint32_t row[COMB_ROW_WORDS];
+      words(row, h, COMB_ROW_WORDS);
+      const int32_t *kt = tab.data() + (size_t)key * ENTRY_WORDS;
+      const int log_g = G == 1 ? 0 : G == 2 ? 1 : G == 4 ? 2 : 3;
+      Block b;
+      b.bar.n = 4 * G;
+      int ok = 0;
+      std::string xs, ys;
+      std::vector<std::thread> lanes;
+      for (int t = 0; t < 4 * G; t++)
+        lanes.emplace_back([&, t] {
+          HostC2 x{t, 4 * G, &b};
+          auto a_entry = [&](int win, int j) {
+            return kt + (win * COMB_DIGITS + j) * 40;
+          };
+          fe xy;
+          bool r = comb_verify4(x, log_g, row, a_entry, base.data(), xy);
+          if (t == 0) {
+            ok = r;
+            xs = hex(xy);
+          }
+          if (t == 1) ys = hex(xy);
+        });
+      for (auto &th : lanes) th.join();
+      std::cout << (ok && key_ok[key]) << " " << xs << " " << ys << "\n";
+    } else if (op == 'W') {
+      int G, m;
+      in >> G >> m;
+      const int n = BLOCK_THREADS / (4 * G);
+      const int log_g = G == 1 ? 0 : G == 2 ? 1 : G == 4 ? 2 : 3;
+      std::vector<int> keys(m);
+      std::vector<std::array<uint32_t, COMB_ROW_WORDS>> rows(m);
+      for (int i = 0; i < m; i++) {
+        in >> keys[i] >> h;
+        words(rows[i].data(), h, COMB_ROW_WORDS);
+      }
+      Block b;
+      b.bar.n = BLOCK_THREADS;
+      std::vector<int> ok(n);
+      std::vector<std::string> xs(n), ys(n);
+      std::vector<std::thread> lanes;
+      for (int t = 0; t < BLOCK_THREADS; t++)
+        lanes.emplace_back([&, t] {
+          const int sig = t / (4 * G), sl = sig < m ? sig : m - 1;
+          const int32_t *kt = tab.data() + (size_t)keys[sl] * ENTRY_WORDS;
+          HostC2 x{t, BLOCK_THREADS, &b};
+          auto a_entry = [&](int win, int j) {
+            return kt + (win * COMB_DIGITS + j) * 40;
+          };
+          fe xy;
+          bool r = comb_verify4(x, log_g, rows[sl].data(), a_entry,
+                                base.data(), xy);
+          if (t % (4 * G) == 0) {
+            ok[sig] = r && key_ok[keys[sl]];
+            xs[sig] = hex(xy);
+          }
+          if (t % (4 * G) == 1) ys[sig] = hex(xy);
+        });
+      for (auto &th : lanes) th.join();
+      for (int i = 0; i < n; i++)
+        std::cout << (i ? " " : "") << ok[i] << " " << xs[i] << " " << ys[i];
+      std::cout << "\n";
+    } else if (op == 'D') {
+      in >> h;
+      uint32_t w[8];
+      words(w, h, 8);
+      digit_words(w, w);
+      for (int win = 0; win < COMB_WINDOWS; win++)
+        std::cout << (win ? " " : "") << comb_digit(w, win);
+      std::cout << "\n";
     }
   }
   return 0;
@@ -529,15 +620,36 @@ def _canonical_hex(tab) -> list:
             for i in range(K)]
 
 
+GROUPS = cc.GROUPS
+
+
+# W blocks: (first lane, rows) over the 64 lanes at G = 1 and 8; the last
+# at each G holds fewer rows than the block's signatures (a ragged tail)
+FULL_BLOCKS = {1: [(0, 32), (32, 30)], 8: [(0, 4), (20, 4), (61, 3)]}
+
+
 @pytest.fixture(scope="module")
 def host_run(ref, harness):
+    """C1 on KEYS, then C2 on the 64 lanes at each G, then the full blocks
+    of FULL_BLOCKS: {"K": [8 lines], G: [64 lines], ("W", G): [a line a
+    block]}."""
+    def row(i):
+        return "%d %s" % (ref["vidx"][i], bytes(ref["rows"][i]).hex())
     lines = ["K " + k.hex() for k, _ in KEYS]
-    for i in range(64):
-        lines.append("V %d %s %s %s" % (
-            ref["vidx"][i], bytes(ref["r"][i]).hex(),
-            " ".join(str(int(v)) for v in ref["sd"][i]),
-            " ".join(str(int(v)) for v in ref["kd"][i])))
-    return harness(lines)
+    for g in GROUPS:
+        lines += ["V %d %s" % (g, row(i)) for i in range(64)]
+    for g, blocks in FULL_BLOCKS.items():
+        lines += ["W %d %d %s" % (g, m, " ".join(row(i) for i in
+                                                 range(a, a + m)))
+                  for a, m in blocks]
+    out = harness(lines)
+    got = {"K": out[:len(KEYS)]}
+    at = len(KEYS)
+    for g in GROUPS:
+        got[g], at = out[at:at + 64], at + 64
+    for g, blocks in FULL_BLOCKS.items():
+        got[("W", g)], at = out[at:at + len(blocks)], at + len(blocks)
+    return got
 
 
 def test_group_body_build_matches_plain(ref, host_run):
@@ -546,18 +658,67 @@ def test_group_body_build_matches_plain(ref, host_run):
     coordinate), and the decode verdicts are the plain ones."""
     want = _canonical_hex(ref["ttab"])
     for i in range(len(KEYS)):
-        ok, *entries = host_run[i].split()
+        ok, *entries = host_run["K"][i].split()
         assert int(ok) == ref["tok"][i], i
         assert len(entries) == 2304
         bad = [e for e in range(2304) if entries[e] != want[i][e]]
         assert not bad, (i, bad[:5])
 
 
-def test_group_body_verify_matches_plain(ref, host_run):
-    """comb_verify4 on four host threads, ANDed with the key's verdict as
-    C2 does: the plain C2's raw bitmap on the 64 lanes."""
-    got = np.array([int(v) for v in host_run[len(KEYS):]], dtype=bool)
+@pytest.mark.parametrize("groups", GROUPS)
+def test_group_body_verify_matches_plain(ref, host_run, groups):
+    """comb_verify4 on 4 G host threads (a block of one signature: the
+    digits formed from s and k, G partial sums and their butterfly, the
+    block's inversion), ANDed with the key's verdict as C2 does: the
+    plain C2's raw bitmap on the 64 lanes, and P's affine x and y the
+    plain version's on every lane whose key decodes (its projective
+    coordinates differ: the partial sums are added in another order; a
+    key that does not decode leaves the curve, where the sum depends on
+    the order, and its lane fails either way)."""
+    rows = [ln.split() for ln in host_run[groups]]
+    got = np.array([int(r[0]) for r in rows], dtype=bool)
     np.testing.assert_array_equal(got, ref["tbits"])
+    on_curve = [i for i in range(64) if KEYS[ref["vidx"][i]][1]]
+    assert len(on_curve) == 62
+    assert [rows[i][1] for i in on_curve] == [ref["px"][i] for i in on_curve]
+    assert [rows[i][2] for i in on_curve] == [ref["py"][i] for i in on_curve]
+
+
+@pytest.mark.parametrize("groups", sorted(FULL_BLOCKS))
+def test_group_body_verify_full_block_matches_plain(ref, host_run, groups):
+    """comb_verify4 on a full block of 128 host threads, 32 / G signatures
+    of the 64 lanes: each signature's Z inverted by its own lane of the
+    first warp at its C2_SIG_WORDS offset (lanes past the block's
+    signatures invert 1), its digits and Z in its own shared words.  The
+    raw bitmap is the plain C2's and P's affine x and y the plain
+    version's on every lane whose key decodes; a ragged block's
+    signatures past its rows repeat its last row's result."""
+    n = 32 // groups
+    for (a, m), line in zip(FULL_BLOCKS[groups], host_run[("W", groups)]):
+        f = line.split()
+        assert len(f) == 3 * n
+        sigs = [f[3 * i:3 * i + 3] for i in range(n)]
+        assert all(sg == sigs[m - 1] for sg in sigs[m:])
+        got = np.array([int(sg[0]) for sg in sigs[:m]], dtype=bool)
+        np.testing.assert_array_equal(got, ref["tbits"][a:a + m])
+        for i in range(m):
+            if KEYS[ref["vidx"][a + i]][1]:
+                assert sigs[i][1:] == [ref["px"][a + i], ref["py"][a + i]], \
+                    a + i
+
+
+def test_group_body_digits_match_scalars_to_digits(harness):
+    """The digits C2 forms on the card (digit_words, comb_digit) are
+    scalars_to_digits's, for s = 0, L - 1, 2^252, all bytes 0x88 and
+    2^256 - 1."""
+    vals = [0, L - 1, 1 << 252, int.from_bytes(b"\x88" * 32, "little"),
+            (1 << 256) - 1]
+    got = harness(["D " + _enc(v).hex() for v in vals])
+    want = ted.scalars_to_digits(np.frombuffer(
+        b"".join(_enc(v) for v in vals), np.uint8).reshape(-1, 32))
+    for v, line, w in zip(vals, got, want):
+        assert [int(d) for d in line.split()] == w.tolist(), hex(v)
+    assert sum(int(d) << (4 * i) for i, d in enumerate(want[1])) == L - 1
 
 
 def test_fe10_conversion_holds_tables_as_values(ref):
@@ -640,10 +801,9 @@ def _stub(pkg, monkeypatch, rec, bits_for=None):
         return C.Cached(None, None, None, None), \
             torch.ones(pub.shape[0], dtype=torch.bool)
 
-    def tkernel(r, sd, kd, vidx, tables, dec_ok):
-        nb = r.shape[0]
-        assert sd.shape == (nb, 64) and kd.shape == (nb, 64)
-        assert vidx.shape == (nb,) and vidx.dtype == torch.int32
+    def tkernel(rows, tables, dec_ok):
+        nb = rows.shape[0]
+        assert rows.shape == (nb, cc.ROW_BYTES) and rows.dtype == torch.uint8
         rec.setdefault("launches", []).append(nb)
         return torch.from_numpy(np.asarray(
             bits_for(nb) if bits_for else np.ones(nb, dtype=bool)))
@@ -957,6 +1117,132 @@ def test_ladder_bound_batch_skips_distinct_key_sort(monkeypatch):
         ok = pkg.ed.verify_batch(pubs[:6], msgs[:6], sigs[:6]).all()
         return rec["builds"], skipped, ok, _launch(pkg)[0]
     assert _both(play) == ([8], True, True, "comb")
+
+
+def _lru_state(pkg) -> tuple:
+    """The table cache's recency order (set hashes), hits and misses."""
+    lru = pkg.ed._table_cache
+    order = [k if pkg is JAX else k[0] for k in lru.keys()]
+    return order, lru.hits, lru.misses
+
+
+def _early_world(pkg, monkeypatch, name):
+    """A runtime, stubbed kernels, and two resident 8-key sets: A (keys
+    starting 00 00 .. 07 00, the smallest of any batch below) built
+    before B, so that A is the least recent."""
+    rt = pkg.deg.configure(registry=pkg.Registry(name))
+    rec = {}
+    _stub(pkg, monkeypatch, rec)
+    monkeypatch.setattr(pkg.ed, "_comb_min_override", 1)
+    monkeypatch.setattr(pkg.ed._table_cache, "hits", 0)
+    monkeypatch.setattr(pkg.ed._table_cache, "misses", 0)
+    for tag in (0, 1):
+        uniq = np.zeros((8, 32), np.uint8)
+        uniq[:, 0] = np.arange(8) if tag == 0 else 0xF0 + np.arange(8)
+        uniq[:, 31] = 0x5A
+        h = hashlib.sha256(uniq.tobytes()).digest()
+        if pkg is JAX:
+            pkg.ed._table_build(uniq, h)
+        else:
+            pkg.ed._table_build(uniq, h, torch.device("cpu"))
+    return rt, rec
+
+
+def _distinct_keys(n, seed=12):
+    """n distinct random keys, none of them starting with 00 or F0-F7."""
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, 256, (n, 32), dtype=np.uint8)
+    keys[:, 0] = 8 + keys[:, 0] % 0xE8
+    assert np.unique(keys, axis=0).shape[0] == n
+    return keys
+
+
+def test_early_decline_skips_the_distinct_key_sort(monkeypatch):
+    """A buildable batch of 100,000 distinct keys (any batch of at least
+    one key builds here), one of them in the
+    resident set A, is over the 256 MiB budget: the port declines it
+    from a lower bound on its distinct keys without the 2-D distinct-key
+    sort, and its route counters, table metrics and the cache's recency
+    and hit/miss counts are the JAX package's, which sorts."""
+    keys = _distinct_keys(100_000)
+    keys[7] = 0
+    keys[7, 0], keys[7, 31] = 3, 0x5A           # A's key 3, the smallest
+    z64 = np.zeros((len(keys), 64), np.uint8)
+
+    def play(pkg):
+        rt, rec = _early_world(pkg, monkeypatch, "comb_early")
+        before = _lru_state(pkg)
+        dev = None if pkg is JAX else torch.device("cpu")
+        with pytest.MonkeyPatch.context() as mp:
+            if pkg is PORT:
+                real = np.unique
+
+                def unique(a, *args, **kw):
+                    if kw.get("axis") is not None or len(args) > 2:
+                        raise AssertionError("the 2-D distinct-key sort")
+                    return real(a, *args, **kw)
+                mp.setattr(np, "unique", unique)
+            out = pkg.ed._comb_try(keys, [b""] * len(keys), z64, True, dev)
+        return (out, rec["builds"], _route(rt), _tables(pkg, rt), before,
+                _lru_state(pkg), "launches" in rec)
+    out, builds, route, tables, before, after, launched = _both(play)
+    assert out is None and builds == [8, 8] and not launched
+    assert route == (0, 1, 0) and tables[2] == 16 * 202_752
+    # the exact lookup missed by set hash and touched A, the owner of the
+    # batch's smallest key: A is now the most recent
+    assert after[0] == before[0][::-1] and after[1:] == (1, 1)
+
+
+def test_early_decline_leaves_colliding_prefixes_to_the_exact_path(
+        monkeypatch):
+    """2,048 distinct keys that share their first 8 bytes bound the
+    distinct keys at 1, so the batch takes the exact path (the 2-D sort
+    runs once) and the budget declines it there, as in the JAX
+    package."""
+    keys = _distinct_keys(2048, seed=13)
+    keys[:, :8] = keys[0, :8]
+
+    def play(pkg):
+        rt, rec = _early_world(pkg, monkeypatch, "comb_collide")
+        sorts = []
+        real = np.unique
+
+        def unique(a, *args, **kw):
+            if kw.get("axis") == 0:
+                sorts.append(a.shape)
+            return real(a, *args, **kw)
+        dev = None if pkg is JAX else torch.device("cpu")
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(np, "unique", unique)
+            out = pkg.ed._comb_try(keys, [b""] * len(keys),
+                                   np.zeros((len(keys), 64), np.uint8),
+                                   True, dev)
+        return out, sorts, _route(rt), _tables(pkg, rt), _lru_state(pkg)
+    out, sorts, route, tables, lru = _both(play)
+    assert out is None and sorts == [(2048, 32)] and route == (0, 1, 0)
+
+
+def test_early_decline_leaves_a_resident_superset_to_the_exact_path(
+        monkeypatch):
+    """A 40-key set built before the budget fell to 4 MiB stays resident;
+    a batch of 20 of its keys (over the new budget as a set of its own)
+    is not declined early, since the set can resolve it: the comb runs,
+    as in the JAX package."""
+    pubs, msgs, sigs = _batch(40, pool=40, tag=b"superset", base=0x6A00)
+
+    def play(pkg):
+        rt = pkg.deg.configure(registry=pkg.Registry("comb_superset"))
+        rec = {}
+        _stub(pkg, monkeypatch, rec)
+        monkeypatch.setattr(pkg.ed, "_comb_min_override", 8)
+        assert pkg.ed.verify_batch(pubs, msgs, sigs, cache_pubs=True).all()
+        pkg.ed.set_comb_config(table_cache_mb=4)
+        out = pkg.ed.verify_batch(pubs[:20], msgs[:20], sigs[:20],
+                                  cache_pubs=True).tolist()
+        return out, _launch(pkg), rec["builds"], _route(rt), _tables(pkg, rt)
+    out, launch, builds, route, tables = _both(play)
+    assert out == [True] * 20 and launch[0] == "comb" and not launch[3]
+    assert builds == [64] and route == (2, 0, 0)
 
 
 def test_set_comb_config_wins_over_env(monkeypatch):

@@ -311,26 +311,31 @@ def test_comb_wrappers_check_inputs_and_count_only_kernel_launches():
         cc.comb_build(torch.zeros((8, 32), dtype=torch.int8))
     tab, dec_ok = cc.comb_build(torch.zeros((8, 32), dtype=torch.uint8))
     assert dec_ok.dtype == torch.bool and dec_ok.all()   # y = 0 decodes
-    r = torch.zeros((2, 32), dtype=torch.uint8)
-    d = torch.zeros((2, 64), dtype=torch.int8)
-    v = torch.zeros(2, dtype=torch.int32)
+    z = np.zeros((2, 32), np.uint8)
+    rows = torch.from_numpy(cc.pack_rows(z, z, z, np.array([0, 8])))
+    assert rows.shape == (2, cc.ROW_BYTES) == (2, 100)
     with pytest.raises(TypeError):
-        cc.comb_verify(r, d.to(torch.int32), d, v, tab, dec_ok)
+        cc.comb_verify(rows.to(torch.int8), tab, dec_ok)
     with pytest.raises(ValueError):
-        cc.comb_verify(r, d[:1], d, v, tab, dec_ok)
+        cc.comb_verify(rows[:, :96].contiguous(), tab, dec_ok)
+    with pytest.raises(ValueError):
+        cc.comb_verify(rows, tab, dec_ok, groups=3)
     # a CPU tensor takes the plain version, which is not a launch; a row
     # outside the table fails its lane
-    out = cc.comb_verify(r, d, d, torch.tensor([0, 8], dtype=torch.int32),
-                         tab, dec_ok)
+    out = cc.comb_verify(rows, tab, dec_ok)
     assert out.dtype == torch.bool and out.shape == (2,) and not out.any()
     assert cc.launches == {"comb_build": 0, "comb_verify": 0}
 
 
 def test_comb_bound_counts():
     """C1: the decode, -A's T and 64 windows of 5 doublings, 3 cached
-    additions and 8 conversions a key, 92,193 bytes moved; C2: the
-    inversion and 7 or 8 multiplies a nonzero digit, its own rows and
-    the table entries its data touches."""
+    additions and 8 conversions a key, 92,193 bytes moved; C2's bound: one
+    inversion a launch shared by Montgomery's trick (3 multiplies a
+    signature past the first), x and y, 7 or 8 multiplies a nonzero digit,
+    its own 101 bytes a signature and the table entries its data touches,
+    the same at every G; C2's design count at G = 1 and 8: a block's
+    inversion on the 32 lanes of its first warp and 9 multiplies an
+    addition of the butterfly (G - 1 a signature)."""
     from tendermint_tpu_torch.ops import cuda_comb as cc
     rate = 132 * 64 * 1.98e9
     assert (cc.C1_MULS_PER_KEY, cc.C1_SQS_PER_KEY) == (3349, 1535)
@@ -341,14 +346,40 @@ def test_comb_bound_counts():
     kd = np.zeros((4, 64), np.int8)
     sd[:, 0] = 3
     kd[:2, 5] = -8
-    work = cc.verify_work(sd, kd, np.array([0, 1, 1, 0], np.int32))
+    vidx = np.array([0, 1, 1, 0], np.int32)
+    work = cc.verify_work(sd, kd, vidx)
     assert work == {"lanes": 4, "b_adds": 4, "a_adds": 2,
                     "a_entries": 2 * 65, "b_entries": 64}
-    muls = 4 * 13 + 7 * 4 + 8 * 2
-    ops_ms = 2 * (100 * muls + 55 * 4 * 254) / rate * 1e3
-    bytes_ms = (4 * 165 + 130 * 160 + 64 * 120) / 3.35e12 * 1e3
+    muls = 11 + 3 * 3 + 4 * 2 + 7 * 4 + 8 * 2
+    ops_ms = 2 * (100 * muls + 55 * 254) / rate * 1e3
+    bytes_ms = (4 * 101 + 130 * 160 + 64 * 120) / 3.35e12 * 1e3
     assert bytes_ms > ops_ms      # four lanes touch 130 entries of -A
     assert cc.bound_ms_verify(work) == pytest.approx(bytes_ms)
     assert cc.bound_by_verify(work) == "bytes"
+    assert cc._verify_s(work)[0] == pytest.approx(ops_ms / 1e3)
+    # the design: at G = 1 one block of 4 signatures, no butterfly, and
+    # the block's first warp inverts on all 32 lanes
+    assert cc.design_ms_verify(work, 1) == pytest.approx(
+        2 * (100 * (32 * 11 + 4 * 2 + 7 * 4 + 8 * 2) + 55 * 32 * 254)
+        / rate * 1e3)
+    # G = 8: a block serves 4 signatures, so 8 lanes take 2 blocks, and 7
+    # butterfly additions each; the bound does not move with G
+    w8 = cc.verify_work(np.tile(sd, (2, 1)), np.tile(kd, (2, 1)),
+                        np.tile(vidx, 2))
+    assert (w8["lanes"], w8["b_adds"], w8["a_adds"]) == (8, 8, 4)
+    assert cc._verify_s(w8)[0] == pytest.approx(
+        2 * (100 * (11 + 3 * 7 + 8 * 2 + 7 * 8 + 8 * 4) + 55 * 254) / rate)
+    muls8 = 64 * 11 + 8 * 2 + 56 * 9 + 7 * 8 + 8 * 4
+    assert cc.design_ms_verify(w8, 8) == pytest.approx(
+        2 * (100 * muls8 + 55 * 64 * 254) / rate * 1e3)
+    assert cc.design_ms_verify(w8, 8) > cc.design_ms_verify(w8, 1) > \
+        cc._verify_s(w8)[0] * 1e3
+    # 65,536 lanes: one inversion, 3 multiplies a signature for sharing it
     big = dict(work, lanes=65536, b_adds=65536 * 60, a_adds=65536 * 60)
     assert cc.bound_by_verify(big) == "operations"
+    assert cc._verify_s(big)[0] == pytest.approx(2 * (100 * (
+        11 + 3 * 65535 + 65536 * (2 + 60 * 15)) + 55 * 254) / rate)
+    assert cc.verify_blocks(65536, 1) == 2048 and \
+        cc.verify_blocks(256, 8) == 64 and cc.verify_blocks(17, 2) == 2
+    assert [cc.groups_for(n) for n in (64, 1024, 2048, 4096, 8192)] == \
+        [8, 8, 4, 2, 1]

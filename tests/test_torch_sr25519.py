@@ -336,7 +336,8 @@ void s2_step(int kind, const int32_t *p, const int32_t *q, int32_t *out,
   });
 }
 // the power chains: which 0 fe_pow22523 (K1's field), 1 the same parked,
-// 2 fe_pow22523<Fe2Ops> (K4's), 3 the same parked (S2's), 4 fe_invert
+// 2 fe_pow22523<Fe2Ops> (K4's), 3 the same parked (S2's), 4 fe_invert,
+// 5 fe_invert<Fe2Ops> (C2's)
 void s2_chain(int which, const int32_t *in, int32_t *out, int n) {
   int32_t buf[200];
   HostPark pk{buf};
@@ -348,6 +349,7 @@ void s2_chain(int which, const int32_t *in, int32_t *out, int n) {
     if (which == 2) fe_pow22523<Fe2Ops>(h, z);
     if (which == 3) fe_pow22523<Fe2Ops>(h, z, pk, 80);
     if (which == 4) fe_invert(h, z);
+    if (which == 5) fe_invert<Fe2Ops>(h, z);
   }
 }
 }
@@ -606,27 +608,28 @@ def test_s2_steps_match_the_jax_curve(harness):
 
 @pytest.mark.parametrize("which,name", [
     (0, "K1 fe_sq/fe_mul"), (1, "K1 parked"), (2, "K4 Fe2Ops"),
-    (3, "S2 Fe2Ops parked"), (4, "K1 fe_invert")])
+    (3, "S2 Fe2Ops parked"), (4, "K1 fe_invert"),
+    (5, "C2 fe_invert Fe2Ops")])
 def test_power_chain_matches_the_jax_field(harness, which, name):
     """The one power chain of fe25519.cuh (fe_chain_250, fe_pow22523,
     templated over the field) in each instantiation the kernels use:
-    z^((p-5)/8) (fe_invert: z^(p-2)) equals the JAX package's
-    ops/field.py pow_p58 (invert) on edge and seeded elements, as values
-    mod p, and stays 0.503-bounded."""
+    z^((p-5)/8) (fe_invert, K1's and C2's: z^(p-2)) equals the JAX
+    package's ops/field.py pow_p58 (invert) on edge and seeded elements,
+    as values mod p, and stays 0.503-bounded."""
     rng = random.Random(which)
     vals = [0, 1, 2, P - 1, P + 1, 19, (1 << 255) - 20] + \
         [rng.randrange(P) for _ in range(25)]
     z = _arr([_fe10(v) for v in vals])
     out = np.zeros_like(z)
     harness.s2_chain(which, z.ctypes.data, out.ctypes.data, len(vals))
-    fn = jF.invert if which == 4 else jF.pow_p58
+    fn = jF.invert if which >= 4 else jF.pow_p58
     jout = np.asarray(jax.jit(fn)(jnp.asarray(jF.batch_int_to_limbs(vals))))
-    e = P - 2 if which == 4 else (P - 5) // 8
+    e = P - 2 if which >= 4 else (P - 5) // 8
     for i, v in enumerate(vals):
         got = _value(out[i]) % P
         assert got == jF.limbs_to_int(jout[:, i]) % P == pow(v, e, P), \
             (name, v)
-        assert _bounded(out[i], 0.503 if which in (2, 3) else 0.501)
+        assert _bounded(out[i], 0.503 if which in (2, 3, 5) else 0.501)
 
 
 def test_s2_decode_on_the_host_matches_plain(harness, decodes):

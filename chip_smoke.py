@@ -134,10 +134,11 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      distinct-key sort): C1
      against its plain version as field values on adversarial encodings
      (y = p, y = p + 1, a non-square, negative zero, order-8, order-4,
-     identity) and on a 1,024-key set; prewarms through the entry point
-     (the 150-validator set and the 1,024-key set built, a 2,048-key set
-     declined by the 256 MiB budget), the card's bytes beside the charged
-     ones; the prewarmed 150-validator verify_commit on path comb (C2 once,
+     identity) and on 1,024- and 4,096-key sets; prewarms through the
+     entry point (the 150-validator set and the 1,024-key set built, each
+     launch held against the plain version, a 2,048-key set declined by
+     the 256 MiB budget), the card's bytes beside the charged ones; the
+     prewarmed 150-validator verify_commit on path comb (C2 once,
      K1 never, no doublings in the record), its bad signature named and
      its bitmap the ladder's; 65,536 triples over the 1,024-key set
      through BatchVerifier (one C2 launch at MAX_CHUNK); one unknown key
@@ -146,7 +147,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      phase-3 vectors with s of extreme digits added and at 64, 256,
      1,024, 2,048, 4,096, 8,192, 16,384 and 65,536 lanes, each launch also
      against K1 and the oracle or the expected bitmap on the same triples;
-     C1 and C2 times beside their bounds and plain versions (C2 at each G
+     C1 and C2 times beside their bounds and plain versions (C1 at 150
+     (k_pad 256), 1,024 and 4,096 keys, beside PR 11's times; C2 at each G
      and at the wrapper's, with its design count at each G beside the
      bound), the prewarm wall, the 150-validator wall
      prewarmed and on the ladder, the 100k commit with the comb on and off
@@ -2628,7 +2630,11 @@ adv_keys = p8 + [P.to_bytes(32, "little"), (P + 1).to_bytes(32, "little"),
                  (1 | (1 << 255)).to_bytes(32, "little"),
                  _edref._encode(t8), bytes(32), ident]
 a1k, keys1k = gen_keys(1024, rng)
-cmp15 = [c1_cmp("adversarial", adv_keys), c1_cmp("1,024-key set", keys1k)]
+# 4,096 keys (512 blocks: every SM holds C1's blocks), from a generator of
+# their own so that the rest of the phase draws what it drew before
+_, keys4k = gen_keys(4096, random.Random(SEED + 1504))
+cmp15 = [c1_cmp("adversarial", adv_keys), c1_cmp("1,024-key set", keys1k),
+         c1_cmp("4,096-key set", keys4k)]
 check(all(r[2] == 0 for r in cmp15), f"C1 differs from plain: {cmp15}")
 
 # prewarms through the entry point: the phase-4 150-validator set
@@ -2642,7 +2648,9 @@ for label, keys in (("150", vp150), ("1,024", keys1k), ("2,048", keys2k)):
     torch.cuda.synchronize()
     mem0 = torch.cuda.memory_allocated(DEV)
     t = time.perf_counter()
-    (ok, got) = main_path(lambda: E.prewarm(keys, device=DEV))
+    (ok, got) = main_path(lambda: E.prewarm(keys, device=DEV),
+                          capture=("comb_build", f"prewarm {label}")
+                          if label != "2,048" else ())
     wall_s = time.perf_counter() - t
     prewarm15[label] = dict(
         built=ok, wall_s=wall_s, launches=got,
@@ -2660,6 +2668,17 @@ check(prewarm15["1,024"]["charged_bytes"] == (256 + 1024) * 202_752
       and prewarm15["150"]["card_bytes"] >= 256 * cc.TABLE_BYTES_PER_KEY,
       f"table bytes: {prewarm15}")
 comb15["prewarm"] = prewarm15
+# the prewarms' C1 launches (the main path's) against the plain version on
+# the same padded keys
+for label, args, (tab_, ok_) in captured["comb_build"]:
+    ptab_, pok_ = cc.comb_build_plain(args[0])
+    row = (label, args[0].shape[0], cc.tables_mismatch(tab_, ptab_)
+           + int((ok_ != pok_).sum()))
+    comb15["c1_vs_plain"].append(row)
+    log(phase=15, c1_vs_plain=row)
+    cmp15.append(row)
+check(len(cmp15) == 5 and all(r[2] == 0 for r in cmp15),
+      f"C1 on the prewarms differs from plain: {cmp15}")
 
 # the 150-validator commit of the prewarmed set through verify_commit: the
 # comb, C2 launched and K1 not; with one bad signature its error names the
@@ -2813,10 +2832,20 @@ for G in cc.GROUPS:
 # triples; each beside its bound
 pub150 = u8(vp150 + [bytes(32)] * 106, 32)
 pub1k = u8(keys1k, 32)
-times["c1_150_ms"] = time_events(lambda: REAL["comb_build"](pub150), 10)
-times["c1_1024_ms"] = time_events(lambda: REAL["comb_build"](pub1k), 10)
-times["c1_150_bound_ms"] = cc.bound_ms_build(256)   # 106 padding keys
-times["c1_1024_bound_ms"] = cc.bound_ms_build(1024)
+pub4k = u8(keys4k, 32)
+# C1 at the 150-validator set (k_pad 256), 1,024 and 4,096 keys, beside
+# its bound and the first design's time (PERF.md, PR 11, call 3; none at
+# 4,096)
+C1_PR11_MS = {"150": 1.587, "1024": 1.711, "4096": None}
+for label, pub_, keys_, iters in (("150", pub150, 256, 10),
+                                  ("1024", pub1k, 1024, 10),
+                                  ("4096", pub4k, 4096, 5)):
+    times[f"c1_{label}_ms"] = time_events(
+        lambda: REAL["comb_build"](pub_), iters)
+    times[f"c1_{label}_bound_ms"] = cc.bound_ms_build(keys_)
+    log(phase=15, card=CARD, c1_keys=keys_, ms=times[f"c1_{label}_ms"],
+        bound_ms=times[f"c1_{label}_bound_ms"],
+        bound_by=cc.bound_by_build(keys_), pr11_ms=C1_PR11_MS[label])
 torch.cuda.synchronize()
 t = time.perf_counter()
 cc.comb_build_plain(pub1k)
@@ -3074,6 +3103,11 @@ check(S1_BUILD["threads_per_block"] == 128 and S1_WARPS_PER_SM >= 16,
       f"S1 occupancy below its design's 16 warps an SM: {S1_BUILD}")
 check(S2_BUILD["threads_per_block"] == 128 and S2_WARPS_PER_SM >= 16,
       f"S2 occupancy below its design's 16 warps an SM: {S2_BUILD}")
+C1_BUILD = comb_build_rep["k_comb_build"]
+check(C1_BUILD["threads_per_block"] == 128 and C1_BUILD["blocks_per_sm"] >= 4
+      and C1_BUILD["registers"] <= 128 and C1_BUILD["spill_stores"] == 0,
+      f"C1 below its design's 4 blocks of 128 an SM within 128 registers "
+      f"and no spill: {C1_BUILD}")
 C2_BUILD = comb_build_rep["k_comb_verify"]
 check(C2_BUILD["threads_per_block"] == 128 and C2_BUILD["blocks_per_sm"] >= 4,
       f"C2 occupancy below its design's 4 blocks of 128 an SM: {C2_BUILD}")

@@ -20,14 +20,17 @@
 // The bodies are comb_build4 and comb_verify4 (comb4.cuh).
 //
 // What bounds them on the H100.  Both are integer multiply-adds, and at
-// the main path's sizes the length of one group's dependency chain.
-// - C1 per key: the decode (255 squares, ~20 multiplies) and 64 windows of
-//   5 doublings, 3 additions and 8 cached conversions: per lane 5 x 2 +
-//   3 x 2 + 8 = 24 rounds a window, ~1,800 rounds a key.  A 1,024-key set
-//   is 4,096 threads, under one warp a scheduler: the chain, not the
-//   card's multiply rate, sets its time.  Its output is 92,160 B a key
-//   (94 MB for 1,024 keys, more than the 50 MB L2), written once, each
-//   group's 160-byte entry contiguous.
+// the main path's sizes the length of a dependency chain.
+// - C1 per key: the decode (255 squares, ~20 multiplies on one lane) and
+//   64 windows of 5 doublings, 3 additions and 8 cached conversions: 24
+//   rounds of one product a lane a window when one group runs them all
+//   (the first design: ~1,810 rounds a key, 254 registers, a 1,024-key set
+//   in 32 blocks).  Only the window bases are a chain, g -> 2g -> 4g ->
+//   8g -> 16g a window, 255 doublings of two rounds; every other multiple
+//   and every entry hangs off it.  So a key's least latency is the decode
+//   and ~510 rounds, ~790 in all, and the card's multiply rate is far
+//   away (a 1,024-key set is 0.05 ms of it).  Its output is 92,160 B a
+//   key (94 MB for 1,024 keys, more than the 50 MB L2), written once.
 // - C2 per signature: 64 windows of two additions (128 additions of two
 //   rounds), the inversion of Z (254 squares, 11 multiplies) and x, y.
 //   It reads 64 gathered entries of -A's table (10,240 B), 64 entries of
@@ -38,6 +41,30 @@
 //   the integer pipes, ~170k instructions a lane in the first design, a
 //   third of them the inversion, repeated on every lane.
 // What the design does about it.
+// - C1: a block's 8 keys over four warps of distinct roles (comb4.cuh):
+//   the chain warp decodes and then runs only the 4 doublings a window
+//   (8 rounds); three helper warps form 3g, 5g, 6g, 7g and the 9 entries
+//   from the points it hands them through a ring of two window slots in
+//   shared memory (FULL and EMPTY named barriers a slot, bar.arrive /
+//   bar.sync between the warps that share them, a FULL barrier for each
+//   helper; no __syncthreads), each in at most 7 rounds a window, so the
+//   chain does not wait on them.  A role is a whole warp, so no warp
+//   diverges.  1,024 keys are 128 blocks.
+// - C1's roles are programs of micro-operations run by one loop, so that
+//   the four warps share one copy of each step's code (the roles' steps
+//   inlined apart were 37,528 SASS instructions, and the helpers' rounds
+//   ~5x the chain's: the instruction cache); the steps are S2's, on the
+//   two-round-carry field (fe_sq2 164 instructions against fe_sq's 221),
+//   and so is the decode's power chain; each gives the plain version's
+//   field values (comb4.cuh's carry note).
+// - C1's entries leave in bulk: a warp stages entry j of its 8 keys in
+//   shared memory (1,280 B, one contiguous run of the table) and its lane
+//   0 writes the run with one cp.async.bulk, where each lane stored 90
+//   scalar words a window; a staging area is written again only after
+//   cp.async.bulk.wait_group.read.
+// - C1's roles hold three points each at most, within 128 registers (4
+//   blocks an SM); the decode parks its waiting values in shared memory
+//   (the staging area, before any entry is staged), as K1's does.
 // - A signature's windows are split over G groups of four lanes in one
 //   warp (G = 8 at small launches: a chain of 16 additions, then three
 //   levels of a butterfly that adds the partial sums); the wrapper
@@ -52,8 +79,7 @@
 // - S2's addition (ristretto4.cuh sr_add: one exchange in round 1, three
 //   in round 2, 40 shuffles where K1's add4 takes 60) on the two-round
 //   carry field (fe_mul2, 211 instructions against fe_mul's 261), and the
-//   inversion on fe_sq2 (164 against fe_sq's 221); C1 keeps K1's steps
-//   and their field values.
+//   inversion on fe_sq2 (164 against fe_sq's 221).
 // - The digits come from s and k on the card (verify4.cuh digit_words),
 //   so the host stages 100 bytes a signature in one buffer, not 165 in
 //   four.
@@ -72,7 +98,8 @@
 //   Zs, 108 B a signature.
 // - Ragged tails: every lane of a warp reaches every shuffle and every
 //   thread every barrier; a group past the end works on the last key or
-//   signature again and stores nothing.  A table row index outside
+//   signature again and stores nothing (C1's last block copies the runs
+//   of its keys below K only).  A table row index outside
 //   [0, K) reads row 0 and fails.
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -81,21 +108,62 @@
 #include "fe25519.cuh"
 #include "launch.cuh"
 
-#define THREADS 128                 // 32 keys or 32 / G signatures a block
-#define MIN_BLOCKS_C2 4             // -> at most 128 registers a thread
+#define THREADS 128                 // C2: 32 / G signatures a block
+#define MIN_BLOCKS_C1 4             // -> at most 128 registers a thread
+#define MIN_BLOCKS_C2 4
 
-// the exchange of verify4.cuh on the card: a shuffle within the 4-lane
-// group (comb4.cuh uses lane() and get() only)
-struct CombXch {
+// C1's exchange (comb4.cuh) on the card: a shuffle within the 4-lane
+// group, the block's shared words, the named barriers of the ring, and the
+// table's runs written by bulk copies from shared memory (one a staged
+// entry, issued by the warp's lane 0 in a bulk group of its own)
+struct C1Xch {
+  int32_t *sm;
+  int32_t *tab;
+  int64_t K, key0;
+  uint32_t run_bytes;   // 160 B a key of the block within [0, K)
   __device__ __forceinline__ int lane() const { return threadIdx.x & 3; }
+  __device__ __forceinline__ int group() const {
+    return (threadIdx.x >> 2) & (C1_KEYS - 1);
+  }
   __device__ __forceinline__ int32_t get(int32_t v, int src) const {
     return __shfl_sync(0xFFFFFFFFu, v, src, 4);
   }
+  __device__ __forceinline__ int32_t *smem() const { return sm; }
+  __device__ __forceinline__ void arrive(int bar) const {
+    __threadfence_block();
+    asm volatile("bar.arrive %0, %1;" ::"r"(bar), "r"(c1_bar_threads(bar))
+                 : "memory");
+  }
+  __device__ __forceinline__ void wait(int bar) const {
+    asm volatile("bar.sync %0, %1;" ::"r"(bar), "r"(c1_bar_threads(bar))
+                 : "memory");
+  }
+  template <int N>
+  __device__ __forceinline__ void stage_free() const {
+    if ((threadIdx.x & 31) == 0)
+      asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+    __syncwarp();
+  }
+  __device__ __forceinline__ void put(int win, int j) const {
+    // the lanes' staged words, seen by the bulk copy (the async proxy)
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) {
+      int32_t *dst = tab + (((int64_t)win * COMB_DIGITS + j) * K + key0) * 40;
+      uint32_t src =
+          (uint32_t)__cvta_generic_to_shared(sm + C1_STAGE + j * C1_PT);
+      asm volatile(
+          "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+          ::"l"(dst), "r"(src), "r"(run_bytes) : "memory");
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    }
+  }
+  // the warp's bulk copies complete before its block's shared memory goes
+  __device__ __forceinline__ void finish() const {
+    if ((threadIdx.x & 31) == 0)
+      asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+  }
 };
-
-__device__ __forceinline__ int64_t group_index() {
-  return ((int64_t)blockIdx.x * THREADS + threadIdx.x) >> 2;
-}
 
 __device__ __forceinline__ void load_row32(uint32_t w[8],
                                            const uint8_t *__restrict__ row) {
@@ -104,26 +172,21 @@ __device__ __forceinline__ void load_row32(uint32_t w[8],
   for (int q = 0; q < 8; q++) w[q] = r[q];
 }
 
-__global__ void __launch_bounds__(THREADS)
+// A block: C1_KEYS keys, warp r of the block in role r (comb4.cuh C1_*)
+__global__ void __launch_bounds__(C1_THREADS, MIN_BLOCKS_C1)
 k_comb_build(const uint8_t *__restrict__ pub, int64_t K,
              int32_t *__restrict__ tab, uint8_t *__restrict__ dec_ok) {
-  CombXch x;
-  const int64_t key = group_index();
-  const int64_t kl = key < K ? key : K - 1;
-  const bool store = key < K;
-  uint32_t w[8];
-  load_row32(w, pub + 32 * kl);
-  const int t = x.lane();
-  auto put = [&](int win, int j, const fe c) {
-    if (store) {
-      int32_t *dst = tab + (((int64_t)win * COMB_DIGITS + j) * K + key) * 40
-                     + 10 * t;
-#pragma unroll
-      for (int i = 0; i < 10; i++) dst[i] = c[i];
-    }
-  };
-  bool ok = comb_build4(x, w, put);
-  if (store && t == 0) dec_ok[key] = ok;
+  __shared__ __align__(16) int32_t sm[C1_SMEM_WORDS];
+  const int64_t key0 = (int64_t)blockIdx.x * C1_KEYS;
+  const int64_t n = K - key0 < C1_KEYS ? K - key0 : C1_KEYS;
+  C1Xch x{sm, tab, K, key0, (uint32_t)(160 * n)};
+  const int role = (int)(threadIdx.x >> 5);
+  const int64_t key = key0 + x.group();
+  bool ok = comb_build4(x, role, [&](uint32_t w[8]) {
+    load_row32(w, pub + 32 * (key < K ? key : K - 1));
+  });
+  if (role == C1_CHAIN && key < K && x.lane() == 0) dec_ok[key] = ok;
+  x.finish();
 }
 
 // C2's exchange (comb4.cuh): a shuffle within the 4-lane group, a
@@ -176,7 +239,7 @@ int tm_comb_build(const void *pub, long long K, void *tab, void *dec_ok,
   DeviceScope scope(device);
   if (scope.err != cudaSuccess) return (int)scope.err;
   if (K > 0)
-    k_comb_build<<<blocks_for(4 * K, THREADS), THREADS, 0,
+    k_comb_build<<<blocks_for(K, C1_KEYS), C1_THREADS, 0,
                    (cudaStream_t)stream>>>(
         (const uint8_t *)pub, K, (int32_t *)tab, (uint8_t *)dec_ok);
   return (int)cudaGetLastError();
@@ -196,14 +259,14 @@ int tm_comb_verify(const void *rows, long long B, int log_g,
   return (int)cudaGetLastError();
 }
 
-// blocks of THREADS threads that fit on one SM for kernel `which`
+// blocks of the kernel's threads that fit on one SM for kernel `which`
 // (0 C1, 1 C2), as the occupancy calculator of the runtime says
 int tm_comb_occupancy(int which, int *blocks, int *threads) {
   const void *fn = which == 0 ? (const void *)k_comb_build
                               : (const void *)k_comb_verify;
-  *threads = THREADS;
+  *threads = which == 0 ? C1_THREADS : THREADS;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn,
-                                                            THREADS, 0);
+                                                            *threads, 0);
 }
 
 const char *tm_error_string(int code) {

@@ -19,10 +19,11 @@ and comb_build's output on the same device, and returns the (B,) bool
 verdicts; B's static comb comes from base_comb_dev (CUDA) or
 ops/ed25519._base_comb (CPU).  The kernel forms the signed radix-16
 digits of s and k itself; the plain version takes them from
-ops/ed25519.scalars_to_digits.  C1 runs one key on a group of four lanes
-(csrc/comb4.cuh on K1's group law, csrc/verify4.cuh), C2 one signature on
-groups_for(B) groups of four lanes (on S2's steps, csrc/ristretto4.cuh);
-the library is built with nvcc for sm_90a on first use, cached by source
+ops/ed25519.scalars_to_digits.  C1 runs a block's 8 keys over four
+warps of four-lane groups (csrc/comb4.cuh: a warp of doublings, three of
+the other multiples and the entries), C2 one signature on groups_for(B)
+groups of four lanes, both on S2's steps (csrc/ristretto4.cuh); the
+library is built with nvcc for sm_90a on first use, cached by source
 hash under the package's _build/ directory, and loaded with ctypes.  A
 CUDA tensor launches or raises.
 

@@ -7,12 +7,12 @@ first: K5's are a tree round and a madd step, K4's one square of its
 power chain) and the SHFL.IDX in each, from cuobjdump -sass of the built
 libraries; and the instructions of one field multiply and one square (a
 probe kernel built from the same csrc/fe25519.cuh), of the two-round-carry
-pair that K4 and S2 use (fe_mul2, fe_sq2 of csrc/fe25519_2.cuh, or of
-csrc/decompress.cuh in a checkout from before it), of S1's (fs_mul,
-fs_sqr of csrc/fe_secp.cuh and its four-lane mixed add jac_madd4 of
-csrc/secp4.cuh) and of one four-lane doubling and addition of S2 (sr_dbl,
-sr_add of csrc/ristretto4.cuh, or K1's dbl4, add4 that S2 ran before
-them) where the checkout has them.
+pair that K4 and S2 use (fe_mul2, fe_sq2 of csrc/fe25519_2.cuh), of S1's
+(fs_mul, fs_sqr of csrc/fe_secp.cuh and its four-lane mixed add
+jac_madd4 of csrc/secp4.cuh) and of one four-lane doubling and addition
+of S2 (sr_dbl, sr_add of csrc/ristretto4.cuh).  A checkout read with
+--root or --compare is one from PR 10 on (7fee949: these headers; C1 and
+C2 where it has csrc/comb.cu).
 
     python3 tendermint_tpu_torch/tools/kernel_report.py [--root DIR]
         [--compare DIR]
@@ -67,7 +67,7 @@ __global__ void k_probe_sq(const int32_t *a, const int32_t *b, int32_t *o) {
 """
 # the two-round-carry multiply and square (K4's and S2's), the same way
 _PROBE2 = r"""
-#include "%s"
+#include "fe25519_2.cuh"
 __global__ void k_probe_mul2(const int32_t *a, const int32_t *b, int32_t *o) {
   fe f, g, h;
   for (int i = 0; i < 10; i++) f[i] = a[10 * threadIdx.x + i], g[i] = b[i];
@@ -128,10 +128,10 @@ __global__ void k_probe_p_madd(const uint32_t *a, const uint32_t *b, uint32_t *o
 
 # one four-lane doubling and one addition of S2 on the kernel's exchange
 # (group4.cuh's ShflXch over dynamic shared memory), and the same load
-# and store alone; %(hdr)s, %(dbl)s and %(add)s name the checkout's own
+# and store alone
 _PROBE5 = r"""
 #include "group4.cuh"
-#include "%(hdr)s"
+#include "ristretto4.cuh"
 typedef ShflXch<9 * 3 * 10, V4_SIG_WORDS, 10> PX;
 __global__ void k_probe_g_copy(const int32_t *a, const int32_t *b, int32_t *o) {
   PX x(threadIdx.x);
@@ -143,7 +143,7 @@ __global__ void k_probe_g_dbl(const int32_t *a, const int32_t *b, int32_t *o) {
   PX x(threadIdx.x);
   fe p;
   for (int i = 0; i < 10; i++) p[i] = a[10 * threadIdx.x + i] + b[i];
-  %(dbl)s(x, p);
+  sr_dbl(x, p);
   for (int i = 0; i < 10; i++) o[10 * threadIdx.x + i] = p[i] + x.lane();
 }
 __global__ void k_probe_g_add(const int32_t *a, const int32_t *b, int32_t *o) {
@@ -151,7 +151,7 @@ __global__ void k_probe_g_add(const int32_t *a, const int32_t *b, int32_t *o) {
   fe p, q;
   for (int i = 0; i < 10; i++) p[i] = a[10 * threadIdx.x + i] + b[i],
       q[i] = b[10 + 10 * threadIdx.x + i];
-  %(add)s(x, p, q);
+  sr_add(x, p, q);
   for (int i = 0; i < 10; i++) o[10 * threadIdx.x + i] = p[i] + x.lane();
 }
 """
@@ -244,23 +244,15 @@ def probe_counts(csrc: str, build_dir: str) -> dict:
     """{op: SASS summary} of each probed operation: its probe kernel less
     the probe kernel that only loads and stores."""
     # (source, {reported name: (probe kernel, its load-and-store kernel)})
-    probes = []
-    ops = {"fe_mul": ("mul", "copy"), "fe_sq": ("sq", "copy")}
-    text = _PROBE
-    new = os.path.exists(os.path.join(csrc, "fe25519_2.cuh"))
-    if new or os.path.exists(os.path.join(csrc, "decompress.cuh")):
-        ops.update(fe_mul2=("mul2", "copy"), fe_sq2=("sq2", "copy"))
-        text += _PROBE2 % ("fe25519_2.cuh" if new else "decompress.cuh")
-    probes.append(("fe", text, ops))
-    if os.path.exists(os.path.join(csrc, "ristretto4.cuh")):
-        names = (dict(hdr="ristretto4.cuh", dbl="sr_dbl", add="sr_add") if new
-                 else dict(hdr="verify4.cuh", dbl="dbl4", add="add4"))
-        probes.append(("g", _PROBE5 % names, {
-            "s2_dbl": ("g_dbl", "g_copy"), "s2_add": ("g_add", "g_copy")}))
-    if os.path.exists(os.path.join(csrc, "secp4.cuh")):
-        probes.append(("fs", _PROBE3 + _PROBE4, {
+    probes = [
+        ("fe", _PROBE + _PROBE2, {
+            "fe_mul": ("mul", "copy"), "fe_sq": ("sq", "copy"),
+            "fe_mul2": ("mul2", "copy"), "fe_sq2": ("sq2", "copy")}),
+        ("g", _PROBE5, {"s2_dbl": ("g_dbl", "g_copy"),
+                        "s2_add": ("g_add", "g_copy")}),
+        ("fs", _PROBE3 + _PROBE4, {
             "fs_mul": ("s_mul", "s_copy"), "fs_sqr": ("s_sqr", "s_copy"),
-            "jac_madd4": ("p_madd", "p_copy")}))
+            "jac_madd4": ("p_madd", "p_copy")})]
     out = {}
     for tag, text, ops in probes:
         c = _probe(csrc, build_dir, tag, text)

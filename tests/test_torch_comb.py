@@ -11,12 +11,15 @@ tests/test_comb.py), on the CPU.
     R, a flipped R bit, and the keys above, four of them accepted by the
     cofactorless check) against the JAX comb, both ladders and the
     pure-Python oracle; then the comb route end to end.
-(b) The group bodies of C1 and C2 (csrc/comb4.cuh) compiled with g++ and
-    run by host threads that meet at a barrier where the card's lanes
-    exchange values (C1 on four, C2 on 4 G for G = 1, 2, 4, 8): C1's table
-    as field values and its verdicts, C2's bitmap and P's affine
-    coordinates, against the plain versions; the digits C2 forms from s
-    against scalars_to_digits.
+(b) The bodies of C1 and C2 (csrc/comb4.cuh) compiled with g++ and run
+    by host threads that meet at barriers where the card's lanes exchange
+    values and its warps hand points over (C1: a block's four roles on
+    128 threads, the named barriers as counting barriers, on the eight
+    keys and on a ragged set of 13; C2 on 4 G for G = 1, 2, 4, 8): C1's
+    table as field values and its verdicts against the plain version and
+    the JAX package's, C2's bitmap and P's affine coordinates against the
+    plain versions; the digits C2 forms from s against
+    scalars_to_digits.
 (c) Routing and runtime through both packages with the kernels stubbed (as
     tests/test_comb.py stubs them; each package's ladder is stubbed by the
     bignum oracle on its staged scalars): build, hit, subset, mixed keys,
@@ -363,8 +366,12 @@ def test_group_op_inventory_counted():
 
 # Commands, one a line:
 #   B <17280 ints>                   B's comb (64 x 9 x 3 x 10 limbs)
-#   K <enc A hex>                    C1 on one key -> "<ok> <2304 hex>"
-#                                    (entries [win][j][coord], canonical)
+#   K <m> <enc hex> x m              C1 on m keys, blocks of C1_KEYS keys
+#                                    (the last ragged), each on 128 threads
+#                                    in the kernel's four roles, into the
+#                                    kernel's table layout -> "<ok> <2304
+#                                    hex>" a key, all on one line (entries
+#                                    [win][j][coord], canonical)
 #   V <G> <key> <row hex>            C2 on 4 G threads (one block of one
 #                                    signature) against key's table ->
 #                                    "<0/1> <x hex> <y hex>" (the verdict
@@ -377,11 +384,13 @@ def test_group_op_inventory_counted():
 #                                    all on one line
 #   D <s hex>                        the digits C2 forms from s -> 64 ints
 HARNESS = r"""
+#include <algorithm>
 #include <array>
 #include <atomic>
 #include <cstdio>
 #include <cstring>
 #include <iostream>
+#include <memory>
 #include <sstream>
 #include <string>
 #include <thread>
@@ -390,17 +399,19 @@ HARNESS = r"""
 #include "fe25519.cuh"
 #include "comb4.cuh"
 
+// a counting barrier: arrive() takes a ticket, wait() takes one and waits
+// until its phase (ticket / n) is complete (bar.arrive / bar.sync)
 struct Barrier {
-  int n;
-  std::atomic<int> count{0}, gen{0};
+  int n = 0;
+  std::atomic<int> ticket{0}, done{0};
+  int arrive() {
+    int k = ticket.fetch_add(1);
+    if (k % n == n - 1) done.fetch_add(1);
+    return k / n;
+  }
   void wait() {
-    int g = gen.load();
-    if (count.fetch_add(1) == n - 1) {
-      count.store(0);
-      gen.fetch_add(1);
-    } else {
-      while (gen.load() == g) std::this_thread::yield();
-    }
+    int phase = arrive();
+    while (done.load() <= phase) std::this_thread::yield();
   }
 };
 
@@ -412,17 +423,50 @@ struct Block {
   uint32_t words[(BLOCK_THREADS / 4) * C2_SIG_WORDS];
 };
 
-// C1's four lanes
-struct HostXch {
-  int t;
-  Block *g;
-  int lane() const { return t; }
+// C1's block (C1_THREADS threads, four warps of C1_KEYS groups): its
+// shared words, the named barriers, __syncwarp, each group's exchange
+// (two word sets used in turn, one barrier a get), and the table the
+// block's runs go to
+struct C1Block {
+  int32_t smem[C1_SMEM_WORDS];
+  Barrier bar[C1_BARS], warp[C1_THREADS / 32], grp[C1_THREADS / 4];
+  int32_t word[C1_THREADS / 4][2][4];
+  int32_t *tab;
+  long K, key0;
+  int n;   // keys of the block below K
+  C1Block() {
+    for (int i = 1; i < C1_BARS; i++) bar[i].n = c1_bar_threads(i);
+    for (auto &w : warp) w.n = 32;
+    for (auto &g : grp) g.n = 4;
+  }
+};
+
+struct HostC1 {
+  int tid;
+  C1Block *b;
+  int par = 0;
+  int lane() const { return tid & 3; }
+  int group() const { return (tid >> 2) & (C1_KEYS - 1); }
   int32_t get(int32_t v, int src) {
-    g->word[t] = v;
-    g->bar.wait();
-    int32_t r = g->word[src];
-    g->bar.wait();
-    return r;
+    int32_t *w = b->word[tid >> 2][par];
+    w[tid & 3] = v;
+    b->grp[tid >> 2].wait();
+    par ^= 1;
+    return w[src];
+  }
+  int32_t *smem() { return b->smem; }
+  void arrive(int bar) { b->bar[bar].arrive(); }
+  void wait(int bar) { b->bar[bar].wait(); }
+  template <int N>
+  void stage_free() {}
+  // the bulk copy: lane 0 of the warp copies the staged run once every
+  // lane has staged its words, and the warp waits for it
+  void put(int win, int j) {
+    b->warp[tid >> 5].wait();
+    if ((tid & 31) == 0)
+      std::memcpy(b->tab + ((long)(win * COMB_DIGITS + j) * b->K + b->key0) * 40,
+                  b->smem + C1_STAGE + j * C1_PT, 160 * b->n);
+    b->warp[tid >> 5].wait();
   }
 };
 
@@ -480,30 +524,47 @@ int main() {
     if (op == 'B') {
       for (auto &v : base) in >> v;
     } else if (op == 'K') {
-      in >> h;
-      uint32_t w[8];
-      words(w, h, 8);
-      tab.resize(tab.size() + ENTRY_WORDS);
-      int32_t *own = tab.data() + tab.size() - ENTRY_WORDS;
-      Block g;
-      g.bar.n = 4;
-      int ok = 0;
-      std::vector<std::thread> lanes;
-      for (int t = 0; t < 4; t++)
-        lanes.emplace_back([&, t] {
-          HostXch x{t, &g};
-          auto put = [&](int win, int j, const fe e) {
-            for (int l = 0; l < 10; l++)
-              own[(win * COMB_DIGITS + j) * 40 + 10 * t + l] = e[l];
-          };
-          bool r = comb_build4(x, w, put);
-          if (t == 0) ok = r;
-        });
-      for (auto &th : lanes) th.join();
-      key_ok.push_back(ok);
-      std::cout << ok;
-      for (int e = 0; e < COMB_WINDOWS * COMB_DIGITS * 4; e++)
-        std::cout << " " << hex(own + 10 * e);
+      int m;
+      in >> m;
+      std::vector<std::array<uint32_t, 8>> enc(m);
+      for (auto &e : enc) {
+        in >> h;
+        words(e.data(), h, 8);
+      }
+      // the kernel's table (64, 9, m, 4, 10), unwritten words a sentinel
+      std::vector<int32_t> kt((size_t)ENTRY_WORDS * m, 0x55555555);
+      std::vector<int> ok(m);
+      for (int key0 = 0; key0 < m; key0 += C1_KEYS) {
+        auto b = std::make_unique<C1Block>();
+        b->tab = kt.data();
+        b->K = m;
+        b->key0 = key0;
+        b->n = std::min(C1_KEYS, m - key0);
+        std::vector<std::thread> lanes;
+        for (int tid = 0; tid < C1_THREADS; tid++)
+          lanes.emplace_back([&, tid] {
+            HostC1 x{tid, b.get()};
+            const int role = tid >> 5;   // as the kernel's
+            const int key = key0 + x.group(), kl = key < m ? key : m - 1;
+            bool r = comb_build4(x, role, [&](uint32_t w[8]) {
+              std::memcpy(w, enc[kl].data(), 32);
+            });
+            if (role == C1_CHAIN && key < m && x.lane() == 0) ok[key] = r;
+          });
+        for (auto &th : lanes) th.join();
+      }
+      // each key's entries, and the key's table for V and W
+      for (int key = 0; key < m; key++) {
+        std::cout << (key ? " " : "") << ok[key];
+        tab.resize(tab.size() + ENTRY_WORDS);
+        int32_t *own = tab.data() + tab.size() - ENTRY_WORDS;
+        for (int e = 0; e < COMB_WINDOWS * COMB_DIGITS; e++) {
+          const int32_t *src = kt.data() + ((size_t)e * m + key) * 40;
+          std::memcpy(own + 40 * e, src, 160);
+          for (int c = 0; c < 4; c++) std::cout << " " << hex(src + 10 * c);
+        }
+        key_ok.push_back(ok[key]);
+      }
       std::cout << "\n";
     } else if (op == 'V') {
       int G, key;
@@ -610,14 +671,45 @@ def harness(tmp_path_factory):
 
 
 def _canonical_hex(tab) -> list:
-    """Plain C1 tables of key i -> [i][entry] canonical hex, entries in
-    the harness's [win][j][coord] order."""
-    cols = torch.stack(list(tab), dim=3)          # (64, 9, NLIMB, 4, K)
+    """C1 tables (Cached fields (64, 9, NLIMB, K), the plain version's
+    tensors or the JAX package's arrays) of key i -> [i][entry] canonical
+    hex, entries in the harness's [win][j][coord] order."""
+    cols = torch.stack([torch.as_tensor(np.asarray(f, dtype=np.int64))
+                        for f in tab], dim=3)     # (64, 9, NLIMB, 4, K)
+    K = cols.shape[-1]
     cols = cols.permute(4, 0, 1, 3, 2).reshape(-1, F.NLIMB).t()
     b = F.to_bytes(cols).t().to(torch.uint8).numpy()
-    K = tab.ypx.shape[-1]
     return [[bytes(row).hex() for row in b[i * 2304:(i + 1) * 2304]]
             for i in range(K)]
+
+
+def _ragged_keys() -> list:
+    """13 keys (two blocks of C1's 8, the second holding 5): nine valid
+    keys and four random encodings, from a seed."""
+    rng = np.random.default_rng(13)
+    keys = [_edref.pubkey_from_seed(rng.bytes(32)) for _ in range(9)]
+    keys += [rng.bytes(32) for _ in range(4)]
+    return keys
+
+
+@pytest.fixture(scope="module")
+def build_refs(ref):
+    """{key set: (keys, plain tables, plain verdicts, JAX tables, JAX
+    verdicts)} for the adversarial KEYS and the ragged set; the JAX C1 runs
+    on the ragged set in blocks of 8 keys (the shape it was compiled for
+    in `ref`; a key's table does not depend on the others)."""
+    keys = _ragged_keys()
+    pub = np.frombuffer(b"".join(keys), dtype=np.uint8).reshape(-1, 32)
+    ptab, pok = cc.comb_build(torch.from_numpy(pub.copy()))
+    pad = np.concatenate([pub, np.repeat(pub[:1], 3, axis=0)])
+    parts = [jed.comb_build_kernel(jnp.asarray(pad[i:i + 8]))
+             for i in range(0, 16, 8)]
+    jtab = [np.concatenate([np.asarray(p[0][f]) for p in parts],
+                           axis=-1)[..., :13] for f in range(4)]
+    jok = np.concatenate([np.asarray(p[1]) for p in parts])[:13]
+    return {"adversarial": ([k for k, _ in KEYS], ref["ttab"], ref["tok"],
+                            ref["jtab"], ref["jok"]),
+            "ragged": (keys, ptab, pok.numpy(), jtab, jok)}
 
 
 GROUPS = cc.GROUPS
@@ -629,22 +721,33 @@ FULL_BLOCKS = {1: [(0, 32), (32, 30)], 8: [(0, 4), (20, 4), (61, 3)]}
 
 
 @pytest.fixture(scope="module")
-def host_run(ref, harness):
+def host_run(ref, build_refs, harness):
     """C1 on KEYS, then C2 on the 64 lanes at each G, then the full blocks
-    of FULL_BLOCKS: {"K": [8 lines], G: [64 lines], ("W", G): [a line a
-    block]}."""
+    of FULL_BLOCKS, then C1 on the ragged set: {("K", key set): [(verdict,
+    2304 entries) a key], G: [64 lines], ("W", G): [a line a block]}."""
     def row(i):
         return "%d %s" % (ref["vidx"][i], bytes(ref["rows"][i]).hex())
-    lines = ["K " + k.hex() for k, _ in KEYS]
+
+    def build(keys):
+        return "K %d %s" % (len(keys), " ".join(k.hex() for k in keys))
+    lines = [build([k for k, _ in KEYS])]
     for g in GROUPS:
         lines += ["V %d %s" % (g, row(i)) for i in range(64)]
     for g, blocks in FULL_BLOCKS.items():
         lines += ["W %d %d %s" % (g, m, " ".join(row(i) for i in
                                                  range(a, a + m)))
                   for a, m in blocks]
+    lines.append(build(build_refs["ragged"][0]))
     out = harness(lines)
-    got = {"K": out[:len(KEYS)]}
-    at = len(KEYS)
+
+    def keys_of(line):
+        f = line.split()
+        assert len(f) % 2305 == 0
+        return [(int(f[i]), f[i + 1:i + 2305]) for i in range(0, len(f),
+                                                              2305)]
+    got = {("K", "adversarial"): keys_of(out[0]),
+           ("K", "ragged"): keys_of(out[-1])}
+    at = 1
     for g in GROUPS:
         got[g], at = out[at:at + 64], at + 64
     for g, blocks in FULL_BLOCKS.items():
@@ -652,17 +755,40 @@ def host_run(ref, harness):
     return got
 
 
-def test_group_body_build_matches_plain(ref, host_run):
-    """comb_build4 on four host threads: every entry of every key's table
-    holds the plain C1's field values (canonical bytes of each
-    coordinate), and the decode verdicts are the plain ones."""
-    want = _canonical_hex(ref["ttab"])
-    for i in range(len(KEYS)):
-        ok, *entries = host_run["K"][i].split()
-        assert int(ok) == ref["tok"][i], i
-        assert len(entries) == 2304
+BUILD_SETS = ("adversarial", "ragged")
+
+
+@pytest.mark.parametrize("keyset", BUILD_SETS)
+def test_group_body_build_matches_plain(build_refs, host_run, keyset):
+    """comb_build4 on 128 host threads a block of 8 keys, in the kernel's
+    four roles (the chain warp's decode and doublings, the three helpers'
+    multiples and entries, the ring's named barriers, each entry staged and
+    copied as the block's run of the kernel's table; the ragged set's
+    second block holds 5 keys): every entry of every key's table holds the
+    plain C1's field values and the JAX comb_build_kernel's, as canonical
+    bytes of each coordinate."""
+    keys, ptab, _, jtab, _ = build_refs[keyset]
+    got = host_run[("K", keyset)]
+    want, want_jax = _canonical_hex(ptab), _canonical_hex(jtab)
+    assert len(got) == len(want) == len(want_jax) == len(keys)
+    assert want == want_jax
+    for i, (_, entries) in enumerate(got):
         bad = [e for e in range(2304) if entries[e] != want[i][e]]
         assert not bad, (i, bad[:5])
+
+
+@pytest.mark.parametrize("keyset", BUILD_SETS)
+def test_group_body_build_decode_flags_match(build_refs, host_run, keyset):
+    """The chain warp's decode verdicts on the host are the plain C1's and
+    the JAX package's, key for key (the adversarial keys' as KEYS says;
+    the ragged set holds both kinds)."""
+    keys, _, pok, _, jok = build_refs[keyset]
+    got = [ok for ok, _ in host_run[("K", keyset)]]
+    assert got == [bool(v) for v in pok] == [bool(v) for v in jok]
+    if keyset == "adversarial":
+        assert got == [ok for _, ok in KEYS]
+    else:
+        assert 9 <= sum(got) < len(keys)
 
 
 @pytest.mark.parametrize("groups", GROUPS)

@@ -152,7 +152,27 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      and at the wrapper's, with its design count at each G beside the
      bound), the prewarm wall, the 150-validator wall
      prewarmed and on the ladder, the 100k commit with the comb on and off
- 16  the kernels line; then the last line {"ok": true, "device": ...}
+ 16  votes to a commit, for a 150-validator set (BASELINE config 2) and
+     a 10,000-validator set (the VoteSet's MAX_VOTES_COUNT): a GenesisDoc
+     of the set through its JSON; a block at height 2 (300 small txs and
+     a signed height-1 commit) and its parts; a precommit from every
+     validator through Vote.proto/from_proto, 1 in 1,000 corrupted (at
+     least 2) and one conflicting precommit; the consensus pre-verify of
+     every triple through a VerifyScheduler on the card (Priority
+     CONSENSUS, a 5 ms deadline; the bitmap the oracle's, its K1 launch
+     against the plain version); the VoteSet, where only the corrupted
+     votes reach PubKey.verify_signature (VoteSetError), the conflicting
+     one raises ConflictingVoteError and makes a DuplicateVoteEvidence
+     that round-trips; make_commit, the LightBlock, verify_commit of the
+     made commit on the card (150: K1, then C2 after a prewarm, C1's
+     launch against its plain version and C2's against its plain version
+     and K1; 10,000: K2 through the pubkey cache, held against its plain
+     version); the block at height 3 carrying the commit, its parts
+     reassembled and decoded to the same hash; an EventBus subscriber
+     thread receiving the votes' and the block's events.  Walls, the
+     scheduler's launches and lanes and its deadline misses are logged,
+     not gated
+ 17  the kernels line; then the last line {"ok": true, "device": ...}
 
 Signatures come from a seeded incremental generator (a_i = a_0 + i, so
 A_i = A_{i-1} + B), because signing 100k triples one by one in pure
@@ -169,6 +189,8 @@ import subprocess
 import sys
 import threading
 import time
+from queue import Empty as QueueEmpty
+from types import SimpleNamespace
 
 
 def fail(msg: str) -> None:
@@ -223,8 +245,19 @@ from tendermint_tpu_torch.ops import msm  # noqa: E402
 from tendermint_tpu_torch.ops import secp as secp_ops  # noqa: E402
 from tendermint_tpu_torch.ops import sr25519 as sr_ops  # noqa: E402
 from tendermint_tpu_torch.ops._nvcc import parse_ptxas  # noqa: E402
+from tendermint_tpu_torch.abci.types import ResponseDeliverTx  # noqa: E402
+from tendermint_tpu_torch.types import block as tblock  # noqa: E402
+from tendermint_tpu_torch.types import event_bus as tbus  # noqa: E402
+from tendermint_tpu_torch.types import evidence as tev  # noqa: E402
+from tendermint_tpu_torch.types import genesis as tgen  # noqa: E402
+from tendermint_tpu_torch.types import light_block as tlight  # noqa: E402
+from tendermint_tpu_torch.types import params as tparams  # noqa: E402
+from tendermint_tpu_torch.types import part_set as tparts  # noqa: E402
+from tendermint_tpu_torch.types import vote as tvote  # noqa: E402
+from tendermint_tpu_torch.types import vote_set as tvset  # noqa: E402
 from tendermint_tpu_torch.types.basic import (BlockID, BlockIDFlag,  # noqa: E402
-                                              PartSetHeader, Timestamp)
+                                              PartSetHeader, SignedMsgType,
+                                              Timestamp)
 from tendermint_tpu_torch.types.canonical import \
     commit_sign_bytes_batch  # noqa: E402
 from tendermint_tpu_torch.types.commit import Commit, CommitSig  # noqa: E402
@@ -2961,18 +2994,386 @@ check(devobs.ledger_report().get("table_cache", {}).get("bytes") == 0,
       "phase 15: the table_cache pool is not back to 0")
 REPORT["comb"] = comb15
 
-# -- phase 16: the kernels line -----------------------------------------------
+# -- phase 16: votes to a commit ----------------------------------------------
+
+# The consumer of the types: votes signed for a block, pre-verified on the
+# card in one coalesced launch (consensus/state.py's receive loop), added to
+# a VoteSet that finds every valid one in the verified-signature cache, and
+# the commit it makes verified on the card.
+SIZES16 = (150, 10_000)
+votes16: dict = {}
+# each comparison as in the kernels line: (input, lanes, mismatching lanes,
+# max |kernel - plain|)
+cmp16 = {name: [] for name in ("verify_packed", "verify_packed_split",
+                               "comb_build", "comb_verify")}
+c2_vs_k1_16 = 0
+# the main path's K1 and K2 launches are kept again (their wrappers are
+# bare since phase 6's timings; phase 13 kept K1's the same way)
+for _name in ("verify_packed", "verify_packed_split"):
+    setattr(ck, _name, _recording(_name))
+
+
+def block16(vset, height: int, txs, last_bid, last_commit):
+    """A block of the set at `height` carrying `last_commit`, its derived
+    hashes filled in and validated."""
+    b = tblock.Block(
+        header=tblock.Header(
+            chain_id=CHAIN, height=height,
+            time=Timestamp(1700000000 + height, 0), last_block_id=last_bid,
+            validators_hash=vset.hash(), next_validators_hash=vset.hash(),
+            consensus_hash=tparams.ConsensusParams().hash(),
+            app_hash=bytes(8),
+            proposer_address=vset.get_proposer().address),
+        data=tblock.Data(txs=txs), last_commit=last_commit)
+    b.fill_header()
+    b.validate_basic()
+    return b
+
+
+def oracle16(items, bad, rng):
+    """The oracle's verdicts by lane: OpenSSL on every triple where the
+    cryptography package is installed, else the pure-Python verify on the
+    corrupted and conflicting triples and 64 others."""
+    if edkeys._HAVE_OSSL:
+        return "openssl", {j: edkeys._ossl_verify(p.bytes(), m, s)
+                           for j, (p, m, s) in enumerate(items)}
+    lanes = set(bad) | {len(items) - 1} | set(rng.sample(range(len(items)),
+                                                         64))
+    return "_edref", {j: _edref.verify(items[j][0].bytes(), items[j][1],
+                                       items[j][2]) for j in sorted(lanes)}
+
+
+class EventCounter:
+    """A subscriber thread: drains the bus's vote, block and tx
+    subscriptions as consensus's event consumers do, and counts them."""
+
+    def __init__(self, bus):
+        self.subs = {k: bus.subscribe(k) for k in (
+            tbus.EVENT_VOTE, tbus.EVENT_NEW_BLOCK, tbus.EVENT_TX)}
+        self.counts = {k: 0 for k in self.subs}
+        self.done = threading.Event()
+        self.thread = threading.Thread(target=self._run,
+                                       name="event-bus-subscriber")
+        self.thread.start()
+
+    def _drain(self) -> int:
+        got = 0
+        for k, sub in self.subs.items():
+            while True:
+                try:
+                    sub.queue.get_nowait()
+                except QueueEmpty:
+                    break
+                self.counts[k] += 1
+                got += 1
+        return got
+
+    def _run(self):
+        while not self.done.is_set():
+            if not self._drain():
+                time.sleep(0.001)
+        self._drain()
+
+    def close(self) -> dict:
+        self.done.set()
+        self.thread.join(timeout=10)
+        check(not self.thread.is_alive(), "phase 16: the subscriber hangs")
+        return self.counts
+
+
+def votes_to_commit(n: int) -> dict:
+    global c2_vs_k1_16
+    rng = random.Random(SEED + 1600 + n)
+    walls: dict = {}
+    row: dict = {"validators": n, "walls_s": walls}
+    # 1. genesis, through its JSON
+    a_list, pubs = gen_keys(n, rng)
+    a_of = dict(zip(pubs, a_list))
+    gdoc = tgen.GenesisDoc(
+        chain_id=CHAIN, genesis_time=Timestamp(1700000000, 0),
+        validators=[tgen.GenesisValidator(
+            address=b"", pub_key_type="ed25519", pub_key_bytes=p, power=10,
+            name=f"v{i}") for i, p in enumerate(pubs)])
+    gdoc.validate_and_complete()
+    t = time.perf_counter()
+    gback = tgen.GenesisDoc.from_json(gdoc.to_json())
+    walls["genesis_json"] = time.perf_counter() - t
+    check(gback.chain_id == CHAIN and gback.genesis_time == gdoc.genesis_time
+          and [(v.address, v.pub_key_bytes, v.power) for v in gback.validators]
+          == [(v.address, v.pub_key_bytes, v.power) for v in gdoc.validators],
+          f"phase 16 ({n}): the genesis doc's JSON round trip")
+    vset = gback.validator_set()
+    vp = [v.pub_key.bytes() for v in vset.validators]
+    va = [a_of[p] for p in vp]
+    # 2. the block at height 2: 300 small txs and a signed height-1 commit
+    bid1 = BlockID(b"\x31" * 32, PartSetHeader(1, b"\x32" * 32))
+    sigs1 = [CommitSig(BlockIDFlag.COMMIT, v.address,
+                       Timestamp(1700000001, i))
+             for i, v in enumerate(vset.validators)]
+    commit1 = Commit(1, 0, bid1, sigs1)
+    for cs, sig in zip(sigs1, sign_batch(va, vp, commit_sign_bytes_batch(
+            CHAIN, commit1, list(range(n))), rng)):
+        cs.signature = sig
+    txs2 = [rng.randbytes(rng.randrange(16, 256)) for _ in range(300)]
+    block2 = block16(vset, 2, txs2, bid1, commit1)
+    t = time.perf_counter()
+    parts2 = tparts.make_block_parts(block2)
+    walls["part_set"] = time.perf_counter() - t
+    check(isinstance(parts2, tparts.StreamingPartSet)
+          and parts2.assemble() == block2.proto(),
+          f"phase 16 ({n}): the block's part set")
+    bid2 = BlockID(block2.hash(), parts2.header())
+    # 3. a precommit from every validator; 4. the corrupted and the
+    # conflicting ones; every vote through its wire encoding
+    votes = [tvote.Vote(SignedMsgType.PRECOMMIT, 2, 0, bid2,
+                        Timestamp(1700000002, 1000 + 7 * i), v.address, i)
+             for i, v in enumerate(vset.validators)]
+    for v, sig in zip(votes, sign_batch(
+            va, vp, [v.sign_bytes(CHAIN) for v in votes], rng)):
+        v.signature = sig
+    n_bad = max(2, n // 1000)
+    bad = sorted(rng.sample(range(n), n_bad))
+    for i in bad:
+        votes[i].signature = corrupt(votes[i].signature, rng)
+    ci = rng.choice([i for i in range(n) if i not in bad])
+    cv = tvote.Vote(SignedMsgType.PRECOMMIT, 2, 0,
+                    BlockID(b"\x33" * 32, PartSetHeader(1, b"\x34" * 32)),
+                    Timestamp(1700000002, 3), vset.validators[ci].address, ci)
+    cv.signature = sign_batch([va[ci]], [vp[ci]], [cv.sign_bytes(CHAIN)],
+                              rng)[0]
+    t = time.perf_counter()
+    votes = [tvote.Vote.from_proto(v.proto()) for v in votes + [cv]]
+    walls["votes_wire"] = time.perf_counter() - t
+    # 5. the pre-verify: every triple, one CONSENSUS submission with a 5 ms
+    # deadline, through a scheduler on the card with the node's defaults
+    items = [(vset.validators[v.validator_index].pub_key,
+              v.sign_bytes(CHAIN), v.signature) for v in votes]
+    expect = np.ones(n + 1, dtype=bool)
+    expect[bad] = False
+    kind, oracle = oracle16(items, bad, rng)
+    check(all(oracle[j] == expect[j] for j in oracle),
+          f"phase 16 ({n}): the oracle disagrees with the corruptions")
+    cbatch.verified_sigs = cbatch.SigCache(capacity=1 << 16)
+    m16 = degrade.runtime().metrics
+    miss0 = m16.sched_deadline_miss.value(priority="consensus")
+    sch = vsched.install(vsched.VerifyScheduler(
+        window_s=0.002, max_batch=8192, max_pending=65536,
+        tpu_threshold=32, device=DEV))
+    sch.start()
+    t = time.perf_counter()
+    (all_ok, bits), c_pre = main_path(
+        lambda: vsched.verify_items(items, vsched.Priority.CONSENSUS,
+                                    deadline=time.monotonic() + 0.005,
+                                    device=DEV),
+        capture=("verify_packed", f"{n}-validator pre-verify"),
+        site="sched.ed25519")
+    walls["preverify"] = time.perf_counter() - t
+    rec_pre = dict(E.last_launch())
+    sch.stop()
+    vsched.uninstall(sch)
+    st = sch.stats()
+    row["scheduler"] = {k: st[k] for k in ("launches", "lanes",
+                                           "cache_hits", "dedup",
+                                           "exec_faults", "stage_s",
+                                           "exec_busy_s")}
+    row["deadline_misses"] = (m16.sched_deadline_miss.value(
+        priority="consensus") - miss0)
+    row.update(oracle=kind, oracle_lanes=len(oracle), bad=bad,
+               conflicting=ci, preverify_launches=c_pre, record=rec_pre)
+    check(np.array_equal(bits, expect) and not all_ok,
+          f"phase 16 ({n}): pre-verify bitmap != the oracle's")
+    check(c_pre["verify_packed"] == st["launches"] == 1
+          and st["lanes"] == n + 1 and st["exec_faults"] == 0
+          and rec_pre["path"] == "cuda",
+          f"phase 16 ({n}): pre-verify launches {c_pre}, {st}, {rec_pre}")
+    cmp16["verify_packed"].append(plain_on_captured("verify_packed", expect))
+    # 6. the VoteSet, counting the host verifies its add_vote calls make
+    bus = tbus.EventBus()
+    events = EventCounter(bus)
+    vote_set = tvset.VoteSet(CHAIN, 2, 0, SignedMsgType.PRECOMMIT, vset)
+    real_verify = edkeys.PubKey.verify_signature
+    host_verifies = [0]
+
+    def counted(self, msg, sig):
+        host_verifies[0] += 1
+        return real_verify(self, msg, sig)
+
+    errors = {}
+    hits0 = cbatch.verified_sigs.hits
+    edkeys.PubKey.verify_signature = counted
+    t = time.perf_counter()
+    try:
+        for j, v in enumerate(votes):
+            try:
+                if vote_set.add_vote(v):
+                    bus.publish_vote(v)
+            except tvset.VoteSetError as e:   # checked just below
+                errors[j] = e
+    finally:
+        edkeys.PubKey.verify_signature = real_verify
+    walls["add_vote"] = time.perf_counter() - t
+    row.update(host_verifies=host_verifies[0],
+               cache_hits=cbatch.verified_sigs.hits - hits0,
+               errors={j: f"{type(e).__name__}: {e}"
+                       for j, e in errors.items()})
+    check(host_verifies[0] == n_bad,
+          f"phase 16 ({n}): {host_verifies[0]} host verifies, {n_bad} "
+          f"corrupted votes")
+    check(row["cache_hits"] == n - n_bad + 1,
+          f"phase 16 ({n}): {row['cache_hits']} cache hits")
+    check(sorted(errors) == bad + [n]
+          and all(type(errors[i]) is tvset.VoteSetError
+                  and "invalid signature" in str(errors[i]) for i in bad)
+          and isinstance(errors[n], tvset.ConflictingVoteError)
+          and errors[n].vote_b is votes[n],
+          f"phase 16 ({n}): add_vote errors {row['errors']}")
+    conflict = errors[n]
+    ev = tev.DuplicateVoteEvidence.from_votes(
+        conflict.vote_a, conflict.vote_b, block2.header.time, vset)
+    ev.validate_basic()
+    ev_back = tev.evidence_from_proto(tev.evidence_proto(ev))
+    check(isinstance(ev_back, tev.DuplicateVoteEvidence)
+          and ev_back.hash() == ev.hash()
+          and ev.validator_power == 10 and ev.total_voting_power == 10 * n,
+          f"phase 16 ({n}): duplicate-vote evidence")
+    check(vote_set.two_thirds_majority() == (bid2, True),
+          f"phase 16 ({n}): two_thirds_majority")
+    # 7. the commit, its light block, and verify_commit on the card
+    t = time.perf_counter()
+    commit = vote_set.make_commit()
+    walls["make_commit"] = time.perf_counter() - t
+    flags = [cs.block_id_flag for cs in commit.signatures]
+    check(commit.height == 2 and commit.block_id == bid2
+          and flags.count(BlockIDFlag.COMMIT) == n - n_bad
+          and flags.count(BlockIDFlag.ABSENT) == n_bad,
+          f"phase 16 ({n}): the made commit")
+    light = tlight.LightBlock(tlight.SignedHeader(block2.header, commit),
+                              vset)
+    light.validate_basic(CHAIN)
+    expect_c = np.ones(n - n_bad, dtype=bool)
+
+    def verify():
+        vset.verify_commit(CHAIN, bid2, 2, commit, device=DEV)
+
+    if n < E.PUB_CACHE_MIN:
+        t = time.perf_counter()
+        _, c = main_path(verify, capture=("verify_packed",
+                                          f"{n}-validator made commit"),
+                         site="bulk.ed25519")
+        walls["verify_commit_ladder"] = time.perf_counter() - t
+        rec = dict(E.last_launch())
+        check(rec["path"] == "cuda" and c["verify_packed"] == 1
+              and c["comb_verify"] == 0,
+              f"phase 16 ({n}): ladder verify_commit {rec}, {c}")
+        cmp16["verify_packed"].append(plain_on_captured("verify_packed",
+                                                        expect_c))
+        k1_bits = captured["verify_packed"][-1][2].cpu().numpy()
+        t = time.perf_counter()
+        built, c = main_path(lambda: E.prewarm(vp, device=DEV),
+                             capture=("comb_build", f"prewarm {n}"))
+        walls["prewarm"] = time.perf_counter() - t
+        check(built and c["comb_build"] >= 1,
+              f"phase 16 ({n}): prewarm {built}, {c}")
+        label, args, (tab_, ok_) = captured["comb_build"][-1]
+        ptab_, pok_ = cc.comb_build_plain(args[0])
+        cmp16["comb_build"].append(
+            (label, args[0].shape[0], cc.tables_mismatch(tab_, ptab_)
+             + int((ok_ != pok_).sum())))
+        t = time.perf_counter()
+        _, c = main_path(verify, capture=("comb_verify",
+                                          f"{n}-validator made commit"),
+                         site="bulk.ed25519")
+        walls["verify_commit_comb"] = time.perf_counter() - t
+        rec = dict(E.last_launch())
+        check(rec["path"] == "comb" and c["comb_verify"] == 1
+              and c["verify_packed"] == 0,
+              f"phase 16 ({n}): prewarmed verify_commit {rec}, {c}")
+        label, args, out = captured["comb_verify"][-1]
+        ptab, pok = plain_tables(vp)
+        c2_got = out.cpu().numpy()
+        cmp16["comb_verify"].append(c2_row(
+            f"{label}, G {cc.groups_for(args[0].shape[0])}", c2_got,
+            cc.comb_verify_plain(args[0], ptab, pok).cpu().numpy()))
+        k1_rows, canon = k1_on_rows(args[0], vp)
+        m = n - n_bad
+        c2_vs_k1_16 += int(((c2_got & canon) != (k1_rows & canon)).sum()) \
+            + int((c2_got[:m] != k1_bits[:m]).sum())
+        check(c2_got[:m].all() and not c2_got[m:].any()
+              and c2_vs_k1_16 == 0,
+              f"phase 16 ({n}): C2 against K1 on the made commit")
+        E.table_cache_clear()
+    else:
+        hits0 = E._pub_cache.hits
+        for k in range(2):
+            t = time.perf_counter()
+            _, c = main_path(verify, capture=(
+                ("verify_packed_split", f"{n}-validator made commit")
+                if k == 0 else ()), site="bulk.ed25519")
+            walls[f"verify_commit_split_{k}"] = time.perf_counter() - t
+            rec = dict(E.last_launch())
+            check(rec["path"] == "cuda-split" and c["verify_packed_split"]
+                  >= 1 and c["verify_packed"] == 0 and c["comb_verify"] == 0,
+                  f"phase 16 ({n}): verify_commit {rec}, {c}")
+        row["pub_cache_hits"] = E._pub_cache.hits - hits0
+        check(row["pub_cache_hits"] >= 1,
+              f"phase 16 ({n}): the second verify_commit missed the pubkey "
+              f"cache")
+        cmp16["verify_packed_split"].append(
+            plain_on_captured("verify_packed_split", expect_c))
+    row["verify_commit_record"] = rec
+    # 8. the next block: it carries the commit; its parts, decoded as a
+    # peer receives them, reassemble to the same block
+    txs3 = [rng.randbytes(rng.randrange(16, 256)) for _ in range(200)]
+    block3 = block16(vset, 3, txs3, bid2, commit)
+    t = time.perf_counter()
+    parts3 = tparts.make_block_parts(block3)
+    walls["part_set_next"] = time.perf_counter() - t
+    peer = tparts.PartSet(parts3.header())
+    for part in parts3.iter_parts():
+        check(peer.add_part(tparts.Part.from_proto(part.proto())),
+              f"phase 16 ({n}): a part of the next block was refused")
+    back = tblock.Block.from_proto(peer.assemble())
+    check(peer.is_complete() and back.hash() == block3.hash()
+          and back.last_commit.hash() == commit.hash()
+          and back.proto() == block3.proto(),
+          f"phase 16 ({n}): the next block's parts")
+    bus.publish_new_block(block3, BlockID(block3.hash(), parts3.header()),
+                          SimpleNamespace(deliver_txs=[
+                              ResponseDeliverTx() for _ in txs3]))
+    row["events"] = events.close()
+    check(row["events"] == {tbus.EVENT_VOTE: n - n_bad,
+                            tbus.EVENT_NEW_BLOCK: 1,
+                            tbus.EVENT_TX: len(txs3)},
+          f"phase 16 ({n}): events {row['events']}")
+    row.update(parts=(parts2.header().total, parts3.header().total),
+               block_bytes=(len(block2.proto()), len(block3.proto())))
+    return row
+
+
+for _n in SIZES16:
+    t16 = time.perf_counter()
+    votes16[str(_n)] = votes_to_commit(_n)
+    votes16[str(_n)]["phase_s"] = time.perf_counter() - t16
+    log(phase=16, card=CARD, **votes16[str(_n)])
+for _name in ("verify_packed", "verify_packed_split"):
+    setattr(ck, _name, REAL[_name])
+staging_clear(16)
+check(devobs.ledger_report().get("table_cache", {}).get("bytes") == 0,
+      "phase 16: the table_cache pool is not back to 0")
+REPORT["votes_to_commit"] = votes16
+
+# -- phase 17: the kernels line -----------------------------------------------
 
 src = "tendermint_tpu_torch/csrc/ed25519_verify.cu"
 # each comparison: (input, lanes, mismatching lanes, max |kernel - plain|)
 k1_cmp = [("phase-3 vectors + seeded", k1_cmp_lanes, k1_mism,
            float(np.abs(k1_raw.astype(int) - plain_raw.astype(int)).max())),
-          cmp4, cmp6, cmp13]
+          cmp4, cmp6, cmp13] + cmp16["verify_packed"]
 k2_cmp = [("phase-3 vectors + seeded", len(k2_raw3), k2_mism3,
            float(np.abs(k2_raw3.astype(int) - k2_plain3.astype(int)).max())),
           ("100k slice", 4096, k2_mism,
            float(np.abs(k2_raw.astype(int) - k2_plain.astype(int)).max())),
-          cmp5]
+          cmp5] + cmp16["verify_packed_split"]
 k3_cmp = [("phase-3 vectors + seeded", len(k3_raw3), k3_mism3,
            float(np.abs(k3_raw3.astype(int) - k3_plain3.astype(int)).max())),
           cmp11]
@@ -3058,6 +3459,9 @@ for name, key, src_f, replaces, cmps, bound in (
          "bound_by": "operations", "library_ms": None})
 # C1 and C2 (XLA functions of the JAX package, not Pallas kernels): C1 at
 # the 1,024-key set, held as field values; C2 at 65,536 lanes, as bitmaps
+cmp15 += cmp16["comb_build"]
+c2_cmp += cmp16["comb_verify"]
+c2_vs_k1 += c2_vs_k1_16
 comb_src = "tendermint_tpu_torch/csrc/comb.cu"
 kernels.append(
     {"name": "C1 comb_build (XLA comb_build_kernel_impl, not a Pallas "

@@ -67,6 +67,10 @@ REGISTERED_SITES = frozenset({
     # (crypto/merkle.py: a raise recomputes the layer serially)
     "lanepool.verify",
     "merkle.bulk_hash",
+    # the streaming part-set construction of types/part_set.py
+    # make_block_parts (raise = the serial PartSet.from_data, with
+    # byte-identical parts; latency = a slow split, absorbed)
+    "propose.parts",
     # device observatory (crypto/devobs.py): fires on every launch-record
     # store.  raise = the record sheds (counted in
     # crypto_devobs_shed_total{reason=chaos}) while the device launch and

@@ -59,6 +59,20 @@ def test_scheduler_modules_are_checked():
         assert f"tendermint_tpu_torch.{m}" in mods, m
 
 
+def test_types_modules_are_checked():
+    """The types and codecs (votes, vote sets, blocks, part sets,
+    proposals, evidence, light blocks, genesis, the event bus, bit arrays,
+    the safe codec, Amino JSON, the log and the ABCI types) are among the
+    modules the checks below cover."""
+    mods = _port_modules()
+    for m in ("libs.bits", "libs.log", "libs.safe_codec", "abci.types",
+              "types.params", "types.vote", "types.proposal",
+              "types.part_set", "types.block", "types.vote_set",
+              "types.light_block", "types.evidence", "libs.amino_json",
+              "types.genesis", "types.event_bus"):
+        assert f"tendermint_tpu_torch.{m}" in mods, m
+
+
 def test_scheduler_cuda_missing_raises(monkeypatch):
     """With no CUDA and no device='cpu', the scheduler's constructor and
     its sync wrapper raise instead of running on the CPU."""

@@ -172,7 +172,31 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      thread receiving the votes' and the block's events.  Walls, the
      scheduler's launches and lanes and its deadline misses are logged,
      not gated
- 17  the kernels line; then the last line {"ok": true, "device": ...}
+ 17  blocks through the executor (storage, ABCI and block execution):
+     a 150-validator kvstore localnet (BASELINE config 2) of 60 heights
+     of 1,000 txs of 64 bytes, each block made by State.make_block,
+     saved with its parts and seen commit in a SQLite BlockStore and
+     applied by BlockExecutor.apply_block on its default device (its
+     last commit verified on the card), the state in a SQLite
+     StateStore, the app through proxy.AppConns(ClientCreator.local)
+     and the events indexed by an IndexerService (in memory; one
+     block's txs also into SQLite, timed); its cases: a tampered
+     last commit refused with the state and the app unmoved, a
+     pre-verified height with no launch (and one short of 2/3 power
+     refused), val: power changes (the heights after verify against the
+     reordered set), a prewarmed stretch on C2 (C1 at 256 keys) until a
+     key joins and the commits take K1 again; the indexer drained and
+     queried; the first 10 heights replayed against the kvstore behind
+     ABCIServer on a unix socket (ClientCreator.remote), every app,
+     results and validators hash equal; both databases closed and
+     reopened (the State field by field, every stored block by its meta's
+     hash) and rollback to height 59; a 10,000-validator chain of 6
+     heights of 100 txs with a power change at height 2 (K2, a
+     pubkey-row cache miss for the reordered set).  Every K1, K2, C1 and
+     C2 launch of the phase held against its plain version, four
+     commits' kernel bitmaps against OpenSSL's, one observatory apply
+     stage a height applied; each step's host wall logged, not gated
+ 18  the kernels line; then the last line {"ok": true, "device": ...}
 
 Signatures come from a seeded incremental generator (a_i = a_0 + i, so
 A_i = A_{i-1} + B), because signing 100k triples one by one in pure
@@ -181,12 +205,16 @@ chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
 
+import base64
+import gc
 import hashlib
 import json
 import os
 import random
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from queue import Empty as QueueEmpty
@@ -245,7 +273,21 @@ from tendermint_tpu_torch.ops import msm  # noqa: E402
 from tendermint_tpu_torch.ops import secp as secp_ops  # noqa: E402
 from tendermint_tpu_torch.ops import sr25519 as sr_ops  # noqa: E402
 from tendermint_tpu_torch.ops._nvcc import parse_ptxas  # noqa: E402
+from tendermint_tpu_torch.abci import types as abci_t  # noqa: E402
+from tendermint_tpu_torch.abci.kvstore import KVStoreApplication  # noqa: E402
+from tendermint_tpu_torch.abci.server import ABCIServer  # noqa: E402
 from tendermint_tpu_torch.abci.types import ResponseDeliverTx  # noqa: E402
+from tendermint_tpu_torch.consensus import observatory as obsv  # noqa: E402
+from tendermint_tpu_torch.libs.kvdb import MemDB, SQLiteDB  # noqa: E402
+from tendermint_tpu_torch.libs.metrics import ConsensusMetrics  # noqa: E402
+from tendermint_tpu_torch.proxy import AppConns, ClientCreator  # noqa: E402
+from tendermint_tpu_torch.state import execution as sexec  # noqa: E402
+from tendermint_tpu_torch.state.indexer import (  # noqa: E402
+    BlockIndexer, IndexerService, TxIndexer)
+from tendermint_tpu_torch.state.rollback import rollback  # noqa: E402
+from tendermint_tpu_torch.state.state import state_from_genesis  # noqa: E402
+from tendermint_tpu_torch.state.store import StateStore  # noqa: E402
+from tendermint_tpu_torch.store.block_store import BlockStore  # noqa: E402
 from tendermint_tpu_torch.types import block as tblock  # noqa: E402
 from tendermint_tpu_torch.types import event_bus as tbus  # noqa: E402
 from tendermint_tpu_torch.types import evidence as tev  # noqa: E402
@@ -3362,18 +3404,668 @@ check(devobs.ledger_report().get("table_cache", {}).get("bytes") == 0,
       "phase 16: the table_cache pool is not back to 0")
 REPORT["votes_to_commit"] = votes16
 
-# -- phase 17: the kernels line -----------------------------------------------
+# -- phase 17: blocks through the executor ------------------------------------
+
+# The consumer of the storage, ABCI and execution modules: kvstore blocks made
+# by State.make_block, saved with their part sets and seen commits in a SQLite
+# BlockStore, applied by BlockExecutor.apply_block on its default device (its
+# validate_block verifies each last commit on the card: K1, C2 on a prewarmed
+# set, K2 at 10,000 validators), the state saved in a SQLite StateStore and
+# the blocks' events indexed by an IndexerService, as the node wires them
+# (BASELINE config 2, the kvstore localnet; the index in memory, as the
+# node's in-memory layout keeps it).  Walls are host-clock, logged and not
+# gated.
+N17, H17, TXS17 = 150, 60, 1000           # the kvstore localnet
+N17_BIG, H17_BIG, TXS17_BIG = 10_000, 6, 100   # MAX_VOTES_COUNT validators
+# heights of the cases; a val: tx in block H changes the set that signs
+# commit H + 2, which block H + 3 verifies
+TAMPER17, PREVERIFIED17, POWER17 = 5, 7, 10
+PREWARM17, POWER17_COMB, JOIN17 = 20, 20, 24
+SOCKET17 = 10                             # heights replayed over the socket
+POWER17_BIG = 2
+rng17 = random.Random(SEED + 17)
+T17 = time.perf_counter()
+# every K1, K2, C1 and C2 launch of the phase: (label, inputs, output)
+keep17 = {name: [] for name in ("verify_packed", "verify_packed_split",
+                                "comb_build", "comb_verify")}
+label17 = [""]
+was17 = {name: getattr(KERNEL_MOD[name], name) for name in keep17}
+
+
+def _keeping17(name):
+    """The bare wrapper (REAL), keeping a copy of every launch's tensor
+    inputs (C2's tables are the table cache's own C1 output, kept by
+    reference) and its output."""
+    def wrapper(*args):
+        out = REAL[name](*args)
+        keep17[name].append((label17[0], [
+            a.clone() if isinstance(a, torch.Tensor)
+            and not (name == "comb_verify" and i == 1) else a
+            for i, a in enumerate(args)], out))
+        return out
+    return wrapper
+
+
+for _name in keep17:
+    setattr(KERNEL_MOD[_name], _name, _keeping17(_name))
+
+# each step's host wall: {chain: {step: [calls, seconds]}}; the indexer's
+# step runs on the IndexerService's thread
+steps17: dict = {}
+_steps_lock = threading.Lock()
+chain17 = [""]
+
+
+def _timed17(step, fn, chain=None):
+    def timed(*a, **k):
+        name = chain or chain17[0]
+        t = time.perf_counter()
+        try:
+            return fn(*a, **k)
+        finally:
+            dt = time.perf_counter() - t
+            with _steps_lock:
+                c = steps17.setdefault(name, {}).setdefault(step, [0, 0.0])
+                c[0] += 1
+                c[1] += dt
+    return timed
+
+
+# the interpreter's garbage collections in the phase: count and seconds by
+# generation (a full collection walks every object the process holds)
+gc17 = {"n": [0, 0, 0], "s": [0.0, 0.0, 0.0], "t0": 0.0}
+
+
+def _gc17(stage, info):
+    if stage == "start":
+        gc17["t0"] = time.perf_counter()
+    else:
+        g = info["generation"]
+        gc17["n"][g] += 1
+        gc17["s"][g] += time.perf_counter() - gc17["t0"]
+
+
+gc.callbacks.append(_gc17)
+REAL17 = {"update_state": sexec.update_state,
+          "verify_commit": ValidatorSet.verify_commit}
+sexec.update_state = _timed17("update_state", REAL17["update_state"])
+ValidatorSet.verify_commit = _timed17("verify_commit",
+                                      REAL17["verify_commit"])
+
+
+def txs17(h: int, n: int):
+    """n txs of 64 bytes each, k<h>_<i>=<hex>."""
+    out = []
+    for i in range(n):
+        key = b"k%d_%d=" % (h, i)
+        out.append(key + rng17.randbytes(32).hex().encode()[:64 - len(key)])
+    return out
+
+
+def val_tx17(pub: bytes, power: int) -> bytes:
+    return b"val:" + base64.b64encode(pub) + b"!%d" % power
+
+
+def sign17(state, bid, h: int, a_of):
+    """The commit of height h: a precommit from every validator of the
+    height's set, in the set's order, signed over its canonical bytes."""
+    vals = state.validators.validators
+    sigs = [CommitSig(BlockIDFlag.COMMIT, v.address,
+                      Timestamp(1700000000 + h, 500 + i))
+            for i, v in enumerate(vals)]
+    commit = Commit(h, 0, bid, sigs)
+    vp = [v.pub_key.bytes() for v in vals]
+    idxs = list(range(len(vals)))
+    for cs, sig in zip(sigs, sign_batch([a_of[p] for p in vp], vp,
+                                        commit_sign_bytes_batch(
+                                            CHAIN, commit, idxs), rng17)):
+        cs.signature = sig
+    return commit
+
+
+def flip17(commit):
+    """The commit with the first signature's R flipped (a lying peer)."""
+    sigs = list(commit.signatures)
+    s0 = sigs[0]
+    sigs[0] = CommitSig(s0.block_id_flag, s0.validator_address, s0.timestamp,
+                        bytes([s0.signature[0] ^ 1]) + s0.signature[1:])
+    return Commit(commit.height, commit.round, commit.block_id, sigs)
+
+
+def expect_raises17(exc, fn, what):
+    """fn() must raise exc; returns the exception."""
+    try:
+        fn()
+    except exc as e:
+        return e
+    fail(f"phase 17: {what} did not raise {exc.__name__}")
+
+
+def vset_view17(vs):
+    if vs is None:
+        return None
+    return ([(v.address, v.pub_key.bytes(), v.voting_power,
+              v.proposer_priority) for v in vs.validators],
+            vs.get_proposer().address, vs.hash())
+
+
+def state_view17(s):
+    """A State's fields as comparable values (validator sets by content)."""
+    return (s.chain_id, s.initial_height, s.last_block_height,
+            s.last_block_id, s.last_block_time, vset_view17(s.next_validators),
+            vset_view17(s.validators), vset_view17(s.last_validators),
+            s.last_height_validators_changed, s.consensus_params,
+            s.last_height_consensus_params_changed, s.last_results_hash,
+            s.app_hash, s.app_version)
+
+
+class Chain17:
+    """One node's SQLite stores, app connections, executor and (for the
+    localnet) its indexer, from a genesis of seeded keys."""
+
+    def __init__(self, name, gdoc, root, conns, index: bool):
+        self.name, self.conns = name, conns
+        chain17[0] = name
+        self.dir = os.path.join(root, name)
+        os.makedirs(self.dir)
+        self.open_stores()
+        self.bus = tbus.EventBus()
+        self.ex = sexec.BlockExecutor(self.state_store, conns.consensus,
+                                      event_bus=self.bus,
+                                      block_store=self.block_store)
+        self.ex.obs_node = name
+        for attr, step in (("validate_block", "validate_block"),
+                           ("_exec_block_on_app", "abci_calls"),
+                           ("_commit", "app_commit"),
+                           ("_fire_events", "events")):
+            setattr(self.ex, attr, _timed17(step, getattr(self.ex, attr)))
+        self.state = state_from_genesis(gdoc)
+        self.state_store.save(self.state)
+        conns.consensus.init_chain(abci_t.RequestInitChain(
+            chain_id=gdoc.chain_id, validators=[
+                abci_t.ValidatorUpdate("ed25519", v.pub_key_bytes, v.power)
+                for v in gdoc.validators]))
+        self.rows: list = []
+        self.svc = None
+        if index:
+            # the node's in-memory index layout: over SQLite (a commit a
+            # key) the service falls far behind the chain, and that cost
+            # is timed on one block below
+            self.ix_db = MemDB()
+            self.tx_ix = TxIndexer(self.ix_db)
+            self.blk_ix = BlockIndexer(self.ix_db)
+            self.tx_ix.index_block_txs = _timed17(
+                "indexer", self.tx_ix.index_block_txs, name)
+            self.blk_ix.index = _timed17("indexer", self.blk_ix.index, name)
+            self.svc = IndexerService(self.tx_ix, self.blk_ix, self.bus)
+            self.svc.start()
+
+    def open_stores(self):
+        """The node's layout: the block store commits every write, the
+        state store defers single writes in windows of 64."""
+        self.block_db = SQLiteDB(os.path.join(self.dir, "blockstore.db"))
+        self.state_db = SQLiteDB(os.path.join(self.dir, "state.db"),
+                                 commit_every=64)
+        self.block_store = BlockStore(self.block_db)
+        self.state_store = StateStore(self.state_db)
+        self.state_store.save_abci_responses = _timed17(
+            "save_abci_responses", self.state_store.save_abci_responses)
+        self.state_store.save = _timed17("state_store_save",
+                                         self.state_store.save)
+
+    def make(self, h, txs, last_commit):
+        block = self.state.make_block(
+            h, txs, last_commit, [],
+            self.state.validators.get_proposer().address,
+            block_time=Timestamp(1700000000 + h, 0))
+        parts = tparts.make_block_parts(block)
+        return block, parts, BlockID(block.hash(), parts.header())
+
+    def try_apply(self, block, bid, what, site, refused=None):
+        """apply_block on the main path (launch counts zeroed just before
+        and read just after).  Returns (the new state, or the exception of
+        class `refused` it must raise; the counts; the launch record)."""
+        chain17[0] = self.name
+        label17[0] = f"{self.name} h{block.header.height} ({what})"
+        seq0 = E.last_launch()["seq"]
+
+        def run():
+            if refused is None:
+                return self.ex.apply_block(self.state, bid, block)[0]
+            return expect_raises17(refused, lambda: self.ex.apply_block(
+                self.state, bid, block), what)
+        out, c = main_path(run, site=site)
+        rec = dict(E.last_launch())
+        return out, c, rec if rec["seq"] != seq0 else {}
+
+    def apply(self, block, bid, what="block"):
+        """Save the block with its parts and seen commit, as the node does
+        before it applies it, then apply it; the state advances."""
+        h = block.header.height
+        gc0 = sum(gc17["s"])
+        t = time.perf_counter()
+        site = None if h == 1 or what == "pre-verified" else "bulk.ed25519"
+        state, c, rec = self.try_apply(block, bid, what, site)
+        wall = time.perf_counter() - t
+        route = ("K1" if c["verify_packed"] else "K2"
+                 if c["verify_packed_split"] else "C2"
+                 if c["comb_verify"] else "none")
+        check(sum(c.values()) == (0 if route == "none" else 1)
+              and state.last_block_height == h
+              and (route == "none") == (site is None),
+              f"phase 17: {label17[0]} launched {c}")
+        self.rows.append({"height": h, "what": what, "route": route,
+                          "wall_s": wall, "gc_s": sum(gc17["s"]) - gc0,
+                          "stage_s": rec.get("stage_s"),
+                          "compute_s": rec.get("compute_s"),
+                          "path": rec.get("path"),
+                          "app_hash": state.app_hash.hex(),
+                          "results_hash": state.last_results_hash.hex(),
+                          "validators_hash": state.validators.hash().hex()})
+        self.state = state
+        return route
+
+    def save(self, block, parts, seen):
+        chain17[0] = self.name
+        _timed17("block_store_save", self.block_store.save_block)(
+            block, parts, seen)
+
+    def close(self):
+        if self.svc is not None:
+            self.svc.stop()
+            self.ix_db.close()
+            self.svc = None
+        self.block_db.close()
+        self.state_db.close()
+
+
+def chain_keys17(n: int):
+    """n + 1 seeded keys: a genesis of the first n at power 10, and one
+    that joins later."""
+    a_list, pubs = gen_keys(n + 1, rng17)
+    gdoc = tgen.GenesisDoc(
+        chain_id=CHAIN, genesis_time=Timestamp(1700000000, 0),
+        validators=[tgen.GenesisValidator(
+            address=b"", pub_key_type="ed25519", pub_key_bytes=p, power=10,
+            name=f"v{i}") for i, p in enumerate(pubs[:n])])
+    gdoc.validate_and_complete()
+    return gdoc, dict(zip(pubs, a_list)), pubs
+
+
+def oracle_bits17(commit, vset):
+    """OpenSSL's verdict on every signature of a full commit, in the set's
+    order (the lanes' order)."""
+    msgs = commit_sign_bytes_batch(CHAIN, commit,
+                                   list(range(len(vset.validators))))
+    return np.array([edkeys._ossl_verify(v.pub_key.bytes(), m, cs.signature)
+                     for v, m, cs in zip(vset.validators, msgs,
+                                         commit.signatures)], dtype=bool)
+
+
+check(edkeys._HAVE_OSSL, "phase 17: the cryptography package (OpenSSL) is "
+      "missing, and the commits' bitmaps are held against OpenSSL's")
+root17 = tempfile.mkdtemp(prefix="tm17_")
+obsv.reset()
+stage_apply0 = ConsensusMetrics().height_stage.count(stage="apply")
+cases17: dict = {}
+oracle17 = []           # (case, kernel, launch index, commit, verifying set)
+
+# -- the 150-validator localnet and its cases
+gdoc17, a_of17, pubs17 = chain_keys17(N17)
+app17 = KVStoreApplication()
+ch = Chain17("localnet150", gdoc17, root17,
+             AppConns(ClientCreator.local(app17)), index=True)
+chain_blocks17 = []     # (block, parts, bid, seen commit), by height
+last17 = Commit(0, 0, BlockID(), [])
+t150 = time.perf_counter()
+for h in range(1, H17 + 1):
+    txs = txs17(h, TXS17)
+    vals = ch.state.validators.validators
+    if h == POWER17:        # a power change: the set reorders
+        txs[-1] = val_tx17(vals[3].pub_key.bytes(), 37)
+    if h == POWER17_COMB:   # another, inside the prewarmed stretch
+        txs[-1] = val_tx17(vals[-1].pub_key.bytes(), 41)
+    if h == JOIN17:         # a key joins: the comb's set misses
+        txs[-1] = val_tx17(pubs17[N17], 10)
+    block, parts, bid = ch.make(h, txs, last17)
+    verifier = ch.state.last_validators
+    if h == TAMPER17:
+        bad, _, bad_bid = ch.make(h, txs, flip17(last17))
+        state0 = ch.state
+        e, c, _ = ch.try_apply(bad, bad_bid, "tampered last commit",
+                               "bulk.ed25519", refused=CommitVerifyError)
+        app_h = app17.info(abci_t.RequestInfo()).last_block_height
+        check(ch.state is state0
+              and ch.state_store.load().last_block_height == h - 1
+              and app_h == h - 1 and c["verify_packed"] == 1,
+              f"phase 17: the tampered last commit: {e!r}, {c}, app at "
+              f"{app_h}")
+        cases17["tampered"] = {"height": h, "error": f"{type(e).__name__}: "
+                               f"{e}", "launches": c, "app_height": app_h}
+        oracle17.append(("tampered", "verify_packed",
+                         len(keep17["verify_packed"]) - 1, flip17(last17),
+                         verifier))
+    if h == PREVERIFIED17:
+        # the last commit short of a third of its signatures, marked as
+        # verified: no signature is checked, the power still is
+        weak = Commit(last17.height, last17.round, last17.block_id,
+                      [CommitSig.absent() if i % 3 == 0 else cs
+                       for i, cs in enumerate(last17.signatures)])
+        wblock, _, wbid = ch.make(h, txs, weak)
+        ch.ex.mark_commit_verified(h - 1, weak)
+        e, c, _ = ch.try_apply(wblock, wbid, "pre-verified, short of 2/3 "
+                               "power", None, refused=CommitVerifyError)
+        check(sum(c.values()) == 0 and "voting power" in str(e),
+              f"phase 17: the pre-verified short commit: {e!r}, {c}")
+        ch.ex.mark_commit_verified(h - 1, last17)
+        cases17["preverified"] = {"height": h, "short_error": str(e),
+                                  "short_launches": c}
+    if h == PREWARM17:
+        keys = [v.pub_key.bytes() for v in verifier.validators]
+        label17[0] = f"{ch.name} prewarm at h{h}"
+        t = time.perf_counter()
+        built, c = main_path(lambda: E.prewarm(keys, device=DEV))
+        check(built and c["comb_build"] == 1,
+              f"phase 17: prewarm {built}, {c}")
+        cases17["prewarm"] = {"height": h, "keys": len(keys), "launches": c,
+                              "wall_s": time.perf_counter() - t}
+        keys_comb17 = keys
+    seen = sign17(ch.state, bid, h, a_of17)
+    ch.save(block, parts, seen)
+    route = ch.apply(block, bid, "pre-verified" if h == PREVERIFIED17
+                     else "block")
+    if h == 3:
+        oracle17.append(("K1", "verify_packed",
+                         len(keep17["verify_packed"]) - 1, last17, verifier))
+    if h == POWER17_COMB + 3:
+        oracle17.append(("C2 after a power change", "comb_verify",
+                         len(keep17["comb_verify"]) - 1, last17, verifier))
+    chain_blocks17.append((block, parts, bid, seen))
+    last17 = seen
+wall150 = time.perf_counter() - t150
+# the socket replay below verifies its commits on the ladder
+E.table_cache_clear()
+routes150 = "".join({"K1": "1", "K2": "2", "C2": "c", "none": "."}[r["route"]]
+                    for r in ch.rows)
+want150 = "".join(
+    "." if h in (1, PREVERIFIED17) else
+    "c" if PREWARM17 <= h < JOIN17 + 3 else "1" for h in range(1, H17 + 1))
+check(routes150 == want150, f"phase 17: routes {routes150} != {want150}")
+cases17["power_change"] = {
+    "heights": [POWER17, POWER17_COMB], "join": JOIN17,
+    "reordered": [r["route"] for r in ch.rows
+                  if r["height"] in (POWER17 + 3, POWER17_COMB + 3)],
+    "after_join": ch.rows[JOIN17 + 3 - 1]["route"]}
+log(phase=17, card=CARD, chain=ch.name, heights=H17, txs=TXS17,
+    routes=routes150, wall_s=wall150, blocks_per_s=H17 / wall150,
+    txs_per_s=H17 * TXS17 / wall150,
+    slowest_applies=sorted(((r["wall_s"], r["gc_s"], r["height"])
+                            for r in ch.rows), reverse=True)[:3],
+    cases=cases17)
+
+
+# -- the indexer, drained (with a timeout) before it is queried
+last_tx = chain_blocks17[-1][0].data.txs[-1]
+end = time.monotonic() + 60
+while ch.tx_ix.get(tblock.tx_hash(last_tx)) is None \
+        or not ch.blk_ix.search(f"block.height = '{H17}'")["blocks"]:
+    check(time.monotonic() < end, "phase 17: the indexer did not drain "
+          "in 60 s")
+    time.sleep(0.01)
+drain17 = time.perf_counter() - t150 - wall150
+index17 = {"drain_after_last_apply_s": drain17}
+want30 = [tblock.tx_hash(tx).hex().upper()
+          for tx in chain_blocks17[29][0].data.txs]
+for q in ("tx.height = 30", "tx.height = '30'"):
+    t = time.perf_counter()
+    got = ch.tx_ix.search(q, per_page=TXS17)
+    index17[q] = {"wall_s": time.perf_counter() - t,
+                  "total": got["total_count"]}
+    check(got["total_count"] == TXS17
+          and [r["hash"] for r in got["txs"]] == want30
+          and all(r["height"] == 30 for r in got["txs"]),
+          f"phase 17: {q!r} found {got['total_count']} txs")
+h_get = min(42, H17)
+tx7 = chain_blocks17[h_get - 1][0].data.txs[7]
+t = time.perf_counter()
+got = ch.tx_ix.get(tblock.tx_hash(tx7))
+index17["get_wall_s"] = time.perf_counter() - t
+check(got is not None and got["height"] == h_get and got["index"] == 7
+      and base64.b64decode(got["tx"]) == tx7 and got["tx_result"]["code"]
+      == 0, f"phase 17: TxIndexer.get {got}")
+# the node's disk layout: block 30's txs indexed into SQLite, a commit for
+# each key, with the same search result
+sq = SQLiteDB(os.path.join(ch.dir, "tx_index.db"))
+t = time.perf_counter()
+TxIndexer(sq).index_block_txs(30, chain_blocks17[29][0].data.txs,
+                              ch.state_store.load_abci_responses(30)
+                              .deliver_txs)
+index17["sqlite_block_s"] = time.perf_counter() - t
+got = TxIndexer(sq).search("tx.height = '30'", per_page=TXS17)
+sq.close()
+check([r["hash"] for r in got["txs"]] == want30,
+      "phase 17: the SQLite index of block 30")
+log(phase=17, card=CARD, indexer=index17)
+
+# -- the socket transport: the same kvstore served by ABCIServer on a unix
+# socket, the first heights of the same blocks through ClientCreator.remote
+sock_dir = tempfile.mkdtemp(prefix="tm17s_")
+sock_path = os.path.join(sock_dir, "app.sock")
+if len(sock_path) > 100:    # an AF_UNIX path holds ~107 bytes
+    sock_path = os.path.relpath(sock_path)
+srv17 = ABCIServer(KVStoreApplication(), f"unix://{sock_path}")
+srv17.start()
+conns17 = AppConns(ClientCreator.remote(f"unix://{sock_path}"))
+sk = Chain17("socket150", gdoc17, root17, conns17, index=False)
+t = time.perf_counter()
+for block, parts, bid, seen in chain_blocks17[:SOCKET17]:
+    sk.save(block, parts, seen)
+    sk.apply(block, bid)
+wall_sock = time.perf_counter() - t
+info17 = conns17.query.info(abci_t.RequestInfo())
+conns17.stop()
+srv17.stop()
+sk.close()
+same = [(a["app_hash"], a["results_hash"], a["validators_hash"])
+        == (b["app_hash"], b["results_hash"], b["validators_hash"])
+        for a, b in zip(sk.rows, ch.rows)]
+check(len(sk.rows) == SOCKET17 and all(same)
+      and info17.last_block_height == SOCKET17
+      and info17.last_block_app_hash.hex() == ch.rows[SOCKET17 - 1][
+          "app_hash"],
+      f"phase 17: the socket chain's hashes {same}, info {info17}")
+socket17 = {"heights": SOCKET17, "wall_s": wall_sock,
+            "blocks_per_s": SOCKET17 / wall_sock,
+            "txs_per_s": SOCKET17 * TXS17 / wall_sock,
+            "routes": [r["route"] for r in sk.rows],
+            "app_hashes_equal": sum(same)}
+log(phase=17, card=CARD, chain=sk.name, **socket17)
+
+# -- restart (both databases closed and reopened) and rollback
+last_state = ch.state
+ch.close()
+ch.open_stores()
+loaded = ch.state_store.load()
+check(state_view17(loaded) == state_view17(last_state),
+      "phase 17: the reopened state store's State differs from the last "
+      "state")
+check(ch.block_store.height() == H17 and ch.block_store.base() == 1,
+      f"phase 17: the reopened block store at {ch.block_store.height()}")
+t = time.perf_counter()
+for h in range(1, H17 + 1):
+    meta = ch.block_store.load_block_meta(h)
+    blk = ch.block_store.load_block(h)
+    check(blk.hash() == meta.block_id.hash == chain_blocks17[h - 1][2].hash
+          and ch.block_store.load_seen_commit(h).hash()
+          == chain_blocks17[h - 1][3].hash(),
+          f"phase 17: the stored block at {h}")
+reload_s = time.perf_counter() - t
+meta60 = ch.block_store.load_block_meta(H17)
+rb = rollback(ch.block_store, ch.state_store)
+check(rb == (H17 - 1, meta60.header.app_hash)
+      and rb[1].hex() == ch.rows[H17 - 2]["app_hash"]
+      and ch.state_store.load().last_block_height == H17 - 1,
+      f"phase 17: rollback {rb}")
+restart17 = {"blocks_reloaded_s": reload_s, "rollback": [rb[0], rb[1].hex()]}
+ch.close()
+log(phase=17, card=CARD, restart=restart17)
+
+# -- the 10,000-validator chain, with a power change at height 2:
+# the commit of height 4 is signed by the reordered set, and block 5
+# verifies it on K2 after a pubkey-row cache miss
+gdoc_big, a_of_big, _ = chain_keys17(N17_BIG)
+big = Chain17(f"chain{N17_BIG}", gdoc_big, root17,
+              AppConns(ClientCreator.local(KVStoreApplication())),
+              index=False)
+last_big = Commit(0, 0, BlockID(), [])
+hits_big = []
+t_big = time.perf_counter()
+for h in range(1, H17_BIG + 1):
+    txs = txs17(h, TXS17_BIG)
+    if h == POWER17_BIG:
+        txs[-1] = val_tx17(
+            big.state.validators.validators[5].pub_key.bytes(), 20)
+    block, parts, bid = big.make(h, txs, last_big)
+    verifier = big.state.last_validators
+    seen = sign17(big.state, bid, h, a_of_big)
+    big.save(block, parts, seen)
+    h0, m0 = E._pub_cache.hits, E._pub_cache.misses
+    big.apply(block, bid)
+    hits_big.append((E._pub_cache.hits - h0, E._pub_cache.misses - m0))
+    if h == POWER17_BIG + 3:
+        oracle17.append(("K2 on the reordered set", "verify_packed_split",
+                         len(keep17["verify_packed_split"]) - 1, last_big,
+                         verifier))
+    last_big = seen
+wall_big = time.perf_counter() - t_big
+big.close()
+check([r["route"] for r in big.rows] == ["none"] + ["K2"] * (H17_BIG - 1),
+      f"phase 17: the {N17_BIG}-validator routes "
+      f"{[r['route'] for r in big.rows]}")
+# block 2 meets the set first; blocks 3 and 4 hit; block 5 carries the
+# reordered set's commit: a miss; block 6 hits
+check(hits_big[1:] == [(0, 1), (1, 0), (1, 0), (0, 1), (1, 0)][:H17_BIG - 1],
+      f"phase 17: pubkey-row cache (hits, misses) by height {hits_big}")
+big17 = {"heights": H17_BIG, "txs": TXS17_BIG, "wall_s": wall_big,
+         "applies_wall_gc_s": [(r["wall_s"], r["gc_s"]) for r in big.rows],
+         "blocks_per_s": H17_BIG / wall_big,
+         "txs_per_s": H17_BIG * TXS17_BIG / wall_big,
+         "pub_cache_hits_misses": hits_big}
+log(phase=17, card=CARD, chain=big.name, **big17)
+
+# -- every launch of the phase against its plain version on the same
+# inputs (concatenated: each lane's verdict depends on its row alone), and
+# commits' bitmaps against OpenSSL's
+label17[0] = ""
+gc.callbacks.remove(_gc17)
+for _name in keep17:
+    setattr(KERNEL_MOD[_name], _name, was17[_name])
+ValidatorSet.verify_commit = REAL17["verify_commit"]
+sexec.update_state = REAL17["update_state"]
+cmp17 = {name: [] for name in keep17}
+t = time.perf_counter()
+for name, plain in (("verify_packed", ck.verify_packed_plain),
+                    ("verify_packed_split", ck.verify_packed_split_plain)):
+    for chain in (ch.name, sk.name, big.name):
+        runs = [(args, out) for label, args, out in keep17[name]
+                if label.startswith(chain + " ")]
+        if not runs:
+            continue
+        got = torch.cat([out for _, out in runs]).cpu().numpy()
+        want = []
+        lanes = sum(out.shape[0] for _, out in runs)
+        step = 16_384
+        cols = [torch.cat([args[k] for args, _ in runs], dim=1)
+                for k in range(len(runs[0][0]))]
+        for a in range(0, lanes, step):
+            want.append(plain(*[c[:, a:a + step] for c in cols]).cpu())
+        want = torch.cat(want).numpy()
+        err = np.abs(got.astype(int) - want.astype(int))
+        cmp17[name].append((f"phase 17 {chain}: {len(runs)} launches",
+                            lanes, int(err.sum()), float(err.max())))
+for label, args, (tab, ok) in keep17["comb_build"]:
+    ptab, pok = cc.comb_build_plain(args[0])
+    cmp17["comb_build"].append(
+        (f"phase 17 {label}", args[0].shape[0],
+         cc.tables_mismatch(tab, ptab) + int((ok != pok).sum())))
+check(len(keep17["comb_build"]) == 1
+      and all(args[1] is keep17["comb_build"][0][2][0]
+              for _, args, _ in keep17["comb_verify"]),
+      "phase 17: a C2 launch on another table than the prewarm's")
+ptab, pok = plain_tables(keys_comb17)
+rows_c2 = torch.cat([args[0] for _, args, _ in keep17["comb_verify"]])
+got = torch.cat([out for _, _, out in keep17["comb_verify"]]).cpu().numpy()
+cmp17["comb_verify"].append(c2_row(
+    f"phase 17 {ch.name}: {len(keep17['comb_verify'])} launches", got,
+    cc.comb_verify_plain(rows_c2, ptab, pok).cpu().numpy()))
+plain17_s = time.perf_counter() - t
+t = time.perf_counter()
+oracle_rows = []
+for case, name, i, commit, vset in oracle17:
+    bits = oracle_bits17(commit, vset)
+    kernel = keep17[name][i][2].cpu().numpy()
+    n = len(bits)
+    expect = np.ones(n, dtype=bool)
+    if case == "tampered":
+        expect[0] = False
+    oracle_rows.append((case, n, int((kernel[:n] != bits).sum()),
+                        int(kernel[n:].sum()), bool((bits == expect).all())))
+check(len(oracle_rows) >= 3 and all(r[2] == 0 and r[3] == 0 and r[4]
+                                    for r in oracle_rows),
+      f"phase 17: kernel bitmaps against OpenSSL's {oracle_rows}")
+oracle17_s = time.perf_counter() - t
+
+# -- the observatory: one apply stage for each height applied
+obsv.publish_pending()
+applied = {c.name: len(c.rows) for c in (ch, sk, big)}
+stamped = {c.name: sum(r["stages"].get("apply") is not None
+                       for r in obsv.records(c.name)) for c in (ch, sk, big)}
+stage_apply = ConsensusMetrics().height_stage.count(stage="apply") \
+    - stage_apply0
+check(stamped == applied and stage_apply == sum(applied.values()),
+      f"phase 17: observatory apply stages {stamped}, {stage_apply}, "
+      f"applied {applied}")
+E.table_cache_clear()
+staging_clear(17)
+check(devobs.ledger_report().get("table_cache", {}).get("bytes") == 0,
+      "phase 17: the table_cache pool is not back to 0")
+shutil.rmtree(root17)
+shutil.rmtree(sock_dir, ignore_errors=True)
+launches17 = {name: len(v) for name, v in keep17.items()}
+blocks17 = {
+    "chains": {c.name: c.rows for c in (ch, sk, big)},
+    "steps_s": steps17, "cases": cases17, "socket": socket17,
+    "indexer": index17, "restart": restart17, "big": big17,
+    "comparisons": cmp17, "openssl": oracle_rows, "launches": launches17,
+    "observatory_apply": stamped, "plain_s": plain17_s,
+    "gc": {"collections": gc17["n"], "seconds": gc17["s"]},
+    "openssl_s": oracle17_s, "localnet_wall_s": wall150,
+    "localnet_blocks_per_s": H17 / wall150,
+    "localnet_txs_per_s": H17 * TXS17 / wall150,
+    "phase_s": time.perf_counter() - T17}
+log(phase=17, card=CARD, steps_s={
+    c: {s: [n, round(v, 6)] for s, (n, v) in d.items()}
+    for c, d in steps17.items()}, launches=launches17,
+    comparisons=cmp17, openssl=oracle_rows, observatory_apply=stamped,
+    gc=blocks17["gc"], plain_s=plain17_s, phase_s=blocks17["phase_s"])
+check(all(r[2] == 0 for rows in cmp17.values() for r in rows),
+      f"phase 17: a kernel disagrees with its plain version: {cmp17}")
+REPORT["blocks_through_executor"] = blocks17
+
+# -- phase 18: the kernels line -----------------------------------------------
 
 src = "tendermint_tpu_torch/csrc/ed25519_verify.cu"
 # each comparison: (input, lanes, mismatching lanes, max |kernel - plain|)
 k1_cmp = [("phase-3 vectors + seeded", k1_cmp_lanes, k1_mism,
            float(np.abs(k1_raw.astype(int) - plain_raw.astype(int)).max())),
-          cmp4, cmp6, cmp13] + cmp16["verify_packed"]
+          cmp4, cmp6, cmp13] + cmp16["verify_packed"] \
+    + cmp17["verify_packed"]
 k2_cmp = [("phase-3 vectors + seeded", len(k2_raw3), k2_mism3,
            float(np.abs(k2_raw3.astype(int) - k2_plain3.astype(int)).max())),
           ("100k slice", 4096, k2_mism,
            float(np.abs(k2_raw.astype(int) - k2_plain.astype(int)).max())),
-          cmp5] + cmp16["verify_packed_split"]
+          cmp5] + cmp16["verify_packed_split"] \
+    + cmp17["verify_packed_split"]
 k3_cmp = [("phase-3 vectors + seeded", len(k3_raw3), k3_mism3,
            float(np.abs(k3_raw3.astype(int) - k3_plain3.astype(int)).max())),
           cmp11]
@@ -3459,8 +4151,8 @@ for name, key, src_f, replaces, cmps, bound in (
          "bound_by": "operations", "library_ms": None})
 # C1 and C2 (XLA functions of the JAX package, not Pallas kernels): C1 at
 # the 1,024-key set, held as field values; C2 at 65,536 lanes, as bitmaps
-cmp15 += cmp16["comb_build"]
-c2_cmp += cmp16["comb_verify"]
+cmp15 += cmp16["comb_build"] + cmp17["comb_build"]
+c2_cmp += cmp16["comb_verify"] + cmp17["comb_verify"]
 c2_vs_k1 += c2_vs_k1_16
 comb_src = "tendermint_tpu_torch/csrc/comb.cu"
 kernels.append(

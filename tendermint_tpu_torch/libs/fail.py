@@ -71,6 +71,18 @@ REGISTERED_SITES = frozenset({
     # make_block_parts (raise = the serial PartSet.from_data, with
     # byte-identical parts; latency = a slow split, absorbed)
     "propose.parts",
+    # the mempool reap of state/execution.py create_proposal_block
+    # (raise = an empty block, never a stalled round)
+    "propose.reap",
+    # the GroupCommitDB write seam of libs/kvdb.py commit_group (raise =
+    # the taken group stays in flight, visible to readers, and the
+    # synchronous flush() lands it)
+    "kvdb.group_commit",
+    # consensus observatory (consensus/observatory.py): fires on every
+    # stamp/receipt.  raise = the recording sheds (counted in
+    # consensus_observatory_shed_total{reason=chaos}) while the state
+    # machine it observes proceeds untouched
+    "observatory.record",
     # device observatory (crypto/devobs.py): fires on every launch-record
     # store.  raise = the record sheds (counted in
     # crypto_devobs_shed_total{reason=chaos}) while the device launch and

@@ -4,10 +4,13 @@ The counterpart of tendermint_tpu/libs/metrics.py for the families the
 port publishes: counters, gauges and histograms with optional label
 dimensions, a process-global default registry (tests may build private
 registries), rendered in the Prometheus text format.  The bundles here
-are CryptoMetrics (the device-lane degradation runtime, routes, the
-VerifyScheduler, request latency, SLO gauges), DevObsMetrics (the device
-observatory of crypto/devobs.py) and TraceMetrics (the flight recorder's
-own drop counter); the node's other families are not ported yet.
+are ConsensusMetrics (the consensus observatory's stage histograms and
+shed counter, and the consensus gauges), StateMetrics (the
+BlockExecutor's), CryptoMetrics (the device-lane degradation runtime,
+routes, the VerifyScheduler, request latency, SLO gauges), DevObsMetrics
+(the device observatory of crypto/devobs.py) and TraceMetrics (the
+flight recorder's own drop counter); the node's other families are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -253,6 +256,84 @@ class Registry:
 
 
 DEFAULT = Registry()
+
+
+class ConsensusMetrics:
+    """Reference consensus/metrics.go:22-40."""
+
+    def __init__(self, reg: Optional[Registry] = None):
+        reg = reg or DEFAULT
+        self.height = reg.gauge("consensus", "height",
+                                "Height of the chain.")
+        self.rounds = reg.gauge("consensus", "rounds",
+                                "Round of the current height.")
+        self.round_duration = reg.histogram(
+            "consensus", "round_duration_seconds",
+            "Time spent in a round.",
+            buckets=exp_buckets(0.1, (100 / 0.1) ** (1 / 8), 9))
+        self.validators = reg.gauge("consensus", "validators",
+                                    "Number of validators.")
+        self.validators_power = reg.gauge(
+            "consensus", "validators_power", "Total voting power.")
+        self.num_txs = reg.gauge("consensus", "num_txs",
+                                 "Transactions in the latest block.")
+        self.total_txs = reg.counter("consensus", "total_txs",
+                                     "Total committed transactions.")
+        self.block_interval = reg.histogram(
+            "consensus", "block_interval_seconds",
+            "Time between this and the last block.")
+        self.block_size_bytes = reg.gauge(
+            "consensus", "block_size_bytes", "Size of the latest block.")
+        self.commit_round = reg.gauge(
+            "consensus", "commit_round", "Round at which the last block "
+            "committed.")
+        self.block_parts = reg.counter(
+            "consensus", "block_parts",
+            "Block parts transmitted per peer.", labels=("peer_id",))
+        self.quorum_prevote_delay = reg.gauge(
+            "consensus", "quorum_prevote_delay",
+            "Seconds from proposal time to 2/3 prevotes.")
+        # consensus observatory (consensus/observatory.py, ADR-020):
+        # where the block interval goes, per lifecycle stage
+        self.height_stage = reg.histogram(
+            "consensus", "height_stage_seconds",
+            "Per-height block-lifecycle stage durations (propose / "
+            "gossip / prevote_wait / precommit_wait / commit / apply / "
+            "persist / interval), from the consensus observatory.",
+            labels=("stage",),
+            buckets=exp_buckets(0.001, 10 ** 0.5, 10))
+        self.observatory_shed = reg.counter(
+            "consensus", "observatory_shed_total",
+            "Observatory records shed (reason=chaos: a recording fault "
+            "was swallowed; reason=evict: ring overflow).",
+            labels=("reason",))
+
+
+class StateMetrics:
+    """Reference state/execution.go:202 + state/metrics.go."""
+
+    def __init__(self, reg: Optional[Registry] = None):
+        reg = reg or DEFAULT
+        self.block_processing_time = reg.histogram(
+            "state", "block_processing_time",
+            "Time to process a block (ApplyBlock), seconds.")
+        self.batch_verify_size = reg.histogram(
+            "state", "batch_verify_size",
+            "Signatures per batched verify call (the card's data plane).",
+            buckets=[1, 4, 16, 64, 256, 1024, 4096, 16384, 65536])
+        self.proposal_create_seconds = reg.histogram(
+            "state", "proposal_create_seconds",
+            "Proposer fast-path stage walls (ADR-024): reap (budgeted "
+            "mempool scan), prepare (PrepareProposal round trip), "
+            "assemble (make_block incl. data hash), split (part-set "
+            "construction + send), seconds.",
+            labels=("stage",), buckets=exp_buckets(0.0005, 4, 10))
+        self.parts_streamed_total = reg.counter(
+            "state", "parts_streamed_total",
+            "Block parts handed to gossip by the proposer's streaming "
+            "part-set path (ADR-024), by construction path (streaming "
+            "= lazy proofs, serial = PartSet.from_data fallback).",
+            labels=("path",))
 
 
 class CryptoMetrics:

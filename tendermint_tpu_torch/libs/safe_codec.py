@@ -25,9 +25,7 @@ def _register_defaults():
     """The JAX package's allow-list, for the modules this package has.
     Still to come with the modules that define them: the consensus
     messages (consensus.round_types ProposalMessage, BlockPartMessage,
-    VoteMessage, TimeoutInfo, Step; consensus.wal EndHeightMessage) and
-    the stored state (state.state State; state.execution
-    ABCIResponses)."""
+    VoteMessage, TimeoutInfo, Step; consensus.wal EndHeightMessage)."""
     global _defaults_done
     _defaults_done = True
     import tendermint_tpu_torch.abci.types as abci_types
@@ -38,6 +36,8 @@ def _register_defaults():
     # blocks, light blocks in the light store)
     from tendermint_tpu_torch.types import evidence, light_block  # noqa: F401
     from tendermint_tpu_torch.crypto import ed25519, merkle
+    from tendermint_tpu_torch.state import execution
+    from tendermint_tpu_torch.state import state as sm_state
 
     for cls in (
         basic.Timestamp, basic.BlockID, basic.PartSetHeader,
@@ -47,11 +47,12 @@ def _register_defaults():
         commit.Commit, commit.CommitSig,
         part_set.Part, merkle.Proof,
         proposal.Proposal, vote.Vote,
-        # storage-side graph (validators/params/ABCI responses)
+        # storage-side graph (state/validators/params/ABCI responses)
         validator.Validator, validator_set.ValidatorSet,
         ed25519.PubKey, ed25519.PrivKey,
         params.ConsensusParams, params.BlockParams, params.EvidenceParams,
         params.ValidatorParams, params.VersionParams,
+        sm_state.State, execution.ABCIResponses,
     ):
         register(cls)
     # every ABCI request/response dataclass (stored in SaveABCIResponses)

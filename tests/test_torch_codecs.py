@@ -51,14 +51,12 @@ def test_malicious_pickle_payload_is_inert(pkg):
 
 
 # the classes the JAX package's allow-list names that wait for the port's
-# consensus (round_types, wal) and state (state, execution) modules
+# consensus modules (round_types, wal)
 WAITING = {
     ("tendermint_tpu_torch.consensus.round_types", n)
     for n in ("ProposalMessage", "BlockPartMessage", "VoteMessage",
               "TimeoutInfo", "Step")} | {
-    ("tendermint_tpu_torch.consensus.wal", "EndHeightMessage"),
-    ("tendermint_tpu_torch.state.state", "State"),
-    ("tendermint_tpu_torch.state.execution", "ABCIResponses")}
+    ("tendermint_tpu_torch.consensus.wal", "EndHeightMessage")}
 
 
 def test_allow_list_is_the_reference_less_waiting_classes():

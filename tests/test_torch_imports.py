@@ -73,6 +73,21 @@ def test_types_modules_are_checked():
         assert f"tendermint_tpu_torch.{m}" in mods, m
 
 
+def test_storage_and_execution_modules_are_checked():
+    """Storage, ABCI and block execution (the key-value stores, the
+    pubsub query, the snapshot integrity, the ABCI wire, server, client
+    and kvstore, the proxy, the state and its store, the block store, the
+    consensus observatory, the BlockExecutor, rollback, the indexers and
+    the event sinks) are among the modules the checks below cover."""
+    mods = _port_modules()
+    for m in ("libs.kvdb", "libs.pubsub_query", "statesync.integrity",
+              "abci.wire", "abci.server", "abci.client", "abci.kvstore",
+              "proxy", "state.state", "state.store", "store.block_store",
+              "consensus.observatory", "state.execution", "state.rollback",
+              "state.indexer", "state.sinks"):
+        assert f"tendermint_tpu_torch.{m}" in mods, m
+
+
 def test_scheduler_cuda_missing_raises(monkeypatch):
     """With no CUDA and no device='cpu', the scheduler's constructor and
     its sync wrapper raise instead of running on the CPU."""

@@ -196,7 +196,30 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      C2 launch of the phase held against its plain version, four
      commits' kernel bitmaps against OpenSSL's, one observatory apply
      stage a height applied; each step's host wall logged, not gated
- 18  the kernels line; then the last line {"ok": true, "device": ...}
+ 18  blocksync replay (BASELINE config 4, its depth cut from 50,000 blocks to
+     256): a 150-validator kvstore chain of 256 heights of 100 txs served
+     from a BlockStore (each certifier the next block's LastCommit, the
+     last the seen commit); blocksync.replay_window in windows of 64 into
+     fresh SQLite stores, one coalesced verify_items a window on K1 (the
+     LastCommits pre-verified, so validate_block launches nothing); the
+     same through a BlockPipeline (depth 4, group commits of 8 heights,
+     GroupCommitDB stores) over a VerifyScheduler on the card, the same
+     state and store contents; two bad windows (a lying certifier's
+     prefix lane, a block whose LastCommit holds a bad non-prefix lane),
+     serial and pipelined, attributed to their height; a prewarmed window
+     on C2 (C1 at 256 keys); two Switches on 127.0.0.1 (SecretConnection,
+     MConnection, BlocksyncReactor) syncing the chain to height 255; phase
+     17's 10,000-validator chain from its block store (the windows stop
+     at its set change: K1 at >= 16,384 lanes, the strict window on K2
+     with a pubkey-row cache miss); K1's wrapper raising with no
+     failpoint armed in a serial window, a pipelined window and the
+     reactor's sync (WindowDeviceError with the applied state, no
+     WindowSyncError, no redo, no peer stopped, no host re-verify), then
+     the replays and the sync finished.  Every K1, K2, C1 and C2 launch
+     of the phase held against its plain version, three windows'
+     bitmaps against OpenSSL's; each window's collect, verify and apply
+     walls, blocks/s and signatures/s logged, not gated
+ 19  the kernels line; then the last line {"ok": true, "device": ...}
 
 Signatures come from a seeded incremental generator (a_i = a_0 + i, so
 A_i = A_{i-1} + B), because signing 100k triples one by one in pure
@@ -278,8 +301,18 @@ from tendermint_tpu_torch.abci.kvstore import KVStoreApplication  # noqa: E402
 from tendermint_tpu_torch.abci.server import ABCIServer  # noqa: E402
 from tendermint_tpu_torch.abci.types import ResponseDeliverTx  # noqa: E402
 from tendermint_tpu_torch.consensus import observatory as obsv  # noqa: E402
-from tendermint_tpu_torch.libs.kvdb import MemDB, SQLiteDB  # noqa: E402
+from tendermint_tpu_torch.blocksync import replay as breplay  # noqa: E402
+from tendermint_tpu_torch.blocksync.pool import BlockPool  # noqa: E402
+from tendermint_tpu_torch.blocksync.reactor import \
+    BlocksyncReactor  # noqa: E402
+from tendermint_tpu_torch.libs.kvdb import (GroupCommitDB, MemDB,  # noqa: E402
+                                            SQLiteDB)
 from tendermint_tpu_torch.libs.metrics import ConsensusMetrics  # noqa: E402
+from tendermint_tpu_torch.libs.metrics import P2PMetrics  # noqa: E402
+from tendermint_tpu_torch.p2p import netobs  # noqa: E402
+from tendermint_tpu_torch.p2p.key import NodeKey  # noqa: E402
+from tendermint_tpu_torch.p2p.switch import Switch  # noqa: E402
+from tendermint_tpu_torch.state import pipeline as bpipe  # noqa: E402
 from tendermint_tpu_torch.proxy import AppConns, ClientCreator  # noqa: E402
 from tendermint_tpu_torch.state import execution as sexec  # noqa: E402
 from tendermint_tpu_torch.state.indexer import (  # noqa: E402
@@ -4029,7 +4062,6 @@ E.table_cache_clear()
 staging_clear(17)
 check(devobs.ledger_report().get("table_cache", {}).get("bytes") == 0,
       "phase 17: the table_cache pool is not back to 0")
-shutil.rmtree(root17)
 shutil.rmtree(sock_dir, ignore_errors=True)
 launches17 = {name: len(v) for name, v in keep17.items()}
 blocks17 = {
@@ -4052,20 +4084,807 @@ check(all(r[2] == 0 for rows in cmp17.values() for r in rows),
       f"phase 17: a kernel disagrees with its plain version: {cmp17}")
 REPORT["blocks_through_executor"] = blocks17
 
-# -- phase 18: the kernels line -----------------------------------------------
+# -- phase 18: blocksync replay -----------------------------------------------
+
+# BASELINE config 4 (`BASELINE.md:33`: blocksync fast-sync replay, 50k blocks
+# x 150 validators, coalesced batches), its depth cut to 256 heights to keep
+# the smoke inside its time limit.  A 150-validator kvstore chain of 256
+# heights of 100 txs, served from a BlockStore, is replayed by
+# blocksync.replay_window in windows of 64 (one coalesced verify_items a
+# window, on K1); then through a BlockPipeline over a VerifyScheduler on the
+# card; bad windows; a prewarmed window (C2); two Switches syncing it over
+# TCP on 127.0.0.1 (SecretConnection, MConnection, BlocksyncReactor); phase
+# 17's 10,000-validator chain from its block store; and launches that fail
+# on the card, which reach the caller as WindowDeviceError.  Walls are
+# host-clock, logged and not gated.
+N18, H18, TXS18, W18 = 150, 256, 100, 64
+BAD18 = 12               # the bad windows' height
+# the >2/3 prefix of a commit of N18 equal powers
+PREFIX18 = N18 * 10 * 2 // 3 // 10 + 1
+T18 = time.perf_counter()
+root18 = tempfile.mkdtemp(prefix="tm18_")
+# every K1, K2, C1 and C2 launch of the phase: (label, inputs, output)
+keep18 = {name: [] for name in ("verify_packed", "verify_packed_split",
+                                "comb_build", "comb_verify")}
+label18 = [""]
+was18 = {name: getattr(KERNEL_MOD[name], name) for name in keep18}
+
+
+def _keeping18(name):
+    """The bare wrapper (REAL), keeping a copy of every launch's tensor
+    inputs (C2's tables by reference) and its output."""
+    def wrapper(*args):
+        out = REAL[name](*args)
+        keep18[name].append((label18[0], [
+            a.clone() if isinstance(a, torch.Tensor)
+            and not (name == "comb_verify" and i == 1) else a
+            for i, a in enumerate(args)], out))
+        return out
+    return wrapper
+
+
+for _name in keep18:
+    setattr(KERNEL_MOD[_name], _name, _keeping18(_name))
+
+# each window's host walls: collect (the structural checks and item
+# collection), verify (verify_items; its launch record's stage and device
+# time) and apply; the current window's record is win18[0]
+win18 = [None]
+REAL18 = {"collect": breplay._collect_block_items,
+          "apply": breplay._apply_one, "verify_items": vsched.verify_items,
+          "light": ValidatorSet.verify_commit_light}
+calls18 = {"verify_items": 0, "light": 0}
+
+
+def _win_timed(key, fn):
+    def timed(*a, **k):
+        t = time.perf_counter()
+        try:
+            return fn(*a, **k)
+        finally:
+            w = win18[0]
+            if w is not None:
+                with _steps_lock:
+                    w[key] = w.get(key, 0.0) + time.perf_counter() - t
+    return timed
+
+
+def verify18(items, *a, **k):
+    calls18["verify_items"] += 1
+    seq0 = E.last_launch()["seq"]
+    t = time.perf_counter()
+    ok, bits = REAL18["verify_items"](items, *a, **k)
+    rec = dict(E.last_launch())
+    w = win18[0]
+    if w is not None:
+        w.setdefault("verifies", []).append({
+            "lanes": len(items), "wall_s": time.perf_counter() - t,
+            "stage_s": rec.get("stage_s") if rec["seq"] != seq0 else None,
+            "compute_s": rec.get("compute_s") if rec["seq"] != seq0
+            else None, "path": rec.get("path") if rec["seq"] != seq0
+            else None, "all_ok": bool(ok)})
+        w.setdefault("batches", []).append((items, bits))
+    return ok, bits
+
+
+def light18(self, *a, **k):
+    calls18["light"] += 1
+    return REAL18["light"](self, *a, **k)
+
+
+breplay._collect_block_items = _win_timed("collect_s", REAL18["collect"])
+breplay._apply_one = _win_timed("apply_s", REAL18["apply"])
+vsched.verify_items = verify18
+ValidatorSet.verify_commit_light = light18
+
+
+def app18(gdoc):
+    """A kvstore app past InitChain of the genesis validators, as phase
+    17's chains start."""
+    app = KVStoreApplication()
+    app.init_chain(abci_t.RequestInitChain(
+        chain_id=gdoc.chain_id, validators=[
+            abci_t.ValidatorUpdate("ed25519", v.pub_key_bytes, v.power)
+            for v in gdoc.validators]))
+    return app
+
+
+def build18(n, heights, txs_n, bad_lc=None):
+    """A kvstore chain of seeded keys, signed by real precommits: (genesis,
+    the served BlockStore holding each block with its parts and seen
+    commit, the state after each height, the keys).  bad_lc=(h, idx):
+    block h carries its LastCommit with signature idx flipped (a
+    proposer that included a bad signature; the chain stays linked).  The
+    builder trusts its own signatures (mark_commit_verified): it launches
+    nothing."""
+    gdoc, a_of, pubs = chain_keys17(n)
+    ex = sexec.BlockExecutor(StateStore(MemDB()), app18(gdoc))
+    state = state_from_genesis(gdoc)
+    store = BlockStore(MemDB())
+    last = Commit(0, 0, BlockID(), [])
+    states = []
+    for h in range(1, heights + 1):
+        lc = last
+        if bad_lc is not None and h == bad_lc[0]:
+            lc = flip_at18(last, bad_lc[1])
+        block = state.make_block(h, txs17(h, txs_n), lc, [],
+                                 state.validators.get_proposer().address,
+                                 block_time=Timestamp(1700000000 + h, 0))
+        parts = tparts.make_block_parts(block)
+        bid = BlockID(block.hash(), parts.header())
+        seen = sign17(state, bid, h, a_of)
+        if h > 1:
+            ex.mark_commit_verified(h - 1, lc)
+        state, _ = ex.apply_block(state, bid, block)
+        store.save_block(block, parts, seen)
+        states.append(state)
+        last = seen
+    return gdoc, store, states, pubs[:n]
+
+
+def flip_at18(commit, idx):
+    """The commit with signature idx's R flipped."""
+    sigs = list(commit.signatures)
+    s = sigs[idx]
+    sigs[idx] = CommitSig(s.block_id_flag, s.validator_address, s.timestamp,
+                          bytes([s.signature[0] ^ 1]) + s.signature[1:])
+    return Commit(commit.height, commit.round, commit.block_id, sigs)
+
+
+def served18(store, heights):
+    """The chain as a peer serves it: the blocks, and each one's certifier
+    (the next block's LastCommit; for the last, the seen commit)."""
+    blocks = [store.load_block(h) for h in range(1, heights + 1)]
+    certs = [blocks[i + 1].last_commit for i in range(heights - 1)] \
+        + [store.load_seen_commit(heights)]
+    return blocks, certs
+
+
+def node18(name, gdoc, grouped=False, sqlite=True):
+    """A syncing node: fresh block and state stores (SQLite, or MemDB),
+    GroupCommitDB-wrapped for the pipeline, and an executor on its default
+    device."""
+    if sqlite:
+        d = os.path.join(root18, name)
+        os.makedirs(d)
+        bdb = SQLiteDB(os.path.join(d, "blockstore.db"))
+        sdb = SQLiteDB(os.path.join(d, "state.db"))
+    else:
+        bdb, sdb = MemDB(), MemDB()
+    inner = (bdb, sdb)
+    if grouped:
+        bdb, sdb = GroupCommitDB(bdb), GroupCommitDB(sdb)
+    ex = sexec.BlockExecutor(StateStore(sdb), app18(gdoc))
+    return SimpleNamespace(name=name, ex=ex, store=BlockStore(bdb), bdb=bdb,
+                           sdb=sdb, inner=inner,
+                           state=state_from_genesis(gdoc))
+
+
+def window18(node, blocks, certs, site, max_window=W18):
+    """One replay_window call from the node's height on the main path
+    (launch counts zeroed just before and read just after); the state
+    advances.  Returns the window's record."""
+    h0 = node.state.last_block_height
+    w = {"node": node.name, "from": h0 + 1}
+    win18[0] = w
+    label18[0] = f"{node.name} w{h0 + 1}"
+    t = time.perf_counter()
+    try:
+        (state, n), c = main_path(lambda: breplay.replay_window(
+            node.ex, node.store, node.state, blocks[h0:], certs[h0:],
+            max_window=max_window), site=site)
+    finally:
+        win18[0] = None
+    w.update(applied=n, wall_s=time.perf_counter() - t, launches=c)
+    node.state = state
+    return w
+
+
+def replay18(node, blocks, certs, site, max_window=W18):
+    """Windows until the node holds every block given."""
+    rows = []
+    t = time.perf_counter()
+    while node.state.last_block_height < len(blocks):
+        rows.append(window18(node, blocks, certs, site, max_window))
+        check(rows[-1]["applied"] > 0, f"phase 18: {node.name} made no "
+              f"progress at {node.state.last_block_height}")
+    return rows, time.perf_counter() - t
+
+
+def db_items18(db):
+    return list(db.iterate_prefix(b""))
+
+
+def expect_window_error18(node, blocks, certs, exc):
+    """replay_window must raise exc; returns it."""
+    label18[0] = f"{node.name} bad"
+    win18[0] = w = {"node": node.name, "from": 1}
+    try:
+        breplay.replay_window(node.ex, node.store, node.state, blocks,
+                              certs, max_window=W18)
+    except exc as e:
+        return e, w
+    finally:
+        win18[0] = None
+    fail(f"phase 18: {node.name} did not raise {exc.__name__}")
+
+
+def wait18(cond, what, timeout):
+    end = time.monotonic() + timeout
+    while not cond():
+        check(time.monotonic() < end, f"phase 18: {what}")
+        time.sleep(0.005)
+
+
+def window_view18(rows):
+    """The logged part of each window's record."""
+    return [{k: v for k, v in r.items() if k != "batches"} for r in rows]
+
+
+check(not msm.use_rlc(10_000) and not failpoints.armed()
+      and vsched.installed() is None and bpipe.installed() is None,
+      "phase 18: RLC, a failpoint, a scheduler or a pipeline is still on")
+steps18: dict = {}
+oracle18 = []        # (window, items, bits, expected bad lanes)
+
+# -- step 1: the chain, at full width
+t = time.perf_counter()
+gdoc18, srv_store18, states18, keys18 = build18(N18, H18, TXS18)
+blocks18, certs18 = served18(srv_store18, H18)
+steps18["build_s"] = time.perf_counter() - t
+log(phase=18, card=CARD, step="chain", validators=N18, heights=H18,
+    txs=TXS18, build_s=steps18["build_s"])
+
+# -- step 2: serial replay (no scheduler, no pipeline), one coalesced
+# verify_items a window of 64 on K1
+ser18 = node18("serial", gdoc18)
+rows_ser, wall_ser = replay18(ser18, blocks18, certs18, "batch.ed25519")
+want_lanes = [(W18 - 1) * N18 + PREFIX18] \
+    + [W18 * N18 + PREFIX18] * (H18 // W18 - 1)
+check([r["applied"] for r in rows_ser] == [W18] * (H18 // W18)
+      and [[v["lanes"] for v in r["verifies"]] for r in rows_ser]
+      == [[n] for n in want_lanes]
+      and all(r["launches"]["verify_packed"] == 1
+              and sum(r["launches"].values()) == 1 for r in rows_ser),
+      f"phase 18: the serial windows {window_view18(rows_ser)}")
+check(state_view17(ser18.state) == state_view17(states18[-1])
+      and [ser18.store.load_block(h).hash() for h in range(1, H18 + 1)]
+      == [b.hash() for b in blocks18],
+      "phase 18: the serial replay's state or stored blocks differ from the "
+      "chain's")
+for r in rows_ser[:2]:
+    oracle18.append((f"serial w{r['from']}", *r["batches"][0], []))
+steps18["serial"] = {"wall_s": wall_ser, "blocks_per_s": H18 / wall_ser,
+                     "sigs_per_s": sum(want_lanes) / wall_ser,
+                     "windows": window_view18(rows_ser)}
+log(phase=18, card=CARD, step="serial", wall_s=wall_ser,
+    blocks_per_s=H18 / wall_ser, sigs_per_s=sum(want_lanes) / wall_ser,
+    windows=[(r["from"], r["applied"], r["verifies"][0]["lanes"],
+              round(r.get("collect_s", 0.0), 4),
+              round(r["verifies"][0]["wall_s"], 4),
+              r["verifies"][0]["stage_s"], r["verifies"][0]["compute_s"],
+              round(r.get("apply_s", 0.0), 4)) for r in rows_ser])
+
+
+# -- step 4 (serial half): bad windows.  "certifier": the certifier of
+# height BAD18 as a lying peer hands it, its lane 0 (in the >2/3 prefix)
+# flipped; "lastcommit": block BAD18 carries its LastCommit with lane N18-1
+# (outside the prefix) flipped, a chain built that way.  Both attribute
+# height BAD18 with the heights before it applied
+gdoc_bad, store_bad, states_bad, _ = build18(N18, BAD18 + 2, TXS18,
+                                             bad_lc=(BAD18, N18 - 1))
+blocks_bad, certs_bad = served18(store_bad, BAD18 + 2)
+certs_liar = list(certs18[:BAD18 + 2])
+certs_liar[BAD18 - 1] = flip_at18(certs_liar[BAD18 - 1], 0)
+BAD_CASES18 = {"certifier": (gdoc18, blocks18[:BAD18 + 2], certs_liar,
+                             states18),
+               "lastcommit": (gdoc_bad, blocks_bad, certs_bad, states_bad)}
+bad18 = {}
+
+
+def bad_case18(case, mode):
+    gdoc, blocks, certs, states = BAD_CASES18[case]
+    node = node18(f"bad-{case}-{mode}", gdoc, grouped=mode == "pipelined",
+                  sqlite=False)
+    (e, w), c = main_path(lambda: expect_window_error18(
+        node, blocks, certs, breplay.WindowSyncError))
+    stored = node.store.height()
+    state_h = node.ex.state_store.load().last_block_height
+    row = {"height": e.height, "applied": e.applied,
+           "state_height": e.state.last_block_height,
+           "state_store_height": state_h, "block_store_height": stored,
+           "launches": c, "reason": str(e)[:160]}
+    check(e.height == BAD18 and e.applied == BAD18 - 1
+          and e.state.last_block_height == BAD18 - 1 and state_h == BAD18 - 1
+          and e.state.app_hash == states[BAD18 - 2].app_hash
+          and stored == (BAD18 - 1 if case == "certifier" else BAD18),
+          f"phase 18: the bad window ({case}, {mode}): {row}")
+    bad18[f"{case}/{mode}"] = row
+    return w
+
+
+w = bad_case18("certifier", "serial")
+# the batch: blocks 2-11's LastCommits (covered certifiers), then the lying
+# certifier's prefix: its lane 0 is the batch's lane (BAD18 - 2) * N18
+oracle18.append(("bad certifier, serial", *w["batches"][0],
+                 [(BAD18 - 2) * N18]))
+w = bad_case18("lastcommit", "serial")
+
+# -- step 3: pipelined replay (a VerifyScheduler on the card, a BlockPipeline
+# of depth 4 committing groups of 8 heights, GroupCommitDB-wrapped SQLite
+# stores); the same state and store contents as step 2
+sch18 = start_sched()
+prios18 = []
+_submit18 = sch18.submit
+sch18.submit = lambda items, prio=vsched.Priority.COMMIT, **kw: (
+    prios18.append(prio), _submit18(items, prio, **kw))[1]
+pipe18 = bpipe.set_config(enable=True, depth=4, group_commit_heights=8)
+traced0 = trace.is_enabled()
+since18 = trace.last_seq()
+trace.enable(capacity=1 << 17)
+pip18 = node18("pipelined", gdoc18, grouped=True)
+rows_pip, wall_pip = replay18(pip18, blocks18, certs18, "sched.ed25519")
+spans18 = trace.snapshot(since=since18)
+if not traced0:
+    trace.disable()
+check(state_view17(pip18.state) == state_view17(ser18.state),
+      "phase 18: the pipelined state differs from the serial one")
+check(pip18.bdb.pending_ops() == 0 and pip18.sdb.pending_ops() == 0
+      and db_items18(pip18.inner[0]) == db_items18(ser18.inner[0])
+      and db_items18(pip18.inner[1]) == db_items18(ser18.inner[1]),
+      "phase 18: the pipelined stores differ from the serial ones")
+span_sum = {}
+for s in spans18:
+    if s["name"] in ("pipeline.stage", "pipeline.apply", "pipeline.commit"):
+        c = span_sum.setdefault(s["name"], [0, 0.0])
+        c[0] += 1
+        c[1] += s["dur_ns"] / 1e9
+launches_pip = sum(r["launches"]["verify_packed"] for r in rows_pip)
+check(pipe18.windows_pipelined == H18 // W18 and pipe18.windows_degraded == 0
+      and launches_pip > 0
+      and span_sum.get("pipeline.stage", [0])[0] == H18
+      and span_sum.get("pipeline.apply", [0])[0] == H18
+      and set(prios18) == {vsched.Priority.BLOCKSYNC} and len(prios18) == H18,
+      f"phase 18: the pipelined windows {pipe18.windows_pipelined}, "
+      f"{pipe18.windows_degraded}, K1 {launches_pip}, spans {span_sum}, "
+      f"{len(prios18)} submissions")
+steps18["pipelined"] = {
+    "wall_s": wall_pip, "blocks_per_s": H18 / wall_pip,
+    "sigs_per_s": sum(want_lanes) / wall_pip, "spans": span_sum,
+    "k1_launches": launches_pip, "submissions": len(prios18),
+    "durable_height": pipe18.durable_height(),
+    "windows": window_view18(rows_pip)}
+log(phase=18, card=CARD, step="pipelined", wall_s=wall_pip,
+    blocks_per_s=H18 / wall_pip, k1_launches=launches_pip,
+    spans={k: [n, round(v, 4)] for k, (n, v) in span_sum.items()},
+    windows=[(r["from"], r["applied"], round(r["wall_s"], 4),
+              round(r.get("collect_s", 0.0), 4),
+              round(r.get("apply_s", 0.0), 4), r["launches"]["verify_packed"])
+             for r in rows_pip])
+
+# -- step 4 (pipelined half)
+bad_case18("certifier", "pipelined")
+bad_case18("lastcommit", "pipelined")
+check(pipe18.windows_degraded == 2,
+      f"phase 18: {pipe18.windows_degraded} degraded windows, want the two "
+      f"bad ones")
+log(phase=18, card=CARD, step="bad windows", cases=bad18)
+bpipe.set_config(enable=False)
+sch18.stop()
+vsched.uninstall(sch18)
+steps18["scheduler"] = sch18.stats()
+check(steps18["scheduler"]["launches"] > 0
+      and steps18["scheduler"]["exec_faults"] == 0,
+      f"phase 18: the scheduler's stats {steps18['scheduler']}")
+
+# -- step 5: a prewarmed window takes C2
+label18[0] = "prewarm"
+t = time.perf_counter()
+built18, c = main_path(lambda: E.prewarm(keys18, device=DEV))
+check(built18 and c["comb_build"] == 1, f"phase 18: prewarm {built18}, {c}")
+prewarm18 = {"keys": len(keys18), "launches": c,
+             "wall_s": time.perf_counter() - t}
+pw18 = node18("prewarmed", gdoc18, sqlite=False)
+w = window18(pw18, blocks18, certs18, "batch.ed25519")
+route18 = w["verifies"][0]["path"]
+check(w["applied"] == W18 and w["launches"]["comb_verify"] == 1
+      and sum(w["launches"].values()) == 1 and route18 == "comb"
+      and pw18.state.app_hash == states18[W18 - 1].app_hash,
+      f"phase 18: the prewarmed window {window_view18([w])}")
+prewarm18["window"] = window_view18([w])[0]
+log(phase=18, card=CARD, step="prewarmed window", route=route18,
+    lanes=w["verifies"][0]["lanes"], wall_s=w["wall_s"],
+    stage_s=w["verifies"][0]["stage_s"],
+    compute_s=w["verifies"][0]["compute_s"], prewarm=prewarm18["launches"])
+E.table_cache_clear()
+
+
+# -- step 6: the reactor over two Switches on 127.0.0.1
+def switch18(i, moniker, reactor):
+    sw = Switch(NodeKey(edkeys.PrivKey(hashlib.sha256(
+        b"phase 18 node %d" % i).digest())), "127.0.0.1:0", CHAIN,
+        moniker=moniker)
+    sw.add_reactor("BLOCKSYNC", reactor)
+    sw.start()
+    return sw
+
+
+def p2p_bytes18():
+    netobs.publish_pending()
+    m = P2PMetrics()
+    return (m.bytes_sent.value(ch_id="0x40"),
+            m.bytes_recv.value(ch_id="0x40"))
+
+
+def sync18(server_store, moniker, target, node, on_fault=None):
+    """A server Switch holding server_store's blocks and a client Switch
+    whose BlocksyncReactor (window 64, the scheduler and the pipeline
+    running) syncs `node` until it holds `target` heights.  on_fault(r_c,
+    sw_c) runs once the client's sync routine has stopped on a card fault
+    (the fault case) and must let it finish."""
+    r_s = BlocksyncReactor(sexec.BlockExecutor(StateStore(MemDB()),
+                                               KVStoreApplication()),
+                           server_store, state_from_genesis(gdoc18),
+                           fast_sync=False)
+    r_c = BlocksyncReactor(node.ex, node.store, node.state, fast_sync=True,
+                           window=W18)
+    sw_s = switch18(0, f"{moniker}-server", r_s)
+    sw_c = None
+    try:
+        sw_c = switch18(1, moniker, r_c)
+        t = time.perf_counter()
+        peer = sw_c.dial_peer(sw_s.actual_listen_addr())
+        check(peer is not None and peer.id == sw_s.node_key.node_id,
+              f"phase 18: {moniker} could not dial the server")
+        if on_fault is not None:
+            wait18(lambda: r_c.device_error is not None,
+                   f"{moniker}'s card fault", 120)
+            on_fault(r_c, sw_c)
+        wait18(lambda: r_c.state.last_block_height >= target,
+               f"{moniker} syncing to {target}", 300)
+        wall = time.perf_counter() - t
+    finally:
+        if sw_c is not None:
+            sw_c.stop()
+        sw_s.stop()
+    node.state = r_c.state
+    return r_c, sw_c, peer.id, wall
+
+
+sch18 = start_sched()
+pipe18 = bpipe.set_config(enable=True, depth=4, group_commit_heights=8)
+sent0, recv0 = p2p_bytes18()
+sw18 = node18("switch", gdoc18, grouped=True)
+label18[0] = "switch"
+(r_c18, _, srv_id18, wall_sw), c_sw = main_path(
+    lambda: sync18(srv_store18, "client18", H18 - 1, sw18),
+    site="sched.ed25519")
+sent1, recv1 = p2p_bytes18()
+flow18 = netobs.flow_table("client18").get("client18", {}).get(srv_id18, {})
+check([sw18.store.load_block(h).hash() for h in range(1, H18)]
+      == [b.hash() for b in blocks18[:H18 - 1]]
+      and sw18.state.app_hash == states18[H18 - 2].app_hash
+      and r_c18.blocks_synced == H18 - 1 and r_c18.device_error is None
+      and c_sw["verify_packed"] > 0 and pipe18.windows_pipelined > 0,
+      f"phase 18: the switch sync: {sw18.state.last_block_height}, "
+      f"{r_c18.blocks_synced}, {c_sw}, {pipe18.windows_pipelined}")
+wire18 = sum(len(b.proto()) for b in blocks18[:H18 - 1])
+check(sent1 - sent0 > wire18 and recv1 - recv0 > wire18
+      and flow18.get("recv_bytes", 0) > wire18,
+      f"phase 18: p2p bytes sent {sent1 - sent0}, received "
+      f"{recv1 - recv0}, the client's flow {flow18}")
+steps18["switch"] = {"wall_s": wall_sw, "blocks_per_s": (H18 - 1) / wall_sw,
+                     "lastcommit_sigs_per_s": (H18 - 2) * N18 / wall_sw,
+                     "launches": c_sw, "bytes_sent": sent1 - sent0,
+                     "bytes_recv": recv1 - recv0,
+                     "flow": {k: v for k, v in flow18.items()
+                              if not isinstance(v, dict)},
+                     "windows_pipelined": pipe18.windows_pipelined}
+log(phase=18, card=CARD, step="switch", **steps18["switch"])
+bpipe.set_config(enable=False)
+sch18.stop()
+vsched.uninstall(sch18)
+
+# -- step 7: phase 17's 10,000-validator chain from its block store: the
+# windows stop at the set change (a val: tx at height 2 changes the set
+# from height 4); the coalesced windows on K1, the strict one on K2
+# through the pubkey-row cache
+big_db18 = SQLiteDB(os.path.join(root17, f"chain{N17_BIG}", "blockstore.db"))
+blocks_big18, certs_big18 = served18(BlockStore(big_db18), H17_BIG)
+big_db18.close()
+bg18 = node18("big", gdoc_big, sqlite=False)
+rows_big = []
+t = time.perf_counter()
+while bg18.state.last_block_height < H17_BIG:
+    hm = E._pub_cache.hits, E._pub_cache.misses
+    rows_big.append(window18(bg18, blocks_big18, certs_big18, None))
+    rows_big[-1]["pub_cache"] = (E._pub_cache.hits - hm[0],
+                                 E._pub_cache.misses - hm[1])
+wall_big18 = time.perf_counter() - t
+shape_big = [(r["applied"], [v["lanes"] for v in r.get("verifies", [])],
+              r["launches"]["verify_packed"],
+              r["launches"]["verify_packed_split"], r["pub_cache"])
+             for r in rows_big]
+check([s[0] for s in shape_big] == [2, 1, 3]
+      and shape_big[0][2] == 1 and shape_big[0][1][0] >= 16_384
+      and shape_big[2][2] == 1 and shape_big[2][1][0] >= 16_384
+      and shape_big[0][3] == shape_big[2][3] == 0
+      and shape_big[1][1] == [] and shape_big[1][3] == 2
+      and shape_big[1][4][1] >= 1
+      and bg18.state.app_hash.hex() == big.rows[-1]["app_hash"],
+      f"phase 18: the {N17_BIG}-validator windows {shape_big}")
+sigs_big = sum(v["lanes"] for r in rows_big for v in r.get("verifies", []))
+# the signatures the windows verified: the coalesced batches, and the strict
+# block's light prefix and LastCommit
+sigs_big += len(blocks_big18[2].last_commit.signatures) \
+    + N17_BIG * 2 // 3 + 1
+steps18["big"] = {"wall_s": wall_big18, "blocks_per_s": H17_BIG / wall_big18,
+                  "sigs_per_s": sigs_big / wall_big18, "sigs": sigs_big,
+                  "windows": shape_big, "records": window_view18(rows_big)}
+log(phase=18, card=CARD, step=f"{N17_BIG} validators", wall_s=wall_big18,
+    blocks_per_s=H17_BIG / wall_big18, sigs_per_s=sigs_big / wall_big18,
+    windows=shape_big)
+
+
+# -- step 8: a launch that fails on the card, no failpoint armed: K1's
+# wrapper swapped for one that raises (as phase 12 does) during a serial
+# window, a pipelined window and the reactor's sync.  Each time
+# WindowDeviceError (a DeviceLaneError) reaches the caller with the state of
+# the blocks already applied: no WindowSyncError, no strict retry, no
+# redo_request, no peer stopped, nothing re-verified on the host; then the
+# wrapper is restored, the window replays again and the sync finishes
+def card_fault18(what, fn):
+    """fn() with K1 raising; returns (the error, the runtime's failures and
+    host fallbacks, the verify_items and light-verify calls)."""
+    check(not failpoints.armed(), "phase 18: a failpoint is armed")
+    rt = degrade.runtime()
+    fails0 = counter_total(rt.metrics.device_failures)
+    falls0 = counter_total(rt.metrics.host_fallbacks)
+    calls0 = dict(calls18)
+    keeping = ck.verify_packed
+    ck.verify_packed = launch_failed
+    try:
+        err = fn()
+    finally:
+        ck.verify_packed = keeping
+    join_abandoned()
+    row = {"what": what, "error": type(err).__name__,
+           "height": getattr(err, "height", None),
+           "applied": getattr(err, "applied", None),
+           "failures": counter_total(rt.metrics.device_failures) - fails0,
+           "fallbacks": counter_total(rt.metrics.host_fallbacks) - falls0,
+           "verify_items": calls18["verify_items"] - calls0["verify_items"],
+           "light": calls18["light"] - calls0["light"]}
+    # a fresh runtime: the breaker closed and its counters at 0
+    degrade.configure(degrade.DegradeConfig.from_env(),
+                      registry=Registry(f"p18 {what}"))
+    return err, row
+
+
+def raises18(fn):
+    try:
+        fn()
+    except Exception as e:  # noqa: BLE001 - returned and checked
+        return e
+    return None
+
+
+faults18 = []
+# a serial window: the second (heights 65-128)
+sf = node18("fault-serial", gdoc18, sqlite=False)
+window18(sf, blocks18, certs18, "batch.ed25519")
+err, row = card_fault18("serial", lambda: raises18(
+    lambda: breplay.replay_window(sf.ex, sf.store, sf.state, blocks18[W18:],
+                                  certs18[W18:], max_window=W18)))
+faults18.append(row)
+check(isinstance(err, breplay.WindowDeviceError)
+      and isinstance(err, degrade.DeviceLaneError)
+      and not isinstance(err, breplay.WindowSyncError)
+      and err.state.last_block_height == W18 and err.applied == 0
+      and row["verify_items"] == 1 and row["light"] == 0
+      and row["failures"] >= 1 and row["fallbacks"] == 0
+      and sf.store.height() == W18,
+      f"phase 18: the serial card fault {row} ({err!r})")
+w = window18(sf, blocks18, certs18, "batch.ed25519")
+check(w["applied"] == W18
+      and sf.state.app_hash == states18[2 * W18 - 1].app_hash,
+      "phase 18: the serial window again after the card fault")
+
+# a pipelined window: the second
+sch18 = start_sched()
+pipe18 = bpipe.set_config(enable=True, depth=4, group_commit_heights=8)
+pf = node18("fault-pipelined", gdoc18, grouped=True, sqlite=False)
+window18(pf, blocks18, certs18, "sched.ed25519")
+err, row = card_fault18("pipelined", lambda: raises18(
+    lambda: breplay.replay_window(pf.ex, pf.store, pf.state, blocks18[W18:],
+                                  certs18[W18:], max_window=W18)))
+row["windows_degraded"] = pipe18.windows_degraded
+faults18.append(row)
+check(isinstance(err, breplay.WindowDeviceError)
+      and err.state.last_block_height >= W18
+      and err.state.last_block_height == W18 + err.applied
+      and row["verify_items"] == 0 and row["light"] == 0
+      and row["failures"] >= 1 and row["fallbacks"] == 0
+      and pipe18.windows_degraded == 0
+      and pf.ex.state_store.load().last_block_height
+      == err.state.last_block_height,
+      f"phase 18: the pipelined card fault {row} ({err!r})")
+pf.state = err.state
+w = window18(pf, blocks18, certs18, "sched.ed25519")
+check(pf.state.last_block_height == 2 * W18
+      and pf.state.app_hash == states18[2 * W18 - 1].app_hash,
+      "phase 18: the pipelined window again after the card fault")
+
+# the reactor's sync, against a server of 65 blocks: the card fault ends
+# the client's sync routine (kept on the reactor); no redo, no peer
+# stopped; the wrapper restored, resume_sync() finishes it.  A fresh
+# scheduler and SigCache: the chain's signatures are cached by now
+sch18.stop()
+vsched.uninstall(sch18)
+sch18 = start_sched()
+srv65 = BlockStore(MemDB())
+for h in range(1, W18 + 2):
+    srv65.save_block(srv_store18.load_block(h),
+                     tparts.make_block_parts(srv_store18.load_block(h)),
+                     srv_store18.load_seen_commit(h))
+rf = node18("fault-reactor", gdoc18, grouped=True, sqlite=False)
+label18[0] = "fault-reactor"
+fault_seen = {}
+redos18, stops18 = [], []
+rt_f = degrade.runtime()
+fails_f0 = counter_total(rt_f.metrics.device_failures)
+falls_f0 = counter_total(rt_f.metrics.host_fallbacks)
+keeping_f = ck.verify_packed
+
+
+def _on_fault(r_c, sw_c):
+    ck.verify_packed = keeping_f
+    join_abandoned()
+    fault_seen["error"] = r_c.device_error
+    fault_seen["state_height"] = r_c.state.last_block_height
+    fault_seen["failures"] = counter_total(
+        rt_f.metrics.device_failures) - fails_f0
+    fault_seen["fallbacks"] = counter_total(
+        rt_f.metrics.host_fallbacks) - falls_f0
+    degrade.configure(degrade.DegradeConfig.from_env(),
+                      registry=Registry("p18 reactor"))
+    r_c.resume_sync()
+
+
+_real_redo = BlockPool.redo_request
+_real_stop = Switch.stop_peer_for_error
+BlockPool.redo_request = lambda self, h: (redos18.append(h),
+                                          _real_redo(self, h))[1]
+# (a switch's own stop stops its peers too: that reason is not counted)
+Switch.stop_peer_for_error = lambda self, p, r: (
+    r != "switch stopping" and stops18.append(r), _real_stop(self, p, r))[1]
+ck.verify_packed = launch_failed
+try:
+    r_f, _, _, wall_f = sync18(srv65, "fault18", W18, rf, on_fault=_on_fault)
+finally:
+    ck.verify_packed = keeping_f
+    BlockPool.redo_request = _real_redo
+    Switch.stop_peer_for_error = _real_stop
+bpipe.set_config(enable=False)
+sch18.stop()
+vsched.uninstall(sch18)
+e_f = fault_seen.get("error")
+row = {"what": "reactor", "error": type(e_f).__name__,
+       "height": getattr(e_f, "height", None),
+       "applied": getattr(e_f, "applied", None),
+       "state_height": fault_seen.get("state_height"),
+       "failures": fault_seen.get("failures"),
+       "fallbacks": fault_seen.get("fallbacks"), "redos": redos18,
+       "peers_stopped": stops18, "wall_s": wall_f}
+faults18.append(row)
+check(isinstance(e_f, breplay.WindowDeviceError) and redos18 == []
+      and stops18 == [] and row["failures"] >= 1 and row["fallbacks"] == 0
+      and r_f.device_error is None
+      and [rf.store.load_block(h).hash() for h in range(1, W18 + 1)]
+      == [b.hash() for b in blocks18[:W18]]
+      and rf.state.app_hash == states18[W18 - 1].app_hash,
+      f"phase 18: the reactor's card fault {row}")
+log(phase=18, card=CARD, step="card faults", faults=faults18)
+
+# -- every launch of the phase against its plain version on the same
+# inputs (concatenated by step), and three windows' bitmaps against
+# OpenSSL's
+label18[0] = ""
+for _name in keep18:
+    setattr(KERNEL_MOD[_name], _name, was18[_name])
+breplay._collect_block_items = REAL18["collect"]
+breplay._apply_one = REAL18["apply"]
+vsched.verify_items = REAL18["verify_items"]
+ValidatorSet.verify_commit_light = REAL18["light"]
+cmp18 = {name: [] for name in keep18}
+t = time.perf_counter()
+for name, plain in (("verify_packed", ck.verify_packed_plain),
+                    ("verify_packed_split", ck.verify_packed_split_plain)):
+    runs = keep18[name]
+    if not runs:
+        continue
+    # every launch's signatures, grouped by step (a padding lane is all
+    # zeros, and both the kernel and the plain version refuse it), held
+    # in chunks of 65,536 lanes: the plain version's cost is per call
+    got = torch.cat([out for _, _, out in runs])
+    cols = [torch.cat([args[k] for _, args, _ in runs], dim=1)
+            for k in range(len(runs[0][1]))]
+    step_of = np.repeat([label.split(" ")[0] for label, _, _ in runs],
+                        [out.shape[0] for _, _, out in runs])
+    real = (cols[-1] != 0).any(dim=0)
+    check(not got[~real].any(), f"phase 18 {name}: a padding lane passed")
+    got = got[real].cpu().numpy()
+    step_of = step_of[real.cpu().numpy()]
+    cols = [c[:, real] for c in cols]
+    want = torch.cat([plain(*[c[:, a:a + 65_536] for c in cols]).cpu()
+                      for a in range(0, len(got), 65_536)]).numpy()
+    err = np.abs(got.astype(int) - want.astype(int))
+    for g in sorted(set(step_of)):
+        on = step_of == g
+        n_runs = sum(label.split(" ")[0] == g for label, _, _ in runs)
+        cmp18[name].append((f"phase 18 {g}: {n_runs} launches",
+                            int(on.sum()), int(err[on].sum()),
+                            float(err[on].max())))
+for label, args, (tab, ok) in keep18["comb_build"]:
+    ptab, pok = cc.comb_build_plain(args[0])
+    cmp18["comb_build"].append(
+        (f"phase 18 {label}", args[0].shape[0],
+         cc.tables_mismatch(tab, ptab) + int((ok != pok).sum())))
+check(len(keep18["comb_build"]) == 1 and keep18["comb_verify"]
+      and all(args[1] is keep18["comb_build"][0][2][0]
+              for _, args, _ in keep18["comb_verify"]),
+      "phase 18: a C2 launch on another table than the prewarm's")
+ptab, pok = plain_tables(keys18)
+rows_c2 = torch.cat([args[0] for _, args, _ in keep18["comb_verify"]])
+got = torch.cat([out for _, _, out in keep18["comb_verify"]]).cpu().numpy()
+cmp18["comb_verify"].append(c2_row(
+    f"phase 18: {len(keep18['comb_verify'])} launches", got,
+    cc.comb_verify_plain(rows_c2, ptab, pok).cpu().numpy()))
+plain18_s = time.perf_counter() - t
+t = time.perf_counter()
+oracle_rows18 = []
+for what, items, bits, bad in oracle18:
+    want = np.array([edkeys._ossl_verify(p.bytes(), m, s)
+                     for p, m, s in items], dtype=bool)
+    expect = np.ones(len(items), dtype=bool)
+    expect[bad] = False
+    oracle_rows18.append((what, len(items), int((bits != want).sum()),
+                          bool((want == expect).all())))
+check(len(oracle_rows18) >= 3
+      and all(r[2] == 0 and r[3] for r in oracle_rows18),
+      f"phase 18: window bitmaps against OpenSSL's {oracle_rows18}")
+oracle18_s = time.perf_counter() - t
+E.table_cache_clear()
+staging_clear(18)
+shutil.rmtree(root17)
+shutil.rmtree(root18)
+launches18 = {name: len(v) for name, v in keep18.items()}
+replay18_rep = {
+    "steps": steps18, "bad": bad18, "prewarm": prewarm18, "faults": faults18,
+    "comparisons": cmp18, "openssl": oracle_rows18, "launches": launches18,
+    "plain_s": plain18_s, "openssl_s": oracle18_s,
+    "phase_s": time.perf_counter() - T18}
+log(phase=18, card=CARD, launches=launches18, comparisons=cmp18,
+    openssl=oracle_rows18, plain_s=plain18_s, openssl_s=oracle18_s,
+    phase_s=replay18_rep["phase_s"])
+check(all(r[2] == 0 for rows in cmp18.values() for r in rows),
+      f"phase 18: a kernel disagrees with its plain version: {cmp18}")
+REPORT["blocksync_replay"] = replay18_rep
+
+# -- phase 19: the kernels line -----------------------------------------------
 
 src = "tendermint_tpu_torch/csrc/ed25519_verify.cu"
 # each comparison: (input, lanes, mismatching lanes, max |kernel - plain|)
 k1_cmp = [("phase-3 vectors + seeded", k1_cmp_lanes, k1_mism,
            float(np.abs(k1_raw.astype(int) - plain_raw.astype(int)).max())),
           cmp4, cmp6, cmp13] + cmp16["verify_packed"] \
-    + cmp17["verify_packed"]
+    + cmp17["verify_packed"] + cmp18["verify_packed"]
 k2_cmp = [("phase-3 vectors + seeded", len(k2_raw3), k2_mism3,
            float(np.abs(k2_raw3.astype(int) - k2_plain3.astype(int)).max())),
           ("100k slice", 4096, k2_mism,
            float(np.abs(k2_raw.astype(int) - k2_plain.astype(int)).max())),
           cmp5] + cmp16["verify_packed_split"] \
-    + cmp17["verify_packed_split"]
+    + cmp17["verify_packed_split"] + cmp18["verify_packed_split"]
 k3_cmp = [("phase-3 vectors + seeded", len(k3_raw3), k3_mism3,
            float(np.abs(k3_raw3.astype(int) - k3_plain3.astype(int)).max())),
           cmp11]
@@ -4151,8 +4970,9 @@ for name, key, src_f, replaces, cmps, bound in (
          "bound_by": "operations", "library_ms": None})
 # C1 and C2 (XLA functions of the JAX package, not Pallas kernels): C1 at
 # the 1,024-key set, held as field values; C2 at 65,536 lanes, as bitmaps
-cmp15 += cmp16["comb_build"] + cmp17["comb_build"]
-c2_cmp += cmp16["comb_verify"] + cmp17["comb_verify"]
+cmp15 += cmp16["comb_build"] + cmp17["comb_build"] + cmp18["comb_build"]
+c2_cmp += cmp16["comb_verify"] + cmp17["comb_verify"] \
+    + cmp18["comb_verify"]
 c2_vs_k1 += c2_vs_k1_16
 comb_src = "tendermint_tpu_torch/csrc/comb.cu"
 kernels.append(

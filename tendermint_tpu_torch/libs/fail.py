@@ -88,6 +88,17 @@ REGISTERED_SITES = frozenset({
     # crypto_devobs_shed_total{reason=chaos}) while the device launch and
     # its bitmap proceed untouched; latency is absorbed into the recording
     "devobs.record",
+    # block application pipeline (state/pipeline.py): the stage worker's
+    # per-block entry and the async storage writer's group-commit entry.
+    # raise at either drains the pipeline and degrades the window to the
+    # strict sequential path; latency exercises handoff backpressure
+    "pipeline.stage",
+    "pipeline.commit",
+    # gossip observatory (p2p/netobs.py): fires on every flow/rtt/receipt
+    # recording.  raise = the sample sheds (counted in
+    # p2p_netobs_shed_total{reason=chaos}) while the frame's delivery
+    # proceeds untouched
+    "netobs.record",
 })
 
 _extra_sites: set = set()

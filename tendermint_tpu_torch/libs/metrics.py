@@ -6,11 +6,12 @@ dimensions, a process-global default registry (tests may build private
 registries), rendered in the Prometheus text format.  The bundles here
 are ConsensusMetrics (the consensus observatory's stage histograms and
 shed counter, and the consensus gauges), StateMetrics (the
-BlockExecutor's), CryptoMetrics (the device-lane degradation runtime,
-routes, the VerifyScheduler, request latency, SLO gauges), DevObsMetrics
-(the device observatory of crypto/devobs.py) and TraceMetrics (the
-flight recorder's own drop counter); the node's other families are not
-ported yet.
+BlockExecutor's), BlockSyncMetrics (the block pipeline's), CryptoMetrics
+(the device-lane degradation runtime, routes, the VerifyScheduler,
+request latency, SLO gauges), DevObsMetrics (the device observatory of
+crypto/devobs.py), P2PMetrics (the transport's byte counters and the
+gossip observatory's) and TraceMetrics (the flight recorder's own drop
+counter); the node's other families are not ported yet.
 """
 from __future__ import annotations
 
@@ -336,6 +337,37 @@ class StateMetrics:
             labels=("path",))
 
 
+class BlockSyncMetrics:
+    """Block application pipeline (state/pipeline.py, ADR-017): is
+    catch-up running pipelined or degraded to the strict sequential
+    path, how far ahead the stage worker runs, what one group-committed
+    storage flush costs, and how much stage/apply/commit time the
+    pipeline actually overlaps."""
+
+    def __init__(self, reg: Optional[Registry] = None):
+        reg = reg or DEFAULT
+        self.pipeline_depth = reg.gauge(
+            "blocksync", "pipeline_depth",
+            "Blocks staged ahead of apply in the block pipeline "
+            "(sampled each apply; bounded by [block_pipeline] depth).")
+        self.blocks_applied = reg.counter(
+            "blocksync", "blocks_applied_total",
+            "Blocks applied during fast sync, by path (pipelined = "
+            "ADR-017 pipeline, strict = reference sequential "
+            "fallback).", labels=("path",))
+        self.group_commit_seconds = reg.histogram(
+            "block", "group_commit_seconds",
+            "Wall time of one group-committed storage flush (block "
+            "store batch + state store batch), seconds.",
+            buckets=exp_buckets(0.0005, 4, 10))
+        self.apply_overlap_ratio = reg.gauge(
+            "block", "apply_overlap_ratio",
+            "1 - window wall / (stage + apply + commit lane seconds) "
+            "for the last pipelined window; 0 = fully serial.")
+
+
+
+
 class CryptoMetrics:
     """Device-lane degradation runtime (crypto/degrade.py): launches,
     failure classes, host fallbacks, breaker lifecycle and backend
@@ -588,6 +620,67 @@ class DevObsMetrics:
             "Device-observatory records shed (reason=chaos: a "
             "recording fault was swallowed, the launch proceeded; "
             "reason=evict: ring/queue overflow).", labels=("reason",))
+
+
+class P2PMetrics:
+    """Reference p2p/metrics.go, extended by the gossip observatory
+    (p2p/netobs.py, ADR-025).  The byte counters and everything below
+    them are fed by netobs.publish_pending() — the per-frame recorders
+    never touch the registry (deferred-drain discipline); peer label
+    cardinality is bounded by the observatory's 128-peer cap."""
+
+    def __init__(self, reg: Optional[Registry] = None):
+        reg = reg or DEFAULT
+        self.peers = reg.gauge("p2p", "peers", "Connected peers.")
+        self.bytes_sent = reg.counter("p2p", "message_send_bytes_total",
+                                      "Bytes sent.", labels=("ch_id",))
+        self.bytes_recv = reg.counter("p2p", "message_receive_bytes_total",
+                                      "Bytes received.", labels=("ch_id",))
+        self.queue_wait = reg.histogram(
+            "p2p", "channel_queue_wait_seconds",
+            "Send-queue wait per frame (enqueue -> wire) by channel — "
+            "how long a frame sat behind its channel's priority before "
+            "the send routine picked it.",
+            labels=("ch_id",),
+            buckets=[.0001, .0005, .001, .005, .01, .05, .1, .5, 1, 5])
+        self.queue_depth = reg.gauge(
+            "p2p", "channel_queue_depth",
+            "Last observed send-queue depth by channel (max across "
+            "peers at the most recent netobs drain).", labels=("ch_id",))
+        self.peer_flow = reg.gauge(
+            "p2p", "peer_flow_bytes_per_s",
+            "Per-peer goodput over the last netobs drain interval "
+            "(byte-ledger delta / elapsed).",
+            labels=("peer", "direction"))
+        self.flow_rate = reg.gauge(
+            "p2p", "flow_rate_bytes_per_s",
+            "Flowrate Monitor EMA rate per peer (the token-bucket "
+            "limiter's own view; reference flowrate.Status.CurRate).",
+            labels=("peer", "direction"))
+        self.peer_rtt = reg.gauge(
+            "p2p", "peer_rtt_seconds",
+            "Most recent ping->pong round-trip per peer.",
+            labels=("peer",))
+        self.throttle_stall = reg.counter(
+            "p2p", "throttle_stall_seconds_total",
+            "Seconds the send/recv routines slept in the flowrate "
+            "token bucket — a bandwidth-capped link shows up here "
+            "instead of as unexplained queue wait.",
+            labels=("direction",))
+        self.gossip_receipts = reg.counter(
+            "p2p", "gossip_receipts_total",
+            "Consensus gossip receipts by the state machine's verdict "
+            "(outcome=useful advanced the height; outcome=duplicate "
+            "was redundant gossip — pure wasted bytes).",
+            labels=("kind", "outcome"))
+        self.netobs_shed = reg.counter(
+            "p2p", "netobs_shed_total",
+            "Gossip-observatory samples shed (reason=chaos: a "
+            "recording fault was swallowed, delivery proceeded; "
+            "reason=evict: peer/channel/sample-queue cap overflow).",
+            labels=("reason",))
+
+
 
 
 class TraceMetrics:

@@ -88,6 +88,19 @@ def test_storage_and_execution_modules_are_checked():
         assert f"tendermint_tpu_torch.{m}" in mods, m
 
 
+def test_p2p_and_blocksync_modules_are_checked():
+    """The P2P transport core (flowrate, the wire registry, the node key,
+    SecretConnection, the gossip observatory, MConnection, the Switch),
+    blocksync (the pool, replay, the reactor) and the BlockPipeline are
+    among the modules the checks below cover."""
+    mods = _port_modules()
+    for m in ("libs.flowrate", "p2p", "p2p.wire", "p2p.key",
+              "p2p.secret_connection", "p2p.netobs", "p2p.connection",
+              "p2p.switch", "blocksync", "blocksync.pool",
+              "blocksync.replay", "blocksync.reactor", "state.pipeline"):
+        assert f"tendermint_tpu_torch.{m}" in mods, m
+
+
 def test_scheduler_cuda_missing_raises(monkeypatch):
     """With no CUDA and no device='cpu', the scheduler's constructor and
     its sync wrapper raise instead of running on the CPU."""

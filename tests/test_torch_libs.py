@@ -50,7 +50,8 @@ def test_fail_sites_of_the_port_are_registered_in_both(fails):
         "batch.secp256k1", "sched.ed25519", "sched.sr25519",
         "sched.secp256k1", "bulk.ed25519", "lanepool.verify",
         "merkle.bulk_hash", "devobs.record", "propose.parts",
-        "propose.reap", "kvdb.group_commit", "observatory.record"}
+        "propose.reap", "kvdb.group_commit", "observatory.record",
+        "pipeline.stage", "pipeline.commit", "netobs.record"}
     assert all(jfail.is_registered(s) for s in tfail.REGISTERED_SITES)
 
 

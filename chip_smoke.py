@@ -219,7 +219,33 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      of the phase held against its plain version, three windows'
      bitmaps against OpenSSL's; each window's collect, verify and apply
      walls, blocks/s and signatures/s logged, not gated
- 19  the kernels line; then the last line {"ok": true, "device": ...}
+ 19  the light client, LightServe and evidence: BASELINE config 3 (its
+     depth cut to phase 17's 10,000-validator chain of 6 heights, served
+     from its SQLite stores through NodeBackedProvider): a light.Client
+     trusting height 1 verifies height 6 by skipping (the height-1 set's
+     1/3 and height 6's 2/3 prefix, K1/K2, the comb declined) and a second
+     one heights 2-6 sequentially; a 150-validator kvstore chain of 24
+     heights whose set rotates 110 keys at height 12: the client bisects,
+     its trusted heights those of a client on device="cpu"; LightServe
+     over that chain's growing stores with a VerifyScheduler on the card
+     and its own prewarm (C1 at 256 keys for the genesis set, then for
+     the rotated set on the ValidatorSetUpdates event), sixteen clients
+     on follow cursors verifying every height (C2 on a prewarmed set, K1
+     across the rotation until the prewarm), every verdict the direct
+     path's, a tampered commit refused, the light.serve and light.coalesce
+     drills' verdicts identical; LightServe over the 10,000-validator
+     chain (its prewarm declined, K2); evidence: a duplicate vote pooled
+     and committed in a block, a forked witness's light-client attack
+     reported by the detector through NodeBackedProvider into the pool
+     (every certificate >= 32 lanes on the card), tampered copies refused;
+     K1's wrapper raising with no failpoint armed under a LightServe
+     request and its coalesced waiter, a client verify and gossiped
+     evidence (DeviceLaneError, no refused verdict, no dropped witness, no
+     stopped peer, no host re-verify), then each finished.  Every K1, K2,
+     C1 and C2 launch of the phase held against its plain version, the
+     skipping hop's certificate bitmap against OpenSSL's; each step's
+     host wall logged, not gated
+ 20  the kernels line; then the last line {"ok": true, "device": ...}
 
 Signatures come from a seeded incremental generator (a_i = a_0 + i, so
 A_i = A_{i-1} + B), because signing 100k triples one by one in pure
@@ -229,6 +255,7 @@ chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import base64
+import copy
 import gc
 import hashlib
 import json
@@ -308,6 +335,13 @@ from tendermint_tpu_torch.blocksync.reactor import \
 from tendermint_tpu_torch.libs.kvdb import (GroupCommitDB, MemDB,  # noqa: E402
                                             SQLiteDB)
 from tendermint_tpu_torch.libs.metrics import ConsensusMetrics  # noqa: E402
+from tendermint_tpu_torch.libs.metrics import LightMetrics  # noqa: E402
+from tendermint_tpu_torch import light  # noqa: E402
+from tendermint_tpu_torch.light import provider as lprov  # noqa: E402
+from tendermint_tpu_torch.light import service as lserve  # noqa: E402
+from tendermint_tpu_torch.light.service import LightRequest  # noqa: E402
+from tendermint_tpu_torch.evidence import pool as evpool  # noqa: E402
+from tendermint_tpu_torch.evidence import reactor as evreactor  # noqa: E402
 from tendermint_tpu_torch.libs.metrics import P2PMetrics  # noqa: E402
 from tendermint_tpu_torch.p2p import netobs  # noqa: E402
 from tendermint_tpu_torch.p2p.key import NodeKey  # noqa: E402
@@ -4856,7 +4890,6 @@ check(len(oracle_rows18) >= 3
 oracle18_s = time.perf_counter() - t
 E.table_cache_clear()
 staging_clear(18)
-shutil.rmtree(root17)
 shutil.rmtree(root18)
 launches18 = {name: len(v) for name, v in keep18.items()}
 replay18_rep = {
@@ -4871,20 +4904,959 @@ check(all(r[2] == 0 for rows in cmp18.values() for r in rows),
       f"phase 18: a kernel disagrees with its plain version: {cmp18}")
 REPORT["blocksync_replay"] = replay18_rep
 
-# -- phase 19: the kernels line -----------------------------------------------
+# -- phase 19: the light client, LightServe and evidence -----------------------
+
+# The light client and its serving plane on the card, and evidence: BASELINE
+# config 3 (`BASELINE.md:32`: skipping verification over a 10,000-validator
+# header chain) through light.Client over phase 17's 10,000-validator chain,
+# its depth cut to that chain's 6 heights; a bisection over a 150-validator
+# chain whose set rotates 110 of its 150 keys at height 12; LightServe over
+# that chain with a VerifyScheduler on the card and its own prewarm (C1 at
+# 256 keys), sixteen clients verifying every height (bench.py's
+# run_light_serve shape), and over the 10,000-validator chain; evidence (a
+# duplicate vote committed in a block, a light-client attack found by the
+# detector and reported through NodeBackedProvider); K1's wrapper raising
+# with no failpoint armed under a LightServe request, a client verify and an
+# evidence reactor.  Walls are host-clock, logged and not gated; every
+# verdict, route and count named below is.
+N19, H19, ROT19, ROTATED19 = 150, 24, 12, 110   # (b)'s chain
+CLIENTS19 = 16
+DUP19, FORK19, FORK19_GOSSIP = 5, 10, 8
+PERIOD19 = 14 * 24 * 3600.0
+NOW19 = Timestamp(1700000000 + 3600, 0)
+T19 = time.perf_counter()
+rng19 = random.Random(SEED + 19)
+E.table_cache_clear()
+check(not msm.use_rlc(10_000) and not failpoints.armed()
+      and vsched.installed() is None and bpipe.installed() is None,
+      "phase 19: RLC, a failpoint, a scheduler or a pipeline is still on")
+# every K1, K2, C1 and C2 launch of the phase: (label, inputs, output)
+keep19 = {name: [] for name in ("verify_packed", "verify_packed_split",
+                                "comb_build", "comb_verify")}
+label19 = [""]
+was19 = {name: getattr(KERNEL_MOD[name], name) for name in keep19}
+_keep19_lock = threading.Lock()
+
+
+def _keeping19(name):
+    """The bare wrapper (REAL), keeping a copy of every launch's tensor
+    inputs (C2's tables by reference) and its output; LightServe's lanes
+    launch from several threads."""
+    def wrapper(*args):
+        out = REAL[name](*args)
+        kept = [a.clone() if isinstance(a, torch.Tensor)
+                and not (name == "comb_verify" and i == 1) else a
+                for i, a in enumerate(args)]
+        with _keep19_lock:
+            keep19[name].append((label19[0], kept, out))
+        return out
+    return wrapper
+
+
+for _name in keep19:
+    setattr(KERNEL_MOD[_name], _name, _keeping19(_name))
+
+# each certificate of the sequential steps: its kind, height, route, lanes,
+# launches and wall (recorded on the calling thread; LightServe's lanes run
+# concurrently and are counted by step instead)
+certs19: list = []
+cert_on19 = [False]
+REAL19 = {n: getattr(ValidatorSet, n) for n in (
+    "verify_commit_light", "verify_commit_light_trusting")}
+
+
+def _cert19(name):
+    real = REAL19[name]
+    kind = "trusting" if name.endswith("trusting") else "light"
+
+    def cert(self, *a, **k):
+        if not cert_on19[0]:
+            return real(self, *a, **k)
+        height = a[2] if kind == "light" else a[1].height
+        seq0 = E.last_launch()["seq"]
+        c0 = {**ck.launches, **cc.launches}
+        t = time.perf_counter()
+        err = None
+        try:
+            return real(self, *a, **k)
+        except Exception as e:  # noqa: BLE001 - recorded, then raised
+            err = type(e).__name__
+            raise
+        finally:
+            rec = dict(E.last_launch())
+            c1 = {**ck.launches, **cc.launches}
+            certs19.append({
+                "step": label19[0], "kind": kind, "height": height,
+                "wall_s": time.perf_counter() - t, "error": err,
+                "path": rec["path"] if rec["seq"] != seq0 else None,
+                "lanes": rec["n"] if rec["seq"] != seq0 else 0,
+                # the launch's staging (host clock) and device time (CUDA
+                # events), from its launch record
+                "stage_s": rec.get("stage_s") if rec["seq"] != seq0
+                else None,
+                "compute_s": rec.get("compute_s") if rec["seq"] != seq0
+                else None,
+                "launches": {n: c1[n] - c0[n] for n in (
+                    "verify_packed", "verify_packed_split", "comb_verify")
+                    if c1[n] != c0[n]}})
+    return cert
+
+
+for _n in REAL19:
+    setattr(ValidatorSet, _n, _cert19(_n))
+
+# LightServe's own prewarms (ops.ed25519.prewarm_async runs prewarm on a
+# pool worker): each call's keys, result and wall, to wait for them
+prewarms19: list = []
+_pw19 = threading.Condition()
+REAL_PREWARM19 = E.prewarm
+
+
+def _prewarm19(keys, warm_kernel=True, device=None):
+    t = time.perf_counter()
+    ok = REAL_PREWARM19(keys, warm_kernel=warm_kernel, device=device)
+    with _pw19:
+        prewarms19.append({"keys": len(keys), "resident": ok,
+                           "wall_s": time.perf_counter() - t,
+                           "step": label19[0]})
+        _pw19.notify_all()
+    return ok
+
+
+E.prewarm = _prewarm19
+
+
+def wait_prewarms19(n, what):
+    with _pw19:
+        check(_pw19.wait_for(lambda: len(prewarms19) >= n, timeout=300),
+              f"phase 19: {what}: the prewarm never landed")
+    return prewarms19[n - 1]
+
+
+def step19(label, fn):
+    """fn() on the main path with the phase's label; the runtime must have
+    served it without a device failure or a host fallback.  Returns
+    (the result, the launch counts, the wall)."""
+    label19[0] = label
+    t = time.perf_counter()
+    out, c = main_path(fn)
+    wall = time.perf_counter() - t
+    runtime_clean(f"phase 19 {label}")
+    return out, {k: v for k, v in c.items() if v}, wall
+
+
+def expect19(exc, fn, what):
+    """fn() must raise exc; returns it."""
+    try:
+        fn()
+    except exc as e:
+        return e
+    fail(f"phase 19: {what} did not raise {exc.__name__}")
+
+
+def client19(primary, witnesses, **kw):
+    """A light client trusting height 1 of the primary's chain (the anchor
+    taken out of band), its store in memory."""
+    return light.Client(CHAIN, light.TrustOptions(
+        1, primary.light_block(1).hash(), PERIOD19), primary, witnesses,
+        light.LightStore(MemDB()), **kw)
+
+
+def step_certs19(prefix):
+    return [c for c in certs19 if c["step"].startswith(prefix)]
+
+
+def cert_view19(rows):
+    return [(c["kind"], c["height"], c["path"], c["lanes"], c["error"],
+             c["launches"], c["wall_s"], c["stage_s"], c["compute_s"])
+            for c in rows]
+
+
+light19: dict = {}
+walls19: dict = {}
+cert_on19[0] = True
+
+# -- (a) BASELINE config 3: phase 17's 10,000-validator chain of 6 heights
+# (a power change at height 2 reorders the set from height 4), served from
+# its SQLite stores.  One client trusting height 1 verifies height 6 by
+# skipping (one non-adjacent hop: the height-1 set's 1/3, then height 6's
+# 2/3 prefix); a second one verifies heights 2-6 sequentially.  The comb
+# declines this set early (its tables are over the budget)
+big_dir19 = os.path.join(root17, f"chain{N17_BIG}")
+big_bdb19 = SQLiteDB(os.path.join(big_dir19, "blockstore.db"))
+big_sdb19 = SQLiteDB(os.path.join(big_dir19, "state.db"))
+big_bs19, big_ss19 = BlockStore(big_bdb19), StateStore(big_sdb19)
+rt19 = degrade.runtime()
+declined0 = rt19.metrics.msm_route.value(path="comb", outcome="declined")
+prov_a = lprov.NodeBackedProvider(CHAIN, big_bs19, big_ss19)
+wit_a = lprov.NodeBackedProvider(CHAIN, big_bs19, big_ss19)
+cA, _, walls19["a_anchor_s"] = step19("a anchor",
+                                      lambda: client19(prov_a, [wit_a]))
+lbA, cnt_a, walls19["a_skip_s"] = step19(
+    "a skip", lambda: cA.verify_light_block_at_height(H17_BIG, NOW19))
+cB, _, walls19["a_seq_anchor_s"] = step19(
+    "a seq anchor", lambda: client19(prov_a, [wit_a], sequential=True))
+_, cnt_a_seq, walls19["a_sequential_s"] = step19(
+    "a seq", lambda: cB.verify_light_block_at_height(H17_BIG, NOW19))
+skip_a = step_certs19("a skip")
+seq_a = step_certs19("a seq")
+vals6 = big_ss19.load_validators(H17_BIG)
+prefix_a = N17_BIG * 10 * 2 // 3 // 10 + 1
+check(cA.store.heights() == [1, H17_BIG]
+      and lbA.hash() == prov_a.light_block(H17_BIG).hash()
+      and [(c["kind"], c["height"]) for c in skip_a]
+      == [("trusting", H17_BIG), ("light", H17_BIG)]
+      and skip_a[0]["lanes"] >= N17_BIG // 3
+      and skip_a[1]["lanes"] >= prefix_a - 1
+      and all(c["path"] in ("cuda", "cuda-split") and c["error"] is None
+              for c in skip_a + seq_a)
+      and cB.store.heights() == list(range(1, H17_BIG + 1))
+      and [c["height"] for c in seq_a if c["step"] == "a seq"]
+      == list(range(2, H17_BIG + 1)),
+      f"phase 19: config 3 {cert_view19(skip_a)} {cert_view19(seq_a)} "
+      f"{cA.store.heights()} {cB.store.heights()}")
+light19["config3"] = {
+    "validators": N17_BIG, "heights": H17_BIG,
+    "skip": cert_view19(skip_a), "sequential": cert_view19(seq_a),
+    "skip_launches": cnt_a, "sequential_launches": cnt_a_seq,
+    "comb_declined": rt19.metrics.msm_route.value(
+        path="comb", outcome="declined") - declined0,
+    "device_share": sum(c["compute_s"] or 0.0 for c in skip_a + seq_a)
+    / (walls19["a_skip_s"] + walls19["a_sequential_s"])}
+log(phase=19, card=CARD, step="a config 3", skip_wall_s=walls19["a_skip_s"],
+    sequential_wall_s=walls19["a_sequential_s"],
+    anchor_wall_s=walls19["a_anchor_s"], skip=cert_view19(skip_a),
+    sequential=cert_view19(seq_a),
+    comb_declined=light19["config3"]["comb_declined"],
+    device_share=light19["config3"]["device_share"])
+
+
+# -- (b) bisection at 150 validators: a kvstore chain of 24 heights made by
+# the port's executor; val: txs in block 12 remove 110 of the genesis keys
+# and add 110 new ones (the set that signs heights 14 on).  A client
+# trusting height 1 targets height 24: the skipping hop fails trust, the
+# client bisects, and its trusted heights are those of a client on
+# device="cpu" over the same chain
+def build19():
+    a_list, pubs = gen_keys(N19 + ROTATED19, rng19)
+    a_of = dict(zip(pubs, a_list))
+    gdoc = tgen.GenesisDoc(
+        chain_id=CHAIN, genesis_time=Timestamp(1700000000, 0),
+        validators=[tgen.GenesisValidator(
+            address=b"", pub_key_type="ed25519", pub_key_bytes=p, power=10,
+            name=f"v{i}") for i, p in enumerate(pubs[:N19])])
+    gdoc.validate_and_complete()
+    app = app18(gdoc)
+    ss, bs = StateStore(MemDB()), BlockStore(MemDB())
+    ex = sexec.BlockExecutor(ss, app)
+    state = state_from_genesis(gdoc)
+    ss.save(state)
+    last = Commit(0, 0, BlockID(), [])
+    states = []
+    for h in range(1, H19 + 1):
+        txs = txs17(h, 20)
+        if h == ROT19:
+            txs = [val_tx17(p, 0) for p in pubs[:ROTATED19]] \
+                + [val_tx17(p, 10) for p in pubs[N19:]]
+        block = state.make_block(h, txs, last, [],
+                                 state.validators.get_proposer().address,
+                                 block_time=Timestamp(1700000000 + h, 0))
+        parts = tparts.make_block_parts(block)
+        bid = BlockID(block.hash(), parts.header())
+        seen = sign17(state, bid, h, a_of)
+        if h > 1:
+            ex.mark_commit_verified(h - 1, last)
+        state, _ = ex.apply_block(state, bid, block)
+        bs.save_block(block, parts, seen)
+        states.append(state)
+        last = seen
+    return gdoc, a_of, pubs, app, ss, bs, states
+
+
+t = time.perf_counter()
+gdoc19, a_of19, pubs19, app19, ss19, bs19, states19 = build19()
+walls19["b_build_s"] = time.perf_counter() - t
+old19 = {v.pub_key.bytes() for v in states19[0].validators.validators}
+new19 = {v.pub_key.bytes() for v in states19[-1].validators.validators}
+check(len(old19 & new19) == N19 - ROTATED19 and len(new19) == N19
+      and states19[ROT19 - 1].validators.hash()
+      == states19[0].validators.hash()
+      and states19[ROT19].validators.hash()
+      == states19[-1].validators.hash(),
+      "phase 19: the 150-validator chain's rotation")
+prov_b = lprov.NodeBackedProvider(CHAIN, bs19, ss19)
+wit_b = lprov.NodeBackedProvider(CHAIN, bs19, ss19)
+cb19, _, _ = step19("b anchor", lambda: client19(prov_b, [wit_b]))
+_, cnt_b, walls19["b_bisect_s"] = step19(
+    "b bisect", lambda: cb19.verify_light_block_at_height(H19, NOW19))
+trace_b = cb19.store.heights()
+label19[0] = "b cpu"
+t = time.perf_counter()
+cpu19 = client19(lprov.NodeBackedProvider(CHAIN, bs19, ss19),
+                 [lprov.NodeBackedProvider(CHAIN, bs19, ss19)], device="cpu")
+cpu19.verify_light_block_at_height(H19, NOW19)
+walls19["b_cpu_s"] = time.perf_counter() - t
+bis_b = step_certs19("b bisect")
+check(len(trace_b) > 3 and trace_b == cpu19.store.heights()
+      and trace_b[-1] == H19
+      and bis_b[0]["kind"] == "trusting" and bis_b[0]["height"] == H19
+      and bis_b[0]["error"] == "NotEnoughVotingPowerError"
+      and bis_b[0]["lanes"] == 0
+      and all(c["lanes"] >= 32 and c["path"] in ("cuda", "cuda-split")
+              for c in bis_b if c["error"] is None)
+      and all(c["launches"] == {} for c in step_certs19("b cpu")),
+      f"phase 19: bisection {trace_b} vs {cpu19.store.heights()}: "
+      f"{cert_view19(bis_b)}")
+light19["bisection"] = {"trusted_heights": trace_b,
+                        "cpu_trusted_heights": cpu19.store.heights(),
+                        "certificates": cert_view19(bis_b),
+                        "launches": cnt_b}
+log(phase=19, card=CARD, step="b bisection", trusted=trace_b,
+    wall_s=walls19["b_bisect_s"], cpu_wall_s=walls19["b_cpu_s"],
+    build_s=walls19["b_build_s"], certificates=cert_view19(bis_b))
+cert_on19[0] = False
+
+
+# -- (c) LightServe over (b)'s chain, served from stores that grow as a
+# full node's do, with a VerifyScheduler on the card and the service's own
+# prewarm.  Heights 1-11: the service starts and prewarms the genesis set
+# (C1 at 256 keys); sixteen clients follow the chain (subscribe/poll) and
+# verify heights 2-11 (C2).  Heights 12-18: the set rotates at 14; no
+# valset event yet, so heights 14-18 take K1.  Then the ValidatorSetUpdates
+# event: the watcher prewarms the new set (C1) and heights 19-24 take C2.
+# Every verdict against the direct path; the light.serve and light.coalesce
+# drills; a tampered commit refused
+def start_sched19():
+    """A fresh SigCache and a VerifyScheduler at the node's defaults."""
+    cbatch.verified_sigs = cbatch.SigCache(capacity=1 << 18)
+    sch = vsched.install(vsched.VerifyScheduler(
+        window_s=0.002, max_batch=8192, max_pending=65536,
+        tpu_threshold=32, device=DEV))
+    sch.start()
+    return sch
+
+
+ss_c, bs_c = StateStore(MemDB()), BlockStore(MemDB())
+ss_c.save(state_from_genesis(gdoc19))
+
+
+def serve19(store_bs, store_ss, src_bs, states, upto):
+    """Copy heights into a serving node's stores, as a full node commits
+    them."""
+    for h in range(store_bs.height() + 1, upto + 1):
+        block = src_bs.load_block(h)
+        store_bs.save_block(block, tparts.make_block_parts(block),
+                            src_bs.load_seen_commit(h))
+        store_ss.save(states[h - 1])
+
+
+class Clients19:
+    """Sixteen light clients of one service: each follows the chain on its
+    own cursor and asks, height after height, for the adjacent
+    verification of the header it has not verified yet (all clients the
+    same height back to back, as bench.py's run_light_serve asks)."""
+
+    def __init__(self, svc, n):
+        self.svc = svc
+        self.ids = [f"client-{c}" for c in range(n)]
+        self.cur = {c: svc.subscribe(c, from_height=1) for c in self.ids}
+        self.lbs = {c: {} for c in self.ids}
+        self.polled = {c: [] for c in self.ids}
+        self.rows = []          # (client, height, request, verdict)
+
+    def follow(self):
+        for c in self.ids:
+            while True:
+                got = self.svc.poll(self.cur[c])
+                check(got is not None, f"phase 19: {c}'s cursor evicted")
+                if not got:
+                    break
+                for lb in got:
+                    self.polled[c].append(lb.height)
+                    self.lbs[c][lb.height] = lb
+
+    def request(self, c, h):
+        t, u = self.lbs[c][h - 1], self.lbs[c][h]
+        return LightRequest("adjacent", CHAIN, trusted=t.signed_header,
+                            untrusted=u.signed_header,
+                            untrusted_vals=u.validators, now=NOW19,
+                            trusting_period_s=PERIOD19)
+
+    def wave(self, lo, hi):
+        self.follow()
+        futs = []
+        t = time.perf_counter()
+        for h in range(lo, hi + 1):
+            for c in self.ids:
+                r = self.request(c, h)
+                futs.append((c, h, r, self.svc.submit(r, client=c)))
+        for c, h, r, f in futs:
+            self.rows.append((c, h, r, f.result(timeout=300)))
+        return time.perf_counter() - t
+
+
+def verdict19(v):
+    return (v.ok, v.error, v.retry_after_s)
+
+
+label19[0] = "c"
+sch19 = start_sched19()
+bus19 = tbus.EventBus()
+serve19(bs_c, ss_c, bs19, states19, ROT19 - 1)
+svc19 = lserve.LightServe(bs_c, ss_c, CHAIN, prewarm=True, event_bus=bus19)
+svc19.metrics = LightMetrics(Registry("p19 light serve"))
+cl19 = Clients19(svc19, CLIENTS19)
+sched0 = sch19.stats()
+
+
+def stage_c1():
+    svc19.start()           # prewarms the current (genesis) set
+    wait_prewarms19(1, "the genesis set")
+    return cl19.wave(2, ROT19 - 1)
+
+
+serve_c: dict = {}
+w, c, wall = step19("c1", stage_c1)
+serve_c["genesis set, prewarmed"] = {"heights": [2, ROT19 - 1],
+                                     "launches": c, "wave_s": w,
+                                     "wall_s": wall}
+check(prewarms19[0]["resident"] and prewarms19[0]["keys"] == N19
+      and c.get("comb_build") == 1 and c.get("comb_verify", 0) >= ROT19 - 2
+      and not c.get("verify_packed") and not c.get("verify_packed_split"),
+      f"phase 19: LightServe on the genesis set {c} {prewarms19}")
+serve19(bs_c, ss_c, bs19, states19, ROT19 + 6)
+w, c, wall = step19("c2", lambda: cl19.wave(ROT19, ROT19 + 6))
+serve_c["rotated, no prewarm yet"] = {"heights": [ROT19, ROT19 + 6],
+                                      "launches": c, "wave_s": w,
+                                      "wall_s": wall}
+check(c.get("verify_packed", 0) >= 5 and c.get("comb_verify", 0) >= 2
+      and not c.get("comb_build"),
+      f"phase 19: LightServe across the rotation {c}")
+
+
+def stage_c3():
+    bus19.publish_validator_set_updates([])   # the watcher prewarms
+    wait_prewarms19(2, "the rotated set")
+    serve19(bs_c, ss_c, bs19, states19, H19)
+    return cl19.wave(ROT19 + 7, H19)
+
+
+w, c, wall = step19("c3", stage_c3)
+serve_c["rotated set, prewarmed"] = {"heights": [ROT19 + 7, H19],
+                                     "launches": c, "wave_s": w,
+                                     "wall_s": wall}
+check(prewarms19[1]["resident"] and c.get("comb_build") == 1
+      and c.get("comb_verify", 0) >= H19 - ROT19 - 6
+      and not c.get("verify_packed"),
+      f"phase 19: LightServe on the prewarmed rotated set {c}")
+cl19.follow()
+check(all(cl19.polled[c] == list(range(1, H19 + 1)) for c in cl19.ids),
+      "phase 19: the follow cursors' heights")
+st_c = svc19.stats()
+rep_c = svc19.report()
+n_req = CLIENTS19 * (H19 - 1)
+check(st_c["verified"] == n_req and st_c["refuted"] == 0
+      and all(v.ok for _, _, _, v in cl19.rows) and len(cl19.rows) == n_req,
+      f"phase 19: LightServe verdicts {st_c}")
+
+
+# every verdict against the direct path, on the same requests
+def direct_c():
+    return [verdict19(svc19._verify_direct(r)) for _, _, r, _ in cl19.rows]
+
+
+direct19, c_direct, walls19["c_direct_s"] = step19("c direct", direct_c)
+check(direct19 == [verdict19(v) for _, _, _, v in cl19.rows],
+      "phase 19: a LightServe verdict differs from the direct path's")
+
+
+# a tampered commit (a client handed a header whose certifying commit
+# carries a flipped signature) is refused on both paths
+def tampered_c():
+    r0 = cl19.request(cl19.ids[0], 10)
+    sh = copy.deepcopy(r0.untrusted)
+    sh.commit = flip17(sh.commit)
+    r = LightRequest("adjacent", CHAIN, trusted=r0.trusted, untrusted=sh,
+                     untrusted_vals=r0.untrusted_vals, now=NOW19,
+                     trusting_period_s=PERIOD19)
+    return verdict19(svc19.verify(r, client="tamper", timeout=300)), \
+        verdict19(svc19._verify_direct(r))
+
+
+(tq, td), c_t, _ = step19("c tampered", tampered_c)
+check(tq == td and not tq[0] and "wrong signature (#0)" in (tq[1] or ""),
+      f"phase 19: the tampered commit {tq} {td}")
+
+
+# the drills: the same requests give the same verdicts
+def drill_c(site):
+    failpoints.set_mode(site, "raise")
+    try:
+        picks = [(c, h) for c in cl19.ids[:4] for h in (5, 16, 22)]
+        futs = [svc19.submit(cl19.request(c, h), client=c)
+                for c, h in picks]
+        got = [verdict19(f.result(timeout=300)) for f in futs]
+        return got, failpoints.fired(site, "raise")
+    finally:
+        failpoints.reset()
+
+
+drills19 = {}
+want_d = [verdict19(v) for c in cl19.ids[:4] for h in (5, 16, 22)
+          for cc_, hh, _, v in cl19.rows if (cc_, hh) == (c, h)]
+for site in ("light.serve", "light.coalesce"):
+    (got, fired), c, wall = step19(f"c drill {site}",
+                                   lambda s=site: drill_c(s))
+    drills19[site] = {"fired": fired, "launches": c, "wall_s": wall,
+                      "identical": got == want_d}
+    check(got == want_d and fired >= 1,
+          f"phase 19: the {site} drill's verdicts")
+st_c = svc19.stats()
+sched_c = {k: sch19.stats()[k] - sched0[k] for k in ("submissions", "items",
+                                                     "launches", "lanes")}
+svc19.stop()
+serve_c.update(
+    clients=CLIENTS19, requests=n_req, stats=st_c,
+    coalesce_ratio=rep_c["coalesce_ratio"], prewarms=prewarms19[:2],
+    per_client_p99_ms=rep_c["per_client_p99_ms"],
+    headers_per_s=n_req / sum(s["wave_s"] for s in serve_c.values()
+                              if isinstance(s, dict) and "wave_s" in s),
+    scheduler=sched_c, drills=drills19, tampered=[tq, td],
+    direct_identical=True, direct_launches=c_direct)
+light19["serve150"] = serve_c
+log(phase=19, card=CARD, step="c LightServe 150",
+    stages={k: v for k, v in serve_c.items() if isinstance(v, dict)
+            and "launches" in v},
+    lead=st_c["coalesce_lead"], hit=st_c["coalesce_hit"],
+    headers_per_s=serve_c["headers_per_s"],
+    p99_ms_max=max(rep_c["per_client_p99_ms"].values()),
+    prewarms=prewarms19[:2], scheduler=sched_c, drills=drills19)
+
+
+# -- (d) LightServe at 10,000 validators over (a)'s stores: its prewarm is
+# declined early, the sixteen clients' certificates (heights 2-6) take
+# K1/K2
+label19[0] = "d"
+svc_d = lserve.LightServe(big_bs19, big_ss19, CHAIN, prewarm=True,
+                          event_bus=tbus.EventBus())
+svc_d.metrics = LightMetrics(Registry("p19 light serve 10k"))
+cl_d = Clients19(svc_d, CLIENTS19)
+
+
+def stage_d():
+    svc_d.start()
+    wait_prewarms19(3, f"the {N17_BIG}-key set")
+    return cl_d.wave(2, H17_BIG)
+
+
+w, c_d, wall = step19("d", stage_d)
+cl_d.follow()
+st_d = svc_d.stats()
+rep_d = svc_d.report()
+d_direct, _, _ = step19("d direct", lambda: [
+    verdict19(svc_d._verify_direct(r)) for cc_, _, r, _ in cl_d.rows
+    if cc_ == cl_d.ids[0]])
+svc_d.stop()
+check(not prewarms19[2]["resident"] and prewarms19[2]["keys"] == N17_BIG
+      and not c_d.get("comb_build") and not c_d.get("comb_verify")
+      and c_d.get("verify_packed_split", 0) + c_d.get("verify_packed", 0)
+      >= H17_BIG - 1
+      and st_d["verified"] == CLIENTS19 * (H17_BIG - 1)
+      and all(cl_d.polled[c] == list(range(1, H17_BIG + 1))
+              for c in cl_d.ids)
+      and d_direct == [verdict19(v) for cc_, _, _, v in cl_d.rows
+                       if cc_ == cl_d.ids[0]],
+      f"phase 19: LightServe at {N17_BIG} validators {c_d} {st_d} "
+      f"{prewarms19[2:]}")
+light19["serve10k"] = {
+    "clients": CLIENTS19, "requests": CLIENTS19 * (H17_BIG - 1),
+    "launches": c_d, "wave_s": w, "wall_s": wall, "stats": st_d,
+    "headers_per_s": CLIENTS19 * (H17_BIG - 1) / w,
+    "per_client_p99_ms": rep_d["per_client_p99_ms"],
+    "prewarm": prewarms19[2]}
+log(phase=19, card=CARD, step=f"d LightServe {N17_BIG}", launches=c_d,
+    wave_s=w, lead=st_d["coalesce_lead"], hit=st_d["coalesce_hit"],
+    headers_per_s=light19["serve10k"]["headers_per_s"],
+    p99_ms_max=max(rep_d["per_client_p99_ms"].values()),
+    prewarm=prewarms19[2])
+
+
+# -- (e) evidence on the card, over (b)'s stores: a duplicate vote of one
+# of its validators enters an EvidencePool and a block carrying it is
+# applied and committed (the pool marks it committed); a witness forked
+# at height 10 makes the detector report a LightClientAttackEvidence to the
+# full node through NodeBackedProvider.report_evidence, verified on the
+# card with >= 32 lanes a certificate; tampered copies are refused
+cert_on19[0] = True
+pool19 = evpool.EvidencePool(MemDB(), ss19, bs19)
+
+
+def dup_vote19(h, idx):
+    vals = ss19.load_validators(h)
+    v = vals.validators[idx]
+    votes = []
+    for tag in (b"\xAA", b"\xBB"):
+        bid = BlockID(tag * 32, PartSetHeader(1, tag * 32))
+        votes.append(tvote.Vote(
+            type=SignedMsgType.PRECOMMIT, height=h, round=0, block_id=bid,
+            timestamp=Timestamp(1700000000 + h, 900),
+            validator_address=v.address, validator_index=idx))
+    pub = v.pub_key.bytes()
+    for vote, sig in zip(votes, sign_batch(
+            [a_of19[pub]] * 2, [pub] * 2,
+            [vote.sign_bytes(CHAIN) for vote in votes], rng19)):
+        vote.signature = sig
+    return tev.DuplicateVoteEvidence.from_votes(
+        votes[0], votes[1], bs19.load_block_meta(h).header.time, vals)
+
+
+dup19 = dup_vote19(DUP19, 7)
+s0 = sch19.stats()
+_, c_dup, _ = step19("e duplicate vote", lambda: pool19.add_evidence(dup19))
+dup_route = {k: sch19.stats()[k] - s0[k] for k in ("submissions", "launches",
+                                                   "lanes")}
+check(pool19.size() == 1, "phase 19: the duplicate vote is not pending")
+# block 25 carries it; the executor verifies the last commit on the card
+# and the pool marks the evidence committed
+st24 = states19[-1]
+ex19 = sexec.BlockExecutor(ss19, app19, evidence_pool=pool19,
+                           block_store=bs19)
+block25 = st24.make_block(H19 + 1, txs17(H19 + 1, 20),
+                          bs19.load_seen_commit(H19), [dup19],
+                          st24.validators.get_proposer().address,
+                          block_time=Timestamp(1700000000 + H19 + 1, 0))
+parts25 = tparts.make_block_parts(block25)
+bid25 = BlockID(block25.hash(), parts25.header())
+bs19.save_block(block25, parts25, sign17(st24, bid25, H19 + 1, a_of19))
+st25, c_apply, _ = step19("e apply", lambda: ex19.apply_block(
+    st24, bid25, block25)[0])
+check(st25.last_block_height == H19 + 1 and pool19.size() == 0
+      and pool19._is_committed(dup19)
+      and tev.evidence_list_hash([dup19]) == block25.header.evidence_hash,
+      "phase 19: the block carrying the duplicate vote")
+
+
+def fork19(lb):
+    """lb with its app hash changed and re-signed by every validator of
+    its set (a witness's forked chain)."""
+    f = copy.deepcopy(lb)
+    hdr = f.signed_header.header
+    hdr.app_hash = b"\xBA\xD0" * 16
+    bid = BlockID(hdr.hash(), PartSetHeader(1, b"\x99" * 32))
+    vals = f.validators.validators
+    sigs = [CommitSig(BlockIDFlag.COMMIT, v.address,
+                      Timestamp(hdr.time.seconds, 500 + i))
+            for i, v in enumerate(vals)]
+    commit = Commit(hdr.height, 0, bid, sigs)
+    vp = [v.pub_key.bytes() for v in vals]
+    for cs, sig in zip(sigs, sign_batch(
+            [a_of19[p] for p in vp], vp, commit_sign_bytes_batch(
+                CHAIN, commit, list(range(len(vals)))), rng19)):
+        cs.signature = sig
+    f.signed_header.commit = commit
+    return f
+
+
+lbs19 = {h: prov_b.light_block(h) for h in range(1, H19 + 1)}
+forked19 = dict(lbs19)
+forked19[FORK19] = fork19(lbs19[FORK19])
+prim_e = lprov.NodeBackedProvider(CHAIN, bs19, ss19, evidence_pool=pool19)
+wit_e = lprov.DictProvider(CHAIN, forked19)
+ce19, _, _ = step19("e anchor", lambda: client19(prim_e, [wit_e]))
+div_e, c_lca, walls19["e_attack_s"] = step19("e attack", lambda: expect19(
+    light.Divergence, lambda: ce19.verify_light_block_at_height(
+        FORK19, NOW19), "the forked witness"))
+pend19 = pool19.pending_evidence()
+lca_certs = step_certs19("e attack")
+check(len(pend19) == 1
+      and isinstance(pend19[0], tev.LightClientAttackEvidence)
+      and pend19[0].conflicting_block.hash() == forked19[FORK19].hash()
+      and len(pend19[0].byzantine_validators) == N19
+      and wit_e not in ce19.witnesses and ce19.store.heights() == [1]
+      and len(lca_certs) == 6
+      and all(c["lanes"] >= 32 and c["error"] is None
+              and c["path"] in ("cuda", "comb") for c in lca_certs),
+      f"phase 19: the light-client attack {cert_view19(lca_certs)} "
+      f"{len(pend19)}")
+
+
+# tampered copies: a flipped signature in the attack's conflicting commit,
+# and in a duplicate vote
+def tampered_e():
+    bad = copy.deepcopy(pend19[0])
+    bad.conflicting_block.signed_header.commit = flip17(
+        bad.conflicting_block.signed_header.commit)
+    e1 = expect19(tev.EvidenceError, lambda: pool19.add_evidence(bad),
+                  "the tampered attack")
+    bad2 = dup_vote19(DUP19 + 1, 9)
+    bad2.vote_a.signature = bytes([bad2.vote_a.signature[0] ^ 1]) \
+        + bad2.vote_a.signature[1:]
+    e2 = expect19(tev.EvidenceError, lambda: pool19.add_evidence(bad2),
+                  "the tampered duplicate vote")
+    return str(e1), str(e2)
+
+
+(e1, e2), c_bad, _ = step19("e tampered", tampered_e)
+check("wrong signature (#0)" in e1 and "invalid signature" in e2
+      and pool19.size() == 1,
+      f"phase 19: tampered evidence {e1!r} {e2!r}")
+
+# the attack to gossip in (f): a witness forked at height 8 makes the
+# detector report it to a primary that keeps what it is sent
+prim_g = lprov.DictProvider(CHAIN, lbs19)
+forked_g = dict(lbs19)
+forked_g[FORK19_GOSSIP] = fork19(lbs19[FORK19_GOSSIP])
+cg19, _, _ = step19("e gossip anchor", lambda: client19(
+    prim_g, [lprov.DictProvider(CHAIN, forked_g)]))
+step19("e gossip attack", lambda: expect19(
+    light.Divergence, lambda: cg19.verify_light_block_at_height(
+        FORK19_GOSSIP, NOW19), "the second forked witness"))
+check(len(prim_g.evidence) == 1, "phase 19: the gossip attack's evidence")
+ev_g19 = prim_g.evidence[0]
+cert_on19[0] = False
+sch19.stop()
+vsched.uninstall(sch19)
+light19["evidence"] = {
+    "duplicate_vote": {"hash": dup19.hash().hex(), "launches": c_dup,
+                       "scheduler": dup_route, "apply_launches": c_apply},
+    "attack": {"hash": pend19[0].hash().hex(),
+               "byzantine": len(pend19[0].byzantine_validators),
+               "certificates": cert_view19(lca_certs), "launches": c_lca,
+               "wall_s": walls19["e_attack_s"]},
+    "tampered": [e1, e2], "tampered_launches": c_bad}
+log(phase=19, card=CARD, step="e evidence", **light19["evidence"])
+
+
+# -- (f) a launch that fails on the card, no failpoint armed: K1's wrapper
+# swapped for one that raises under a LightServe request and a waiter
+# coalesced on its certificate, a client verify and gossiped evidence.  The
+# table cache is cleared first, so the 150-validator certificates take K1.
+# Each time DeviceLaneError reaches the caller: no refused verdict, no
+# dropped witness, no stopped peer, nothing re-verified on the host; then the
+# wrapper is restored and each step finishes
+E.table_cache_clear()
+
+
+def card_fault19(what, fn):
+    check(not failpoints.armed(), "phase 19: a failpoint is armed")
+    label19[0] = f"f {what}"
+    rt = degrade.runtime()
+    fails0 = counter_total(rt.metrics.device_failures)
+    falls0 = counter_total(rt.metrics.host_fallbacks)
+    keeping = ck.verify_packed
+    ck.verify_packed = launch_failed
+    try:
+        out = fn()
+    finally:
+        ck.verify_packed = keeping
+    join_abandoned()
+    row = {"what": what,
+           "failures": counter_total(rt.metrics.device_failures) - fails0,
+           "fallbacks": counter_total(rt.metrics.host_fallbacks) - falls0}
+    degrade.configure(degrade.DegradeConfig.from_env(),
+                      registry=Registry(f"p19 {what}"))
+    return out, row
+
+
+def raises19(fn):
+    try:
+        fn()
+    except Exception as e:  # noqa: BLE001 - returned and checked
+        return e
+    return None
+
+
+faults19 = []
+svc_f = lserve.LightServe(bs_c, ss_c, CHAIN, prewarm=False)
+svc_f.metrics = LightMetrics(Registry("p19 light serve faults"))
+svc_f.start()
+cl_f = Clients19(svc_f, 2)
+cl_f.follow()
+reqs_f = [cl_f.request(c, 5) for c in cl_f.ids]
+
+
+def fault_serve():
+    # both requests queued before the worker drains them: one batch, one
+    # certificate, a lead and a coalesced waiter
+    with svc_f._cond:
+        futs = [svc_f.submit(r, client=c) for r, c in zip(reqs_f, cl_f.ids)]
+    return [raises19(lambda f=f: f.result(timeout=300)) for f in futs]
+
+
+errs_f, row = card_fault19("light serve", fault_serve)
+st_f = svc_f.stats()
+refused_f = svc_f.metrics.requests.value(outcome="refused")
+row.update(errors=[type(e).__name__ for e in errs_f], stats=st_f,
+           refused=refused_f)
+faults19.append(row)
+check(all(isinstance(e, degrade.DeviceLaneError) for e in errs_f)
+      and st_f["refuted"] == 0 and refused_f == 0
+      and st_f["coalesce_lead"] == 1 and st_f["coalesce_hit"] == 1
+      and row["failures"] >= 1 and row["fallbacks"] == 0,
+      f"phase 19: the LightServe card fault {row}")
+again_f, c_again, _ = step19("f light serve again", lambda: [
+    verdict19(svc_f.verify(r, client=c, timeout=300))
+    for r, c in zip(reqs_f, cl_f.ids)])
+svc_f.stop()
+check(all(v[0] for v in again_f) and c_again.get("verify_packed", 0) >= 1,
+      f"phase 19: LightServe after the card fault {again_f} {c_again}")
+
+prov_f = lprov.NodeBackedProvider(CHAIN, bs19, ss19)
+wit_f = lprov.NodeBackedProvider(CHAIN, bs19, ss19)
+cf19, _, _ = step19("f client anchor", lambda: client19(prov_f, [wit_f]))
+err, row = card_fault19("client", lambda: raises19(
+    lambda: cf19.verify_light_block_at_height(H19, NOW19)))
+row.update(error=type(err).__name__, trusted=cf19.store.heights())
+faults19.append(row)
+check(isinstance(err, degrade.DeviceLaneError) and cf19.primary is prov_f
+      and cf19.witnesses == [wit_f] and cf19.store.heights() == [1]
+      and row["failures"] >= 1 and row["fallbacks"] == 0,
+      f"phase 19: the client's card fault {row} ({err!r})")
+step19("f client again", lambda: cf19.verify_light_block_at_height(
+    H19, NOW19))
+check(cf19.store.heights() == trace_b,
+      f"phase 19: the client after the card fault {cf19.store.heights()}")
+
+
+class StopSwitch19:
+    """The reactor's switch: no peers to push to; stops recorded."""
+
+    def __init__(self):
+        self.peers = {}
+        self.stopped = []
+
+    def stop_peer_for_error(self, peer, reason):
+        self.stopped.append(reason)
+
+
+reactor19 = evreactor.EvidenceReactor(pool19)
+reactor19.switch = sw19 = StopSwitch19()
+peer19 = SimpleNamespace(id="gossip-peer", data={},
+                         try_send=lambda ch, m: True)
+msg19 = evreactor.encode_msg(evreactor.EvidenceGossip(
+    [tev.evidence_proto(ev_g19)]))
+size0 = pool19.size()
+_, row = card_fault19("evidence reactor", lambda: reactor19.receive(
+    evreactor.EVIDENCE_CHANNEL, peer19, msg19))
+row.update(device_error=type(reactor19.device_error).__name__,
+           peers_stopped=list(sw19.stopped), pending=pool19.size())
+faults19.append(row)
+check(isinstance(reactor19.device_error, degrade.DeviceLaneError)
+      and sw19.stopped == [] and pool19.size() == size0
+      and row["failures"] >= 1 and row["fallbacks"] == 0,
+      f"phase 19: the evidence reactor's card fault {row}")
+step19("f evidence again", lambda: reactor19.receive(
+    evreactor.EVIDENCE_CHANNEL, peer19, msg19))
+check(pool19.size() == size0 + 1 and sw19.stopped == [],
+      "phase 19: the gossiped evidence after the card fault")
+log(phase=19, card=CARD, step="f card faults", faults=faults19)
+light19["faults"] = faults19
+
+# -- every launch of the phase against its plain version on the same inputs
+# (grouped by step), C2 against the plain tables of the build it used, and
+# the skipping hop's light certificate (K2) against OpenSSL's verdicts
+label19[0] = ""
+for _name in keep19:
+    setattr(KERNEL_MOD[_name], _name, was19[_name])
+for _n, _f in REAL19.items():
+    setattr(ValidatorSet, _n, _f)
+E.prewarm = REAL_PREWARM19
+cmp19 = {name: [] for name in keep19}
+t = time.perf_counter()
+for name, plain in (("verify_packed", ck.verify_packed_plain),
+                    ("verify_packed_split", ck.verify_packed_split_plain)):
+    runs = keep19[name]
+    if not runs:
+        continue
+    got = torch.cat([out for _, _, out in runs])
+    cols = [torch.cat([args[k] for _, args, _ in runs], dim=1)
+            for k in range(len(runs[0][1]))]
+    step_of = np.repeat([label.split(" ")[0] or "-" for label, _, _ in runs],
+                        [out.shape[0] for _, _, out in runs])
+    real = (cols[-1] != 0).any(dim=0)
+    check(not got[~real].any(), f"phase 19 {name}: a padding lane passed")
+    got = got[real].cpu().numpy()
+    step_of = step_of[real.cpu().numpy()]
+    cols = [c[:, real] for c in cols]
+    want = torch.cat([plain(*[c[:, a:a + 65_536] for c in cols]).cpu()
+                      for a in range(0, len(got), 65_536)]).numpy()
+    err = np.abs(got.astype(int) - want.astype(int))
+    for g in sorted(set(step_of)):
+        on = step_of == g
+        n_runs = sum((label.split(" ")[0] or "-") == g
+                     for label, _, _ in runs)
+        cmp19[name].append((f"phase 19 ({g}): {n_runs} launches",
+                            int(on.sum()), int(err[on].sum()),
+                            float(err[on].max())))
+builds19 = {}
+for label, args, (tab, ok) in keep19["comb_build"]:
+    ptab, pok = cc.comb_build_plain(args[0])
+    builds19[id(tab)] = (ptab, pok)
+    cmp19["comb_build"].append(
+        (f"phase 19 {label}", args[0].shape[0],
+         cc.tables_mismatch(tab, ptab) + int((ok != pok).sum())))
+check(len(keep19["comb_build"]) == 2
+      and all(id(args[1]) in builds19 for _, args, _ in keep19["comb_verify"]),
+      "phase 19: a C2 launch on a table that no build of the phase made")
+for key, (ptab, pok) in builds19.items():
+    runs = [(args, out) for _, args, out in keep19["comb_verify"]
+            if id(args[1]) == key]
+    if not runs:
+        continue
+    rows_c2 = torch.cat([args[0] for args, _ in runs])
+    got = torch.cat([out for _, out in runs]).cpu().numpy()
+    cmp19["comb_verify"].append(c2_row(
+        f"phase 19: {len(runs)} launches on one table", got,
+        cc.comb_verify_plain(rows_c2, ptab, pok).cpu().numpy()))
+plain19_s = time.perf_counter() - t
+# the OpenSSL check: the last K2 launch of the skipping hop is its light
+# certificate, height 6's 2/3 prefix in the set's order
+hop = [out for label, _, out in keep19["verify_packed_split"]
+       if label == "a skip"]
+commit6 = big_bs19.load_seen_commit(H17_BIG)
+idx6 = vals6.collect_commit_light(CHAIN, commit6.block_id, H17_BIG, commit6)
+msgs6 = commit_sign_bytes_batch(CHAIN, commit6, idx6)
+want6 = np.array([edkeys._ossl_verify(vals6.validators[i].pub_key.bytes(),
+                                      m, commit6.signatures[i].signature)
+                  for i, m in zip(idx6, msgs6)], dtype=bool)
+kern6 = hop[-1].cpu().numpy() if hop else np.zeros(0, dtype=bool)
+n6 = len(idx6)
+oracle19 = ("the skipping hop's light certificate", n6,
+            int((kern6[:n6] != want6).sum()) if len(kern6) >= n6 else -1,
+            int(kern6[n6:].sum()), bool(want6.all()))
+check(hop and oracle19[2] == 0 and oracle19[3] == 0 and oracle19[4],
+      f"phase 19: the certificate's bitmap against OpenSSL's {oracle19}")
+big_bdb19.close()
+big_sdb19.close()
+E.table_cache_clear()
+staging_clear(19)
+shutil.rmtree(root17)
+launches19 = {name: len(v) for name, v in keep19.items()}
+light19.update(comparisons=cmp19, openssl=oracle19, launches=launches19,
+               walls_s=walls19, plain_s=plain19_s,
+               phase_s=time.perf_counter() - T19)
+log(phase=19, card=CARD, launches=launches19, comparisons=cmp19,
+    openssl=oracle19, plain_s=plain19_s, walls_s=walls19,
+    phase_s=light19["phase_s"])
+check(all(r[2] == 0 for rows in cmp19.values() for r in rows),
+      f"phase 19: a kernel disagrees with its plain version: {cmp19}")
+REPORT["light"] = light19
+
+# -- phase 20: the kernels line -----------------------------------------------
 
 src = "tendermint_tpu_torch/csrc/ed25519_verify.cu"
 # each comparison: (input, lanes, mismatching lanes, max |kernel - plain|)
 k1_cmp = [("phase-3 vectors + seeded", k1_cmp_lanes, k1_mism,
            float(np.abs(k1_raw.astype(int) - plain_raw.astype(int)).max())),
           cmp4, cmp6, cmp13] + cmp16["verify_packed"] \
-    + cmp17["verify_packed"] + cmp18["verify_packed"]
+    + cmp17["verify_packed"] + cmp18["verify_packed"] + cmp19["verify_packed"]
 k2_cmp = [("phase-3 vectors + seeded", len(k2_raw3), k2_mism3,
            float(np.abs(k2_raw3.astype(int) - k2_plain3.astype(int)).max())),
           ("100k slice", 4096, k2_mism,
            float(np.abs(k2_raw.astype(int) - k2_plain.astype(int)).max())),
           cmp5] + cmp16["verify_packed_split"] \
-    + cmp17["verify_packed_split"] + cmp18["verify_packed_split"]
+    + cmp17["verify_packed_split"] + cmp18["verify_packed_split"] \
+    + cmp19["verify_packed_split"]
 k3_cmp = [("phase-3 vectors + seeded", len(k3_raw3), k3_mism3,
            float(np.abs(k3_raw3.astype(int) - k3_plain3.astype(int)).max())),
           cmp11]
@@ -4970,9 +5942,10 @@ for name, key, src_f, replaces, cmps, bound in (
          "bound_by": "operations", "library_ms": None})
 # C1 and C2 (XLA functions of the JAX package, not Pallas kernels): C1 at
 # the 1,024-key set, held as field values; C2 at 65,536 lanes, as bitmaps
-cmp15 += cmp16["comb_build"] + cmp17["comb_build"] + cmp18["comb_build"]
+cmp15 += cmp16["comb_build"] + cmp17["comb_build"] + cmp18["comb_build"] \
+    + cmp19["comb_build"]
 c2_cmp += cmp16["comb_verify"] + cmp17["comb_verify"] \
-    + cmp18["comb_verify"]
+    + cmp18["comb_verify"] + cmp19["comb_verify"]
 c2_vs_k1 += c2_vs_k1_16
 comb_src = "tendermint_tpu_torch/csrc/comb.cu"
 kernels.append(

@@ -44,8 +44,7 @@ from __future__ import annotations
 from typing import List, Optional, Tuple
 
 from tendermint_tpu_torch.crypto import scheduler as vsched
-from tendermint_tpu_torch.crypto.degrade import DeviceLaneError
-from tendermint_tpu_torch.libs import fail
+from tendermint_tpu_torch.crypto.degrade import DeviceLaneError, card_fault
 from tendermint_tpu_torch.types.block import Block
 from tendermint_tpu_torch.types.basic import BlockID
 from tendermint_tpu_torch.types.part_set import (
@@ -91,13 +90,6 @@ class WindowDeviceError(DeviceLaneError):
         self.height = height
         self.state = state
         self.applied = applied
-
-
-def card_fault(e: BaseException) -> bool:
-    """True for a launch that failed on the card outside a chaos drill
-    (in a drill the degradation runtime re-verifies on the host, and a
-    DeviceLaneError that still escapes takes the JAX package's path)."""
-    return isinstance(e, DeviceLaneError) and not fail.armed()
 
 
 def window_error(height: int, e: BaseException, state, applied: int,

@@ -73,6 +73,15 @@ class DeviceLaneError(RuntimeError):
     """A device launch failed (raise, timeout, or integrity mismatch)."""
 
 
+def card_fault(e: BaseException) -> bool:
+    """True for a launch that failed on the card outside a chaos drill:
+    the card's fault, never a peer's, a header's or a piece of
+    evidence's, so a caller's catch-all lets it through.  In a drill (a
+    failpoint armed) the runtime re-verifies on the host, and a
+    DeviceLaneError that still escapes takes the JAX package's path."""
+    return isinstance(e, DeviceLaneError) and not fail.armed()
+
+
 @dataclass
 class DegradeConfig:
     """Knobs for the resilience runtime.  Env-overridable so operators

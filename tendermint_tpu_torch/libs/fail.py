@@ -99,6 +99,16 @@ REGISTERED_SITES = frozenset({
     # p2p_netobs_shed_total{reason=chaos}) while the frame's delivery
     # proceeds untouched
     "netobs.record",
+    # light serving plane (light/service.py, ADR-026): light.serve
+    # fires at the top of LightServe.submit (raise = the request
+    # degrades to the synchronous in-caller direct path — the exact
+    # verification the caller would run without the service, identical
+    # verdicts); light.coalesce fires before the worker groups a
+    # batch's certificate verifications (raise = the batch degrades to
+    # per-request direct certificate checks with no dedupe, identical
+    # verdicts)
+    "light.serve",
+    "light.coalesce",
 })
 
 _extra_sites: set = set()

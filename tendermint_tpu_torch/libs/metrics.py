@@ -696,3 +696,53 @@ class TraceMetrics:
             "Finished spans overwritten by flight-recorder ring "
             "wraparound since process start (the ring keeps the newest "
             "window; this counts what it forgot).")
+
+
+class LightMetrics:
+    """Light serving plane (light/service.py, ADR-026): admission
+    outcomes and overload refusals at the front door, cross-client
+    certificate coalescing effectiveness, follow-cursor pressure, and
+    end-to-end request latency.  Per-client p99 latency and the
+    coalesce ratio are served at GET /debug/light; these are the
+    aggregates."""
+
+    def __init__(self, reg: Optional[Registry] = None):
+        reg = reg or DEFAULT
+        self.requests = reg.counter(
+            "light", "requests_total",
+            "Verify requests settled by the serving plane, by outcome "
+            "(ok: verified / refused: header or certificate check "
+            "failed — overload refusals count under light_shed_total "
+            "instead).", labels=("outcome",))
+        self.shed = reg.counter(
+            "light", "shed_total",
+            "Requests refused busy-with-retry-after at the front door "
+            "(busy: admission queue full / ratelimit: the client's "
+            "token bucket was empty).", labels=("reason",))
+        self.coalesce = reg.counter(
+            "light", "coalesce_total",
+            "Certificate verifications by coalescing class (lead: one "
+            "shared execution / hit: a verification settled by another "
+            "request's lead, within a batch or across in-flight "
+            "workers / direct: per-request execution because the "
+            "coalesce plane degraded at the light.coalesce chaos "
+            "seam).", labels=("result",))
+        self.queue_depth = reg.gauge(
+            "light", "serve_queue_depth",
+            "Verify requests waiting in the admission queue right "
+            "now.")
+        self.cursors = reg.gauge(
+            "light", "follow_cursors",
+            "Open header-follow cursors across all clients right now.")
+        self.cursors_evicted = reg.counter(
+            "light", "cursors_evicted_total",
+            "Follow cursors evicted under pressure (per-client or "
+            "global bound): the least-recently-polled cursor is "
+            "dropped so live followers survive; the evicted client "
+            "re-subscribes.")
+        self.request_latency = reg.histogram(
+            "light", "request_latency_seconds",
+            "End-to-end verify latency of plane-processed requests, "
+            "submit to settled verdict (queue wait + header checks + "
+            "coalesced certificate verification).",
+            buckets=exp_buckets(0.0002, 4, 10))

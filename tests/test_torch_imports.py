@@ -3,6 +3,7 @@ quiet fall-back to the CPU when CUDA is missing."""
 import ast
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -99,6 +100,31 @@ def test_p2p_and_blocksync_modules_are_checked():
               "p2p.switch", "blocksync", "blocksync.pool",
               "blocksync.replay", "blocksync.reactor", "state.pipeline"):
         assert f"tendermint_tpu_torch.{m}" in mods, m
+
+
+def test_evidence_and_light_modules_are_checked():
+    """The evidence package (verification, the pool, the reactor), the
+    light client (the verifier, the trusted store, the providers, the
+    detector, the client), LightServe and the RPC client are among the
+    modules the checks below cover."""
+    mods = _port_modules()
+    for m in ("evidence", "evidence.verify", "evidence.pool",
+              "evidence.reactor", "light", "light.verifier", "light.store",
+              "light.provider", "light.detector", "light.client",
+              "light.service", "rpc", "rpc.client"):
+        assert f"tendermint_tpu_torch.{m}" in mods, m
+
+
+@pytest.mark.parametrize("path", sorted(
+    [p.relative_to(ROOT) for p in PKG.rglob("*.py")]
+    + [pathlib.Path("chip_smoke.py")]), ids=str)
+def test_no_jax_package_path_in_source(path):
+    """No dotted path into the JAX package anywhere in the source, lazy
+    imports and import_module strings included: `tendermint_tpu.` is
+    always `tendermint_tpu_torch.` here."""
+    for n, line in enumerate((ROOT / path).read_text().splitlines(), 1):
+        assert not re.search(r"\btendermint_tpu\.[A-Za-z_]", line), \
+            f"{path}:{n}: {line.strip()}"
 
 
 def test_scheduler_cuda_missing_raises(monkeypatch):

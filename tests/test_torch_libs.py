@@ -51,7 +51,8 @@ def test_fail_sites_of_the_port_are_registered_in_both(fails):
         "sched.secp256k1", "bulk.ed25519", "lanepool.verify",
         "merkle.bulk_hash", "devobs.record", "propose.parts",
         "propose.reap", "kvdb.group_commit", "observatory.record",
-        "pipeline.stage", "pipeline.commit", "netobs.record"}
+        "pipeline.stage", "pipeline.commit", "netobs.record",
+        "light.serve", "light.coalesce"}
     assert all(jfail.is_registered(s) for s in tfail.REGISTERED_SITES)
 
 

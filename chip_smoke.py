@@ -245,7 +245,49 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      C1 and C2 launch of the phase held against its plain version, the
      skipping hop's certificate bitmap against OpenSSL's; each step's
      host wall logged, not gated
- 20  the kernels line; then the last line {"ok": true, "device": ...}
+ 20  the mempool and the validator signer, at the reference's mempool
+     defaults (size 5,000, cache 10,000, an ingress queue of 8,192,
+     batches of 256, one worker, recheck slices of 256): SIGTX envelopes
+     (166 bytes) from 1,000 in-repo keys, pre-verified by the IngressGate
+     through a VerifyScheduler on the card at Priority.MEMPOOL (K1 at 256
+     lanes a batch); (a) 6,000 signed txs (1% corrupted, 5% resubmitted)
+     and 200 plain ones through a gate over a Mempool and the kvstore:
+     every corrupted tx refused before the app ("invalid signature", or
+     "mempool is full" once the precheck finds the pool full), every
+     other response and the pool's content those of the synchronous
+     check_tx path, the pool at 5,000; one window's bitmap against
+     OpenSSL's; (b) the same over a PriorityMempool, its reap order and
+     responses those of a gate and scheduler on device="cpu"; (c) a
+     150-validator kvstore chain whose BlockExecutor reaps (a)'s pool
+     while four clients flood 6,000 more signed txs: no corrupted tx in a
+     block, every block's txs admitted, every admitted tx in one block,
+     update's recheck offloaded to the gate's worker, each last commit on
+     K1 at 256 lanes; (d) 20,000 signed txs through a gate of 16 workers
+     over a PriorityMempool against a scheduler with max_pending 1,024
+     while a loop pre-verifies fresh 150-validator precommit sets at
+     CONSENSUS (5 ms deadline) and verifies a commit under COMMIT:
+     MEMPOOL sheds as busy with a Retry-After hint, CONSENSUS never shed
+     and every bitmap exact, the gate's queue at most 8,192; the votes'
+     p50/p99 alone and under the flood; (e) two Switches on 127.0.0.1
+     with a MempoolReactor each: 2,000 txs admitted at A reach B's pool
+     through B's gate from p2p:<A's id> (B's launches and SigCache hits
+     logged); (f) 150 FilePVs with key and state files, four behind
+     SignerServers dialling SignerClients (two TCP, two unix): a proposal,
+     150 prevotes and 150 precommits, both pre-verified at CONSENSUS on
+     K1, the precommits through VoteSet.add_vote (no host verify),
+     make_commit, verify_commit on K1, the next height applied; the
+     double-sign guards (local, remote, reloaded from the files; the
+     state files unchanged; a timestamp-only re-sign returns the first
+     signature), run_harness, a redial after a dropped connection; (g)
+     the ingress.admit, ingress.checktx and ingress.recheck drills, each
+     with the gate's own results, then K1's wrapper raising with no
+     failpoint armed under a gate batch, a batch gossiped to B's reactor
+     and check_tx (DeviceLaneError on every signed tx's future, no `sig`
+     rejection, the plain txs admitted, the worker alive, no peer
+     stopped), each tx admitted when resubmitted.  Every K1 launch of the
+     phase held against its plain version; each step's host wall, the
+     admission rate and the card's share (CUDA events) logged, not gated
+ 21  the kernels line; then the last line {"ok": true, "device": ...}
 
 Signatures come from a seeded incremental generator (a_i = a_0 + i, so
 A_i = A_{i-1} + B), because signing 100k triples one by one in pure
@@ -340,6 +382,15 @@ from tendermint_tpu_torch import light  # noqa: E402
 from tendermint_tpu_torch.light import provider as lprov  # noqa: E402
 from tendermint_tpu_torch.light import service as lserve  # noqa: E402
 from tendermint_tpu_torch.light.service import LightRequest  # noqa: E402
+from tendermint_tpu_torch.mempool import ingress  # noqa: E402
+from tendermint_tpu_torch.mempool import reactor as mreactor  # noqa: E402
+from tendermint_tpu_torch.mempool.mempool import Mempool  # noqa: E402
+from tendermint_tpu_torch.mempool.priority_mempool import \
+    PriorityMempool  # noqa: E402
+from tendermint_tpu_torch.privval import file_pv as fpv  # noqa: E402
+from tendermint_tpu_torch.privval import signer as pvsigner  # noqa: E402
+from tendermint_tpu_torch.privval.harness import run_harness  # noqa: E402
+from tendermint_tpu_torch.types.proposal import Proposal  # noqa: E402
 from tendermint_tpu_torch.evidence import pool as evpool  # noqa: E402
 from tendermint_tpu_torch.evidence import reactor as evreactor  # noqa: E402
 from tendermint_tpu_torch.libs.metrics import P2PMetrics  # noqa: E402
@@ -5842,21 +5893,1308 @@ check(all(r[2] == 0 for rows in cmp19.values() for r in rows),
       f"phase 19: a kernel disagrees with its plain version: {cmp19}")
 REPORT["light"] = light19
 
-# -- phase 20: the kernels line -----------------------------------------------
+# -- phase 20: the mempool and the validator signer ---------------------------
+
+# The mempool (Mempool, PriorityMempool, the IngressGate, the MempoolReactor)
+# and the validator signer (FilePV, the remote signer, its harness) on the
+# card, at the reference DefaultMempoolConfig (`tendermint_tpu/config/
+# config.py:47-67`: size 5,000, cache 10,000, an ingress queue of 8,192,
+# batches of 256, one worker, recheck slices of 256), passed to the
+# constructors.  Signed txs are SIGTX envelopes (mempool/ingress.py) from
+# 1,000 in-repo ed25519 keys over a payload k<i>=v<i> padded to 64 bytes
+# (166 bytes a tx), signed before the steps that submit them; the gate
+# pre-verifies them through a VerifyScheduler on the card at
+# Priority.MEMPOOL (K1).  (a) 6,000 signed txs (1% corrupted, 5%
+# resubmitted, 200 plain) through a gate over a Mempool and the kvstore,
+# against the synchronous check_tx path; (b) the same over a
+# PriorityMempool, against a gate on device="cpu"; (c) 150-validator blocks
+# reaped from (a)'s pool while four clients flood 6,000 more; (d) the
+# MEMPOOL shed under consensus load (max_pending 1,024); (e) gossip between
+# two Switches over TCP on 127.0.0.1; (f) 150 FilePVs (four behind
+# SignerServers) signing a height that applies, the double-sign guards, the
+# harness and a redial; (g) the ingress.* drills, then K1's wrapper raising
+# with no failpoint armed under a gate batch, a gossiped batch and check_tx.
+# Walls are host-clock, logged and not gated; every response, route and
+# count named below is.
+N20_KEYS, N20 = 1000, 150
+A20, BAD20, DUP20, PLAIN20 = 6000, 60, 300, 200    # (a) and (b)
+C20, CLIENTS20, D20, E20 = 6000, 4, 20_000, 2000   # (c), (d), (e)
+MP20 = {"size_limit": 5000, "cache_size": 10_000}
+GATE20 = {"queue_size": 8192, "batch": 256, "workers": 1,
+          "recheck_slice": 256}
+REASONS20 = ("full", "busy", "cache", "ratelimit", "sig", "app_err",
+             "toolarge")
+T20 = time.perf_counter()
+rng20 = random.Random(SEED + 20)
+E.table_cache_clear()
+check(not msm.use_rlc(10_000) and not failpoints.armed()
+      and vsched.installed() is None and bpipe.installed() is None,
+      "phase 20: RLC, a failpoint, a scheduler or a pipeline is still on")
+degrade.configure(degrade.DegradeConfig.from_env(), registry=Registry("p20"))
+ingress.set_enabled(None)
+ON_CARD20 = DEV.type == "cuda"
+# the interpreter's garbage collections in the phase (phase 17's counter):
+# the process holds every earlier phase's objects, so a full collection
+# lands on whichever step allocates when it comes due
+gc17.update(n=[0, 0, 0], s=[0.0, 0.0, 0.0])
+gc.callbacks.append(_gc17)
+# every K1, K2, C1 and C2 launch of the phase: (label, inputs, output)
+keep20 = {name: [] for name in ("verify_packed", "verify_packed_split",
+                                "comb_build", "comb_verify")}
+label20 = [""]
+was20 = {name: getattr(KERNEL_MOD[name], name) for name in keep20}
+_keep20_lock = threading.Lock()
+
+
+def _keeping20(name):
+    """The bare wrapper (REAL), keeping a copy of every launch's tensor
+    inputs (C2's tables by reference) and its output; the gate's windows
+    and the commit checks launch from the runtime's lane thread."""
+    def wrapper(*args):
+        out = REAL[name](*args)
+        kept = [a.clone() if isinstance(a, torch.Tensor)
+                and not (name == "comb_verify" and i == 1) else a
+                for i, a in enumerate(args)]
+        with _keep20_lock:
+            keep20[name].append((label20[0], kept, out))
+        return out
+    return wrapper
+
+
+for _name in keep20:
+    setattr(KERNEL_MOD[_name], _name, _keeping20(_name))
+
+
+def k1_rows20(prefix):
+    """(launches, padded lanes, real lanes) of the phase's K1 launches whose
+    label starts with prefix."""
+    runs = [r for r in keep20["verify_packed"] if r[0].startswith(prefix)]
+    real = sum(int((args[0] != 0).any(dim=0).sum()) for _, args, _ in runs)
+    return {"launches": len(runs),
+            "lanes": sum(int(out.shape[0]) for _, _, out in runs),
+            "real_lanes": real}
+
+
+keys20 = [edkeys.PrivKey(hashlib.sha256(b"phase 20 key %d" % i).digest())
+          for i in range(N20_KEYS)]
+MAGIC20 = len(ingress.SIGTX_MAGIC)
+_seq20 = [0]
+
+
+def sigtxs20(n):
+    """n fresh SIGTX envelopes over k<i>=v<i> padded to 64 bytes, i counting
+    across the phase, signed by key i mod 1,000."""
+    out = []
+    for _ in range(n):
+        i = _seq20[0]
+        _seq20[0] += 1
+        payload = (b"k%d=v%d" % (i, i)).ljust(64, b".")
+        out.append(ingress.make_signed_tx(keys20[i % N20_KEYS], payload))
+    return out
+
+
+def corrupt20(tx):
+    """The envelope with its signature's first byte flipped."""
+    b = bytearray(tx)
+    b[MAGIC20 + 32] ^= 0x01
+    return bytes(b)
+
+
+class App20:
+    """The port's kvstore behind CheckTx: every tx asked about is recorded;
+    a signed tx's priority is its signature's first byte mod 8 (the kvstore
+    sets none, and a PriorityMempool orders by it); a tx in `stale` fails
+    its recheck."""
+
+    def __init__(self, kv=None):
+        self.kv = kv if kv is not None else KVStoreApplication()
+        self.seen = []
+        self.stale = set()
+
+    def check_tx(self, req):
+        self.seen.append(req.tx)
+        if (req.type == abci_t.CheckTxType.RECHECK
+                and req.tx in self.stale):
+            return abci_t.ResponseCheckTx(code=3, log="stale")
+        res = self.kv.check_tx(req)
+        if req.tx.startswith(ingress.SIGTX_MAGIC) \
+                and len(req.tx) > MAGIC20 + 32:
+            res.priority = req.tx[MAGIC20 + 32] % 8
+        return res
+
+
+def sched20(**kw):
+    """A scheduler on the card with the constructor's defaults (but for kw)
+    and a fresh SigCache, so that a step's signatures are verified on the
+    card and not found among an earlier step's."""
+    cbatch.verified_sigs = cbatch.SigCache(capacity=1 << 18)
+    s = vsched.install(vsched.VerifyScheduler(device=DEV, **kw))
+    s.start()
+    return s
+
+
+def stop_sched20(s):
+    s.stop()
+    vsched.uninstall(s)
+
+
+def gate20(mp, device=DEV, **kw):
+    g = ingress.IngressGate(mp, **{**GATE20, **kw}, device=device).attach()
+    g.start()
+    return g
+
+
+def settle20(futs, timeout=300.0):
+    """Each future's ResponseCheckTx, or the exception it raises."""
+    out = []
+    for f in futs:
+        try:
+            out.append(f.result(timeout=timeout))
+        except Exception as e:  # noqa: BLE001 - returned and checked
+            out.append(e)
+    return out
+
+
+def ok20(r):
+    return isinstance(r, abci_t.ResponseCheckTx) and r.is_ok()
+
+
+def view20(r):
+    if isinstance(r, abci_t.ResponseCheckTx):
+        return (r.code, r.codespace, r.log)
+    return type(r).__name__
+
+
+def reasons20(mp):
+    return {r: mp.metrics.rejected_txs.value(reason=r) for r in REASONS20}
+
+
+def wait20(cond, what, timeout):
+    end = time.monotonic() + timeout
+    while not cond():
+        check(time.monotonic() < end, f"phase 20: {what} timed out")
+        time.sleep(0.002)
+
+
+def workers_alive20(g):
+    return all(th.is_alive() for th in g._threads
+               if th.name.startswith("ingress-worker"))
+
+
+# MEMPOOL submissions of step (a): (items, future), for the OpenSSL check
+subs20: list = []
+
+
+def record_subs20(s):
+    real = s.submit
+
+    def submit(items, prio, *a, **k):
+        fut = real(items, prio, *a, **k)
+        if prio == vsched.Priority.MEMPOOL and len(subs20) < 64:
+            subs20.append((list(items), fut))
+        return fut
+    s.submit = submit
+
+
+mempool20: dict = {"card": CARD}
+walls20: dict = {}
+
+# -- (a) admission through the gate over a Mempool: 6,000 signed txs (60
+# corrupted), 200 plain, 300 resubmissions of txs the pool admitted early
+# (among the first half, each at least two batches after its original, so
+# a batch never holds both), in a seeded order, from one thread
+t = time.perf_counter()
+signed_a = sigtxs20(A20)
+walls20["sign_a"] = time.perf_counter() - t
+check(all(len(tx) == 166 for tx in signed_a), "phase 20: a tx is not 166 B")
+bad_a = set(rng20.sample(range(A20), BAD20))
+signed_a = [corrupt20(tx) if i in bad_a else tx
+            for i, tx in enumerate(signed_a)]
+bad_set20 = {signed_a[i] for i in bad_a}
+seq_a = signed_a + [b"plain%d=v%d" % (i, i) for i in range(PLAIN20)]
+rng20.shuffle(seq_a)
+_cand = [j for j in range(len(seq_a) // 2) if seq_a[j] not in bad_set20]
+for _at, _tx in sorted(((rng20.randrange(j + 2 * GATE20["batch"],
+                                         len(seq_a) + 1), seq_a[j])
+                        for j in rng20.sample(_cand, DUP20)), reverse=True):
+    seq_a.insert(_at, _tx)
+kv_a = KVStoreApplication()
+app_a = App20(kv_a)
+mp_a = Mempool(app_a, registry=Registry("p20 a"), **MP20)
+s_a = sched20()
+record_subs20(s_a)
+g_a = gate20(mp_a)
+label20[0] = "a v0"
+
+
+def run_a():
+    t = time.perf_counter()
+    futs = [g_a.submit(tx) for tx in seq_a]
+    t_sub = time.perf_counter() - t
+    res = settle20(futs)
+    return res, t_sub, time.perf_counter() - t
+
+
+gc_a = sum(gc17["s"])
+(res_a, sub_a_s, wall_a), c_a = main_path(run_a, site="sched.ed25519")
+gc_a = sum(gc17["s"]) - gc_a
+st_sched_a = s_a.stats()
+stop_sched20(s_a)
+# a corrupted tx is refused "invalid signature" by the pre-verify, or, once
+# the pool is full, "mempool is full" by the precheck that comes before it
+FULL20 = (1, "", "mempool is full")
+INVALID20 = (1, "ingress", "invalid signature")
+first_full_a = next(k for k, r in enumerate(res_a) if view20(r) == FULL20)
+bad_views_a = [(k, view20(res_a[k])) for k, tx in enumerate(seq_a)
+               if tx in bad_set20]
+check(all(v == INVALID20 or (v == FULL20 and k > first_full_a)
+          for k, v in bad_views_a)
+      and all(v == INVALID20 for k, v in bad_views_a if k < first_full_a),
+      f"phase 20 (a): corrupted txs answered {bad_views_a}")
+check(not bad_set20 & set(app_a.seen),
+      "phase 20 (a): a corrupted tx reached the app's CheckTx")
+twin_a = Mempool(App20(), registry=Registry("p20 a twin"), **MP20)
+good_a = [(tx, r) for tx, r in zip(seq_a, res_a) if tx not in bad_set20]
+t = time.perf_counter()
+gc_sync_a = sum(gc17["s"])
+want_a = [twin_a.check_tx(tx) for tx, _ in good_a]
+walls20["sync_a"] = time.perf_counter() - t
+gc_sync_a = sum(gc17["s"]) - gc_sync_a
+mism_a = sum(r != w for (_, r), w in zip(good_a, want_a))
+pool_a = mp_a.reap_max_txs(-1)
+views_a = [view20(r) for r in res_a]
+rows_a = k1_rows20("a ")
+admitted_a = sum(ok20(r) for r in res_a)
+st_a = g_a.stats()
+mempool20["a"] = {
+    "submitted": len(seq_a), "admitted": admitted_a,
+    "responses": {str(v): views_a.count(v) for v in sorted(set(views_a),
+                                                           key=str)},
+    "rejected_total": reasons20(mp_a), "gate": st_a,
+    "app_checktx_calls": len(app_a.seen), "submit_s": sub_a_s,
+    "wall_s": wall_a, "admitted_per_s": admitted_a / wall_a,
+    "sync_wall_s": walls20["sync_a"], "gc_s": gc_a, "sync_gc_s": gc_sync_a,
+    "sync_admitted_per_s": sum(w.is_ok() for w in want_a)
+    / walls20["sync_a"],
+    "launches": {k: v for k, v in c_a.items() if v}, "k1": rows_a,
+    "scheduler": {k: st_sched_a[k] for k in (
+        "launches", "lanes", "submissions", "items", "cache_hits", "dedup",
+        "shed", "exec_faults", "mean_batch", "stage_s", "exec_busy_s")
+        if k in st_sched_a},
+    "sync_mismatches": mism_a, "pool": len(pool_a),
+    "corrupted": {"invalid_signature": sum(v == INVALID20
+                                           for _, v in bad_views_a),
+                  "full": sum(v == FULL20 for _, v in bad_views_a)},
+    "sign_s": walls20["sign_a"]}
+log(phase=20, card=CARD, step="a admission v0", **mempool20["a"])
+check(mism_a == 0 and pool_a == twin_a.reap_max_txs(-1)
+      and len(pool_a) == MP20["size_limit"]
+      and views_a.count((1, "", "mempool is full")) > 0
+      and c_a["verify_packed"] == rows_a["launches"] > 0
+      and st_a["sig_rejected"] == sum(v == INVALID20 for _, v in bad_views_a)
+      > 0 and st_a["device_error"] == 0,
+      f"phase 20 (a): {mism_a} responses differ from the synchronous path, "
+      f"pool {len(pool_a)}, launches {c_a}, gate {st_a}")
+# one pre-verify window's bitmap against OpenSSL's: the first of the gate's
+# MEMPOOL submissions that holds a corrupted tx
+win_a = next(((items, fut) for items, fut in subs20
+              if any(ingress.SIGTX_MAGIC + bytes(pub) + bytes(sig)
+                     + msg[MAGIC20 + 32:] in bad_set20
+                     for pub, msg, sig in items)), None)
+check(win_a is not None, "phase 20 (a): no window held a corrupted tx")
+bits_a = np.asarray(win_a[1].result(timeout=0))
+want_bits_a = np.array([edkeys._ossl_verify(bytes(p), m, bytes(s))
+                        for p, m, s in win_a[0]], dtype=bool)
+oracle20 = ("(a) a pre-verify window", len(want_bits_a),
+            int((bits_a != want_bits_a).sum()), int((~want_bits_a).sum()))
+check(oracle20[2] == 0 and oracle20[3] > 0,
+      f"phase 20 (a): the window's bitmap against OpenSSL's {oracle20}")
+
+
+# -- (b) the same sequence over a PriorityMempool, a batch of 256 at a time
+# (each submitted under the gate's condition and settled before the next,
+# so the batches, and with them the pool's evictions, are the same in every
+# run), on the card and then on a gate and scheduler on device="cpu"
+def chunked20(g, seq, chunk=256):
+    res = []
+    for i in range(0, len(seq), chunk):
+        with g._cond:
+            futs = [g.submit(tx) for tx in seq[i:i + chunk]]
+        res += settle20(futs)
+    return res
+
+
+s_b = sched20()
+app_b = App20()
+mp_b = PriorityMempool(app_b, registry=Registry("p20 b"), **MP20)
+g_b = gate20(mp_b)
+label20[0] = "b v1"
+(res_b, wall_b), c_b = main_path(lambda: timed_call(lambda: chunked20(
+    g_b, seq_a)), site="sched.ed25519")
+g_b.stop()
+stop_sched20(s_b)
+order_b = mp_b.reap_max_bytes_max_gas(-1, -1)
+s_bc = vsched.install(vsched.VerifyScheduler(device="cpu"))
+s_bc.start()
+app_bc = App20()
+mp_bc = PriorityMempool(app_bc, registry=Registry("p20 b cpu"), **MP20)
+g_bc = gate20(mp_bc, device="cpu")
+label20[0] = "b cpu"
+(res_bc, wall_bc), c_bc = main_path(lambda: timed_call(lambda: chunked20(
+    g_bc, seq_a)))
+g_bc.stop()
+stop_sched20(s_bc)
+order_bc = mp_bc.reap_max_bytes_max_gas(-1, -1)
+views_b = [view20(r) for r in res_b]
+prio_b = [tx[MAGIC20 + 32] % 8 if tx.startswith(ingress.SIGTX_MAGIC) else 0
+          for tx in order_b]
+rows_b = k1_rows20("b v1")
+mempool20["b"] = {
+    "admitted": sum(ok20(r) for r in res_b), "wall_s": wall_b,
+    "admitted_per_s": sum(ok20(r) for r in res_b) / wall_b,
+    "responses": {str(v): views_b.count(v) for v in sorted(set(views_b),
+                                                           key=str)},
+    "rejected_total": reasons20(mp_b), "gate": g_b.stats(),
+    "launches": {k: v for k, v in c_b.items() if v}, "k1": rows_b,
+    "cpu_wall_s": wall_bc, "cpu_launches": sum(c_bc.values()),
+    "pool": len(order_b),
+    "priorities_reaped": {p: prio_b.count(p) for p in range(8)}}
+log(phase=20, card=CARD, step="b admission v1", **mempool20["b"])
+check(order_b == order_bc and views_b == [view20(r) for r in res_bc]
+      and len(order_b) == MP20["size_limit"]
+      and not bad_set20 & set(app_b.seen)
+      and views_b.count((1, "ingress", "invalid signature")) == BAD20
+      and prio_b == sorted(prio_b, reverse=True)
+      and c_b["verify_packed"] == rows_b["launches"] > 0
+      and sum(c_bc.values()) == 0,
+      f"phase 20 (b): the PriorityMempool's reap order or responses differ "
+      f"from the device='cpu' run's, or launches {c_b} / {c_bc}")
+
+# -- (c) into blocks: a 150-validator kvstore chain whose BlockExecutor reaps
+# (a)'s pool (its gate attached, the recheck offloaded to the gate's worker)
+# with the default block size, each height's last commit verified on K1,
+# while four clients flood 6,000 more signed txs (1% corrupted) through the
+# gate, chunks of 64 each waited for, a tx refused "mempool is full"
+# submitted again; heights go on until every client is done and the pool is
+# empty
+gdoc20, a_of20, pubs20 = chain_keys17(N20)
+
+
+def executor20(gdoc, kv, mempool=None):
+    conns = AppConns(ClientCreator.local(kv))
+    conns.consensus.init_chain(abci_t.RequestInitChain(
+        chain_id=gdoc.chain_id, validators=[
+            abci_t.ValidatorUpdate("ed25519", v.pub_key_bytes, v.power)
+            for v in gdoc.validators]))
+    ss, bs = StateStore(MemDB()), BlockStore(MemDB())
+    state = state_from_genesis(gdoc)
+    ss.save(state)
+    return sexec.BlockExecutor(ss, conns.consensus, mempool=mempool,
+                               block_store=bs), bs, state
+
+
+ex_c, bs_c20, state_c = executor20(gdoc20, kv_a, mempool=mp_a)
+upd20: list = []
+_real_update_a = mp_a.update
+
+
+def _timed_update20(height, txs):
+    t = time.perf_counter()
+    _real_update_a(height, txs)
+    upd20.append({"height": height, "committed": len(txs),
+                  "update_s": time.perf_counter() - t,
+                  "resident": len(mp_a._txs)})
+
+
+mp_a.update = _timed_update20
+t = time.perf_counter()
+flood_c = sigtxs20(C20)
+walls20["sign_c"] = time.perf_counter() - t
+bad_c_idx = set(rng20.sample(range(C20), C20 // 100))
+flood_c = [corrupt20(tx) if i in bad_c_idx else tx
+           for i, tx in enumerate(flood_c)]
+bad_c = {flood_c[i] for i in bad_c_idx}
+admitted_c: list = []
+refused_c: list = []
+retried_c = [0]
+
+
+def client20(txs):
+    pending = list(txs)
+    while pending:
+        again = []
+        for i in range(0, len(pending), 64):
+            chunk = pending[i:i + 64]
+            res = settle20([g_a.submit(tx) for tx in chunk])
+            full = False
+            for tx, r in zip(chunk, res):
+                if ok20(r):
+                    admitted_c.append(tx)
+                elif isinstance(r, abci_t.ResponseCheckTx) \
+                        and r.log == "mempool is full":
+                    again.append(tx)
+                    full = True
+                else:
+                    refused_c.append((tx, view20(r)))
+            if full:
+                time.sleep(0.05)
+        retried_c[0] += len(again)
+        pending = again
+
+
+s_c = sched20()
+heights_c: list = []
+blocks_c: list = []
+label20[0] = "c blocks"
+
+
+def run_c():
+    global state_c
+    bulk = degrade.runtime().metrics.device_launches
+    last = Commit(0, 0, BlockID(), [])
+    threads = [threading.Thread(target=client20, args=(flood_c[k::CLIENTS20],),
+                                daemon=True, name=f"client20-{k}")
+               for k in range(CLIENTS20)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    h = 0
+    while True:
+        h += 1
+        t = time.perf_counter()
+        block = ex_c.create_proposal_block(
+            h, state_c, last, state_c.validators.get_proposer().address)
+        reap_s = time.perf_counter() - t
+        parts = tparts.make_block_parts(block)
+        bid = BlockID(block.hash(), parts.header())
+        seen = sign17(state_c, bid, h, a_of20)
+        bs_c20.save_block(block, parts, seen)
+        rc0 = g_a.stats()["rechecked"]
+        b0 = bulk.value(site="bulk.ed25519")
+        t = time.perf_counter()
+        state_c = ex_c.apply_block(state_c, bid, block)[0]
+        apply_s = time.perf_counter() - t
+        u = upd20[-1]
+        t = time.perf_counter()
+        wait20(lambda: g_a.stats()["rechecked"] - rc0 >= u["resident"],
+               f"(c) height {h}'s offloaded recheck", 120)
+        heights_c.append({
+            "height": h, "txs": len(block.data.txs), "reap_s": reap_s,
+            "apply_s": apply_s, "update_s": u["update_s"],
+            "committed": u["committed"], "resident": u["resident"],
+            "recheck_s": time.perf_counter() - t,
+            "bulk_launches": bulk.value(site="bulk.ed25519") - b0})
+        blocks_c.append(list(block.data.txs))
+        last = seen
+        done = not any(th.is_alive() for th in threads)
+        if done and mp_a.size() == 0 and g_a.depth() == 0:
+            break
+        check(time.perf_counter() - t0 < 600,
+              "phase 20 (c): the pool did not empty within 600 s")
+        if not block.data.txs:
+            time.sleep(0.05)
+    for th in threads:
+        th.join()
+    return time.perf_counter() - t0
+
+
+wall_c, c_c = main_path(run_c, site="bulk.ed25519")
+st_sched_c = s_c.stats()
+stop_sched20(s_c)
+in_blocks = [tx for txs in blocks_c for tx in txs]
+ok_a = {tx for tx, r in zip(seq_a, res_a) if ok20(r)}
+# the commits' K1 launches: 150 real lanes, every A row a validator's key
+vkeys20 = set(pubs20[:N20])
+commit_k1 = []
+for _lab, _args, _out in keep20["verify_packed"]:
+    if _lab != "c blocks":
+        continue
+    _real = (_args[0] != 0).any(dim=0)
+    _a = _args[0][:32, _real].t().contiguous().cpu().numpy()
+    if len(_a) == N20 and all(bytes(r) in vkeys20 for r in _a):
+        commit_k1.append(int(_out.shape[0]))
+rows_c = k1_rows20("c ")
+mempool20["c"] = {
+    "heights": heights_c, "wall_s": wall_c,
+    "txs_in_blocks": len(in_blocks),
+    "txs_per_s": len(in_blocks) / wall_c,
+    "flood_admitted": len(admitted_c), "flood_refused": len(refused_c),
+    "flood_retried_full": retried_c[0], "gate": g_a.stats(),
+    "launches": {k: v for k, v in c_c.items() if v}, "k1": rows_c,
+    "commit_k1_lanes": commit_k1,
+    # the gate's windows on K1; the rest, below tpu_threshold (32 lanes),
+    # took the host lane
+    "gate_windows_on_k1": rows_c["launches"] - len(commit_k1),
+    "scheduler": {k: st_sched_c[k] for k in ("launches", "lanes",
+                                             "submissions", "cache_hits")
+                  if k in st_sched_c},
+    "offload_hook": mp_a.recheck_offload == g_a._schedule_recheck}
+log(phase=20, card=CARD, step="c into blocks", **mempool20["c"])
+check(len(in_blocks) == len(set(in_blocks))
+      and not set(in_blocks) & (bad_c | bad_set20)
+      and set(in_blocks) <= ok_a | set(admitted_c)
+      and set(admitted_c) | set(pool_a) == set(in_blocks)
+      and {tx for tx, _ in refused_c} == bad_c
+      and all(v == (1, "ingress", "invalid signature") for _, v in refused_c)
+      and mp_a.size() == 0,
+      f"phase 20 (c): blocks hold {len(in_blocks)} txs ("
+      f"{len(set(in_blocks))} distinct), {len(admitted_c)} flood txs "
+      f"admitted, refused {len(refused_c)}")
+check(mempool20["c"]["offload_hook"]
+      and all(r["bulk_launches"] == (0 if r["height"] == 1 else 1)
+              for r in heights_c)
+      and commit_k1 == [256] * (len(heights_c) - 1),
+      f"phase 20 (c): the recheck hook, or the commits' K1 launches "
+      f"{commit_k1} over {len(heights_c)} heights")
+
+# -- (d) the shed under consensus load: a scheduler with max_pending 1,024
+# (four gate batches) and a gate of sixteen workers (so that more than four
+# batches wait for a window while the stager stages the last one) over a
+# PriorityMempool (its fullness is decided at insert, so every tx is
+# pre-verified); one
+# thread floods 20,000 signed txs while a loop pre-verifies a fresh
+# 150-validator precommit set at CONSENSUS with a 5 ms deadline (one lane
+# corrupted) and verifies a 150-validator commit under COMMIT; first ten
+# rounds without the flood
+s_d = sched20(max_pending=1024)
+app_d = App20()
+mp_d = PriorityMempool(app_d, registry=Registry("p20 d"), **MP20)
+g_d = gate20(mp_d, workers=16)
+t = time.perf_counter()
+flood_d = sigtxs20(D20)
+walls20["sign_d"] = time.perf_counter() - t
+a_d, p_d = gen_keys(N20, rng20)
+vset_d, commit_d, bid_d, _ = make_commit(N20, rng20, height=20)
+
+
+def votes20(r):
+    """The round's precommit triples (fresh signatures, lane r mod 150
+    corrupted) and the expected bitmap."""
+    sigs = [CommitSig(BlockIDFlag.COMMIT, b"\x00" * 20,
+                      Timestamp(1700002000 + r, i)) for i in range(N20)]
+    cm_r = Commit(1000 + r, 0, BlockID(b"\x41" * 32,
+                                       PartSetHeader(1, b"\x42" * 32)), sigs)
+    msgs = commit_sign_bytes_batch(CHAIN, cm_r, list(range(N20)))
+    sig = sign_batch(a_d, p_d, msgs, rng20)
+    j = r % N20
+    sig[j] = corrupt(sig[j], rng20)
+    expect = np.ones(N20, dtype=bool)
+    expect[j] = False
+    return [(edkeys.PubKey(p), m, s) for p, m, s in zip(p_d, msgs, sig)], \
+        expect
+
+
+metrics_d = degrade.runtime().metrics
+shed0 = {p: metrics_d.sched_shed_total.value(priority=p)
+         for p in ("mempool", "consensus", "commit")}
+miss0_d = metrics_d.sched_deadline_miss.value(priority="consensus")
+cons_d = {"alone": [], "flood": []}
+exact_d: list = []
+commit_err_d: list = []
+
+
+def consensus20(key, stop):
+    r = len(exact_d)
+    while not stop():
+        items, expect = votes20(r)
+        r += 1
+        t = time.perf_counter()
+        ok, bits = vsched.verify_items(
+            items, vsched.Priority.CONSENSUS,
+            deadline=time.monotonic() + 0.005, device=DEV)
+        cons_d[key].append(time.perf_counter() - t)
+        exact_d.append(bool(np.array_equal(bits, expect)) and not ok)
+        with vsched.priority_context(vsched.Priority.COMMIT):
+            commit_err_d.append(commit_error_index(vset_d, bid_d, commit_d,
+                                                   height=20))
+
+
+futs_d: list = []
+depth_d: list = []
+
+
+def flood20():
+    # the first queue-full is submitted under the gate's condition: every
+    # worker finds a whole batch when it is released, and they submit
+    # their pre-verifies one after another, faster than the stager takes
+    # windows of them; the rest as fast as the queue takes it
+    with g_d._cond:
+        for tx in flood_d[:GATE20["queue_size"]]:
+            futs_d.append(g_d.submit(tx, source="p2p:flood"))
+        depth_d.append(g_d.depth())
+    for i, tx in enumerate(flood_d[GATE20["queue_size"]:]):
+        futs_d.append(g_d.submit(tx, source="p2p:flood"))
+        if not i % 128:
+            depth_d.append(g_d.depth())
+    depth_d.append(g_d.depth())
+
+
+label20[0] = "d shed"
+
+
+def run_d():
+    consensus20("alone", lambda: len(cons_d["alone"]) >= 10)
+    th = threading.Thread(target=flood20, daemon=True, name="flood20")
+    t0 = time.perf_counter()
+    th.start()
+    consensus20("flood", lambda: not th.is_alive() and all(
+        f.done() for f in futs_d))
+    th.join()
+    res = settle20(futs_d)
+    return res, time.perf_counter() - t0
+
+
+(res_d, wall_d), c_d = main_path(run_d, site="sched.ed25519")
+st_sched_d = s_d.stats()
+st_d = g_d.stats()
+g_d.stop()
+stop_sched20(s_d)
+views_d = [view20(r) for r in res_d]
+shed_d = {p: metrics_d.sched_shed_total.value(priority=p) - shed0[p]
+          for p in shed0}
+hints_d = [f.retry_after_s for f, v in zip(futs_d, views_d)
+           if v[1:] == ("ingress", "mempool is busy (verify shed)")]
+busy_q = [f.retry_after_s for f, v in zip(futs_d, views_d)
+          if v[1:] == ("ingress", "mempool is busy")]
+rows_d = k1_rows20("d ")
+mempool20["d"] = {
+    "votes_ms_alone": {"p50": pctl(cons_d["alone"], 0.5) * 1e3,
+                       "p99": pctl(cons_d["alone"], 0.99) * 1e3,
+                       "n": len(cons_d["alone"])},
+    "votes_ms_flood": {"p50": pctl(cons_d["flood"], 0.5) * 1e3,
+                       "p99": pctl(cons_d["flood"], 0.99) * 1e3,
+                       "n": len(cons_d["flood"])},
+    "consensus_deadline_misses": metrics_d.sched_deadline_miss.value(
+        priority="consensus") - miss0_d,
+    "shed_total": shed_d, "preverify_shed": st_d["preverify_shed"],
+    "busy_verify_shed": len(hints_d), "busy_queue_full": len(busy_q),
+    "retry_after_s": [min(hints_d + busy_q, default=None),
+                      max(hints_d + busy_q, default=None)],
+    "admitted": sum(ok20(r) for r in res_d), "wall_s": wall_d,
+    "queue_depth_max": max(depth_d, default=0),
+    "responses": {str(v): views_d.count(v) for v in sorted(set(views_d),
+                                                           key=str)},
+    "gate": st_d, "launches": {k: v for k, v in c_d.items() if v},
+    "k1": rows_d,
+    "scheduler": {k: st_sched_d[k] for k in ("launches", "lanes", "shed",
+                                             "submissions", "cache_hits")
+                  if k in st_sched_d}}
+log(phase=20, card=CARD, step="d shed", **mempool20["d"])
+check(st_d["preverify_shed"] > 0 and shed_d["mempool"] > 0
+      and len(hints_d) > 0 and all(h is not None and h > 0 for h in hints_d)
+      and shed_d["consensus"] == 0 and all(exact_d)
+      and all(e is None for e in commit_err_d)
+      and len(cons_d["flood"]) > 0
+      and max(depth_d, default=0) <= GATE20["queue_size"]
+      and not any(isinstance(r, Exception) for r in res_d),
+      f"phase 20 (d): shed {shed_d}, gate {st_d}, consensus exact "
+      f"{sum(exact_d)}/{len(exact_d)}, commit errors "
+      f"{[e for e in commit_err_d if e]}, depth {max(depth_d, default=0)}")
+
+
+# -- (e) gossip: two Switches on 127.0.0.1, each with a MempoolReactor, its
+# own gate and its own Mempool; 2,000 txs admitted at A, then B dials A and
+# A's broadcast routine sends them; B admits them through its gate with the
+# source p2p:<A's id>.  Both gates share one scheduler on the card, and with
+# it the SigCache that A's pre-verify filled
+def node20(i):
+    app = App20()
+    mp = Mempool(app, registry=Registry(f"p20 e{i}"), **MP20)
+    g = gate20(mp)
+    r = mreactor.MempoolReactor(mp, gate=g)
+    sw = Switch(NodeKey(edkeys.PrivKey(hashlib.sha256(
+        b"phase 20 node %d" % i).digest())), "127.0.0.1:0", CHAIN,
+        moniker=f"mempool20-{i}")
+    sw.add_reactor("MEMPOOL", r)
+    sw.start()
+    return app, mp, g, r, sw
+
+
+s_e = sched20()
+txs_e = sigtxs20(E20)
+app_ea, mp_ea, g_ea, r_ea, sw_ea = node20(0)
+app_eb, mp_eb, g_eb, r_eb, sw_eb = node20(1)
+src_e: list = []
+_real_submit_eb = g_eb.submit
+
+
+def _submit_eb(tx, source=ingress.SOURCE_RPC):
+    src_e.append(source)
+    return _real_submit_eb(tx, source)
+
+
+g_eb.submit = _submit_eb
+label20[0] = "e gossip A"
+(res_ea, wall_ea), c_ea = main_path(lambda: timed_call(lambda: settle20(
+    [g_ea.submit(tx) for tx in txs_e])), site="sched.ed25519")
+hits0_e = s_e.stats()["cache_hits"]
+label20[0] = "e gossip B"
+
+
+def run_eb():
+    t = time.perf_counter()
+    peer = sw_eb.dial_peer(sw_ea.actual_listen_addr())
+    check(peer is not None and peer.id == sw_ea.node_key.node_id,
+          "phase 20 (e): B could not dial A")
+    wait20(lambda: mp_eb.size() >= E20, "(e) B's pool filling", 120)
+    return time.perf_counter() - t
+
+
+wall_eb, c_eb = main_path(run_eb)
+st_sched_e = s_e.stats()
+sw_eb.stop()
+sw_ea.stop()
+g_ea.stop()
+stop_sched20(s_e)
+a_id = sw_ea.node_key.node_id
+mempool20["e"] = {
+    "admitted_at_a": sum(ok20(r) for r in res_ea), "a_wall_s": wall_ea,
+    "a_launches": {k: v for k, v in c_ea.items() if v},
+    "b_wall_s": wall_eb, "b_pool": mp_eb.size(),
+    "b_launches": {k: v for k, v in c_eb.items() if v},
+    "b_cache_hits": st_sched_e["cache_hits"] - hits0_e,
+    "b_sources": sorted(set(src_e)), "b_gate": g_eb.stats(),
+    "b_launched_nothing": sum(c_eb.values()) == 0}
+log(phase=20, card=CARD, step="e gossip", **mempool20["e"])
+check(all(ok20(r) for r in res_ea) and c_ea["verify_packed"] > 0
+      and set(mp_eb.reap_max_txs(-1)) == set(mp_ea.reap_max_txs(-1))
+      == set(txs_e) and set(src_e) == {f"p2p:{a_id}"}
+      and len(src_e) >= E20,
+      f"phase 20 (e): B's pool {mp_eb.size()}, sources {set(src_e)}")
+
+# -- (f) the validator signer: 150 FilePVs with key and state files; four of
+# them behind SignerServers that dial SignerClients (two over TCP on
+# 127.0.0.1, two over unix sockets).  Height 1 applies; its proposer signs a
+# proposal, all 150 sign a prevote and a precommit; both vote sets are
+# pre-verified at CONSENSUS on the card (K1 at 256 lanes), the precommits go
+# through VoteSet.add_vote (every one found in the verified-signature
+# cache), make_commit, verify_commit on K1, and block 2 carrying the commit
+# applies.  Then the double-sign guards, the harness and a redial
+root20 = tempfile.mkdtemp(prefix="tm20_")
+privval20: dict = {"card": CARD}
+privs_f = [edkeys.PrivKey(hashlib.sha256(b"phase 20 validator %d" % i)
+                          .digest()) for i in range(N20)]
+pvs_f = {}
+for _i, _pk in enumerate(privs_f):
+    _d = os.path.join(root20, f"pv{_i}")
+    _pv = fpv.FilePV(_pk, os.path.join(_d, "key.json"),
+                     os.path.join(_d, "state.json"))
+    _pv.save_key()
+    pvs_f[_pk.pub_key().address()] = _pv
+gdoc_f = tgen.GenesisDoc(
+    chain_id=CHAIN, genesis_time=Timestamp(1700000000, 0),
+    validators=[tgen.GenesisValidator(
+        address=b"", pub_key_type="ed25519",
+        pub_key_bytes=pk.pub_key().bytes(), power=10, name=f"pv{i}")
+        for i, pk in enumerate(privs_f)])
+gdoc_f.validate_and_complete()
+ex_f, bs_f, state_f = executor20(gdoc_f, KVStoreApplication())
+vset_f = state_f.validators
+sock20 = tempfile.mkdtemp(prefix="tm20s_")
+
+
+def sock_addr20(name):
+    path = os.path.join(sock20, name)
+    if len(path) > 100:    # an AF_UNIX path holds ~107 bytes
+        path = os.path.relpath(path)
+    return f"unix://{path}"
+
+
+remote_f = {}      # validator index -> (client, server, its FilePV)
+for _k, _idx in enumerate((3, 50, 97, 149)):
+    _v = vset_f.validators[_idx]
+    _addr = "tcp://127.0.0.1:0" if _k < 2 else sock_addr20(f"pv{_k}.sock")
+    _cl = pvsigner.SignerClient(_addr, timeout_s=10.0, accept_timeout_s=30.0)
+    if _k < 2:
+        _addr = f"tcp://127.0.0.1:{_cl._listener.getsockname()[1]}"
+    _srv = pvsigner.SignerServer(pvs_f[_v.address], _addr)
+    _srv.start()
+    remote_f[_idx] = (_cl, _srv, pvs_f[_v.address])
+
+
+def signer_f(idx):
+    if idx in remote_f:
+        return remote_f[idx][0]
+    return pvs_f[vset_f.validators[idx].address]
+
+
+s_f = sched20()
+label20[0] = "f signer"
+t = time.perf_counter()
+block1_f = state_f.make_block(1, [b"f1=v1"], Commit(0, 0, BlockID(), []),
+                              [], vset_f.get_proposer().address,
+                              block_time=Timestamp(1700000001, 0))
+parts1_f = tparts.make_block_parts(block1_f)
+bid1_f = BlockID(block1_f.hash(), parts1_f.header())
+(state_f1, _), _c = main_path(lambda: ex_f.apply_block(state_f, bid1_f,
+                                                       block1_f))
+prop_idx = next(i for i, v in enumerate(vset_f.validators)
+                if v.address == vset_f.get_proposer().address)
+prop_f = signer_f(prop_idx).sign_proposal(CHAIN, Proposal(
+    height=1, round=0, pol_round=-1, block_id=bid1_f,
+    timestamp=Timestamp(1700000001, 500)))
+check(vset_f.get_proposer().pub_key.verify_signature(
+    prop_f.sign_bytes(CHAIN), prop_f.signature),
+      "phase 20 (f): the proposal's signature")
+
+
+def sign_votes20(typ, ts):
+    out = []
+    for i, v in enumerate(vset_f.validators):
+        vote = tvote.Vote(typ, 1, 0, bid1_f, Timestamp(ts, 1000 + i),
+                          v.address, i)
+        out.append(signer_f(i).sign_vote(CHAIN, vote))
+    return out
+
+
+t = time.perf_counter()
+prevotes_f = sign_votes20(SignedMsgType.PREVOTE, 1700000002)
+precommits_f = sign_votes20(SignedMsgType.PRECOMMIT, 1700000003)
+walls20["sign_votes_f"] = time.perf_counter() - t
+
+
+def preverify_f(votes):
+    items = [(vset_f.validators[v.validator_index].pub_key,
+              v.sign_bytes(CHAIN), v.signature) for v in votes]
+    return vsched.verify_items(items, vsched.Priority.CONSENSUS,
+                               deadline=time.monotonic() + 0.005,
+                               device=DEV)
+
+
+t = time.perf_counter()
+(pre_f, c_pre_f) = main_path(lambda: [preverify_f(prevotes_f),
+                                      preverify_f(precommits_f)],
+                             site="sched.ed25519")
+walls20["preverify_f"] = time.perf_counter() - t
+check(all(ok and bits.all() for ok, bits in pre_f)
+      and c_pre_f["verify_packed"] >= 1,
+      f"phase 20 (f): the votes' pre-verify {c_pre_f}")
+real_verify20 = edkeys.PubKey.verify_signature
+host_verifies20 = [0]
+
+
+def _counted20(self, msg, sig):
+    host_verifies20[0] += 1
+    return real_verify20(self, msg, sig)
+
+
+edkeys.PubKey.verify_signature = _counted20
+try:
+    sets_f = {}
+    for typ, votes in ((SignedMsgType.PREVOTE, prevotes_f),
+                       (SignedMsgType.PRECOMMIT, precommits_f)):
+        vs = tvset.VoteSet(CHAIN, 1, 0, typ, vset_f)
+        for v in votes:
+            check(vs.add_vote(tvote.Vote.from_proto(v.proto())),
+                  f"phase 20 (f): add_vote {typ}")
+        sets_f[typ] = vs
+finally:
+    edkeys.PubKey.verify_signature = real_verify20
+commit1_f = sets_f[SignedMsgType.PRECOMMIT].make_commit()
+check(host_verifies20[0] == 0
+      and all(vs.two_thirds_majority() == (bid1_f, True)
+              for vs in sets_f.values())
+      and [cs.block_id_flag for cs in commit1_f.signatures]
+      == [BlockIDFlag.COMMIT] * N20,
+      f"phase 20 (f): the vote sets ({host_verifies20[0]} host verifies)")
+_, c_vc_f = main_path(lambda: vset_f.verify_commit(
+    CHAIN, bid1_f, 1, commit1_f, device=DEV), site="bulk.ed25519")
+block2_f = state_f1.make_block(2, [b"f2=v2"], commit1_f, [],
+                               state_f1.validators.get_proposer().address,
+                               block_time=Timestamp(1700000004, 0))
+parts2_f = tparts.make_block_parts(block2_f)
+bid2_f = BlockID(block2_f.hash(), parts2_f.header())
+(state_f2, _), c_ap_f = main_path(lambda: ex_f.apply_block(
+    state_f1, bid2_f, block2_f), site="bulk.ed25519")
+walls20["height_f"] = time.perf_counter() - t
+check(state_f2.last_block_height == 2 and c_vc_f["verify_packed"] == 1
+      and c_ap_f["verify_packed"] == 1,
+      f"phase 20 (f): verify_commit {c_vc_f}, the height {c_ap_f}")
+# the double-sign guards: a conflicting block id at the same height, round
+# and step, locally and through a remote signer; a timestamp-only re-sign;
+# a FilePV reloaded from its files
+other_bid = BlockID(b"\x66" * 32, PartSetHeader(1, b"\x67" * 32))
+loc_i = next(i for i in range(N20) if i not in remote_f)
+loc_pv = pvs_f[vset_f.validators[loc_i].address]
+state_bytes = open(loc_pv.state_path, "rb").read()
+conflict = tvote.Vote(SignedMsgType.PRECOMMIT, 1, 0, other_bid,
+                      Timestamp(1700000003, 1000 + loc_i),
+                      vset_f.validators[loc_i].address, loc_i)
+guards_f = {}
+try:
+    loc_pv.sign_vote(CHAIN, conflict)
+    guards_f["local"] = None
+except fpv.DoubleSignError as e:
+    guards_f["local"] = f"{type(e).__name__}: {e}"
+guards_f["state_unchanged"] = open(loc_pv.state_path,
+                                   "rb").read() == state_bytes
+resign = loc_pv.sign_vote(CHAIN, tvote.Vote(
+    SignedMsgType.PRECOMMIT, 1, 0, bid1_f, Timestamp(1700000099, 7),
+    vset_f.validators[loc_i].address, loc_i))
+guards_f["timestamp_only"] = (
+    resign.signature == precommits_f[loc_i].signature
+    and resign.timestamp == precommits_f[loc_i].timestamp)
+reloaded = fpv.FilePV.load_or_generate(loc_pv.key_path, loc_pv.state_path)
+try:
+    reloaded.sign_vote(CHAIN, conflict)
+    guards_f["reloaded"] = None
+except fpv.DoubleSignError as e:
+    guards_f["reloaded"] = f"{type(e).__name__}: {e}"
+rem_i = next(iter(remote_f))
+rem_cl, _, rem_pv = remote_f[rem_i]
+rem_state = open(rem_pv.state_path, "rb").read()
+try:
+    rem_cl.sign_vote(CHAIN, tvote.Vote(
+        SignedMsgType.PRECOMMIT, 1, 0, other_bid, Timestamp(1700000003, 5),
+        vset_f.validators[rem_i].address, rem_i))
+    guards_f["remote"] = None
+except pvsigner.RemoteSignerError as e:
+    guards_f["remote"] = f"{type(e).__name__}: {e}"
+guards_f["remote_state_unchanged"] = open(rem_pv.state_path,
+                                          "rb").read() == rem_state
+check(guards_f["local"] and guards_f["reloaded"] and guards_f["remote"]
+      and "DoubleSignError" in guards_f["local"]
+      and "DoubleSignError" in guards_f["reloaded"]
+      and "RemoteSignerError" in guards_f["remote"]
+      and guards_f["state_unchanged"] and guards_f["timestamp_only"]
+      and guards_f["remote_state_unchanged"],
+      f"phase 20 (f): the double-sign guards {guards_f}")
+# the harness against a conforming SignerServer (a FilePV of its own)
+cl_h = pvsigner.SignerClient("tcp://127.0.0.1:0", accept_timeout_s=30.0)
+srv_h = pvsigner.SignerServer(
+    fpv.FilePV(edkeys.PrivKey(hashlib.sha256(b"phase 20 harness")
+                              .digest())),
+    f"tcp://127.0.0.1:{cl_h._listener.getsockname()[1]}")
+srv_h.start()
+try:
+    harness_f = run_harness(cl_h)
+finally:
+    cl_h.close()
+    srv_h.stop()
+# a dropped connection (a unix one) is redialled by its signer
+red_i = list(remote_f)[2]
+red_cl = remote_f[red_i][0]
+red_cl._drop()
+t = time.perf_counter()
+red_ok = False
+while not red_ok and time.perf_counter() - t < 20:
+    try:
+        red_ok = red_cl.ping()
+    except pvsigner.RemoteSignerError:
+        time.sleep(0.1)
+redial_s = time.perf_counter() - t
+red_vote = red_cl.sign_vote(CHAIN, tvote.Vote(
+    SignedMsgType.PREVOTE, 2, 0, bid2_f, Timestamp(1700000005, 0),
+    vset_f.validators[red_i].address, red_i)) if red_ok else None
+for _cl, _srv, _ in remote_f.values():
+    _cl.close()
+    _srv.stop()
+stop_sched20(s_f)
+privval20.update(
+    validators=N20, remote={str(i): ("tcp" if k < 2 else "unix")
+                            for k, i in enumerate(remote_f)},
+    sign_votes_s=walls20["sign_votes_f"],
+    preverify_s=walls20["preverify_f"],
+    preverify_launches={k: v for k, v in c_pre_f.items() if v},
+    height_s=walls20["height_f"], host_verifies=host_verifies20[0],
+    guards=guards_f, harness={"passed": harness_f.passed,
+                              "failed": harness_f.failed},
+    redial_s=redial_s, k1=k1_rows20("f "))
+log(phase=20, step="f validator signer", **privval20)
+check(harness_f.ok and len(harness_f.passed) == 6 and red_ok
+      and red_vote is not None
+      and vset_f.validators[red_i].pub_key.verify_signature(
+          red_vote.sign_bytes(CHAIN), red_vote.signature),
+      f"phase 20 (f): the harness {harness_f.failed} or the redial")
+shutil.rmtree(root20)
+shutil.rmtree(sock20, ignore_errors=True)
+
+# -- (g) the drills, each with the gate's own results, then a launch that
+# fails on the card with no failpoint armed: K1's wrapper swapped for one
+# that raises under a gate batch, a batch gossiped to (e)'s B and check_tx
+# a threshold of one lane: check_tx's single tx launches on the card too
+s_g = sched20(tpu_threshold=1)
+drill_seq = sigtxs20(384) + [b"drill%d=v" % i for i in range(64)]
+rng20.shuffle(drill_seq)
+drill_seq += [drill_seq[j] for j in rng20.sample(range(len(drill_seq)), 32)]
+drills_g = {}
+label20[0] = "g drills"
+
+
+def drill_run(site):
+    mp = Mempool(App20(), registry=Registry(f"p20 g {site}"), **MP20)
+    g = gate20(mp)
+    if site:
+        failpoints.set_mode(site, "raise")
+    try:
+        res = settle20([g.submit(tx) for tx in drill_seq])
+        fired = failpoints.fired(site, "raise") if site else 0
+    finally:
+        failpoints.reset()
+        g.stop()
+    return [view20(r) for r in res], mp.reap_max_txs(-1), fired
+
+
+base_g, _c = main_path(lambda: drill_run(None), site="sched.ed25519")
+for _site in ("ingress.admit", "ingress.checktx"):
+    views, pool, fired = drill_run(_site)
+    drills_g[_site] = {"fired": fired, "same_responses": views == base_g[0],
+                       "same_pool": pool == base_g[1]}
+
+
+def recheck_run(drill):
+    app = App20()
+    mp = Mempool(app, registry=Registry(f"p20 g recheck {drill}"), **MP20)
+    g = gate20(mp)
+    try:
+        settle20([g.submit(tx) for tx in drill_seq])
+        held = mp.reap_max_txs(-1)
+        app.stale = set(held[1::3])
+        rc0 = g.stats()["rechecked"]
+        if drill:
+            failpoints.set_mode("ingress.recheck", "raise")
+        mp.lock()
+        try:
+            mp.update(2, held[:16])
+        finally:
+            mp.unlock()
+        fired = failpoints.fired("ingress.recheck", "raise")
+        failpoints.reset()
+        if not drill:
+            wait20(lambda: g.stats()["rechecked"] - rc0 >= len(held) - 16,
+                   "(g) the offloaded recheck", 60)
+        return mp.reap_max_txs(-1), fired, g.stats()["rechecked"] - rc0
+    finally:
+        failpoints.reset()
+        g.stop()
+
+
+pool_off, _, n_off = recheck_run(False)
+pool_sync, fired_sync, n_sync = recheck_run(True)
+drills_g["ingress.recheck"] = {"fired": fired_sync,
+                               "same_pool": pool_sync == pool_off,
+                               "offloaded": n_off, "in_update": n_sync}
+check(all(d["fired"] >= 1 and d["same_pool"]
+          and d.get("same_responses", True) for d in drills_g.values())
+      and n_off > 0 and n_sync == 0,
+      f"phase 20 (g): the drills {drills_g}")
+runtime_clean("phase 20 (g) drills")
+
+
+def card_fault20(what, fn):
+    check(not failpoints.armed(), "phase 20: a failpoint is armed")
+    label20[0] = f"g {what}"
+    rt = degrade.runtime()
+    fails0 = counter_total(rt.metrics.device_failures)
+    falls0 = counter_total(rt.metrics.host_fallbacks)
+    keeping = ck.verify_packed
+    ck.verify_packed = launch_failed
+    try:
+        out = fn()
+    finally:
+        ck.verify_packed = keeping
+    join_abandoned()
+    row = {"what": what,
+           "failures": counter_total(rt.metrics.device_failures) - fails0,
+           "fallbacks": counter_total(rt.metrics.host_fallbacks) - falls0}
+    degrade.configure(degrade.DegradeConfig.from_env(),
+                      registry=Registry(f"p20 {what}"))
+    return out, row
+
+
+faults20 = []
+mp_g = Mempool(App20(), registry=Registry("p20 g faults"), **MP20)
+g_g = gate20(mp_g)
+signed_g1 = sigtxs20(64)
+plain_g1 = [b"fault%d=v" % i for i in range(16)]
+batch_g1 = signed_g1[:32] + plain_g1 + signed_g1[32:]
+
+
+def fault_batch():
+    # one batch: queued under the gate's condition, drained whole
+    with g_g._cond:
+        futs = [g_g.submit(tx) for tx in batch_g1]
+    return settle20(futs)
+
+
+res_g1, row = card_fault20("gate batch", fault_batch)
+st_g1 = g_g.stats()
+row.update(errors=sorted({view20(r) for r in res_g1}, key=str), gate=st_g1,
+           sig_rejected_total=mp_g.metrics.rejected_txs.value(reason="sig"),
+           failed_txs=mp_g.metrics.failed_txs.value(),
+           worker_alive=workers_alive20(g_g),
+           device_error=type(g_g.device_error).__name__)
+faults20.append(row)
+check(all(isinstance(r, degrade.DeviceLaneError)
+          for tx, r in zip(batch_g1, res_g1) if tx in signed_g1)
+      and all(ok20(r) for tx, r in zip(batch_g1, res_g1) if tx in plain_g1)
+      and st_g1["device_error"] == 64 and st_g1["sig_rejected"] == 0
+      and row["sig_rejected_total"] == 0 and row["failed_txs"] == 0
+      and row["worker_alive"]
+      and isinstance(g_g.device_error, degrade.DeviceLaneError)
+      and row["failures"] >= 1 and row["fallbacks"] == 0,
+      f"phase 20 (g): the gate batch's card fault {row}")
+
+
+r_eb.switch = sw20 = StopSwitch19()
+peer20 = SimpleNamespace(id=a_id, data={}, try_send=lambda ch, m: True)
+signed_g2 = sigtxs20(32)
+msg_g2 = mreactor.encode_msg(mreactor.TxsMessage(
+    signed_g2 + [b"gossip%d=v" % i for i in range(8)]))
+st0 = g_eb.stats()
+
+
+def fault_gossip():
+    with g_eb._cond:
+        r_eb.receive(mreactor.MEMPOOL_CHANNEL, peer20, msg_g2)
+    wait20(lambda: g_eb.stats()["device_error"] - st0["device_error"] >= 32
+           and g_eb.stats()["admitted"] - st0["admitted"] >= 8,
+           "(g) the gossiped batch settling", 60)
+
+
+_, row = card_fault20("gossip", fault_gossip)
+st_g2 = g_eb.stats()
+row.update(device_error=type(g_eb.device_error).__name__,
+           peers_stopped=list(sw20.stopped),
+           failed=st_g2["device_error"] - st0["device_error"],
+           admitted=st_g2["admitted"] - st0["admitted"],
+           sig_rejected=st_g2["sig_rejected"] - st0["sig_rejected"],
+           worker_alive=workers_alive20(g_eb))
+faults20.append(row)
+check(isinstance(g_eb.device_error, degrade.DeviceLaneError)
+      and sw20.stopped == [] and row["failed"] == 32
+      and row["admitted"] == 8 and row["sig_rejected"] == 0
+      and row["worker_alive"] and row["failures"] >= 1
+      and row["fallbacks"] == 0,
+      f"phase 20 (g): the gossiped batch's card fault {row}")
+tx_g3 = sigtxs20(1)[0]
+
+
+def fault_check_tx():
+    try:
+        g_g.check_tx(tx_g3, timeout=60)
+    except Exception as e:  # noqa: BLE001 - returned and checked
+        return e
+    return None
+
+
+err_g3, row = card_fault20("check_tx", fault_check_tx)
+row.update(error=type(err_g3).__name__, busy=g_g.stats()["busy"])
+faults20.append(row)
+check(isinstance(err_g3, degrade.DeviceLaneError) and row["busy"] == 0
+      and row["failures"] >= 1 and row["fallbacks"] == 0,
+      f"phase 20 (g): check_tx's card fault {row} ({err_g3!r})")
+# the card back: each of those txs is admitted when resubmitted
+label20[0] = "g again"
+(again_g, c_again_g) = main_path(lambda: [
+    g_g.check_tx(tx, timeout=60) for tx in signed_g1 + [tx_g3]] + [
+    g_eb.check_tx(tx, timeout=60) for tx in signed_g2],
+    site="sched.ed25519")
+check(all(ok20(r) for r in again_g) and c_again_g["verify_packed"] >= 1,
+      f"phase 20 (g): the resubmissions "
+      f"{sorted({view20(r) for r in again_g}, key=str)}")
+g_g.stop()
+g_eb.stop()
+g_a.stop()
+stop_sched20(s_g)
+mempool20["g"] = {"drills": drills_g, "faults": faults20}
+log(phase=20, card=CARD, step="g drills and card faults", drills=drills_g,
+    faults=faults20)
+
+# -- every launch of the phase against its plain version on the same inputs
+# (grouped by step)
+label20[0] = ""
+for _name in keep20:
+    setattr(KERNEL_MOD[_name], _name, was20[_name])
+cmp20 = {name: [] for name in keep20}
+t = time.perf_counter()
+for name, plain in (("verify_packed", ck.verify_packed_plain),
+                    ("verify_packed_split", ck.verify_packed_split_plain)):
+    runs = keep20[name]
+    if not runs:
+        continue
+    got = torch.cat([out for _, _, out in runs])
+    cols = [torch.cat([args[k] for _, args, _ in runs], dim=1)
+            for k in range(len(runs[0][1]))]
+    step_of = np.repeat([label.split(" ")[0] or "-" for label, _, _ in runs],
+                        [out.shape[0] for _, _, out in runs])
+    real = (cols[-1] != 0).any(dim=0)
+    check(not got[~real].any(), f"phase 20 {name}: a padding lane passed")
+    got = got[real].cpu().numpy()
+    step_of = step_of[real.cpu().numpy()]
+    cols = [c[:, real] for c in cols]
+    want = torch.cat([plain(*[c[:, a:a + 65_536] for c in cols]).cpu()
+                      for a in range(0, len(got), 65_536)]).numpy()
+    err = np.abs(got.astype(int) - want.astype(int))
+    for g in sorted(set(step_of)):
+        on = step_of == g
+        n_runs = sum((label.split(" ")[0] or "-") == g
+                     for label, _, _ in runs)
+        cmp20[name].append((f"phase 20 ({g}): {n_runs} launches",
+                            int(on.sum()), int(err[on].sum()),
+                            float(err[on].max())))
+plain20_s = time.perf_counter() - t
+# the card's time for each step's K1 launches: the kept launches replayed
+# back to back between two CUDA events on a quiet card (events around a
+# launch in flight also hold its host enqueue, which waits on the GIL
+# under the floods), against the step's host wall
+card20 = {}
+walls_step20 = {"a": wall_a, "b": wall_b, "c": wall_c, "d": wall_d,
+                "e": wall_ea + wall_eb}
+if ON_CARD20 and keep20["verify_packed"]:
+    REAL["verify_packed"](keep20["verify_packed"][0][1][0])
+    for g in sorted({label.split(" ")[0]
+                     for label, _, _ in keep20["verify_packed"]}):
+        runs = [args[0] for label, args, _ in keep20["verify_packed"]
+                if label.split(" ")[0] == g]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        for packed in runs:
+            REAL["verify_packed"](packed)
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms = ev[0].elapsed_time(ev[1])
+        card20[g] = {"launches": len(runs), "k1_ms": ms,
+                     "wall_s": walls_step20.get(g),
+                     "card_share": (ms / 1e3 / walls_step20[g]
+                                    if g in walls_step20 else None)}
+log(phase=20, card=CARD, step="card time", k1_replayed=card20)
+check(not keep20["comb_build"] and not keep20["comb_verify"],
+      "phase 20: a comb launch with no set prewarmed")
+staging_clear(20)
+launches20 = {name: len(v) for name, v in keep20.items()}
+gc.callbacks.remove(_gc17)
+mempool20.update(gc={"collections": gc17["n"], "seconds": gc17["s"]},
+                 card_time=card20, comparisons=cmp20, openssl=oracle20,
+                 launches=launches20,
+                 walls_s=walls20, plain_s=plain20_s,
+                 phase_s=time.perf_counter() - T20)
+log(phase=20, card=CARD, launches=launches20, comparisons=cmp20,
+    openssl=oracle20, plain_s=plain20_s, walls_s=walls20,
+    phase_s=mempool20["phase_s"])
+check(launches20["verify_packed"] > 0
+      and all(r[2] == 0 for rows in cmp20.values() for r in rows),
+      f"phase 20: a kernel disagrees with its plain version: {cmp20}")
+REPORT["mempool"] = mempool20
+REPORT["privval"] = privval20
+
+# -- phase 21: the kernels line -----------------------------------------------
 
 src = "tendermint_tpu_torch/csrc/ed25519_verify.cu"
 # each comparison: (input, lanes, mismatching lanes, max |kernel - plain|)
 k1_cmp = [("phase-3 vectors + seeded", k1_cmp_lanes, k1_mism,
            float(np.abs(k1_raw.astype(int) - plain_raw.astype(int)).max())),
           cmp4, cmp6, cmp13] + cmp16["verify_packed"] \
-    + cmp17["verify_packed"] + cmp18["verify_packed"] + cmp19["verify_packed"]
+    + cmp17["verify_packed"] + cmp18["verify_packed"] \
+    + cmp19["verify_packed"] + cmp20["verify_packed"]
 k2_cmp = [("phase-3 vectors + seeded", len(k2_raw3), k2_mism3,
            float(np.abs(k2_raw3.astype(int) - k2_plain3.astype(int)).max())),
           ("100k slice", 4096, k2_mism,
            float(np.abs(k2_raw.astype(int) - k2_plain.astype(int)).max())),
           cmp5] + cmp16["verify_packed_split"] \
     + cmp17["verify_packed_split"] + cmp18["verify_packed_split"] \
-    + cmp19["verify_packed_split"]
+    + cmp19["verify_packed_split"] + cmp20["verify_packed_split"]
 k3_cmp = [("phase-3 vectors + seeded", len(k3_raw3), k3_mism3,
            float(np.abs(k3_raw3.astype(int) - k3_plain3.astype(int)).max())),
           cmp11]

@@ -109,6 +109,16 @@ REGISTERED_SITES = frozenset({
     # verdicts)
     "light.serve",
     "light.coalesce",
+    # mempool ingress gate (mempool/ingress.py, ADR-018): the submit
+    # seam (raise = fall back to synchronous in-caller admission with
+    # identical ResponseCheckTx results; latency = queue-wait), the
+    # worker's batched CheckTx stage (raise = per-tx synchronous
+    # fallback inside the worker), and the post-block recheck
+    # scheduling seam (raise = recheck runs synchronously in update()
+    # on the commit path, exactly the pre-gate behavior)
+    "ingress.admit",
+    "ingress.checktx",
+    "ingress.recheck",
 })
 
 _extra_sites: set = set()

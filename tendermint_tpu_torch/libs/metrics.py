@@ -10,8 +10,10 @@ BlockExecutor's), BlockSyncMetrics (the block pipeline's), CryptoMetrics
 (the device-lane degradation runtime, routes, the VerifyScheduler,
 request latency, SLO gauges), DevObsMetrics (the device observatory of
 crypto/devobs.py), P2PMetrics (the transport's byte counters and the
-gossip observatory's) and TraceMetrics (the flight recorder's own drop
-counter); the node's other families are not ported yet.
+gossip observatory's), TraceMetrics (the flight recorder's own drop
+counter), LightMetrics (the light serving plane) and MempoolMetrics (the
+mempool and its IngressGate); the node's other families are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -745,4 +747,45 @@ class LightMetrics:
             "End-to-end verify latency of plane-processed requests, "
             "submit to settled verdict (queue wait + header checks + "
             "coalesced certificate verification).",
+            buckets=exp_buckets(0.0002, 4, 10))
+
+
+class MempoolMetrics:
+    """Reference mempool/metrics.go, plus the IngressGate admission
+    pipeline (mempool/ingress.py, ADR-018): why txs are being turned
+    away, how deep the bounded admission queue is running, and what
+    admission costs end to end — the operator's view of whether a tx
+    flood is degrading gracefully (busy/ratelimit rejections) or the
+    pool is merely full."""
+
+    def __init__(self, reg: Optional[Registry] = None):
+        reg = reg or DEFAULT
+        self.size = reg.gauge("mempool", "size",
+                              "Transactions in the mempool.")
+        self.tx_size_bytes = reg.histogram(
+            "mempool", "tx_size_bytes", "Tx sizes.",
+            buckets=exp_buckets(1, 3, 17))
+        self.failed_txs = reg.counter("mempool", "failed_txs",
+                                      "Rejected CheckTx.")
+        self.recheck_times = reg.counter("mempool", "recheck_times",
+                                         "Tx recheck invocations.")
+        self.rejected_txs = reg.counter(
+            "mempool", "rejected_txs_total",
+            "Txs rejected at admission, by reason: full (pool at "
+            "size/byte limit), busy (ingress queue full or MEMPOOL-"
+            "class verify shed — retryable overload), cache (dedup "
+            "cache hit), ratelimit (per-source token bucket), sig "
+            "(batched pre-verification refuted the signature), "
+            "app_err (the app rejected or raised), toolarge "
+            "(max_tx_bytes).", labels=("reason",))
+        self.ingress_queue_depth = reg.gauge(
+            "mempool", "ingress_queue_depth",
+            "Txs waiting in the IngressGate admission queue (bounded "
+            "by [mempool] ingress_queue; at the bound new submissions "
+            "are rejected busy).")
+        self.admission_latency = reg.histogram(
+            "mempool", "admission_latency_seconds",
+            "End-to-end admission latency of gate-processed txs, "
+            "submit to settled ResponseCheckTx (queue wait + batched "
+            "pre-verify + app CheckTx + insert).",
             buckets=exp_buckets(0.0002, 4, 10))

@@ -115,6 +115,50 @@ def test_evidence_and_light_modules_are_checked():
         assert f"tendermint_tpu_torch.{m}" in mods, m
 
 
+def test_mempool_and_signer_modules_are_checked():
+    """The mempool (the v0 and v1 pools, the IngressGate, the reactor),
+    the validator signer (FilePV, the remote signer, its harness) and the
+    ciphers under it (armor, xsalsa20) are among the modules the checks
+    below cover, lazy imports included (the AST check walks every
+    function body)."""
+    mods = _port_modules()
+    for m in ("mempool", "mempool.mempool", "mempool.priority_mempool",
+              "mempool.ingress", "mempool.reactor", "privval",
+              "privval.file_pv", "privval.signer", "privval.harness",
+              "crypto.armor", "crypto.xsalsa20"):
+        assert f"tendermint_tpu_torch.{m}" in mods, m
+
+
+def test_mempool_and_signer_lazy_imports_stay_in_the_port():
+    """Every import inside a function of the new modules (the reference's
+    lazy imports: the log, the metrics, the scheduler, the vote and
+    proposal types, the key types, the cipher) names the port or a
+    package that is neither jax nor the JAX package."""
+    lazy = []
+    for rel in ("mempool/ingress.py", "mempool/mempool.py",
+                "mempool/priority_mempool.py", "mempool/reactor.py",
+                "privval/file_pv.py", "privval/signer.py",
+                "crypto/armor.py"):
+        tree = ast.parse((PKG / rel).read_text())
+        for fn in ast.walk(tree):
+            if not isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                continue
+            for node in ast.walk(fn):
+                if isinstance(node, ast.ImportFrom):
+                    name = "." * node.level + (node.module or "")
+                elif isinstance(node, ast.Import):
+                    name = node.names[0].name
+                else:
+                    continue
+                lazy.append((rel, name))
+                top = name.split(".")[0]
+                assert top not in ("jax", "jaxlib", "tendermint_tpu"), \
+                    (rel, name)
+    assert len(lazy) >= 19, lazy
+    assert ("mempool/ingress.py",
+            "tendermint_tpu_torch.crypto") in lazy
+
+
 @pytest.mark.parametrize("path", sorted(
     [p.relative_to(ROOT) for p in PKG.rglob("*.py")]
     + [pathlib.Path("chip_smoke.py")]), ids=str)

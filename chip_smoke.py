@@ -287,7 +287,33 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      stopped), each tx admitted when resubmitted.  Every K1 launch of the
      phase held against its plain version; each step's host wall, the
      admission rate and the card's share (CUDA events) logged, not gated
- 21  the kernels line; then the last line {"ok": true, "device": ...}
+ 21  consensus (ConsensusState, ConsensusReactor, the WAL, autofile):
+     (a) BASELINE config 2, 150 ConsensusStates in this process, each over
+     its own kvstore, Mempool, EvidencePool and FilePV and a BlockExecutor
+     on the card (node 0 on SQLite stores with a WAL file), wired full
+     mesh in memory, one VerifyScheduler on the card, ConsensusConfig()'s
+     timeouts, 200 txs of 64 bytes a block in every node's mempool: 2
+     heights, then 1 with the genesis set prewarmed (C1 at 256 keys, the
+     storms and last commits on C2); every node the same block hashes and
+     final state, no state machine dead, a K1 launch from a consensus
+     pre-verify, every last commit on the card; node 0's own storm of a
+     recorded height with a cold SigCache (K1 at 256 lanes) timed and
+     held against OpenSSL; (b) the 4-node localnet over TCP on 127.0.0.1
+     (ConsensusReactor, MempoolReactor, BlocksyncReactor, a WAL file each,
+     node 0 on SQLite): txs at node 0 committed, 20 heights with no
+     kernel launch (4 signatures are under the batch floor), node 3
+     stopped (3/4 keep committing) and restarted over its own stores and
+     WAL, a fifth node joining through blocksync (its windows launch K1
+     only for signatures the process's SigCache does not hold yet) and
+     switch_to_consensus, all five chains equal; (c) K1's wrapper raising
+     with no failpoint armed under a storm of 149 prevotes: device_error
+     set, the routine stopped, no vote applied or logged, no host verify
+     on the receive thread; a fresh state over the same stores and WAL
+     resumes on the card; the storm in a drill (sched.ed25519=raise)
+     applied; (d) generate_wal, replay_console and a rotated WAL group.
+     Every K1, C1 and C2 launch of the phase held against its plain
+     version; each step's host wall and the card's share logged, not gated
+ 22  the kernels line; then the last line {"ok": true, "device": ...}
 
 Signatures come from a seeded incremental generator (a_i = a_0 + i, so
 A_i = A_{i-1} + B), because signing 100k triples one by one in pure
@@ -300,6 +326,7 @@ import base64
 import copy
 import gc
 import hashlib
+import io
 import json
 import os
 import random
@@ -370,6 +397,17 @@ from tendermint_tpu_torch.abci.kvstore import KVStoreApplication  # noqa: E402
 from tendermint_tpu_torch.abci.server import ABCIServer  # noqa: E402
 from tendermint_tpu_torch.abci.types import ResponseDeliverTx  # noqa: E402
 from tendermint_tpu_torch.consensus import observatory as obsv  # noqa: E402
+from tendermint_tpu_torch.consensus import config as cconfig  # noqa: E402
+from tendermint_tpu_torch.consensus import reactor as creactor  # noqa: E402
+from tendermint_tpu_torch.consensus import \
+    replay_console as cconsole  # noqa: E402
+from tendermint_tpu_torch.consensus import round_types as crt  # noqa: E402
+from tendermint_tpu_torch.consensus import state as cstate  # noqa: E402
+from tendermint_tpu_torch.consensus import wal as cwal  # noqa: E402
+from tendermint_tpu_torch.consensus import \
+    wal_generator as cwalgen  # noqa: E402
+from tendermint_tpu_torch.libs import autofile  # noqa: E402
+from tendermint_tpu_torch.libs import log as tmlog  # noqa: E402
 from tendermint_tpu_torch.blocksync import replay as breplay  # noqa: E402
 from tendermint_tpu_torch.blocksync.pool import BlockPool  # noqa: E402
 from tendermint_tpu_torch.blocksync.reactor import \
@@ -5933,9 +5971,14 @@ check(not msm.use_rlc(10_000) and not failpoints.armed()
 degrade.configure(degrade.DegradeConfig.from_env(), registry=Registry("p20"))
 ingress.set_enabled(None)
 ON_CARD20 = DEV.type == "cuda"
-# the interpreter's garbage collections in the phase (phase 17's counter):
-# the process holds every earlier phase's objects, so a full collection
-# lands on whichever step allocates when it comes due
+# the interpreter's garbage collections in the phase (phase 17's counter).
+# The earlier phases' objects are frozen out of the collector's walks (and
+# stay so through phase 21): the process holds every one of them, so a full
+# collection took seconds (3.1 s in PR 18's phase 20), and one landing on
+# the first gate batch outlasts its pre-verify's 1 s result timeout, after
+# which the gate admits the batch unverified, by its policy
+gc.collect()
+gc.freeze()
 gc17.update(n=[0, 0, 0], s=[0.0, 0.0, 0.0])
 gc.callbacks.append(_gc17)
 # every K1, K2, C1 and C2 launch of the phase: (label, inputs, output)
@@ -7179,7 +7222,1032 @@ check(launches20["verify_packed"] > 0
 REPORT["mempool"] = mempool20
 REPORT["privval"] = privval20
 
-# -- phase 21: the kernels line -----------------------------------------------
+# -- phase 21: consensus ------------------------------------------------------
+
+# The consensus slice (consensus/state.py, reactor.py, messages.py, wal.py,
+# ticker.py, replay_console.py, wal_generator.py, libs/autofile.py) on the
+# card, through the entry points a node wires: ConsensusState over a
+# BlockExecutor on its default device, ConsensusReactor on a Switch, and one
+# VerifyScheduler on the card at the node's defaults.  (a) BASELINE config 2:
+# 150 ConsensusStates in this process, each over its own kvstore, Mempool,
+# EvidencePool and FilePV (node 0 on SQLite stores with a WAL file, the rest
+# on MemDB), wired full mesh in memory (tests/helpers.py's Node and wire,
+# copied: that module imports the JAX package; with Gossip21 in the
+# reactor's catch-up role), at ConsensusConfig()'s timeouts; 200 txs of 64
+# bytes a block (max_gas 200 in the genesis params, the kvstore asking 1
+# gas a tx), every tx in every node's mempool as mempool gossip would
+# deliver it; 2 heights, then 1 with the genesis set prewarmed (C1 at 256
+# keys; the storms and the last commits on C2): the depth cut from 6 + a
+# stretch, since a height takes 13-61 s of this process's host time (PR
+# 19's call 2 ran 4 + 2 and the smoke 912 s); node 0's own
+# storm of height 1 through ConsensusState's pre-verify with a cold
+# SigCache (K1 at 256 lanes), held against OpenSSL.  (b) the 4-node localnet over TCP on
+# 127.0.0.1 (a ConsensusReactor, a MempoolReactor and a BlocksyncReactor a
+# Switch, a WAL file each, node 0 on SQLite), node 3 stopped and restarted
+# over its own stores and WAL, a fifth node joining late through blocksync.
+# (c) the card-fault rule: K1's wrapper raising with no failpoint armed
+# under a storm of 149 prevotes; a fresh state over the same stores and WAL
+# resuming; the same storm in a drill.  (d) the WAL tools.  Walls are
+# host-clock, logged and not gated; every chain, count and route named
+# below is.
+N21, H21, PRE21, TXS21 = 150, 2, 1, 200       # (a)
+H21B, AFTER21B, JOIN21B = 20, 3, 3            # (b)
+T21 = time.perf_counter()
+rng21 = random.Random(SEED + 21)
+E.table_cache_clear()
+check(not msm.use_rlc(10_000) and not failpoints.armed()
+      and vsched.installed() is None and bpipe.installed() is None,
+      "phase 21: RLC, a failpoint, a scheduler or a pipeline is still on")
+degrade.configure(degrade.DegradeConfig.from_env(), registry=Registry("p21"))
+ON_CARD21 = DEV.type == "cuda"
+# a node's log_level "consensus:error,...": 150 state machines log a line
+# a block each at info
+tmlog.setup("info", module_levels="consensus:error,blocksync:error,"
+            "p2p:error,mempool:error")
+gc17.update(n=[0, 0, 0], s=[0.0, 0.0, 0.0])
+gc.callbacks.append(_gc17)
+# phase 20's objects out of the collector's walks too: a node's own
+# process does not hold them, and 150 state machines make a full
+# collection come due every few seconds
+gc.collect()
+gc.freeze()
+consensus21: dict = {"card": CARD}
+walls21: dict = {}
+# every K1, K2, C1 and C2 launch of the phase: (label, inputs, output)
+keep21 = {name: [] for name in ("verify_packed", "verify_packed_split",
+                                "comb_build", "comb_verify")}
+label21 = [""]
+was21 = {name: getattr(KERNEL_MOD[name], name) for name in keep21}
+_keep21_lock = threading.Lock()
+
+
+def _keeping21(name):
+    """The bare wrapper (REAL), keeping a copy of every launch's tensor
+    inputs (C2's tables by reference) and its output; the storms launch
+    from the scheduler's executor, the last commits from the nodes'
+    receive threads through the runtime's lane thread."""
+    def wrapper(*args):
+        out = REAL[name](*args)
+        kept = [a.clone() if isinstance(a, torch.Tensor)
+                and not (name == "comb_verify" and i == 1) else a
+                for i, a in enumerate(args)]
+        with _keep21_lock:
+            keep21[name].append((label21[0], kept, out))
+        return out
+    return wrapper
+
+
+for _name in keep21:
+    setattr(KERNEL_MOD[_name], _name, _keeping21(_name))
+
+# host verify_signature calls by the thread that made them: the nodes'
+# receive threads ("consensus-<name>": a vote or proposal the SigCache did
+# not hold) against every other thread (the runtime's spot checks)
+hostv21 = {"consensus": 0, "other": 0}
+_hostv21_lock = threading.Lock()
+REAL_VERIFY21 = edkeys.PubKey.verify_signature
+
+
+def _counted_verify21(self, msg, sig):
+    kind = ("consensus" if threading.current_thread().name
+            .startswith("consensus-") else "other")
+    with _hostv21_lock:
+        hostv21[kind] += 1
+    return REAL_VERIFY21(self, msg, sig)
+
+
+edkeys.PubKey.verify_signature = _counted_verify21
+root21 = tempfile.mkdtemp(prefix="smoke21_")
+
+
+class Node21:
+    """tests/helpers.py's Node: one consensus node over its own kvstore,
+    Mempool, EvidencePool and FilePV (none for a non-validator), its
+    BlockExecutor and ConsensusState on the default device.  db_dir: SQLite
+    stores there (the node's layout), else MemDB; stores/app/mempool: a
+    restarted node's own.  txs_available=False leaves the mempool's
+    new-tx callback unwired: at ConsensusConfig()'s create_empty_blocks
+    the state machine never waits for txs, so the callback only takes
+    the node's state mutex once a tx."""
+
+    def __init__(self, gdoc, priv, name, wal_path=None, db_dir=None,
+                 stores=None, app=None, mempool=None, txs_available=True):
+        self.app = app or KVStoreApplication()
+        self.mempool = mempool or Mempool(self.app)
+        self.dbs = []
+        if stores is not None:
+            self.state_store, self.block_store = stores
+        elif db_dir is not None:
+            os.makedirs(db_dir, exist_ok=True)
+            self.dbs = [SQLiteDB(os.path.join(db_dir, "blockstore.db")),
+                        SQLiteDB(os.path.join(db_dir, "state.db"),
+                                 commit_every=64)]
+            self.block_store = BlockStore(self.dbs[0])
+            self.state_store = StateStore(self.dbs[1])
+        else:
+            self.block_store = BlockStore(MemDB())
+            self.state_store = StateStore(MemDB())
+        self.event_bus = tbus.EventBus()
+        state = self.state_store.load()
+        if state is None:
+            state = state_from_genesis(gdoc)
+            self.state_store.save(state)
+        self.evidence_pool = evpool.EvidencePool(
+            MemDB(), self.state_store, self.block_store)
+        self.exec = sexec.BlockExecutor(
+            self.state_store, self.app, mempool=self.mempool,
+            evidence_pool=self.evidence_pool, event_bus=self.event_bus)
+        self.pv = fpv.FilePV(priv) if priv is not None else None
+        self.cs = cstate.ConsensusState(
+            cconfig.ConsensusConfig(), state, self.exec,
+            self.block_store, mempool=self.mempool, priv_validator=self.pv,
+            wal_path=wal_path, event_bus=self.event_bus, name=name,
+            evidence_pool=self.evidence_pool)
+        if txs_available:
+            self.mempool.on_new_tx(self.cs.notify_txs_available)
+
+    def close(self):
+        for db in self.dbs:
+            db.close()
+
+
+def wire21(nodes):
+    """tests/helpers.py's wire: every node's broadcasts feed every other
+    node's queues (the in-memory analog of the reactor's channels), but
+    for a message two or more heights ahead of the peer, which it could
+    only drop on arrival: a node that fell behind would otherwise find
+    its queue (5,000) full of later heights, the catch-up it needs shed
+    with them."""
+    for i, a in enumerate(nodes):
+        peers = [b for j, b in enumerate(nodes) if j != i]
+        pid = f"node{i}"
+
+        def on_vote(vote, peers=peers, pid=pid):
+            for b in peers:
+                if vote.height <= b.cs.rs.height + 1:
+                    b.cs.add_vote(vote, peer_id=pid)
+
+        def on_proposal(pr, peers=peers, pid=pid):
+            for b in peers:
+                if pr.height <= b.cs.rs.height + 1:
+                    b.cs.set_proposal(pr, peer_id=pid)
+
+        def on_part(h, r, part, peers=peers, pid=pid):
+            for b in peers:
+                if h <= b.cs.rs.height + 1:
+                    b.cs.add_block_part(h, r, part, peer_id=pid)
+        a.cs.broadcast_vote.append(on_vote)
+        a.cs.broadcast_proposal.append(on_proposal)
+        a.cs.broadcast_block_part.append(on_part)
+
+
+class Gossip21:
+    """The in-memory analog of the consensus reactor's gossip routines,
+    which wire21's broadcast has not: a node that was a round behind when
+    a proposal, a part or a vote arrived dropped it, as a reactor's peer
+    would, and the reactor's catch-up routine resends what such a peer
+    lacks.  Here one thread watches every node's (height, round, step)
+    and helps a node that has not moved for STALL_S seconds: a height
+    some store holds is served from it (the reactor's _serve_catchup:
+    the commit's precommits, then the parts); at the live height it
+    gets the round's proposal and parts, the parts of the block its part
+    set waits for, and the votes of a later round that the node furthest
+    in round holds; after STUCK_S (past every timeout of a round, so no
+    timeout of its own is pending) also the votes of its own round that
+    it lacks.  Each (node, height, round, kind) at most every RESEND_S
+    seconds.  The views are read without the nodes' locks (a stale view
+    only delays the help)."""
+
+    TICK_S, STALL_S, STUCK_S, RESEND_S = 0.25, 2.0, 6.0, 2.0
+
+    def __init__(self, nodes):
+        self.nodes = nodes
+        self.sent: dict = {}
+        self.last = [None] * len(nodes)
+        self.since = [0.0] * len(nodes)
+        self.resent = {"proposal": 0, "parts": 0, "votes": 0, "store": 0}
+        self.stop_ev = threading.Event()
+        self.thread = threading.Thread(target=self._run, name="gossip21",
+                                       daemon=True)
+        self.thread.start()
+
+    def stop(self):
+        self.stop_ev.set()
+        self.thread.join(10)
+
+    def _due(self, key) -> bool:
+        now = time.monotonic()
+        if now - self.sent.get(key, -1e9) < self.RESEND_S:
+            return False
+        self.sent[key] = now
+        return True
+
+    def _run(self):
+        while not self.stop_ev.wait(self.TICK_S):
+            now = time.monotonic()
+            views = []
+            for n in self.nodes:
+                rs = n.cs.rs
+                views.append((rs.height, rs.round, rs.step, rs.proposal,
+                              rs.proposal_block, rs.proposal_block_parts,
+                              rs.votes))
+            best = {}   # height -> the node furthest in round there
+            for i, v in enumerate(views):
+                if v[0] not in best or v[1] > views[best[v[0]]][1]:
+                    best[v[0]] = i
+            top = max(n.block_store.height() for n in self.nodes)
+            for j, v in enumerate(views):
+                if self.last[j] != v[:3]:
+                    self.last[j], self.since[j] = v[:3], now
+                elif now - self.since[j] >= self.STALL_S:
+                    if v[0] <= top:
+                        self._serve_store(j, v[0])
+                    elif best.get(v[0]) not in (None, j):
+                        self._help(j, v, best[v[0]], views[best[v[0]]],
+                                   now - self.since[j] >= self.STUCK_S)
+
+    def _help(self, j, v, a, va, stuck):
+        h, r, _, prop, block, parts, votes = v
+        _, ra, _, prop_a, _, parts_a, votes_a = va
+        cs, pid = self.nodes[j].cs, f"node{a}"
+        if prop is None and prop_a is not None and ra == r \
+                and self._due((j, h, r, "proposal")):
+            cs.set_proposal(prop_a, peer_id=pid)
+            self.resent["proposal"] += 1
+        if block is None and parts is not None and parts_a is not None \
+                and parts_a.is_complete() \
+                and parts.has_header(parts_a.header()) \
+                and self._due((j, h, r, "parts")):
+            for i in range(parts_a.header().total):
+                cs.add_block_part(h, ra, parts_a.get_part(i), peer_id=pid)
+            self.resent["parts"] += 1
+        if (ra > r or stuck) and self._due((j, h, ra, "votes")):
+            # the vote sets read as they stand (prevotes()/precommits()
+            # would add a round to the node's set from this thread)
+            for kind in ("_prevotes", "_precommits"):
+                theirs = getattr(votes_a, kind).get(ra)
+                if theirs is None:
+                    continue
+                mine = getattr(votes, kind).get(ra)
+                have = mine.votes if mine is not None else None
+                for idx, vote in enumerate(list(theirs.votes)):
+                    if vote is not None and (have is None
+                                             or have[idx] is None):
+                        cs.add_vote(vote, peer_id=pid)
+                        self.resent["votes"] += 1
+
+    def _serve_store(self, j, h):
+        """The reactor's _serve_catchup for height h: the stored commit's
+        precommits, then the block's parts."""
+        if not self._due((j, h, -1, "store")):
+            return
+        src = next(n for n in self.nodes if n.block_store.height() >= h)
+        commit = src.block_store.load_seen_commit(h) \
+            or src.block_store.load_block_commit(h)
+        meta = src.block_store.load_block_meta(h)
+        if commit is None or meta is None:
+            return
+        cs = self.nodes[j].cs
+        for i, sig in enumerate(commit.signatures):
+            if sig.for_block():
+                cs.add_vote(tvote.Vote(
+                    type=SignedMsgType.PRECOMMIT, height=h,
+                    round=commit.round, block_id=commit.block_id,
+                    timestamp=sig.timestamp,
+                    validator_address=sig.validator_address,
+                    validator_index=i, signature=sig.signature),
+                    peer_id="store")
+        for i in range(meta.block_id.part_set_header.total):
+            cs.add_block_part(h, commit.round,
+                              src.block_store.load_block_part(h, i),
+                              peer_id="store")
+        self.resent["store"] += 1
+
+
+def wait21(nodes, height, what, timeout):
+    """Every node's block store at `height` or above; fails if a state
+    machine died."""
+    end = time.monotonic() + timeout
+    while min(n.block_store.height() for n in nodes) < height:
+        dead = [n.cs.name for n in nodes if not n.cs.is_running()]
+        check(not dead, f"phase 21 {what}: state machines died {dead[:4]}"
+              f" {[n.cs.device_error for n in nodes if n.cs.device_error]}")
+        check(time.monotonic() < end, f"phase 21 {what}: heights "
+              f"{sorted({n.block_store.height() for n in nodes})} < {height}")
+        time.sleep(0.05)
+
+
+def chains_equal21(nodes, top):
+    """The block hashes of heights 1..top, equal across the nodes."""
+    hashes = []
+    for h in range(1, top + 1):
+        hs = {n.block_store.load_block(h).hash() for n in nodes}
+        check(len(hs) == 1, f"phase 21: the nodes disagree at height {h}")
+        hashes.append(hs.pop())
+    return hashes
+
+
+def genesis21(privs, chain_id, max_gas=-1):
+    return tgen.GenesisDoc(
+        chain_id=chain_id, genesis_time=Timestamp(1700000000, 0),
+        consensus_params=tparams.ConsensusParams(
+            block=tparams.BlockParams(max_gas=max_gas)),
+        validators=[tgen.GenesisValidator(
+            address=k.pub_key().address(), pub_key_type="ed25519",
+            pub_key_bytes=k.pub_key().bytes(), power=10) for k in privs])
+
+
+def until21(cond, what, timeout):
+    end = time.monotonic() + timeout
+    while not cond():
+        check(time.monotonic() < end, f"phase 21 {what}")
+        time.sleep(0.005)
+
+
+def sched21_start():
+    """A fresh SigCache and a scheduler on the card at the node's
+    defaults."""
+    cbatch.verified_sigs = cbatch.SigCache(capacity=1 << 18)
+    sch = vsched.install(vsched.VerifyScheduler(
+        window_s=0.002, max_batch=8192, max_pending=65536,
+        tpu_threshold=32, device=DEV))
+    sch.start()
+    return sch
+
+
+def sched21_stop(sch):
+    sch.stop()
+    vsched.uninstall(sch)
+
+
+def bulk21() -> float:
+    return degrade.runtime().metrics.device_launches.value(
+        site="bulk.ed25519")
+
+
+# -- (a) the 150-validator kvstore network ----------------------------------
+# the gossip observatory off for (a) (TM_TPU_NETOBS=0's switch): it is one
+# per process, so 150 nodes in this one make its drain walk 150 x 149
+# (node, peer) flows where a node's own process holds 149, and every
+# receive loop that passes its min-interval check at once walks them all
+netobs.disable()
+keys21 = [edkeys.PrivKey(hashlib.sha256(b"phase 21 key %d" % i).digest())
+          for i in range(N21)]
+vp21 = [k.pub_key().bytes() for k in keys21]
+gdoc21 = genesis21(keys21, "chip-smoke-21", max_gas=TXS21)
+n_heights21 = H21 + PRE21 + 1
+txs21 = {}
+for _h in range(1, n_heights21 + 3):
+    txs21[_h] = []
+    for _i in range(TXS21):
+        _key = b"c%d_%d=" % (_h, _i)
+        txs21[_h].append(_key + rng21.randbytes(32).hex().encode()[
+            :64 - len(_key)])
+t = time.perf_counter()
+nodes21 = [Node21(gdoc21, keys21[i], f"n{i}",
+                  wal_path=(os.path.join(root21, "a0", "cs.wal")
+                            if i == 0 else None),
+                  db_dir=os.path.join(root21, "a0") if i == 0 else None,
+                  txs_available=False)
+           for i in range(N21)]
+wire21(nodes21)
+gossip21 = Gossip21(nodes21)
+walls21["a_build_s"] = time.perf_counter() - t
+fed21 = [0]
+feed_s21 = [0.0]
+
+
+def feed21(ahead=2):
+    """Keep every node's mempool `ahead` blocks of txs in front of the
+    highest committed height: each tx checked into each node's mempool."""
+    top = max(n.block_store.height() for n in nodes21)
+    while fed21[0] < min(top + ahead, n_heights21 + 2):
+        fed21[0] += 1
+        t0 = time.perf_counter()
+        for n in nodes21:
+            for tx in txs21[fed21[0]]:
+                n.mempool.check_tx(tx)
+        feed_s21[0] += time.perf_counter() - t0
+
+
+class Feeder21:
+    """The mempool gossip's analog: a thread running feed21."""
+
+    def __init__(self):
+        self.stop_ev = threading.Event()
+        self.thread = threading.Thread(target=self._run, name="feed21",
+                                       daemon=True)
+        self.thread.start()
+
+    def _run(self):
+        while not self.stop_ev.wait(0.05):
+            feed21()
+
+    def stop(self):
+        self.stop_ev.set()
+        self.thread.join(60)
+
+
+commits21 = []   # node 0's commits: (height, time, commit round, txs)
+nodes21[0].cs.on_committed.append(lambda b: commits21.append(
+    (b.header.height, time.perf_counter(), nodes21[0].cs.rs.commit_round,
+     len(b.data.txs))))
+feed21()
+sched21 = sched21_start()
+feeder21 = Feeder21()
+hostv21.update(consensus=0, other=0)
+hits21 = (cbatch.verified_sigs.hits, cbatch.verified_sigs.misses)
+bulk0_21 = bulk21()
+sched0_21 = degrade.runtime().metrics.device_launches.value(
+    site="sched.ed25519")
+label21[0] = "a network"
+t_a21 = time.perf_counter()
+
+
+def run_a1():
+    for n in nodes21:
+        n.cs.start()
+    wait21(nodes21, H21, "(a)", 600)
+
+
+_, c_a1 = main_path(run_a1)
+walls21["a_heights_s"] = time.perf_counter() - t_a21
+st_a1 = sched21.stats()
+host_a1 = dict(hostv21)
+cache_a1 = (cbatch.verified_sigs.hits - hits21[0],
+            cbatch.verified_sigs.misses - hits21[1])
+bulk_a1 = bulk21() - bulk0_21
+top_a1 = min(n.block_store.height() for n in nodes21)
+# the scheduler serves the consensus pre-verify alone here: its device
+# launches (site sched.ed25519) are the storms' K1 launches; the nodes
+# share this process's SigCache, so only a window of 32 votes that no node
+# has verified yet launches (node 0's own storm below launches for sure)
+sched_a1 = degrade.runtime().metrics.device_launches.value(
+    site="sched.ed25519") - sched0_21
+check(c_a1.get("verify_packed", 0) > 0,
+      f"phase 21 (a): no K1 launch: {st_a1}, {c_a1}")
+# each node verifies each last commit it applies (heights 2..) on the card
+check(bulk_a1 >= N21 * (top_a1 - 1),
+      f"phase 21 (a): {bulk_a1} bulk launches for {N21} nodes and "
+      f"{top_a1} heights")
+runtime_clean("phase 21 (a)", "bulk.ed25519", bulk0_21)
+# the prewarmed stretch: C1 at 256 keys for the genesis set, then the
+# storms and the last commits on C2
+label21[0] = "a prewarmed"
+bulk0_a2 = bulk21()
+t_a2 = time.perf_counter()
+
+
+def run_a2():
+    ok = E.prewarm(vp21, device=DEV)
+    check(ok, "phase 21 (a): the genesis set's prewarm was declined")
+    walls21["a_prewarm_s"] = time.perf_counter() - t_a2
+    top = min(n.block_store.height() for n in nodes21)
+    wait21(nodes21, top + PRE21, "(a) prewarmed", 600)
+
+
+_, c_a2 = main_path(run_a2)
+walls21["a_prewarmed_s"] = time.perf_counter() - t_a2
+st_a2 = sched21.stats()
+for n in nodes21:
+    check(n.cs.is_running() and n.cs.device_error is None,
+          f"phase 21 (a): {n.cs.name} died")
+t = time.perf_counter()
+gossip21.stop()
+feeder21.stop()
+stops21 = [threading.Thread(target=n.cs.stop) for n in nodes21]
+for th in stops21:
+    th.start()
+for th in stops21:
+    th.join(60)
+walls21["a_stop_s"] = time.perf_counter() - t
+label21[0] = ""
+sched21_stop(sched21)
+bulk_a2 = bulk21() - bulk0_a2
+check(c_a2.get("comb_build") == 1 and c_a2.get("comb_verify", 0) > 0,
+      f"phase 21 (a): the prewarmed stretch's C1/C2 launches {c_a2}")
+runtime_clean("phase 21 (a) prewarmed", "bulk.ed25519", bulk0_a2)
+top21 = min(n.block_store.height() for n in nodes21)
+hashes21 = chains_equal21(nodes21, top21)
+# app hash and results of every height, from the next block's header and
+# the stored state of the nodes at the top
+heads21 = [nodes21[0].block_store.load_block(h).header
+           for h in range(1, top21 + 1)]
+finals = {(s.last_block_height, s.app_hash, s.last_results_hash)
+          for s in (n.state_store.load() for n in nodes21)
+          if s.last_block_height == top21}
+check(len(finals) == 1, f"phase 21 (a): the states at {top21} differ")
+tx_counts21 = [len(nodes21[0].block_store.load_block(h).data.txs)
+               for h in range(1, top21 + 1)]
+check(sum(1 for c in tx_counts21 if c == TXS21) >= H21,
+      f"phase 21 (a): txs a block {tx_counts21}")
+per_height21 = []
+prev = t_a21
+for h, tc, rnd, ntx in commits21:
+    per_height21.append({"height": h, "wall_s": tc - prev,
+                         "commit_round": rnd, "txs": ntx})
+    prev = tc
+a21 = {"validators": N21, "heights": top21,
+       "block_hashes_equal": True, "txs": tx_counts21,
+       "per_height": per_height21,
+       "app_hashes": [hd.app_hash.hex() for hd in heads21[1:]],
+       "final_state": [x.hex() if isinstance(x, bytes) else x
+                       for x in finals.pop()],
+       "launches": {"unprewarmed": c_a1, "prewarmed": c_a2},
+       "bulk_launches": {"unprewarmed": bulk_a1, "prewarmed": bulk_a2},
+       "preverify_launches_unprewarmed": sched_a1,
+       "scheduler": {"unprewarmed": {k: st_a1[k] for k in (
+           "submissions", "items", "launches", "lanes", "cache_hits",
+           "dedup", "shed")}, "total": {k: st_a2[k] for k in (
+               "submissions", "items", "launches", "lanes", "cache_hits",
+               "dedup", "shed")},
+           "deadline_misses": sched21._metrics().sched_deadline_miss.value(
+               priority="consensus")},
+       "host_verify_signature": {"unprewarmed": host_a1,
+                                 "total": dict(hostv21)},
+       "sigcache_unprewarmed": {"hits": cache_a1[0], "misses": cache_a1[1]},
+       "gossip_resent": dict(gossip21.resent),
+       "feed_s": feed_s21[0], "walls_s": dict(walls21)}
+log(phase=21, card=CARD, step="a network", **{
+    k: v for k, v in a21.items() if k not in ("app_hashes", "per_height")})
+log(phase=21, card=CARD, step="a heights", per_height=per_height21)
+
+# node 0's own storm: the 149 peer prevotes of height 1 from its WAL (the
+# round most of them voted in), through ConsensusState's pre-verify on a
+# fresh state machine at genesis with a cold SigCache and no table resident
+# (K1 at 256 lanes, through a fresh scheduler), then applied: every vote
+# from the cache; the bitmap held against OpenSSL's
+recs21 = list(cwal.WAL.iter_messages(os.path.join(root21, "a0", "cs.wal")))
+by_r21: dict = {}
+for r in recs21:
+    if isinstance(r, tuple) and isinstance(r[0], crt.VoteMessage) and r[1] \
+            and r[0].vote.height == 1 \
+            and r[0].vote.type == SignedMsgType.PREVOTE:
+        by_r21.setdefault(r[0].vote.round, {})[r[0].vote.validator_index] \
+            = r[0].vote
+storm_r21 = max(sorted(by_r21), key=lambda r: len(by_r21[r]))
+storm21 = list(by_r21[storm_r21].values())
+check(len(storm21) * 3 > 2 * N21,
+      f"phase 21: node 0 logged {len(storm21)} peer prevotes at height 1")
+vset21 = state_from_genesis(gdoc21).validators
+items21 = [(vset21.validators[v.validator_index].pub_key,
+            v.sign_bytes(gdoc21.chain_id), v.signature) for v in storm21]
+E.table_cache_clear()
+sched21 = sched21_start()
+own21 = Node21(gdoc21, None, "own")
+batch21 = [(crt.VoteMessage(v), f"node{v.validator_index}") for v in storm21]
+label21[0] = "a own storm"
+sched0_own = degrade.runtime().metrics.device_launches.value(
+    site="sched.ed25519")
+(_, own_s), c_own = main_path(lambda: timed_call(
+    lambda: own21.cs._preverify_votes(batch21)))
+label21[0] = ""
+hostv21.update(consensus=0, other=0)
+with own21.cs._mtx:
+    for msg, peer in batch21:
+        own21.cs._apply_msg(msg, peer)
+own_applied = sum(1 for v in own21.cs.rs.votes.prevotes(storm_r21).votes
+                  if v is not None)
+own_host = hostv21["consensus"] + hostv21["other"]
+sched_own = degrade.runtime().metrics.device_launches.value(
+    site="sched.ed25519") - sched0_own
+sched21_stop(sched21)
+check(c_own.get("verify_packed") == 1 and sched_own == 1
+      and own_applied == len(storm21) and own_host == 0,
+      f"phase 21: node 0's storm: launches {c_own}, applied {own_applied},"
+      f" host verifies {own_host}")
+own_out = [out for lab, _, out in keep21["verify_packed"]
+           if lab == "a own storm"][-1]
+want_own = np.array([edkeys._ossl_verify(p.bytes(), m, s)
+                     for p, m, s in items21], dtype=bool)
+bits_own = own_out.cpu().numpy()[:len(items21)]
+oracle21 = (f"node 0's storm of height 1, round {storm_r21}", len(items21),
+            int((bits_own != want_own).sum()), int(own_out.shape[0]),
+            bool(want_own.all()))
+check(oracle21[2] == 0 and oracle21[3] == 256 and oracle21[4],
+      f"phase 21: node 0's storm against OpenSSL {oracle21}")
+own_card_ms = None
+if ON_CARD21:
+    packed = [args[0] for lab, args, _ in keep21["verify_packed"]
+              if lab == "a own storm"][-1]
+    own_card_ms = time_events(lambda: REAL["verify_packed"](packed), 20)
+a21["own_storm"] = {"round": storm_r21, "votes": len(items21),
+                    "wall_s": own_s, "applied": own_applied,
+                    "k1_ms": own_card_ms, "lanes": int(own_out.shape[0])}
+log(phase=21, card=CARD, step="a own storm", **a21["own_storm"],
+    openssl=oracle21)
+for n in nodes21:
+    n.close()
+netobs.enable()
+consensus21["a"] = a21
+del nodes21
+gc.collect()
+
+# -- (b) the 4-node localnet over TCP ----------------------------------------
+keys21b = [edkeys.PrivKey(hashlib.sha256(b"phase 21 localnet %d" % i)
+                          .digest()) for i in range(4)]
+gdoc21b = genesis21(keys21b, "chip-smoke-21b")
+nkeys21b = [NodeKey(edkeys.PrivKey(hashlib.sha256(b"phase 21 p2p %d" % i)
+                                   .digest())) for i in range(5)]
+
+
+class Peer21:
+    """A node of the localnet on its own Switch (127.0.0.1, port 0) with a
+    ConsensusReactor, a MempoolReactor and a BlocksyncReactor, as the node
+    wires them; a validator's blocksync only serves (fast_sync off), the
+    late joiner's syncs and hands over to consensus when caught up."""
+
+    def __init__(self, i, priv, joiner=False, old=None):
+        d = os.path.join(root21, f"b{i}")
+        self.node = Node21(
+            gdoc21b, priv, f"b{i}", wal_path=os.path.join(d, "cs.wal"),
+            db_dir=d if i == 0 and old is None else None,
+            stores=None if old is None else (old.node.state_store,
+                                             old.node.block_store),
+            app=None if old is None else old.node.app,
+            mempool=None if old is None else old.node.mempool)
+        if old is not None:
+            self.node.dbs = old.node.dbs
+        n = self.node
+        self.switch = Switch(nkeys21b[i], "127.0.0.1:0", gdoc21b.chain_id,
+                             moniker=f"b{i}")
+        self.switch.add_reactor("CONSENSUS",
+                                creactor.ConsensusReactor(n.cs))
+        self.switch.add_reactor("MEMPOOL", mreactor.MempoolReactor(n.mempool))
+        self.caught_up = threading.Event()
+
+        def on_caught_up(state):
+            if state.last_block_height > n.cs.state.last_block_height:
+                n.cs.switch_to_consensus(state)
+            n.cs.start()
+            self.caught_up.set()
+        self.switch.add_reactor("BLOCKSYNC", BlocksyncReactor(
+            n.exec, n.block_store, n.cs.state, fast_sync=joiner,
+            on_caught_up=on_caught_up if joiner else None))
+        self.switch.start()
+
+    def dial(self, others):
+        for o in others:
+            check(self.switch.dial_peer(o.switch.actual_listen_addr())
+                  is not None, f"phase 21 (b): {self.node.cs.name} dial")
+
+    def stop(self):
+        self.node.cs.stop()
+        self.switch.stop()
+
+
+b21: dict = {}
+sched21 = sched21_start()
+label21[0] = "b localnet"
+t = time.perf_counter()
+peers21 = [Peer21(i, keys21b[i]) for i in range(4)]
+for i, pr in enumerate(peers21):
+    pr.dial(peers21[i + 1:])
+until21(lambda: all(pr.switch.num_peers() == 3 for pr in peers21),
+        "(b): the mesh", timeout=30)
+txs21b = [b"b%d=%s" % (i, rng21.randbytes(24).hex().encode())
+          for i in range(2 * H21B)]
+
+
+def run_b1():
+    for pr in peers21:
+        pr.node.cs.start()
+    for tx in txs21b:
+        check(peers21[0].node.mempool.check_tx(tx).is_ok(),
+              "phase 21 (b): a tx at node 0")
+    wait21([pr.node for pr in peers21], H21B, "(b)", 300)
+
+
+_, c_b1 = main_path(run_b1)
+walls21["b_heights_s"] = time.perf_counter() - t
+committed21b = {tx for h in range(1, H21B + 1)
+                for tx in peers21[1].node.block_store.load_block(h).data.txs}
+# node 3 down: the other three (3/4 of the power) keep committing
+top_b = max(pr.node.block_store.height() for pr in peers21)
+t = time.perf_counter()
+peers21[3].stop()
+live21 = peers21[:3]
+_, c_b2 = main_path(lambda: wait21([pr.node for pr in live21],
+                                   top_b + AFTER21B, "(b) 3 of 4", 300))
+walls21["b_three_s"] = time.perf_counter() - t
+check(not any(c_b1.values()) and not any(c_b2.values()),
+      f"phase 21 (b): a kernel launched on the localnet {c_b1} {c_b2}")
+# node 3 restarts over its own stores and WAL (its app and mempool kept,
+# as an app process that outlived the node): its WAL catch-up, then the
+# reactor's store-backed catch-up from its peers
+t = time.perf_counter()
+h3_21 = peers21[3].node.block_store.height()
+peers21[3] = Peer21(3, keys21b[3], old=peers21[3])
+peers21[3].dial(peers21[:3])
+label21[0] = "b restart"
+
+
+def run_b3():
+    peers21[3].node.cs.start()
+    top = max(pr.node.block_store.height() for pr in peers21[:3])
+    wait21([pr.node for pr in peers21], top + 1, "(b) restart", 300)
+
+
+_, c_b3 = main_path(run_b3)
+walls21["b_restart_s"] = time.perf_counter() - t
+# a fifth node, no validator, joins late: blocksync to the top, then
+# switch_to_consensus through on_caught_up
+label21[0] = "b join"
+t = time.perf_counter()
+joiner21 = Peer21(4, None, joiner=True)
+joiner21.dial(peers21)
+
+
+def run_b4():
+    check(joiner21.caught_up.wait(300), "phase 21 (b): the joiner never "
+          "caught up")
+    top = max(pr.node.block_store.height() for pr in peers21)
+    wait21([pr.node for pr in peers21] + [joiner21.node], top + JOIN21B,
+           "(b) join", 300)
+
+
+_, c_b4 = main_path(run_b4)
+walls21["b_join_s"] = time.perf_counter() - t
+label21[0] = ""
+all21b = [pr.node for pr in peers21] + [joiner21.node]
+for n in all21b:
+    check(n.cs.is_running() and n.cs.device_error is None,
+          f"phase 21 (b): {n.cs.name} died")
+for pr in peers21 + [joiner21]:
+    pr.stop()
+sched21_stop(sched21)
+top21b = min(n.block_store.height() for n in all21b)
+chains_equal21(all21b, top21b)
+check(set(txs21b) <= {tx for h in range(1, top21b + 1)
+                      for tx in all21b[4].block_store.load_block(h).data.txs},
+      "phase 21 (b): a tx submitted at node 0 was not committed")
+b21.update(heights=top21b, node3_stopped_at=h3_21,
+           five_chains_equal=True,
+           txs_in_20_heights=len(committed21b),
+           launches={"localnet": c_b1, "three_of_four": c_b2,
+                     "restart": c_b3, "join": c_b4},
+           walls_s={k: v for k, v in walls21.items() if k.startswith("b_")})
+log(phase=21, card=CARD, step="b localnet", **b21)
+for n in all21b:
+    n.close()
+consensus21["b"] = b21
+
+# -- (c) the card-fault rule and the drills ----------------------------------
+gdoc21c = genesis21(keys21, "chip-smoke-21c")
+
+
+def storm21c(node):
+    """The 149 prevotes of validators 1..149 for one block at height 1,
+    queued at `node` before it starts, so its receive routine drains them
+    as one batch."""
+    bid = BlockID(hashlib.sha256(b"phase 21 storm").digest(),
+                  PartSetHeader(1, hashlib.sha256(b"parts").digest()))
+    vals = node.cs.state.validators
+    by_addr = {k.pub_key().address(): k for k in keys21}
+    votes = []
+    for idx in range(vals.size()):
+        addr, _ = vals.get_by_index(idx)
+        if by_addr[addr] is keys21[0]:
+            continue
+        v = tvote.Vote(type=SignedMsgType.PREVOTE, height=1, round=0,
+                       block_id=bid, timestamp=Timestamp(1700000100, idx),
+                       validator_address=addr, validator_index=idx)
+        v.signature = by_addr[addr].sign(v.sign_bytes(gdoc21c.chain_id))
+        votes.append(v)
+    return votes
+
+
+def feed_storm21(cs, votes):
+    for i, v in enumerate(votes):
+        cs.add_vote(v, peer_id=f"peer{v.validator_index}")
+
+
+def present21(cs):
+    with cs._mtx:
+        return sum(1 for v in cs.rs.votes.prevotes(0).votes if v is not None)
+
+
+c21: dict = {}
+sched21 = sched21_start()
+wal_c = os.path.join(root21, "c", "cs.wal")
+node_c = Node21(gdoc21c, keys21[0], "c", wal_path=wal_c)
+votes_c = storm21c(node_c)
+feed_storm21(node_c.cs, votes_c)
+hostv21.update(consensus=0, other=0)
+fails0_21 = counter_total(degrade.runtime().metrics.device_failures)
+ck.verify_packed = launch_failed
+t = time.perf_counter()
+node_c.cs.start()
+until21(lambda: not node_c.cs.is_running(),
+        "(c): the receive routine did not stop", timeout=60)
+c21["halt_s"] = time.perf_counter() - t
+ck.verify_packed = _keeping21("verify_packed")
+wal_votes = [r for r in cwal.WAL.iter_messages(wal_c)
+             if isinstance(r, tuple) and isinstance(r[0], crt.VoteMessage)]
+c21.update(
+    device_error=type(node_c.cs.device_error).__name__,
+    prevotes_applied=present21(node_c.cs),
+    host_verifies_on_consensus_thread=hostv21["consensus"],
+    wal_votes=len(wal_votes),
+    device_failures=counter_total(degrade.runtime().metrics.device_failures)
+    - fails0_21)
+node_c.cs.stop()
+check(isinstance(node_c.cs.device_error, degrade.DeviceLaneError)
+      and c21["prevotes_applied"] == 0
+      and c21["host_verifies_on_consensus_thread"] == 0
+      and c21["wal_votes"] == 0 and c21["device_failures"] >= 1,
+      f"phase 21 (c): the card fault {c21}")
+# the card back (a fresh runtime: the fault above is counted in the old
+# one's breaker): a fresh state over the same stores and WAL resumes, fed
+# the same storm; it reaches +2/3 prevotes on the card
+degrade.configure(degrade.DegradeConfig.from_env(),
+                  registry=Registry("p21c"))
+cbatch.verified_sigs = cbatch.SigCache(capacity=1 << 18)
+node_c2 = Node21(gdoc21c, keys21[0], "c2", wal_path=wal_c,
+                 stores=(node_c.state_store, node_c.block_store),
+                 app=node_c.app, mempool=node_c.mempool)
+feed_storm21(node_c2.cs, votes_c)
+label21[0] = "c resume"
+
+
+def run_c2():
+    node_c2.cs.start()
+    until21(lambda: node_c2.cs.rs.votes.prevotes(0)
+            .has_two_thirds_majority(), "(c): the resume", timeout=60)
+
+
+(_, c21["resume_s"]), c_c2 = main_path(lambda: timed_call(run_c2),
+                                       site="sched.ed25519")
+label21[0] = ""
+c21.update(resumed_prevotes=present21(node_c2.cs),
+           resume_launches=c_c2,
+           resumed_running=node_c2.cs.is_running())
+node_c2.cs.stop()
+check(c21["resumed_prevotes"] == N21 - 1 and c21["resumed_running"]
+      and c_c2.get("verify_packed", 0) >= 1,
+      f"phase 21 (c): the resume {c21}")
+# the same storm in a drill (the scheduler's site armed to raise): the
+# runtime re-verifies on the host, every vote is applied, the JAX
+# package's path
+cbatch.verified_sigs = cbatch.SigCache(capacity=1 << 18)
+node_d = Node21(gdoc21c, keys21[0], "drill")
+feed_storm21(node_d.cs, votes_c)
+failpoints.set_mode("sched.ed25519", "raise")
+try:
+    node_d.cs.start()
+    until21(lambda: present21(node_d.cs) == N21 - 1,
+            "(c): the drill's votes", timeout=60)
+    c21.update(drill_prevotes=present21(node_d.cs),
+               drill_fired=failpoints.fired("sched.ed25519", "raise"),
+               drill_running=node_d.cs.is_running(),
+               drill_device_error=node_d.cs.device_error)
+finally:
+    failpoints.reset()
+    node_d.cs.stop()
+sched21_stop(sched21)
+check(c21["drill_fired"] >= 1 and c21["drill_running"]
+      and c21["drill_device_error"] is None,
+      f"phase 21 (c): the drill {c21}")
+degrade.configure(degrade.DegradeConfig.from_env(),
+                  registry=Registry("p21d"))
+log(phase=21, card=CARD, step="c card fault", **c21)
+consensus21["c"] = c21
+
+# -- (d) the WAL tools -------------------------------------------------------
+d21: dict = {}
+t = time.perf_counter()
+wal_g = os.path.join(root21, "d", "wal")
+cwalgen.generate_wal(wal_g, num_blocks=4)
+out21 = io.StringIO()
+d21["shown"] = cconsole.replay_messages(wal_g, console=False, out=out21)
+cmds21 = iter(["l", "n", "q"])
+d21["stepped"] = cconsole.replay_messages(
+    wal_g, console=True, out=io.StringIO(), input_fn=lambda _: next(cmds21))
+ends_g = [m.height for m in cwal.WAL.iter_messages(wal_g)
+          if isinstance(m, cwal.EndHeightMessage)]
+wal_r = os.path.join(root21, "d", "rot", "wal")
+cwalgen.generate_wal(wal_r, num_blocks=6, head_size_limit=2048)
+chunks_r = autofile.list_group_paths(wal_r)[:-1]
+ends_r = [m.height for m in cwal.WAL.iter_messages(wal_r)
+          if isinstance(m, cwal.EndHeightMessage)]
+after_r, found_r = cwal.WAL.messages_after_end_height(wal_r, 3)
+d21.update(end_heights=ends_g, rotated_chunks=len(chunks_r),
+           rotated_end_heights=ends_r, after_3=len(after_r),
+           wall_s=time.perf_counter() - t)
+check(ends_g[:5] == [0, 1, 2, 3, 4] and "ENDHEIGHT 4" in out21.getvalue()
+      and 0 < d21["stepped"] < d21["shown"] and len(chunks_r) >= 2
+      and ends_r[:7] == list(range(7)) and found_r and after_r,
+      f"phase 21 (d): the WAL tools {d21}")
+log(phase=21, card=CARD, step="d wal tools", **d21)
+consensus21["d"] = d21
+
+# -- every launch of the phase against its plain version on the same inputs
+# (grouped by step), C2 against the plain tables of the build it used
+edkeys.PubKey.verify_signature = REAL_VERIFY21
+for _name in keep21:
+    setattr(KERNEL_MOD[_name], _name, was21[_name])
+cmp21 = {name: [] for name in keep21}
+t = time.perf_counter()
+for name, plain in (("verify_packed", ck.verify_packed_plain),
+                    ("verify_packed_split", ck.verify_packed_split_plain)):
+    runs = keep21[name]
+    if not runs:
+        continue
+    got = torch.cat([out for _, _, out in runs])
+    cols = [torch.cat([args[k] for _, args, _ in runs], dim=1)
+            for k in range(len(runs[0][1]))]
+    step_of = np.repeat([label.split(" ")[0] or "-" for label, _, _ in runs],
+                        [out.shape[0] for _, _, out in runs])
+    real = (cols[-1] != 0).any(dim=0)
+    check(not got[~real].any(), f"phase 21 {name}: a padding lane passed")
+    got = got[real].cpu().numpy()
+    step_of = step_of[real.cpu().numpy()]
+    # the 150 nodes verify the same last commits and storms: the plain
+    # version runs once on each distinct lane, its verdict mapped back to
+    # every lane of every launch
+    uniq, inv = torch.unique(torch.cat([c[:, real] for c in cols]), dim=1,
+                             return_inverse=True)
+    sizes = [c.shape[0] for c in cols]
+    ucols = list(torch.split(uniq, sizes))
+    want_u = torch.cat([plain(*[c[:, a:a + 65_536] for c in ucols]).cpu()
+                        for a in range(0, uniq.shape[1], 65_536)])
+    want = want_u[inv.cpu()].numpy()
+    err = np.abs(got.astype(int) - want.astype(int))
+    for g in sorted(set(step_of)):
+        on = step_of == g
+        n_runs = sum((label.split(" ")[0] or "-") == g
+                     for label, _, _ in runs)
+        cmp21[name].append((f"phase 21 ({g}): {n_runs} launches, "
+                            f"{uniq.shape[1]} distinct lanes",
+                            int(on.sum()), int(err[on].sum()),
+                            float(err[on].max())))
+builds21 = {}
+for label, args, (tab, ok) in keep21["comb_build"]:
+    ptab, pok = cc.comb_build_plain(args[0])
+    builds21[id(tab)] = (ptab, pok)
+    cmp21["comb_build"].append(
+        (f"phase 21 {label}", args[0].shape[0],
+         cc.tables_mismatch(tab, ptab) + int((ok != pok).sum())))
+check(len(keep21["comb_build"]) == 1
+      and all(id(args[1]) in builds21 for _, args, _ in keep21["comb_verify"]),
+      "phase 21: a C2 launch on a table that no build of the phase made")
+for key, (ptab, pok) in builds21.items():
+    runs = [(args, out) for _, args, out in keep21["comb_verify"]
+            if id(args[1]) == key]
+    if not runs:
+        continue
+    rows_c2 = torch.cat([args[0] for args, _ in runs])
+    got = torch.cat([out for _, out in runs]).cpu().numpy()
+    # the plain C2 once on each distinct row, mapped back to every row
+    urows, uinv = torch.unique(rows_c2, dim=0, return_inverse=True)
+    want = cc.comb_verify_plain(urows, ptab, pok).cpu()[uinv.cpu()]
+    cmp21["comb_verify"].append(c2_row(
+        f"phase 21: {len(runs)} launches on one table, {urows.shape[0]} "
+        f"distinct rows", got, want.numpy()))
+plain21_s = time.perf_counter() - t
+# the card's time for (a)'s launches: each kernel's kept launches replayed
+# back to back between two CUDA events on a quiet card, against the
+# stretch's host wall
+card21 = {}
+if ON_CARD21:
+    for name, stretch, wall_key in (
+            ("verify_packed", "a network", "a_heights_s"),
+            ("comb_verify", "a prewarmed", "a_prewarmed_s")):
+        runs = [args for lab, args, _ in keep21[name] if lab == stretch]
+        if not runs:
+            continue
+        REAL[name](*runs[0])
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        for a in runs:
+            REAL[name](*a)
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms = ev[0].elapsed_time(ev[1])
+        card21[f"{stretch} {name}"] = {
+            "launches": len(runs), "ms": ms, "wall_s": walls21[wall_key],
+            "card_share": ms / 1e3 / walls21[wall_key]}
+log(phase=21, card=CARD, step="card time", replayed=card21)
+E.table_cache_clear()
+staging_clear(21)
+shutil.rmtree(root21)
+tmlog.setup("info")
+gc.callbacks.remove(_gc17)
+gc.unfreeze()
+launches21 = {name: len(v) for name, v in keep21.items()}
+consensus21.update(gc={"collections": gc17["n"], "seconds": gc17["s"]},
+                   card_time=card21, comparisons=cmp21, openssl=oracle21,
+                   launches=launches21, plain_s=plain21_s,
+                   phase_s=time.perf_counter() - T21)
+log(phase=21, card=CARD, launches=launches21, comparisons=cmp21,
+    openssl=oracle21, plain_s=plain21_s, phase_s=consensus21["phase_s"])
+check(launches21["verify_packed"] > 0 and launches21["comb_verify"] > 0
+      and all(r[2] == 0 for rows in cmp21.values() for r in rows),
+      f"phase 21: a kernel disagrees with its plain version: {cmp21}")
+REPORT["consensus"] = consensus21
+
+# -- phase 22: the kernels line -----------------------------------------------
 
 src = "tendermint_tpu_torch/csrc/ed25519_verify.cu"
 # each comparison: (input, lanes, mismatching lanes, max |kernel - plain|)
@@ -7187,14 +8255,16 @@ k1_cmp = [("phase-3 vectors + seeded", k1_cmp_lanes, k1_mism,
            float(np.abs(k1_raw.astype(int) - plain_raw.astype(int)).max())),
           cmp4, cmp6, cmp13] + cmp16["verify_packed"] \
     + cmp17["verify_packed"] + cmp18["verify_packed"] \
-    + cmp19["verify_packed"] + cmp20["verify_packed"]
+    + cmp19["verify_packed"] + cmp20["verify_packed"] \
+    + cmp21["verify_packed"]
 k2_cmp = [("phase-3 vectors + seeded", len(k2_raw3), k2_mism3,
            float(np.abs(k2_raw3.astype(int) - k2_plain3.astype(int)).max())),
           ("100k slice", 4096, k2_mism,
            float(np.abs(k2_raw.astype(int) - k2_plain.astype(int)).max())),
           cmp5] + cmp16["verify_packed_split"] \
     + cmp17["verify_packed_split"] + cmp18["verify_packed_split"] \
-    + cmp19["verify_packed_split"] + cmp20["verify_packed_split"]
+    + cmp19["verify_packed_split"] + cmp20["verify_packed_split"] \
+    + cmp21["verify_packed_split"]
 k3_cmp = [("phase-3 vectors + seeded", len(k3_raw3), k3_mism3,
            float(np.abs(k3_raw3.astype(int) - k3_plain3.astype(int)).max())),
           cmp11]
@@ -7281,9 +8351,9 @@ for name, key, src_f, replaces, cmps, bound in (
 # C1 and C2 (XLA functions of the JAX package, not Pallas kernels): C1 at
 # the 1,024-key set, held as field values; C2 at 65,536 lanes, as bitmaps
 cmp15 += cmp16["comb_build"] + cmp17["comb_build"] + cmp18["comb_build"] \
-    + cmp19["comb_build"]
+    + cmp19["comb_build"] + cmp21["comb_build"]
 c2_cmp += cmp16["comb_verify"] + cmp17["comb_verify"] \
-    + cmp18["comb_verify"] + cmp19["comb_verify"]
+    + cmp18["comb_verify"] + cmp19["comb_verify"] + cmp21["comb_verify"]
 c2_vs_k1 += c2_vs_k1_16
 comb_src = "tendermint_tpu_torch/csrc/comb.cu"
 kernels.append(

@@ -22,10 +22,7 @@ def register(cls) -> type:
 
 
 def _register_defaults():
-    """The JAX package's allow-list, for the modules this package has.
-    Still to come with the modules that define them: the consensus
-    messages (consensus.round_types ProposalMessage, BlockPartMessage,
-    VoteMessage, TimeoutInfo, Step; consensus.wal EndHeightMessage)."""
+    """The JAX package's allow-list, with the package path mapped."""
     global _defaults_done
     _defaults_done = True
     import tendermint_tpu_torch.abci.types as abci_types
@@ -36,6 +33,7 @@ def _register_defaults():
     # blocks, light blocks in the light store)
     from tendermint_tpu_torch.types import evidence, light_block  # noqa: F401
     from tendermint_tpu_torch.crypto import ed25519, merkle
+    from tendermint_tpu_torch.consensus import round_types, wal
     from tendermint_tpu_torch.state import execution
     from tendermint_tpu_torch.state import state as sm_state
 
@@ -47,6 +45,9 @@ def _register_defaults():
         commit.Commit, commit.CommitSig,
         part_set.Part, merkle.Proof,
         proposal.Proposal, vote.Vote,
+        round_types.ProposalMessage, round_types.BlockPartMessage,
+        round_types.VoteMessage, round_types.TimeoutInfo, round_types.Step,
+        wal.EndHeightMessage,
         # storage-side graph (state/validators/params/ABCI responses)
         validator.Validator, validator_set.ValidatorSet,
         ed25519.PubKey, ed25519.PrivKey,

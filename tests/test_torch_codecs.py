@@ -50,20 +50,16 @@ def test_malicious_pickle_payload_is_inert(pkg):
         pkg.codec.loads(payload)
 
 
-# the classes the JAX package's allow-list names that wait for the port's
-# consensus modules (round_types, wal)
-WAITING = {
-    ("tendermint_tpu_torch.consensus.round_types", n)
-    for n in ("ProposalMessage", "BlockPartMessage", "VoteMessage",
-              "TimeoutInfo", "Step")} | {
-    ("tendermint_tpu_torch.consensus.wal", "EndHeightMessage")}
+# the classes the JAX package's allow-list names that wait for a port
+# module still to come: none since the consensus modules (round_types, wal)
+WAITING: set = set()
 
 
 def test_allow_list_is_the_reference_less_waiting_classes():
     """The port's default allow-list is the JAX package's with the package
     name mapped, less exactly the classes of the modules still to come
-    (read in a fresh interpreter, where only the defaults are
-    registered)."""
+    (none: WAITING is empty), read in a fresh interpreter, where only the
+    defaults are registered."""
     code = (
         "import json, tendermint_tpu.libs.safe_codec as j, "
         "tendermint_tpu_torch.libs.safe_codec as t\n"
@@ -76,8 +72,9 @@ def test_allow_list_is_the_reference_less_waiting_classes():
     ref, port = json.loads(r.stdout.splitlines()[-1])
     mapped = {(m.replace("tendermint_tpu.", "tendermint_tpu_torch.", 1), n)
               for m, n in ref}
-    assert WAITING <= mapped
-    assert {tuple(x) for x in port} == mapped - WAITING
+    assert not WAITING
+    assert ("tendermint_tpu_torch.consensus.wal", "EndHeightMessage") in mapped
+    assert {tuple(x) for x in port} == mapped
 
 
 def test_safe_codec_round_trip_across(pkg):

@@ -159,6 +159,50 @@ def test_mempool_and_signer_lazy_imports_stay_in_the_port():
             "tendermint_tpu_torch.crypto") in lazy
 
 
+CONSENSUS_MODULES = (
+    "libs/autofile.py", "consensus/config.py", "consensus/round_types.py",
+    "consensus/ticker.py", "consensus/wal.py", "consensus/messages.py",
+    "consensus/state.py", "consensus/reactor.py",
+    "consensus/replay_console.py", "consensus/wal_generator.py")
+
+
+def test_consensus_modules_are_checked():
+    """The consensus slice (the WAL's autofile group, the config, the
+    round types, the ticker, the WAL, the wire messages, the state
+    machine, its reactor, the replay console, the WAL generator) is among
+    the modules the checks below cover."""
+    mods = _port_modules()
+    for rel in CONSENSUS_MODULES:
+        m = rel[:-3].replace("/", ".")
+        assert f"tendermint_tpu_torch.{m}" in mods, m
+
+
+@pytest.mark.parametrize("rel", CONSENSUS_MODULES)
+def test_consensus_imports_stay_in_the_port(rel):
+    """Every import of a consensus module, at its top and inside its
+    functions (the reference's lazy imports), names the port, the standard
+    library or numpy/torch; the module imports in a fresh interpreter
+    without jax or the JAX package showing up in sys.modules."""
+    tree = ast.parse((PKG / rel).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom):
+            name = "." * node.level + (node.module or "")
+        elif isinstance(node, ast.Import):
+            name = node.names[0].name
+        else:
+            continue
+        assert name.split(".")[0] not in ("jax", "jaxlib",
+                                          "tendermint_tpu"), (rel, name)
+    mod = "tendermint_tpu_torch." + rel[:-3].replace("/", ".")
+    code = (f"import sys, {mod}\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'tendermint_tpu')]\n"
+            "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
 @pytest.mark.parametrize("path", sorted(
     [p.relative_to(ROOT) for p in PKG.rglob("*.py")]
     + [pathlib.Path("chip_smoke.py")]), ids=str)

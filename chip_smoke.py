@@ -313,7 +313,30 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      applied; (d) generate_wal, replay_console and a rotated WAL group.
      Every K1, C1 and C2 launch of the phase held against its plain
      version; each step's host wall and the card's share logged, not gated
- 22  the kernels line; then the last line {"ok": true, "device": ...}
+ 22  state sync, the RPC server and PEX, at BASELINE config 2's width: a
+     150-validator kvstore chain of 121 heights of 1,000 txs of 64 bytes,
+     snapshots every 50 heights (64 KiB chunks), behind two RPCServers over
+     a stand-in node and a StateSyncReactor on a Switch; (b) a fresh node
+     (its light client over HTTPProviders against the two servers, trust
+     pinned at height 1, a SQLite RestoreLedger, the reference's default
+     statesync settings) restores snapshot 100 through sync_any, the
+     light certificates on K1, its app hash, data and bootstrapped State
+     the chain's, then blocksyncs the 20-height tail (K1 windows) to the
+     chain's app hash; (c) after a prewarm (C1 at 256 keys) a second
+     joiner restores snapshot 50, its certificates on C2; (d) 1,800
+     signed txs (1% corrupted) through broadcast_tx_sync from 4 client
+     threads into the serving node's IngressGate, every answer a
+     device="cpu" gate's, a window's bitmap OpenSSL's, 200 through
+     broadcast_tx_async, RPC_BUSY_CODE from a full queue; (e) 16 clients
+     calling light_verify (adjacent and non-adjacent) over LightServe
+     (C2); (f) PEX among 4 Switches and a seed, a flooding peer banned;
+     (g) K1's wrapper raising with no failpoint armed under sync_any
+     (DeviceLaneError, nothing offered, rejected, banned or cleared; a
+     fresh Syncer over the same ledger resumes), broadcast_tx_sync and
+     light_verify (-32603), and the statesync.* drills.  Every K1, C1 and
+     C2 launch of the phase held against its plain version; each step's
+     wall, the restore's rate and the card's share logged, not gated
+ 23  the kernels line; then the last line {"ok": true, "device": ...}
 
 Signatures come from a seeded incremental generator (a_i = a_0 + i, so
 A_i = A_{i-1} + B), because signing 100k triples one by one in pure
@@ -326,11 +349,13 @@ import base64
 import copy
 import gc
 import hashlib
+import http.client
 import io
 import json
 import os
 import random
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -435,6 +460,16 @@ from tendermint_tpu_torch.libs.metrics import P2PMetrics  # noqa: E402
 from tendermint_tpu_torch.p2p import netobs  # noqa: E402
 from tendermint_tpu_torch.p2p.key import NodeKey  # noqa: E402
 from tendermint_tpu_torch.p2p.switch import Switch  # noqa: E402
+from tendermint_tpu_torch.p2p.pex import (AddrBook, PEX_CHANNEL,  # noqa: E402
+                                           PexReactor, PexRequest)
+from tendermint_tpu_torch.rpc.server import RPCServer  # noqa: E402
+from tendermint_tpu_torch.rpc.server import RPC_BUSY_CODE  # noqa: E402
+from tendermint_tpu_torch.statesync import syncer as ssync  # noqa: E402
+from tendermint_tpu_torch.statesync.ledger import RestoreLedger  # noqa: E402
+from tendermint_tpu_torch.statesync.reactor import \
+    StateSyncReactor  # noqa: E402
+from tendermint_tpu_torch.statesync.stateprovider import \
+    StateProvider  # noqa: E402
 from tendermint_tpu_torch.state import pipeline as bpipe  # noqa: E402
 from tendermint_tpu_torch.proxy import AppConns, ClientCreator  # noqa: E402
 from tendermint_tpu_torch.state import execution as sexec  # noqa: E402
@@ -8247,7 +8282,1040 @@ check(launches21["verify_packed"] > 0 and launches21["comb_verify"] > 0
       f"phase 21: a kernel disagrees with its plain version: {cmp21}")
 REPORT["consensus"] = consensus21
 
-# -- phase 22: the kernels line -----------------------------------------------
+# -- phase 22: state sync, the RPC server and PEX ------------------------------
+
+# The state-sync, RPC and PEX slice (statesync/syncer.py, reactor.py,
+# ledger.py, stateprovider.py; rpc/server.py, light.py; p2p/pex.py,
+# trust.py) on the card, through the entry points a node wires: a fresh
+# node restores a BASELINE config 2 chain (150 validators, 1,000 txs of 64
+# bytes a block) from the kvstore's snapshot (the reference's default state
+# sync settings: 4 fetchers, the default chunk timeout, 3 retries, 64 KiB
+# chunks) over a StateSyncReactor on a Switch, its trust from a light.Client
+# over HTTPProviders against two RPCServers of the serving node, then
+# blocksyncs the tail.  The serving node is a stand-in with the attributes
+# the routes read (the node itself is ROADMAP Queue 1 item 9).  (a) the
+# chain (121 heights, snapshots every 50), two RPCServers and a serving
+# StateSyncReactor; (b) the joiner: snapshot 100 restored (the light
+# certificates on K1), the State bootstrapped, 20 tail heights through the
+# BlocksyncReactor (K1 windows); (c) a second joiner from snapshot 50 after
+# a prewarm of the set (C1 at 256 keys; its certificates on C2); (d) 2,000
+# signed txs (1% corrupted) through broadcast_tx_sync from 4 HTTP client
+# threads into the serving node's IngressGate (K1 MEMPOOL windows), 200 more
+# through broadcast_tx_async, and RPC_BUSY_CODE from a full queue; (e) 16
+# clients calling light_verify over LightServe's prewarmed tables (C2); (f)
+# PEX: 4 Switches and a seed, a flooding peer disconnected; (g) K1's
+# wrapper raising with no failpoint armed under sync_any, broadcast_tx_sync
+# and light_verify, a fresh Syncer resuming from the same ledger, and the
+# statesync.* drills.  Walls are host-clock, logged and not gated; every
+# hash, state, response, count and route named below is.
+N22, H22, TXS22, SNAP22 = 150, 121, 1000, 50      # (a)
+TX22, BAD22, ASYNC22, CLIENTS22, WIDTH22 = 2000, 20, 200, 4, 64  # (d)
+LIGHT22, LIGHT_H22 = 16, (10, 25, 40, 55, 70, 85, 100, 115)     # (e)
+PEX22, PEX_PERIOD22 = 4, 0.5                      # (f)
+PERIOD22 = 14 * 24 * 3600.0
+NOW22 = Timestamp(1700000000 + 3600, 0)           # an hour past genesis
+T22 = time.perf_counter()
+rng22 = random.Random(SEED + 22)
+E.table_cache_clear()
+check(not msm.use_rlc(10_000) and not failpoints.armed()
+      and vsched.installed() is None and bpipe.installed() is None,
+      "phase 22: RLC, a failpoint, a scheduler or a pipeline is still on")
+degrade.configure(degrade.DegradeConfig.from_env(), registry=Registry("p22"))
+ingress.set_enabled(None)
+ON_CARD22 = DEV.type == "cuda"
+tmlog.setup("info", module_levels="statesync:error,blocksync:error,"
+            "p2p:error,mempool:error,light:error,rpc:error,pex:error")
+gc.collect()
+gc.freeze()
+gc17.update(n=[0, 0, 0], s=[0.0, 0.0, 0.0])
+gc.callbacks.append(_gc17)
+statesync22: dict = {"card": CARD}
+walls22: dict = {}
+# every K1, K2, C1 and C2 launch of the phase: (label, inputs, output)
+keep22 = {name: [] for name in ("verify_packed", "verify_packed_split",
+                                "comb_build", "comb_verify")}
+label22 = [""]
+was22 = {name: getattr(KERNEL_MOD[name], name) for name in keep22}
+_keep22_lock = threading.Lock()
+
+
+def _keeping22(name):
+    """The bare wrapper (REAL), keeping a copy of every launch's tensor
+    inputs (C2's tables by reference) and its output; the launches come
+    from the fetch plane's caller, the RPC handler threads (through the
+    gate and LightServe) and the blocksync routine."""
+    def wrapper(*args):
+        out = REAL[name](*args)
+        kept = [a.clone() if isinstance(a, torch.Tensor)
+                and not (name == "comb_verify" and i == 1) else a
+                for i, a in enumerate(args)]
+        with _keep22_lock:
+            keep22[name].append((label22[0], kept, out))
+        return out
+    return wrapper
+
+
+for _name in keep22:
+    setattr(KERNEL_MOD[_name], _name, _keeping22(_name))
+root22 = tempfile.mkdtemp(prefix="smoke22_")
+
+
+def step22(label, fn, site=None):
+    """fn() on the main path with a fresh SigCache (a step's signatures are
+    verified on the card, not found among an earlier step's) and the step's
+    label; the runtime must have served it without a device failure or a
+    host fallback.  Returns (the result, the launch counts, the wall)."""
+    cbatch.verified_sigs = cbatch.SigCache(capacity=1 << 18)
+    label22[0] = label
+    t = time.perf_counter()
+    out, c = main_path(fn, site=site)
+    walls22[label] = time.perf_counter() - t
+    runtime_clean(f"phase 22 {label}")
+    return out, {k: v for k, v in c.items() if v}, walls22[label]
+
+
+def wait22(cond, what, timeout):
+    end = time.monotonic() + timeout
+    while not cond():
+        check(time.monotonic() < end, f"phase 22: {what} timed out")
+        time.sleep(0.005)
+
+
+def txs22(h: int):
+    """TXS22 txs of 64 bytes each, s<h>_<i>=<hex>."""
+    out = []
+    for i in range(TXS22):
+        key = b"s%d_%d=" % (h, i)
+        out.append(key + rng22.randbytes(32).hex().encode()[:64 - len(key)])
+    return out
+
+
+a22, pubs22 = gen_keys(N22, rng22)
+a_of22 = dict(zip(pubs22, a22))
+gdoc22 = tgen.GenesisDoc(
+    chain_id=CHAIN, genesis_time=Timestamp(1700000000, 0),
+    validators=[tgen.GenesisValidator(
+        address=b"", pub_key_type="ed25519", pub_key_bytes=p, power=10,
+        name=f"v{i}") for i, p in enumerate(pubs22)])
+gdoc22.validate_and_complete()
+
+
+def sign22(state, bid, h: int):
+    """The commit of height h: a precommit from every validator of the
+    height's set, signed over its canonical bytes."""
+    vals = state.validators.validators
+    sigs = [CommitSig(BlockIDFlag.COMMIT, v.address,
+                      Timestamp(1700000000 + h, 500 + i))
+            for i, v in enumerate(vals)]
+    commit = Commit(h, 0, bid, sigs)
+    vp = [v.pub_key.bytes() for v in vals]
+    for cs, sig in zip(sigs, sign_batch(
+            [a_of22[p] for p in vp], vp,
+            commit_sign_bytes_batch(CHAIN, commit, list(range(len(vals)))),
+            rng22)):
+        cs.signature = sig
+    return commit
+
+
+# -- (a) the serving node: the chain built and applied by its own executor
+# (which trusts its own signatures: mark_commit_verified, no launch), the
+# kvstore taking a snapshot every SNAP22 heights
+t = time.perf_counter()
+srv_app22 = app18(gdoc22)
+srv_app22.snapshot_interval = SNAP22
+srv_ss22, srv_bs22 = StateStore(MemDB()), BlockStore(MemDB())
+ex22 = sexec.BlockExecutor(srv_ss22, srv_app22)
+state = state_from_genesis(gdoc22)
+srv_ss22.save(state)
+states22 = []
+last = Commit(0, 0, BlockID(), [])
+for h in range(1, H22 + 1):
+    block = state.make_block(h, txs22(h), last, [],
+                             state.validators.get_proposer().address,
+                             block_time=Timestamp(1700000000 + h, 0))
+    parts = tparts.make_block_parts(block)
+    bid = BlockID(block.hash(), parts.header())
+    seen = sign22(state, bid, h)
+    if h > 1:
+        ex22.mark_commit_verified(h - 1, last)
+    state, _ = ex22.apply_block(state, bid, block)
+    srv_bs22.save_block(block, parts, seen)
+    states22.append(state)
+    last = seen
+walls22["a build_s"] = time.perf_counter() - t
+snaps22 = {s.height: s for s in srv_app22.list_snapshots()}
+check(sorted(snaps22) == [SNAP22, 2 * SNAP22]
+      and not any(keep22.values()),
+      f"phase 22 (a): snapshots at {sorted(snaps22)}, build launches "
+      f"{ {k: len(v) for k, v in keep22.items()} }")
+snap_b22 = snaps22[2 * SNAP22]
+chunk_bytes22 = sum(len(srv_app22.load_snapshot_chunk(
+    snap_b22.height, snap_b22.format, i)) for i in range(snap_b22.chunks))
+log(phase=22, card=CARD, at_s=time.perf_counter() - T22, step="a chain", heights=H22, txs=H22 * TXS22,
+    build_s=walls22["a build_s"], snapshots={
+        h: {"chunks": s.chunks} for h, s in snaps22.items()},
+    snapshot_bytes=chunk_bytes22, app_keys=len(srv_app22.data))
+bus22 = tbus.EventBus()
+node22 = SimpleNamespace(
+    block_store=srv_bs22, state_store=srv_ss22, state=states22[-1],
+    app=srv_app22, mempool=Mempool(App20(), registry=Registry("p22 idle"),
+                                   **MP20),
+    ingress_gate=None, light_serve=None, event_bus=bus22, genesis=gdoc22,
+    tx_indexer=None, block_indexer=None, switch=None, evidence_pool=None,
+    config=None, status=lambda: {"node_info": {"network": CHAIN},
+                                 "sync_info": {
+                                     "latest_block_height":
+                                         srv_bs22.height()}})
+rpc22 = RPCServer(node22, "127.0.0.1:0")
+rpc22.start()
+wit22 = RPCServer(node22, "127.0.0.1:0")
+wit22.start()
+NK22 = [0]
+
+
+def switch22(moniker, reactors):
+    """A Switch on 127.0.0.1 with the reactors, started, its NodeInfo
+    carrying the port it listens on (PEX shares that address)."""
+    NK22[0] += 1
+    sw = Switch(NodeKey(edkeys.PrivKey(hashlib.sha256(
+        b"phase 22 node %d" % NK22[0]).digest())),
+        f"127.0.0.1:{free_port22()}", CHAIN, moniker=moniker)
+    for name, r in reactors.items():
+        sw.add_reactor(name, r)
+    sw.start()
+    return sw
+
+
+def free_port22():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+ss_srv22 = StateSyncReactor(srv_app22)
+bs_srv22 = BlocksyncReactor(sexec.BlockExecutor(
+    StateStore(MemDB()), KVStoreApplication()), srv_bs22,
+    state_from_genesis(gdoc22), fast_sync=False)
+sw_srv22 = switch22("server22", {"STATESYNC": ss_srv22,
+                                 "BLOCKSYNC": bs_srv22})
+anchor22 = srv_bs22.load_block(1).hash()
+
+
+class Offers22:
+    """A kvstore whose offer_snapshot calls are counted."""
+
+    def __init__(self):
+        self.app = KVStoreApplication()
+        self.offers = 0
+
+    def __getattr__(self, name):
+        return getattr(self.app, name)
+
+    def offer_snapshot(self, snapshot, app_hash):
+        self.offers += 1
+        return self.app.offer_snapshot(snapshot, app_hash)
+
+
+def joiner22(name, serving_sw, ledger, want):
+    """A fresh node: a counted kvstore, MemDB stores, a BlockExecutor on the
+    card, a light.Client trusting height 1 (the anchor taken out of band)
+    over HTTPProviders against the two RPC servers (its anchor's
+    self-check a step of its own), a StateProvider pinned at NOW22, a
+    StateSyncReactor and a BlocksyncReactor on its own Switch dialled to
+    serving_sw; returns once the snapshots at `want` are discovered."""
+    j = SimpleNamespace(name=name, app=Offers22(), ss=StateStore(MemDB()),
+                        bs=BlockStore(MemDB()), ledger=ledger, bans=[])
+    j.ex = sexec.BlockExecutor(j.ss, j.app, device=DEV)
+    j.lc, j.c_anchor, _ = step22(f"{name} anchor", lambda: light.Client(
+        CHAIN, light.TrustOptions(1, anchor22, PERIOD22),
+        lprov.HTTPProvider(CHAIN, rpc22.laddr),
+        [lprov.HTTPProvider(CHAIN, wit22.laddr)],
+        light.LightStore(MemDB()), device=DEV))
+    j.sp = StateProvider(j.lc, now=NOW22)
+    j.r = StateSyncReactor(
+        j.app, j.sp, ledger=ledger, fetchers=ssync.DEFAULT_FETCHERS,
+        chunk_timeout_s=ssync.DEFAULT_CHUNK_TIMEOUT_MS / 1000.0,
+        retries=ssync.DEFAULT_RETRIES)
+    ban = j.r._ban_peer
+    j.r._ban_peer = lambda pid, why: (j.bans.append((pid, why)),
+                                      ban(pid, why))
+    j.bsr = BlocksyncReactor(j.ex, j.bs, state_from_genesis(gdoc22),
+                             fast_sync=False, window=64)
+    j.sw = switch22(name, {"STATESYNC": j.r, "BLOCKSYNC": j.bsr})
+    peer = j.sw.dial_peer(serving_sw.actual_listen_addr())
+    check(peer is not None, f"phase 22: {name} could not dial the server")
+    j.server_id = peer.id
+    wait22(lambda: {k[0] for k in j.r.syncer._snapshots} >= set(want),
+           f"{name} discovering snapshots {want}", 30)
+    return j
+
+
+def restored22(j, h):
+    """The joiner's app restored to height h with the serving chain's app
+    hash."""
+    info = j.app.info(abci_t.RequestInfo())
+    return (info.last_block_height == h
+            and info.last_block_app_hash == states22[h - 1].app_hash
+            and j.app.data == _data_at22(h))
+
+
+def _data_at22(h):
+    """The serving app's keys as of height h (each height writes its own
+    s<h>_<i> keys)."""
+    return {k: v for k, v in srv_app22.data.items()
+            if int(k[1:].split(b"_")[0]) <= h}
+
+
+def restore_view22(j):
+    r = dict(j.r.syncer.last_restore or {})
+    r["banned"] = list(r.get("banned", []))
+    return r
+
+
+def launch_rows22(prefix):
+    """Launches, padded lanes and real lanes by kernel of the phase's kept
+    launches whose label starts with prefix."""
+    out = {}
+    for name, runs in keep22.items():
+        rs = [r for r in runs if r[0].startswith(prefix)]
+        if not rs:
+            continue
+        lanes = sum(int(a[0].shape[0] if name == "comb_build"
+                        else o.shape[0]) for _, a, o in rs)
+        out[name] = {"launches": len(rs), "lanes": lanes}
+    return out
+
+
+# -- (b) the joiner: snapshot 100 over the Switch, trust from the light
+# client (the skipping hop's 1/3 and 2/3 checks, heights 100-102: K1), the
+# State bootstrapped, then the 20 tail heights through the BlocksyncReactor
+# (the node's handoff: switch_to_blocksync, activate; windows on K1)
+jb22 = joiner22("joiner22", sw_srv22, RestoreLedger(SQLiteDB(
+    os.path.join(root22, "statesync_b.db"))), (SNAP22, 2 * SNAP22))
+(state_b22, commit_b22), c_b22, wall_b22 = step22(
+    "b sync", lambda: jb22.r.syncer.sync_any())
+rest_b22 = restore_view22(jb22)
+want_b = states22[2 * SNAP22 - 1]
+view_b, view_w = state_view17(state_b22), state_view17(want_b)
+# the reference's StateProvider leaves the two last-changed heights at 0
+# (stateprovider.go builds them so); every other field is the chain's
+diff_b22 = [i for i, (x, y) in enumerate(zip(view_b, view_w))
+            if x != y and i not in (8, 10)]
+check(restored22(jb22, 2 * SNAP22) and not diff_b22
+      and state_b22.last_height_validators_changed == 0
+      and state_b22.last_height_consensus_params_changed == 0
+      and commit_b22.height == 2 * SNAP22
+      and c_b22.get("verify_packed", 0) > 0 and "comb_verify" not in c_b22
+      and jb22.app.offers == 1 and not jb22.bans
+      and rest_b22["chunks"] == snap_b22.chunks and rest_b22["resumed"] == 0
+      and jb22.ledger.manifest() is None,
+      f"phase 22 (b): the restore {rest_b22}, launches {c_b22}, state "
+      f"fields differing {diff_b22}, offers {jb22.app.offers}, bans "
+      f"{jb22.bans}")
+jb22.ss.bootstrap(state_b22)
+jb22.bs.save_seen_commit(state_b22.last_block_height, commit_b22)
+jb22.bsr.switch_to_blocksync(state_b22)
+
+
+def tail22():
+    jb22.bsr.activate()
+    wait22(lambda: jb22.bsr.state.last_block_height >= H22 - 1,
+           "(b) the tail's blocksync", 120)
+
+
+_, c_tail22, wall_tail22 = step22("b tail", tail22)
+check(jb22.bsr.state.app_hash == states22[H22 - 2].app_hash
+      and jb22.app.info(abci_t.RequestInfo()).last_block_height == H22 - 1
+      and [jb22.bs.load_block(h).hash()
+           for h in range(2 * SNAP22 + 1, H22)]
+      == [srv_bs22.load_block(h).hash() for h in range(2 * SNAP22 + 1, H22)]
+      and jb22.bsr.device_error is None
+      and c_tail22.get("verify_packed", 0) > 0,
+      f"phase 22 (b): the tail to {jb22.bsr.state.last_block_height}, "
+      f"launches {c_tail22}")
+statesync22["b"] = {
+    "anchor_launches": jb22.c_anchor, "sync_wall_s": wall_b22,
+    "restore": rest_b22, "launches": c_b22,
+    "lanes": launch_rows22("b sync"), "tail_wall_s": wall_tail22,
+    "tail_heights": H22 - 1 - 2 * SNAP22, "tail_launches": c_tail22,
+    "tail_lanes": launch_rows22("b tail"),
+    "last_changed_heights": (state_b22.last_height_validators_changed,
+                             state_b22.last_height_consensus_params_changed,
+                             want_b.last_height_validators_changed,
+                             want_b.last_height_consensus_params_changed)}
+log(phase=22, card=CARD, at_s=time.perf_counter() - T22, step="b joiner", **statesync22["b"])
+
+# -- (c) the prewarmed sync: the set's tables built (C1 at 256 keys), then a
+# second joiner served only the snapshot at 50 (a peer that holds no other)
+# restores it with every certificate on C2
+ok_c22, c_pre22, wall_pre22 = step22(
+    "c prewarm", lambda: E.prewarm(pubs22, device=DEV))
+check(ok_c22 and c_pre22.get("comb_build") == 1,
+      f"phase 22 (c): the prewarm {ok_c22}, launches {c_pre22}")
+
+
+class Only22:
+    """A serving app that offers only its snapshot at one height."""
+
+    def __init__(self, app, height):
+        self.app, self.height = app, height
+
+    def list_snapshots(self):
+        return [s for s in self.app.list_snapshots()
+                if s.height == self.height]
+
+    def load_snapshot_chunk(self, height, format_, index):
+        return self.app.load_snapshot_chunk(height, format_, index)
+
+
+ss50_22 = StateSyncReactor(Only22(srv_app22, SNAP22))
+sw50_22 = switch22("server50", {"STATESYNC": ss50_22})
+jc22 = joiner22("joiner50", sw50_22, RestoreLedger(MemDB()), (SNAP22,))
+(state_c22, commit_c22), c_c22, wall_c22 = step22(
+    "c sync", lambda: jc22.r.syncer.sync_any())
+rest_c22 = restore_view22(jc22)
+check(restored22(jc22, SNAP22) and state_c22.app_hash
+      == states22[SNAP22 - 1].app_hash
+      and c_c22.get("comb_verify", 0) > 0 and "verify_packed" not in c_c22
+      and jc22.c_anchor.get("comb_verify", 0) == 1,
+      f"phase 22 (c): the prewarmed restore {rest_c22}, launches {c_c22}, "
+      f"anchor {jc22.c_anchor}")
+statesync22["c"] = {"prewarm_wall_s": wall_pre22, "prewarm": c_pre22,
+                    "sync_wall_s": wall_c22, "restore": rest_c22,
+                    "launches": c_c22, "lanes": launch_rows22("c sync")}
+log(phase=22, card=CARD, at_s=time.perf_counter() - T22, step="c prewarmed joiner", **statesync22["c"])
+E.table_cache_clear()
+
+
+# -- (d) txs through the RPC server into the serving node's IngressGate (the
+# reference DefaultMempoolConfig, phase 20's): broadcast_tx_sync from 4
+# client threads, each with WIDTH22 requests in flight on as many
+# connections (the server's handler threads admit them together, so the
+# gate's batches fill and its MEMPOOL windows reach the card); every
+# response against a device="cpu" gate's on the same txs; the window that
+# held a corrupted tx against OpenSSL
+def rpc_burst22(addr, txs, method, width=WIDTH22):
+    """One JSON-RPC call of `method` a tx from this thread, `width` in
+    flight (a connection each; a new one sent as the oldest is answered);
+    the replies in order."""
+    host, port = addr.rsplit(":", 1)
+    out, flight = [], []
+
+    def take():
+        c = flight.pop(0)
+        out.append(json.loads(c.getresponse().read()))
+        c.close()
+    for i, tx in enumerate(txs):
+        if len(flight) >= width:
+            take()
+        c = http.client.HTTPConnection(host, int(port), timeout=120)
+        c.request("POST", "/", json.dumps({
+            "jsonrpc": "2.0", "id": i, "method": method,
+            "params": {"tx": base64.b64encode(tx).decode()}}),
+            {"Content-Type": "application/json"})
+        flight.append(c)
+    while flight:
+        take()
+    return out
+
+
+def clients22(addr, txs, method):
+    """CLIENTS22 client threads, each sending every CLIENTS22-th tx."""
+    got = [None] * CLIENTS22
+
+    def run(k):
+        got[k] = rpc_burst22(addr, txs[k::CLIENTS22], method)
+    ths = [threading.Thread(target=run, args=(k,), name=f"rpc-client-{k}")
+           for k in range(CLIENTS22)]
+    for th in ths:
+        th.start()
+    for th in ths:
+        th.join(300)
+    check(all(g is not None for g in got), "phase 22: an RPC client died")
+    out = [None] * len(txs)
+    for k in range(CLIENTS22):
+        out[k::CLIENTS22] = got[k]
+    return out
+
+
+class Held22(App20):
+    """App20 whose CheckTx of a marker tx waits until the gate's queue
+    holds HOLD22 txs (at most 3 s): a node whose app is busy while a
+    burst arrives.  Without it the worker drains the handler threads'
+    txs a few at a time, and windows under the card's 32-lane floor take
+    the host lane."""
+
+    def __init__(self):
+        super().__init__()
+        self.gate = None
+
+    def check_tx(self, req):
+        if req.tx.startswith(b"hold22="):
+            end = time.monotonic() + 3.0
+            while len(self.gate._queue) < HOLD22 \
+                    and time.monotonic() < end:
+                time.sleep(0.002)
+        return super().check_tx(req)
+
+
+def held_burst22(marker, txs, method="broadcast_tx_sync"):
+    """The marker through broadcast_tx_async (it holds the worker), then
+    the txs from the client threads."""
+    check("result" in rpc_burst22(rpc22.laddr, [marker],
+                                  "broadcast_tx_async")[0],
+          f"phase 22: the marker {marker!r}")
+    return clients22(rpc22.laddr, txs, method)
+
+
+HOLD22 = CLIENTS22 * WIDTH22 * 3 // 4
+s_d22 = sched20()
+subs20.clear()
+record_subs20(s_d22)
+app_d22 = Held22()
+mp_d22 = Mempool(app_d22, registry=Registry("p22 d"), **MP20)
+g_d22 = gate20(mp_d22)
+app_d22.gate = g_d22
+node22.mempool, node22.ingress_gate = mp_d22, g_d22
+signed_d22 = sigtxs20(TX22)
+bad_d22 = set(rng22.sample(range(TX22 - ASYNC22), BAD22))
+signed_d22 = [corrupt20(tx) if i in bad_d22 else tx
+              for i, tx in enumerate(signed_d22)]
+sync_d22, async_d22 = signed_d22[:-ASYNC22], signed_d22[-ASYNC22:]
+bad_set22 = {signed_d22[i] for i in bad_d22}
+res_d22, c_d22, wall_d22 = step22(
+    "d broadcast_tx_sync", lambda: held_burst22(b"hold22=d", sync_d22),
+    site="sched.ed25519")
+res_a22, c_a22, wall_a22 = step22(
+    "d broadcast_tx_async", lambda: (
+        clients22(rpc22.laddr, async_d22, "broadcast_tx_async"),
+        wait22(lambda: set(async_d22) <= set(mp_d22.reap_max_txs(-1)),
+               "(d) the async txs reaching the pool", 60))[0])
+st_d22 = g_d22.stats()
+stop_sched20(s_d22)
+# the same txs through a gate and a scheduler on device="cpu" (its
+# pre-verify on the host lanes), in the same order
+s_dc22 = vsched.install(vsched.VerifyScheduler(device="cpu"))
+s_dc22.start()
+mp_dc22 = Mempool(App20(), registry=Registry("p22 d cpu"), **MP20)
+g_dc22 = gate20(mp_dc22, device="cpu")
+label22[0] = "d cpu"
+t = time.perf_counter()
+want_d22, c_dc22 = main_path(lambda: settle20(
+    [g_dc22.submit(tx) for tx in sync_d22]))
+walls22["d cpu gate"] = time.perf_counter() - t
+g_dc22.stop()
+stop_sched20(s_dc22)
+# the serving node's gate goes on with a scheduler on the card, for (g)
+s_d22 = sched20()
+view_d22 = [(r["result"]["code"], r["result"]["data"], r["result"]["log"])
+            if "result" in r else ("error", r["error"]["code"]) for r in res_d22]
+want_view22 = [(r.code, base64.b64encode(r.data or b"").decode(), r.log)
+               for r in want_d22]
+hash_ok22 = all(r["result"]["hash"] == tblock.tx_hash(tx).hex().upper()
+                for r, tx in zip(res_d22, sync_d22) if "result" in r)
+mism_d22 = sum(a != b for a, b in zip(view_d22, want_view22))
+win_d22 = next(((items, fut) for items, fut in subs20
+                if any(ingress.SIGTX_MAGIC + bytes(pub) + bytes(sig)
+                       + msg[MAGIC20 + 32:] in bad_set22
+                       for pub, msg, sig in items)), None)
+check(win_d22 is not None, "phase 22 (d): no window held a corrupted tx")
+bits_d22 = np.asarray(win_d22[1].result(timeout=0))
+want_bits_d22 = np.array([edkeys._ossl_verify(bytes(p), m, bytes(s))
+                          for p, m, s in win_d22[0]], dtype=bool)
+oracle22 = ("(d) a pre-verify window", len(want_bits_d22),
+            int((bits_d22 != want_bits_d22).sum()),
+            int((~want_bits_d22).sum()))
+check(mism_d22 == 0 and hash_ok22 and c_dc22["verify_packed"] == 0
+      and c_d22.get("verify_packed", 0) > 0
+      and view_d22.count((1, "", "invalid signature")) == BAD22
+      and all(r.get("result", {}).get("code") == 0 for r in res_a22)
+      and st_d22["device_error"] == 0 and oracle22[2] == 0
+      and oracle22[3] > 0,
+      f"phase 22 (d): {mism_d22} responses differ from the device='cpu' "
+      f"gate's ({sorted(set(view_d22), key=str)}), launches {c_d22}, "
+      f"gate {st_d22}, OpenSSL {oracle22}")
+
+
+# a full queue answers RPC_BUSY_CODE with its Retry-After: a gate of one
+# queued tx whose worker is held inside CheckTx
+class Hold22:
+    def __init__(self):
+        self.entered, self.release = threading.Event(), threading.Event()
+
+    def check_tx(self, req):
+        self.entered.set()
+        self.release.wait(60)
+        return abci_t.ResponseCheckTx(code=abci_t.CODE_TYPE_OK)
+
+
+t = time.perf_counter()
+hold22 = Hold22()
+mp_h22 = Mempool(hold22, registry=Registry("p22 busy"), **MP20)
+g_h22 = gate20(mp_h22, queue_size=1, batch=1)
+node_h22 = SimpleNamespace(**{**vars(node22), "mempool": mp_h22,
+                              "ingress_gate": g_h22})
+rpc_h22 = RPCServer(node_h22, "127.0.0.1:0")
+rpc_h22.start()
+first22 = rpc_burst22(rpc_h22.laddr, [b"held=1"], "broadcast_tx_async")
+wait22(hold22.entered.is_set, "(d) the held CheckTx", 30)
+second22 = rpc_burst22(rpc_h22.laddr, [b"queued=1"], "broadcast_tx_async")
+busy22 = rpc_burst22(rpc_h22.laddr, [b"refused=1"], "broadcast_tx_sync")[0]
+hold22.release.set()
+check("result" in first22[0] and "result" in second22[0]
+      and busy22.get("error", {}).get("code") == RPC_BUSY_CODE
+      and "retry after" in busy22["error"]["message"],
+      f"phase 22 (d): the full queue answered {first22}, {second22}, "
+      f"{busy22}")
+rpc_h22.stop()
+g_h22.stop()
+walls22["d busy"] = time.perf_counter() - t
+statesync22["d"] = {
+    "sync_wall_s": wall_d22, "sync_txs_per_s": len(sync_d22) / wall_d22,
+    "async_wall_s": wall_a22, "launches": c_d22, "async_launches": c_a22,
+    "lanes": launch_rows22("d broadcast_tx_sync"),
+    "responses": {str(v): view_d22.count(v)
+                  for v in sorted(set(view_d22), key=str)},
+    "cpu_mismatches": mism_d22, "gate": st_d22, "openssl": oracle22,
+    "busy": busy22["error"], "pool": mp_d22.size()}
+log(phase=22, card=CARD, at_s=time.perf_counter() - T22, step="d txs through the RPC", **statesync22["d"])
+
+
+# -- (e) light verification through the RPC: LightServe over the serving
+# node's stores, its set prewarmed (C2); LIGHT22 clients each asking the
+# adjacent and the non-adjacent (from height 1) verification of the same
+# headers, as light clients of one chain do
+def sh22(h):
+    com = (srv_bs22.load_block(h + 1).last_commit if h < srv_bs22.height()
+           else srv_bs22.load_seen_commit(h))
+    return base64.b64encode(tlight.SignedHeader(
+        srv_bs22.load_block(h).header, com).proto()).decode()
+
+
+def vals22(h):
+    return base64.b64encode(srv_ss22.load_validators(h).proto()).decode()
+
+
+lb22 = {h: (sh22(h), vals22(h)) for h in
+        {1, *LIGHT_H22, *(h - 1 for h in LIGHT_H22), H22 - 3, H22 - 2}}
+
+
+def light_call22(client, kind, t, u):
+    params = {"kind": kind, "trusted": lb22[t][0], "untrusted": lb22[u][0],
+              "untrusted_vals": lb22[u][1], "now": NOW22.seconds,
+              "trusting_period_s": PERIOD22, "client": client}
+    if kind == "non_adjacent":
+        params["trusted_vals"] = lb22[t][1]
+    body = json.dumps({"jsonrpc": "2.0", "id": 1, "method": "light_verify",
+                       "params": params})
+    host, port = rpc22.laddr.rsplit(":", 1)
+    c = http.client.HTTPConnection(host, int(port), timeout=120)
+    try:
+        c.request("POST", "/", body, {"Content-Type": "application/json"})
+        return json.loads(c.getresponse().read())
+    finally:
+        c.close()
+
+
+svc22 = lserve.LightServe(srv_bs22, srv_ss22, CHAIN, prewarm=False,
+                          event_bus=bus22)
+svc22.metrics = LightMetrics(Registry("p22 light serve"))
+svc22.start()
+node22.light_serve = svc22
+
+
+def light_e22():
+    check(E.prewarm(pubs22, device=DEV), "phase 22 (e): the prewarm")
+    got = [None] * LIGHT22
+
+    def run(k):
+        got[k] = [(kind, h, light_call22(f"client-{k}", kind,
+                                         h - 1 if kind == "adjacent" else 1,
+                                         h))
+                  for h in LIGHT_H22 for kind in ("adjacent", "non_adjacent")]
+    ths = [threading.Thread(target=run, args=(k,)) for k in range(LIGHT22)]
+    for th in ths:
+        th.start()
+    for th in ths:
+        th.join(300)
+    return got
+
+
+got_e22, c_e22, wall_e22 = step22("e light_verify", light_e22)
+rows_e22 = [r for g in got_e22 if g is not None for r in g]
+check(len(rows_e22) == LIGHT22 * len(LIGHT_H22) * 2
+      and all(r.get("result") == {"ok": True, "error": None}
+              for _, _, r in rows_e22)
+      and c_e22.get("comb_verify", 0) > 0 and "verify_packed" not in c_e22,
+      f"phase 22 (e): verdicts "
+      f"{sorted({json.dumps(r) for _, _, r in rows_e22})[:4]}, launches "
+      f"{c_e22}")
+statesync22["e"] = {"calls": len(rows_e22), "wall_s": wall_e22,
+                    "calls_per_s": len(rows_e22) / wall_e22,
+                    "launches": c_e22, "lanes": launch_rows22("e "),
+                    "serve": svc22.report()}
+log(phase=22, card=CARD, at_s=time.perf_counter() - T22, step="e light_verify", **{
+    k: v for k, v in statesync22["e"].items() if k != "serve"})
+E.table_cache_clear()
+
+# -- (f) PEX: a seed and PEX22 Switches that know only the seed; each learns
+# the others' addresses and dials them; a peer flooding PexRequests is
+# disconnected and banned.  Host only
+t = time.perf_counter()
+seed_book22 = AddrBook()
+seed_r22 = PexReactor(seed_book22, ensure_period_s=PEX_PERIOD22,
+                      target_out_peers=0)
+sw_seed22 = switch22("seed22", {"PEX": seed_r22})
+seed_book22.add_our_id(sw_seed22.node_key.node_id)
+seed_addr22 = f"{sw_seed22.node_key.node_id}@{sw_seed22.actual_listen_addr()}"
+pex22 = []
+for i in range(PEX22):
+    book = AddrBook()
+    r = PexReactor(book, ensure_period_s=PEX_PERIOD22, target_out_peers=4,
+                   seeds=seed_addr22)
+    sw = switch22(f"pex22-{i}", {"PEX": r})
+    book.add_our_id(sw.node_key.node_id)
+    pex22.append((sw, book, r))
+ids22 = [sw.node_key.node_id for sw, _, _ in pex22]
+
+
+def learned22():
+    return all(all(book.has(o) for o in ids22 if o != sw.node_key.node_id)
+               and len(sw.peers) >= PEX22 - 1 for sw, book, _ in pex22)
+
+
+wait22(learned22, "(f) PEX discovery", 60)
+wall_f22 = time.perf_counter() - t
+fl_r22 = PexReactor(AddrBook(), ensure_period_s=30.0)
+sw_fl22 = switch22("flooder22", {"PEX": fl_r22})
+victim22 = pex22[0][0]
+peer_fl22 = sw_fl22.dial_peer(victim22.actual_listen_addr())
+check(peer_fl22 is not None, "phase 22 (f): the flooder could not dial")
+peer_fl22.send(PEX_CHANNEL, PexRequest())
+peer_fl22.send(PEX_CHANNEL, PexRequest())
+fl_id22 = sw_fl22.node_key.node_id
+t = time.perf_counter()
+wait22(lambda: fl_id22 not in victim22.peers
+       and pex22[0][1].is_banned(fl_id22), "(f) the flood's disconnect", 30)
+walls22["f flood"] = time.perf_counter() - t
+statesync22["f"] = {
+    "wall_s": wall_f22, "books": [book.size() for _, book, _ in pex22],
+    "peers": [len(sw.peers) for sw, _, _ in pex22],
+    "seed_book": seed_book22.size(),
+    "trust": [round(r.trust.peer_trust(o), 3) for sw, _, r in pex22[:1]
+              for o in ids22[1:]], "flood_banned": True}
+log(phase=22, card=CARD, at_s=time.perf_counter() - T22, step="f pex", **statesync22["f"])
+t = time.perf_counter()
+for sw in [sw_fl22, sw_seed22] + [sw for sw, _, _ in pex22]:
+    sw.stop()
+walls22["f stop"] = time.perf_counter() - t
+
+
+# -- (g) card faults and drills: K1's wrapper raising with no failpoint
+# armed (the set's tables gone, so the certificates take K1), each under a
+# fresh SigCache; the runtime re-configured after each
+def card_fault22(what, fn):
+    check(not failpoints.armed(), "phase 22: a failpoint is armed")
+    cbatch.verified_sigs = cbatch.SigCache(capacity=1 << 18)
+    label22[0] = f"g {what}"
+    rt = degrade.runtime()
+    fails0 = counter_total(rt.metrics.device_failures)
+    falls0 = counter_total(rt.metrics.host_fallbacks)
+    keeping = ck.verify_packed
+    ck.verify_packed = launch_failed
+    t = time.perf_counter()
+    try:
+        out = fn()
+    finally:
+        ck.verify_packed = keeping
+    join_abandoned()
+    row = {"what": what, "wall_s": time.perf_counter() - t,
+           "failures": counter_total(rt.metrics.device_failures) - fails0,
+           "fallbacks": counter_total(rt.metrics.host_fallbacks) - falls0}
+    degrade.configure(degrade.DegradeConfig.from_env(),
+                      registry=Registry(f"p22 {what}"))
+    return out, row
+
+
+def raises22(fn):
+    try:
+        fn()
+    except Exception as e:  # noqa: BLE001 - returned and checked
+        return e
+    return None
+
+
+faults22 = []
+# (g1) sync_any: a node whose ledger holds three quarters of snapshot 100's
+# chunks, verified (a restore a crash cut short)
+PREFIX22 = snap_b22.chunks * 3 // 4
+ledger_g22 = RestoreLedger(SQLiteDB(os.path.join(root22, "statesync_g.db")))
+ledger_g22.begin(snap_b22)
+for i in range(PREFIX22):
+    ledger_g22.put_chunk(i, srv_app22.load_snapshot_chunk(
+        snap_b22.height, snap_b22.format, i))
+ledger_g22.flush()
+jg22 = joiner22("joiner-fault22", sw_srv22, ledger_g22, (2 * SNAP22,))
+banned0_22 = ssync.metrics().peers_banned.value()
+err_g1, row = card_fault22("sync_any", lambda: raises22(
+    jg22.r.syncer.sync_any))
+row.update(error=type(err_g1).__name__, offers=jg22.app.offers,
+           rejected=len(jg22.r.syncer._rejected), bans=len(jg22.bans),
+           banned_total=ssync.metrics().peers_banned.value() - banned0_22,
+           ledger=len(ledger_g22.begin(snap_b22)),
+           peer_kept=jg22.server_id in jg22.sw.peers)
+faults22.append(row)
+check(isinstance(err_g1, degrade.DeviceLaneError) and row["offers"] == 0
+      and row["rejected"] == 0 and row["bans"] == 0
+      and row["banned_total"] == 0 and row["ledger"] == PREFIX22
+      and row["peer_kept"] and row["failures"] >= 1
+      and row["fallbacks"] == 0,
+      f"phase 22 (g): sync_any's card fault {row} ({err_g1!r})")
+# the card back: a fresh Syncer over the same ledger and app resumes
+jg22.r.syncer = ssync.Syncer(
+    jg22.app, StateProvider(jg22.lc, now=NOW22), jg22.r._fetch_chunk,
+    ban_peer=jg22.r._ban_peer, fetchers=ssync.DEFAULT_FETCHERS,
+    chunk_timeout_s=ssync.DEFAULT_CHUNK_TIMEOUT_MS / 1000.0,
+    retries=ssync.DEFAULT_RETRIES, ledger=ledger_g22,
+    stop_event=jg22.r.quitting)
+jg22.r.request_snapshots()
+wait22(lambda: {k[0] for k in jg22.r.syncer._snapshots} >= {2 * SNAP22},
+       "(g) the resume's discovery", 30)
+(state_g22, _), c_res22, wall_res22 = step22(
+    "g resume", lambda: jg22.r.syncer.sync_any())
+rest_g22 = restore_view22(jg22)
+check(restored22(jg22, 2 * SNAP22) and rest_g22["resumed"] == PREFIX22
+      and state_view17(state_g22) == view_b
+      and c_res22.get("verify_packed", 0) > 0,
+      f"phase 22 (g): the resume {rest_g22}, launches {c_res22}")
+# (g2) broadcast_tx_sync: signed txs through the RPC with K1 raising (the
+# worker held as in (d)); a window at the card's lane floor or above fails
+# with DeviceLaneError and each of its txs is answered -32603 (never a
+# CheckTx code, never busy)
+signed_g22 = sigtxs20(256)
+res_g2, row = card_fault22("broadcast_tx_sync", lambda: held_burst22(
+    b"hold22=g", signed_g22))
+errs_g2 = [r["error"] for r in res_g2 if "error" in r]
+row.update(answers=sorted({json.dumps(r.get("error", {}).get("code", 0))
+                           for r in res_g2}),
+           internal=len(errs_g2),
+           device_error=type(g_d22.device_error).__name__)
+faults22.append(row)
+check(errs_g2 and all(e["code"] == -32603
+                      and "device lane failed on the card" in e["message"]
+                      for e in errs_g2)
+      and all(r["result"]["code"] == 0 for r in res_g2 if "result" in r)
+      and isinstance(g_d22.device_error, degrade.DeviceLaneError)
+      and row["failures"] >= 1 and row["fallbacks"] == 0,
+      f"phase 22 (g): broadcast_tx_sync's card fault {row} "
+      f"{errs_g2[:2]}")
+# (g3) light_verify: a certificate of LightServe on K1
+res_g3, row = card_fault22("light_verify", lambda: light_call22(
+    "fault", "adjacent", H22 - 3, H22 - 2))
+row.update(answer=res_g3.get("error") or res_g3.get("result"))
+faults22.append(row)
+check(res_g3.get("error", {}).get("code") == -32603
+      and "device lane failed on the card" in res_g3["error"]["message"]
+      and row["failures"] >= 1 and row["fallbacks"] == 0,
+      f"phase 22 (g): light_verify's card fault {row}")
+_, c_g3b, _ = step22("g light_verify again", lambda: check(
+    light_call22("again", "adjacent", H22 - 3, H22 - 2).get("result")
+    == {"ok": True, "error": None}, "phase 22 (g): light_verify again"))
+svc22.stop()
+node22.light_serve = None
+g_d22.stop()
+stop_sched20(s_d22)
+
+
+# the statesync.* drills on snapshot 50, each through a Syncer over two
+# providers that read the serving app: the reference's outcome at each
+class Recording22:
+    def __init__(self):
+        self.app = KVStoreApplication()
+        self.applied = []
+
+    def __getattr__(self, name):
+        return getattr(self.app, name)
+
+    def apply_snapshot_chunk(self, index, chunk, sender):
+        self.applied.append(index)
+        return self.app.apply_snapshot_chunk(index, chunk, sender)
+
+
+sp_dr22 = StateProvider(jc22.lc, now=NOW22)
+
+
+def drill_sync22(app, **kw):
+    syncer = ssync.Syncer(app, sp_dr22, lambda s, i, p: (
+        srv_app22.load_snapshot_chunk(s.height, s.format, i), p), **kw)
+    for p in ("p1", "p2"):
+        syncer.add_snapshot(snaps22[SNAP22], p)
+    return syncer.sync_any()
+
+
+drills22 = {}
+m22 = ssync.metrics()
+t = time.perf_counter()
+for site, mode, kw in (("statesync.fetch", "raise", {"retries": 1}),
+                       ("statesync.fetch", "corrupt-chunk", {"retries": 1}),
+                       ("statesync.verify", "raise", {"retries": 1}),
+                       ("statesync.apply", "raise", {})):
+    app = Recording22()
+    corrupt0 = m22.chunks_verified.value(outcome="corrupt")
+    failpoints.set_mode(site, mode)
+    label22[0] = f"g drill {site}={mode}"
+    try:
+        err = raises22(lambda: drill_sync22(app, **kw))
+        fired = failpoints.fired(site, mode)
+    finally:
+        failpoints.clear()
+    drills22[f"{site}={mode}"] = {
+        "error": type(err).__name__, "fired": fired,
+        "applied": len(app.applied), "message": str(err)[:120],
+        "corrupt": m22.chunks_verified.value(outcome="corrupt") - corrupt0}
+d22 = drills22
+check(all(v["error"] == "StateSyncError" and v["fired"] >= 1
+          for v in d22.values())
+      and d22["statesync.fetch=raise"]["applied"] == 0
+      and d22["statesync.fetch=corrupt-chunk"]["applied"] == 0
+      and d22["statesync.fetch=corrupt-chunk"]["corrupt"] > 0
+      and d22["statesync.verify=raise"]["applied"] == 0
+      and "REJECTED" in d22["statesync.apply=raise"]["message"],
+      f"phase 22 (g): the statesync drills {d22}")
+err0_22 = ssync.metrics().serve_refused.value(reason="error")
+failpoints.set_mode("statesync.serve", "raise")
+try:
+    busy_g22 = raises22(lambda: jg22.r._fetch_chunk(
+        snap_b22, 0, jg22.server_id))
+    fired22 = failpoints.fired("statesync.serve", "raise")
+finally:
+    failpoints.clear()
+served_g22 = jg22.r._fetch_chunk(snap_b22, 0, jg22.server_id)
+drills22["statesync.serve=raise"] = {
+    "error": type(busy_g22).__name__, "fired": fired22,
+    "refused": ssync.metrics().serve_refused.value(reason="error") - err0_22,
+    "served_after": served_g22[0] == srv_app22.load_snapshot_chunk(
+        snap_b22.height, snap_b22.format, 0)}
+check(isinstance(busy_g22, ssync.ChunkBusy) and fired22 >= 1
+      and drills22["statesync.serve=raise"]["refused"] >= 1
+      and drills22["statesync.serve=raise"]["served_after"],
+      f"phase 22 (g): the serve drill {drills22['statesync.serve=raise']}")
+walls22["g drills"] = time.perf_counter() - t
+statesync22["g"] = {"faults": faults22, "resume_wall_s": wall_res22,
+                    "resume": rest_g22, "resume_launches": c_res22,
+                    "drills": drills22}
+log(phase=22, card=CARD, at_s=time.perf_counter() - T22, step="g card faults and drills", **statesync22["g"])
+t = time.perf_counter()
+for j in (jb22, jc22, jg22):
+    j.sw.stop()
+for sw in (sw_srv22, sw50_22):
+    sw.stop()
+rpc22.stop()
+wit22.stop()
+walls22["teardown"] = time.perf_counter() - t
+
+# -- every launch of the phase against its plain version on the same inputs
+# (grouped by step), C2 against the plain tables of the build it used
+label22[0] = ""
+for _name in keep22:
+    setattr(KERNEL_MOD[_name], _name, was22[_name])
+cmp22 = {name: [] for name in keep22}
+t = time.perf_counter()
+for name, plain in (("verify_packed", ck.verify_packed_plain),
+                    ("verify_packed_split", ck.verify_packed_split_plain)):
+    runs = keep22[name]
+    if not runs:
+        continue
+    got = torch.cat([out for _, _, out in runs])
+    cols = [torch.cat([args[k] for _, args, _ in runs], dim=1)
+            for k in range(len(runs[0][1]))]
+    step_of = np.repeat([label or "-" for label, _, _ in runs],
+                        [out.shape[0] for _, _, out in runs])
+    real = (cols[-1] != 0).any(dim=0)
+    check(not got[~real].any(), f"phase 22 {name}: a padding lane passed")
+    got = got[real].cpu().numpy()
+    step_of = step_of[real.cpu().numpy()]
+    # the plain version once on each distinct lane, its verdict mapped
+    # back to every lane of every launch
+    uniq, inv = torch.unique(torch.cat([c[:, real] for c in cols]), dim=1,
+                             return_inverse=True)
+    sizes = [c.shape[0] for c in cols]
+    ucols = list(torch.split(uniq, sizes))
+    want_u = torch.cat([plain(*[c[:, a:a + 65_536] for c in ucols]).cpu()
+                        for a in range(0, uniq.shape[1], 65_536)])
+    want = want_u[inv.cpu()].numpy()
+    err = np.abs(got.astype(int) - want.astype(int))
+    for g in sorted(set(step_of)):
+        on = step_of == g
+        n_runs = sum((label or "-") == g for label, _, _ in runs)
+        cmp22[name].append((f"phase 22 ({g}): {n_runs} launches, "
+                            f"{uniq.shape[1]} distinct lanes",
+                            int(on.sum()), int(err[on].sum()),
+                            float(err[on].max())))
+builds22 = {}
+for label, args, (tab, ok) in keep22["comb_build"]:
+    ptab, pok = cc.comb_build_plain(args[0])
+    builds22[id(tab)] = (ptab, pok)
+    cmp22["comb_build"].append(
+        (f"phase 22 {label}", args[0].shape[0],
+         cc.tables_mismatch(tab, ptab) + int((ok != pok).sum())))
+check(all(id(args[1]) in builds22 for _, args, _ in keep22["comb_verify"]),
+      "phase 22: a C2 launch on a table that no build of the phase made")
+for key, (ptab, pok) in builds22.items():
+    runs = [(args, out) for _, args, out in keep22["comb_verify"]
+            if id(args[1]) == key]
+    if not runs:
+        continue
+    rows_c2 = torch.cat([args[0] for args, _ in runs])
+    got = torch.cat([out for _, out in runs]).cpu().numpy()
+    urows, uinv = torch.unique(rows_c2, dim=0, return_inverse=True)
+    want = cc.comb_verify_plain(urows, ptab, pok).cpu()[uinv.cpu()]
+    cmp22["comb_verify"].append(c2_row(
+        f"phase 22: {len(runs)} launches on one table, {urows.shape[0]} "
+        f"distinct rows", got, want.numpy()))
+plain22_s = time.perf_counter() - t
+# the card's time for each step's launches: the kept launches of a kernel
+# replayed back to back between two CUDA events on a quiet card, against
+# the step's host wall
+card22 = {}
+if ON_CARD22:
+    for name in ("verify_packed", "comb_verify"):
+        for step in sorted({lab for lab, _, _ in keep22[name]}):
+            if step not in walls22:
+                continue
+            runs = [args for lab, args, _ in keep22[name] if lab == step]
+            REAL[name](*runs[0])
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda.synchronize()
+            ev[0].record()
+            for a in runs:
+                REAL[name](*a)
+            ev[1].record()
+            torch.cuda.synchronize()
+            ms = ev[0].elapsed_time(ev[1])
+            card22[f"{step} {name}"] = {
+                "launches": len(runs), "ms": ms, "wall_s": walls22[step],
+                "card_share": ms / 1e3 / walls22[step]}
+log(phase=22, card=CARD, at_s=time.perf_counter() - T22, step="card time", replayed=card22)
+E.table_cache_clear()
+staging_clear(22)
+shutil.rmtree(root22)
+tmlog.setup("info")
+gc.callbacks.remove(_gc17)
+gc.unfreeze()
+launches22 = {name: len(v) for name, v in keep22.items()}
+statesync22.update(gc={"collections": gc17["n"], "seconds": gc17["s"]},
+                   card_time=card22, comparisons=cmp22, walls=walls22,
+                   launches=launches22, plain_s=plain22_s,
+                   phase_s=time.perf_counter() - T22)
+log(phase=22, card=CARD, at_s=time.perf_counter() - T22, launches=launches22, comparisons=cmp22,
+    plain_s=plain22_s, phase_s=statesync22["phase_s"])
+check(launches22["verify_packed"] > 0 and launches22["comb_verify"] > 0
+      and launches22["comb_build"] > 0
+      and all(r[2] == 0 for rows in cmp22.values() for r in rows),
+      f"phase 22: a kernel disagrees with its plain version: {cmp22}")
+REPORT["statesync_rpc"] = statesync22
+
+# -- phase 23: the kernels line -----------------------------------------------
 
 src = "tendermint_tpu_torch/csrc/ed25519_verify.cu"
 # each comparison: (input, lanes, mismatching lanes, max |kernel - plain|)
@@ -8256,7 +9324,7 @@ k1_cmp = [("phase-3 vectors + seeded", k1_cmp_lanes, k1_mism,
           cmp4, cmp6, cmp13] + cmp16["verify_packed"] \
     + cmp17["verify_packed"] + cmp18["verify_packed"] \
     + cmp19["verify_packed"] + cmp20["verify_packed"] \
-    + cmp21["verify_packed"]
+    + cmp21["verify_packed"] + cmp22["verify_packed"]
 k2_cmp = [("phase-3 vectors + seeded", len(k2_raw3), k2_mism3,
            float(np.abs(k2_raw3.astype(int) - k2_plain3.astype(int)).max())),
           ("100k slice", 4096, k2_mism,
@@ -8264,7 +9332,7 @@ k2_cmp = [("phase-3 vectors + seeded", len(k2_raw3), k2_mism3,
           cmp5] + cmp16["verify_packed_split"] \
     + cmp17["verify_packed_split"] + cmp18["verify_packed_split"] \
     + cmp19["verify_packed_split"] + cmp20["verify_packed_split"] \
-    + cmp21["verify_packed_split"]
+    + cmp21["verify_packed_split"] + cmp22["verify_packed_split"]
 k3_cmp = [("phase-3 vectors + seeded", len(k3_raw3), k3_mism3,
            float(np.abs(k3_raw3.astype(int) - k3_plain3.astype(int)).max())),
           cmp11]
@@ -8351,9 +9419,10 @@ for name, key, src_f, replaces, cmps, bound in (
 # C1 and C2 (XLA functions of the JAX package, not Pallas kernels): C1 at
 # the 1,024-key set, held as field values; C2 at 65,536 lanes, as bitmaps
 cmp15 += cmp16["comb_build"] + cmp17["comb_build"] + cmp18["comb_build"] \
-    + cmp19["comb_build"] + cmp21["comb_build"]
+    + cmp19["comb_build"] + cmp21["comb_build"] + cmp22["comb_build"]
 c2_cmp += cmp16["comb_verify"] + cmp17["comb_verify"] \
-    + cmp18["comb_verify"] + cmp19["comb_verify"] + cmp21["comb_verify"]
+    + cmp18["comb_verify"] + cmp19["comb_verify"] + cmp21["comb_verify"] \
+    + cmp22["comb_verify"]
 c2_vs_k1 += c2_vs_k1_16
 comb_src = "tendermint_tpu_torch/csrc/comb.cu"
 kernels.append(

@@ -119,6 +119,21 @@ REGISTERED_SITES = frozenset({
     "ingress.admit",
     "ingress.checktx",
     "ingress.recheck",
+    # statesync (statesync/syncer.py, reactor.py): statesync.fetch fires
+    # per chunk-fetch attempt on a fetcher thread (raise = a transport
+    # fault charged to the picked peer's budget; latency = a slow fetch
+    # against the per-chunk deadline; corrupt-chunk = the fetched bytes
+    # flipped, so the pre-app digest check bans the sender and refetches
+    # elsewhere), statesync.verify at the fetch thread's integrity check
+    # (raise = a machinery fault, retried like a transport error; the
+    # app never sees the chunk), statesync.apply before each
+    # apply_snapshot_chunk (raise = the snapshot is rejected) and
+    # statesync.serve in the serving side's worker (raise = the request
+    # is answered busy with a Retry-After, the server stays up)
+    "statesync.fetch",
+    "statesync.verify",
+    "statesync.apply",
+    "statesync.serve",
 })
 
 _extra_sites: set = set()

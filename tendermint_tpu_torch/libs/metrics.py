@@ -11,8 +11,9 @@ BlockExecutor's), BlockSyncMetrics (the block pipeline's), CryptoMetrics
 request latency, SLO gauges), DevObsMetrics (the device observatory of
 crypto/devobs.py), P2PMetrics (the transport's byte counters and the
 gossip observatory's), TraceMetrics (the flight recorder's own drop
-counter), LightMetrics (the light serving plane) and MempoolMetrics (the
-mempool and its IngressGate); the node's other families are not ported
+counter), LightMetrics (the light serving plane), MempoolMetrics (the
+mempool and its IngressGate) and StateSyncMetrics (the state-sync fetch
+plane and its chunk server); the node's other families are not ported
 yet.
 """
 from __future__ import annotations
@@ -368,6 +369,59 @@ class BlockSyncMetrics:
             "for the last pipelined window; 0 = fully serial.")
 
 
+class StateSyncMetrics:
+    """Statesync fast-join + serving plane (statesync/, ADR-022): is
+    the fetch pipeline moving or retrying, did per-chunk integrity
+    catch anything before the app saw it, how hard is the bounded
+    chunk server refusing, and what did the join cost end to end."""
+
+    def __init__(self, reg: Optional[Registry] = None):
+        reg = reg or DEFAULT
+        self.chunks_fetched = reg.counter(
+            "statesync", "chunks_fetched_total",
+            "Chunk fetch attempts by outcome: ok (fetched + "
+            "verified), error (transport fault, charged to the "
+            "peer's per-peer budget), busy (serving peer refused "
+            "with Retry-After — backoff, no strike).",
+            labels=("outcome",))
+        self.chunks_verified = reg.counter(
+            "statesync", "chunks_verified_total",
+            "Fetch-thread chunk integrity checks against the "
+            "snapshot's digest metadata, BEFORE the app call: ok, or "
+            "corrupt (sender banned, chunk refetched elsewhere; also "
+            "counted for ledger chunks that rot on disk).",
+            labels=("outcome",))
+        self.chunks_served = reg.counter(
+            "statesync", "chunks_served_total",
+            "Chunks this node's bounded chunk server sent to "
+            "joining peers.")
+        self.serve_refused = reg.counter(
+            "statesync", "serve_refused_total",
+            "Chunk requests the serving side turned away: busy "
+            "(bounded queue full), ratelimit (per-peer token "
+            "bucket), backpressure (response channel full, dropped), "
+            "error (app/chaos fault while serving — answered busy).",
+            labels=("reason",))
+        self.serve_queue_depth = reg.gauge(
+            "statesync", "serve_queue_depth",
+            "Chunk requests waiting in the bounded serve queue "
+            "(at the bound new requests are refused busy).")
+        self.restore_bytes = reg.counter(
+            "statesync", "restore_bytes_total",
+            "Snapshot bytes applied to the app during restore.")
+        self.restore_bytes_per_s = reg.gauge(
+            "statesync", "restore_bytes_per_s",
+            "Restore throughput of the last completed statesync "
+            "(applied bytes / time-to-synced).")
+        self.time_to_synced = reg.gauge(
+            "statesync", "time_to_synced_seconds",
+            "Wall time of the last successful snapshot restore, "
+            "light verification through restored-app-hash check.")
+        self.peers_banned = reg.counter(
+            "statesync", "peers_banned_total",
+            "Peers banned by the statesync fetch plane (corrupt "
+            "chunk, app rejection, or an exhausted per-peer retry "
+            "budget).")
 
 
 class CryptoMetrics:

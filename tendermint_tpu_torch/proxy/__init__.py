@@ -25,17 +25,16 @@ class ClientCreator:
 
     @classmethod
     def remote(cls, addr: str) -> "ClientCreator":
-        """unix:///tcp:// the proto-framed socket transport.  grpc://
-        selects the gRPC transport in the reference (proxy/client.go
-        NewRemoteClientCreator transport arg); this package has no gRPC
-        transport yet (abci/grpc.py and libs/grpc_util.py come with the
-        P2P, state sync and RPC modules, ROADMAP Queue 1 item 8), so a
-        grpc:// address raises RuntimeError here."""
+        """grpc://host:port selects the gRPC transport (reference
+        proxy/client.go NewRemoteClientCreator transport arg);
+        unix:///tcp:// the proto-framed socket transport."""
         if addr.startswith("grpc://"):
-            raise RuntimeError(
-                f"ABCI address {addr!r}: the gRPC transport (abci/grpc.py) "
-                "is not ported to tendermint_tpu_torch yet (ROADMAP Queue 1 "
-                "item 8); use unix:// or tcp://")
+            target = addr[len("grpc://"):]
+
+            def make():
+                from tendermint_tpu_torch.abci.grpc import GRPCClient
+                return GRPCClient(target)
+            return cls(make)
         return cls(lambda: SocketClient(addr))
 
     def new_client(self) -> abci.Application:

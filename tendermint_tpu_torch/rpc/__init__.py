@@ -1,8 +1,6 @@
-"""RPC surface (reference rpc/): for now the JSON-RPC client alone.
-
-The JAX package's rpc/__init__.py also exports its server (RPCServer,
-RPCError); the port's server comes with the node, and this package stays
-reduced to the client until then."""
+"""RPC surface (reference rpc/): JSON-RPC server over HTTP + client.
+Routes mirror rpc/core/routes.go:10-49."""
 from .client import HTTPClient, RPCClientError
+from .server import RPCError, RPCServer
 
-__all__ = ["HTTPClient", "RPCClientError"]
+__all__ = ["RPCServer", "RPCError", "HTTPClient", "RPCClientError"]

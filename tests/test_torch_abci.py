@@ -520,8 +520,30 @@ def test_client_drives_the_other_packages_server(client_pkg, server_pkg,
 
 
 def test_grpc_address_raises_until_the_transport_is_ported():
-    with pytest.raises(RuntimeError, match="gRPC transport"):
-        PORT.proxy.ClientCreator.remote("grpc://127.0.0.1:1")
+    """The gRPC transport is ported (abci/grpc.py): a grpc:// address now
+    takes the JAX package's branch, a creator whose clients are the port's
+    GRPCClient on that target, connected when made.  Without grpcio,
+    making one raises the reference's RuntimeError naming grpcio."""
+    creator = PORT.proxy.ClientCreator.remote("grpc://127.0.0.1:1")
+    assert isinstance(creator, PORT.proxy.ClientCreator)
+    grpc_mod = importlib.import_module("tendermint_tpu_torch.abci.grpc")
+    if grpc_mod.grpc is None:
+        with pytest.raises(RuntimeError, match="grpcio"):
+            creator.new_client()
+        return
+    srv = grpc_mod.GRPCServer(PORT.kvstore.KVStoreApplication(),
+                              "127.0.0.1:0")
+    srv.start()
+    try:
+        conns = PORT.proxy.AppConns(
+            PORT.proxy.ClientCreator.remote(f"grpc://{srv.addr}"))
+        try:
+            assert isinstance(conns.query, grpc_mod.GRPCClient)
+            assert conns.query.echo("ported") == "ported"
+        finally:
+            conns.stop()
+    finally:
+        srv.stop()
 
 
 # ---------------------------------------------------------------------------

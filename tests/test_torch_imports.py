@@ -203,6 +203,89 @@ def test_consensus_imports_stay_in_the_port(rel):
     assert r.returncode == 0, r.stderr
 
 
+STATESYNC_RPC_MODULES = (
+    "p2p/trust.py", "p2p/fuzz.py", "p2p/pex.py", "p2p/wire.py",
+    "libs/metrics.py", "libs/fail.py", "statesync/ledger.py",
+    "statesync/stateprovider.py", "statesync/syncer.py",
+    "statesync/reactor.py", "statesync/__init__.py", "rpc/server.py",
+    "rpc/light.py", "rpc/__init__.py", "libs/grpc_util.py", "abci/grpc.py",
+    "rpc/grpc_api.py", "proxy/__init__.py")
+
+
+def test_statesync_rpc_modules_are_checked():
+    """The state-sync, RPC and PEX slice (the trust metric, the fuzzed
+    connection, PEX, the state-sync ledger, provider, syncer and reactor,
+    the RPC server and its light routes, the gRPC transports) is among the
+    modules the checks below cover."""
+    mods = _port_modules()
+    for rel in STATESYNC_RPC_MODULES:
+        m = rel[:-3].replace("/", ".").removesuffix(".__init__")
+        assert f"tendermint_tpu_torch.{m}" in mods, m
+
+
+@pytest.mark.parametrize("rel", STATESYNC_RPC_MODULES)
+def test_statesync_rpc_imports_stay_in_the_port(rel):
+    """Every import of the slice's modules, at the top and inside
+    functions, names the port, the standard library or an optional
+    dependency (grpcio); the module imports in a fresh interpreter
+    without jax or the JAX package showing up in sys.modules."""
+    tree = ast.parse((PKG / rel).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom):
+            name = "." * node.level + (node.module or "")
+        elif isinstance(node, ast.Import):
+            name = node.names[0].name
+        else:
+            continue
+        assert name.split(".")[0] not in ("jax", "jaxlib",
+                                          "tendermint_tpu"), (rel, name)
+    mod = "tendermint_tpu_torch." + rel[:-3].replace("/", ".") \
+        .removesuffix(".__init__")
+    code = (f"import sys, {mod}\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'tendermint_tpu')]\n"
+            "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+def test_statesync_follows_the_light_clients_device(monkeypatch):
+    """State sync takes no device of its own: its StateProvider verifies
+    on its light client's, and with no CUDA the client (the entry point)
+    raises unless the caller asks for the CPU."""
+    import inspect
+
+    from tendermint_tpu_torch import light
+    from tendermint_tpu_torch.libs.kvdb import MemDB
+    from tendermint_tpu_torch.statesync import StateProvider, Syncer
+
+    from test_torch_light import PORT as LPORT
+    from test_torch_light import light_chain
+
+    for cls in (StateProvider, Syncer):
+        assert "device" not in inspect.signature(cls.__init__).parameters
+    gdoc, lbs = light_chain(LPORT, 4)
+    prov = light.DictProvider(gdoc.chain_id, lbs)
+    opts = light.TrustOptions(1, lbs[1].hash(), 86400.0)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(T, "_default_device", "cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        light.Client(gdoc.chain_id, opts, prov, [], light.LightStore(MemDB()))
+    lc = light.Client(gdoc.chain_id, opts, prov, [],
+                      light.LightStore(MemDB()), device="cpu")
+    sp = StateProvider(lc, now=lbs[4].signed_header.header.time)
+    assert sp.commit(2).height == 2
+
+
+def test_fail_registers_the_statesync_sites():
+    from tendermint_tpu_torch.libs import fail
+
+    for site in ("statesync.fetch", "statesync.verify", "statesync.apply",
+                 "statesync.serve"):
+        assert site in fail.REGISTERED_SITES and fail.is_registered(site)
+
+
 @pytest.mark.parametrize("path", sorted(
     [p.relative_to(ROOT) for p in PKG.rglob("*.py")]
     + [pathlib.Path("chip_smoke.py")]), ids=str)

@@ -53,7 +53,8 @@ def test_fail_sites_of_the_port_are_registered_in_both(fails):
         "propose.reap", "kvdb.group_commit", "observatory.record",
         "pipeline.stage", "pipeline.commit", "netobs.record",
         "light.serve", "light.coalesce", "ingress.admit", "ingress.checktx",
-        "ingress.recheck"}
+        "ingress.recheck", "statesync.fetch", "statesync.verify",
+        "statesync.apply", "statesync.serve"}
     assert all(jfail.is_registered(s) for s in tfail.REGISTERED_SITES)
 
 

@@ -11,14 +11,23 @@ tests/test_netobs.py cases that use neither VirtualNetwork nor NetHarness
 (those wait for the port's networks/), a SecretConnection between the
 two packages, and a Switch of one package syncing a chain from the
 other's over TCP on 127.0.0.1 through SecretConnection, MConnection and
-the BlocksyncReactor, both ways.  Node keys are seeded.  X25519's
+the BlocksyncReactor, both ways.  Since the state-sync, RPC and PEX
+slice: tests/test_p2p_wire.py's other twelve cases (the mempool, statesync,
+PEX and consensus golden bytes, the bit array's layout, the round trips,
+the channel registry, the decoder fuzz, truncations) through both packages
+with every encoding compared across them; tests/test_p2p_aux.py's fuzzed
+connection and trust metric cases on one injected clock; and
+tests/test_fuzz.py's proto decoding and mempool cases, each outcome compared
+across the packages.  Node keys are seeded.  X25519's
 ephemeral keys are random, so what is compared is what is delivered,
 never the ciphertext.  Tolerance: exact equality everywhere.
 """
 from __future__ import annotations
 
 import importlib
+import pickle
 import queue
+import random
 import socket
 import threading
 import time
@@ -27,15 +36,25 @@ import types
 import numpy as np
 import pytest
 
-from test_torch_blocksync import (JAX, PKGS, PORT, _clean,  # noqa: F401
-                                  build_chain, fresh_node, make_genesis, pkg,
-                                  stored_hashes, wait_for)
+from test_torch_blocksync import (BY_NAME, JAX, PKGS, PORT,  # noqa: F401
+                                  _clean, build_chain, fresh_node,
+                                  make_genesis, pkg, stored_hashes, wait_for)
 from test_torch_types import _cpu, _one_torch_thread  # noqa: F401
+from test_torch_types import plain
 
 _EXTRA = {"flowrate": "libs.flowrate", "netobs": "p2p.netobs",
           "mconn": "p2p.connection", "switch": "p2p.switch",
           "key": "p2p.key", "secret": "p2p.secret_connection",
-          "protodec": "libs.protodec", "observatory": "consensus.observatory"}
+          "protodec": "libs.protodec", "observatory": "consensus.observatory",
+          "cm": "consensus.messages", "evr": "evidence.reactor",
+          "mpr": "mempool.reactor", "pex": "p2p.pex",
+          "ssr": "statesync.reactor", "bits": "libs.bits",
+          "protoenc": "libs.protoenc", "proposal": "types.proposal",
+          "vote": "types.vote", "part_set": "types.part_set",
+          "trust": "p2p.trust", "fuzz": "p2p.fuzz",
+          "pmempool": "mempool.priority_mempool",
+          "mempool": "mempool.mempool", "block": "types.block",
+          "light_block": "types.light_block"}
 for _p in PKGS:
     for _a, _m in _EXTRA.items():
         setattr(_p, _a, importlib.import_module(f"{_p.root}.{_m}"))
@@ -514,3 +533,402 @@ def test_switch_syncs_across_packages(server, client):
     sent_s = sum(f.get("sent_bytes", 0) for f in flow_s.values())
     recv_c = sum(f.get("recv_bytes", 0) for f in flow_c.values())
     assert sent_s > 25 * 100 and recv_c > 25 * 100
+
+
+
+# ---------------------------------------------------------------------------
+# tests/test_p2p_wire.py's other cases, through both packages, every
+# encoding compared across them
+# ---------------------------------------------------------------------------
+
+def _bid(p):
+    B = p.basic
+    return B.BlockID(b"\x11" * 32, B.PartSetHeader(3, b"\x22" * 32))
+
+
+def _wire_vote(p):
+    B = p.basic
+    return p.vote.Vote(type=B.SignedMsgType.PRECOMMIT, height=5, round=1,
+                       block_id=_bid(p), timestamp=B.Timestamp(1700000123,
+                                                               456),
+                       validator_address=b"\x33" * 20, validator_index=2,
+                       signature=b"\x44" * 64)
+
+
+def wire_mempool_golden(p):
+    inner = b"\x0a\x02ab\x0a\x00"
+    want = b"\x0a" + bytes([len(inner)]) + inner
+    assert p.mpr.encode_msg(p.mpr.TxsMessage([b"ab", b""])) == want
+    assert p.mpr.decode_msg(want).txs == [b"ab", b""]
+    return want
+
+
+def wire_statesync_golden(p):
+    inner = b"\x08\x09\x10\x01\x18\x02"
+    want = b"\x1a" + bytes([len(inner)]) + inner
+    assert p.ssr.encode_msg(p.ssr.ChunkRequest(9, 1, 2)) == want
+    m = p.ssr.decode_msg(want)
+    assert (m.height, m.format, m.index) == (9, 1, 2)
+    return want
+
+
+def wire_pex_golden(p):
+    na = (b"\x0a\x02ab" + b"\x12\x071.2.3.4"
+          + b"\x18" + p.protoenc.uvarint(26656))
+    inner = b"\x0a" + bytes([len(na)]) + na
+    want = b"\x12" + bytes([len(inner)]) + inner
+    assert p.pex.encode_msg(p.pex.PexAddrs([("ab", "1.2.3.4:26656")])) \
+        == want
+    assert p.pex.decode_msg(want).addrs == [("ab", "1.2.3.4:26656")]
+    return want
+
+
+def wire_consensus_has_vote_golden(p):
+    inner = b"\x08\x03\x10\x01\x18\x01\x20\x02"
+    want = b"\x3a" + bytes([len(inner)]) + inner
+    m = p.cm.HasVoteMessage(3, 1, int(p.basic.SignedMsgType.PREVOTE), 2)
+    assert p.cm.encode_msg(m) == want
+    got = p.cm.decode_msg(want)
+    assert (got.height, got.round, got.type, got.index) == (3, 1, 1, 2)
+    return want
+
+
+def wire_bitarray_layout(p):
+    pd, pe = p.protodec, p.protoenc
+    ba = p.bits.BitArray.from_indices(10, [0, 8, 9])
+    body = ba.proto()
+    f = pd.parse(body)
+    assert pd.get_int(f, 1) == 10
+    assert pd.get_packed_uvarints(f, 2) == [0b1100000001]
+    assert p.bits.BitArray.from_proto(body) == ba
+    unpacked = pe.varint_field(1, 10) + pe.tag(2, pe.WT_VARINT) \
+        + pe.uvarint(0b1100000001)
+    assert p.bits.BitArray.from_proto(unpacked) == ba
+    return body
+
+
+def wire_consensus_roundtrips(p):
+    cm, B = p.cm, p.basic
+    ps = p.part_set.PartSet.from_data(b"x" * 300, part_size=128)
+    bid = _bid(p)
+    msgs = [
+        cm.NewRoundStepMessage(9, 2, 3, -1),
+        cm.ProposalGossip(p.proposal.Proposal(
+            height=9, round=2, pol_round=-1, block_id=bid,
+            timestamp=B.Timestamp(1700000000, 1), signature=b"\x55" * 64)),
+        cm.BlockPartGossip(9, 2, ps.get_part(0)),
+        cm.VoteGossip(_wire_vote(p)),
+        cm.HasVoteMessage(9, 2, int(B.SignedMsgType.PRECOMMIT), 7),
+        cm.VoteSetMaj23Message(9, 2, int(B.SignedMsgType.PREVOTE), bid),
+        cm.VoteSetBitsMessage(9, 2, int(B.SignedMsgType.PREVOTE), bid, 10,
+                              p.bits.BitArray.from_indices(10, [1, 9])
+                              .to_bytes()),
+    ]
+    out = []
+    for m in msgs:
+        data = cm.encode_msg(m)
+        back = cm.decode_msg(data)
+        assert type(back) is type(m) and cm.encode_msg(back) == data
+        out.append(data)
+    m = cm.VoteSetMaj23Message(9, 2, int(B.SignedMsgType.PREVOTE),
+                               B.BlockID())
+    assert cm.decode_msg(cm.encode_msg(m)).block_id == B.BlockID()
+    return out
+
+
+def wire_blocksync_statesync_evidence_roundtrips(p):
+    bsr, ssr, evr = p.reactor, p.ssr, p.evr
+    out = []
+    for m in (bsr.BlockRequest(4), bsr.NoBlockResponse(5),
+              bsr.BlockResponse(b"\x0a\x00"), bsr.StatusRequest(),
+              bsr.StatusResponse(2, 9)):
+        assert bsr.decode_msg(bsr.encode_msg(m)) == m
+        out.append(bsr.encode_msg(m))
+    for m in (ssr.SnapshotsRequest(),
+              ssr.SnapshotsResponse(7, 1, 4, b"h" * 32, b"meta"),
+              ssr.ChunkRequest(7, 1, 2),
+              ssr.ChunkResponse(7, 1, 2, b"chunk", False),
+              ssr.ChunkResponse(7, 1, 3, b"", True)):
+        assert ssr.decode_msg(ssr.encode_msg(m)) == m
+        out.append(ssr.encode_msg(m))
+    ev = evr.EvidenceGossip([b"\x0a\x00", b"\x12\x00"])
+    assert evr.decode_msg(evr.encode_msg(ev)) == ev
+    return out + [evr.encode_msg(ev)]
+
+
+def wire_channel_registry(p):
+    for ch in (0x00, 0x20, 0x21, 0x22, 0x30, 0x38, 0x40, 0x60, 0x61):
+        assert ch in p.wire._CODECS, f"channel {ch:#x} has no codec"
+    with pytest.raises(KeyError):
+        p.wire.encode(0x7F, object())
+    return sorted(p.wire._CODECS)
+
+
+def wire_decoders_reject_garbage_and_pickle(p):
+    class Evil:
+        def __reduce__(self):
+            return (print, ("pwned",))
+
+    decoders = [p.cm.decode_msg, p.reactor.decode_msg, p.mpr.decode_msg,
+                p.ssr.decode_msg, p.evr.decode_msg, p.pex.decode_msg]
+    rng = random.Random(1234)
+    payloads = [pickle.dumps(Evil()), b"\x80\x04."]
+    payloads += [bytes(rng.randrange(256) for _ in range(n))
+                 for n in (1, 3, 17, 64, 300) for _ in range(40)]
+    rejected = []
+    for dec in decoders:
+        n = 0
+        for data in payloads:
+            try:
+                dec(data)
+            except ValueError:
+                n += 1
+        rejected.append(n)
+    return rejected
+
+
+def wire_truncated_valid_messages_raise(p):
+    data = p.cm.encode_msg(p.cm.VoteGossip(_wire_vote(p)))
+    raised = []
+    for cut in range(1, len(data)):
+        try:
+            p.cm.decode_msg(data[:cut])
+        except ValueError:
+            raised.append(cut)
+    return raised
+
+
+def wire_consensus_new_valid_block_and_pol(p):
+    cm, B = p.cm, p.basic
+    m = cm.NewValidBlockMessage(
+        height=9, round=1,
+        block_part_set_header=B.PartSetHeader(4, b"\x0b" * 32),
+        block_parts=p.bits.BitArray.from_indices(4, [0, 2]), is_commit=True)
+    out = cm.decode_msg(cm.encode_msg(m))
+    assert (out.height, out.round, out.is_commit) == (9, 1, True)
+    assert out.block_part_set_header == m.block_part_set_header
+    assert out.block_parts == m.block_parts
+    pol = cm.ProposalPOLMessage(
+        height=9, proposal_pol_round=0,
+        proposal_pol=p.bits.BitArray.from_indices(6, [5]))
+    assert cm.decode_msg(cm.encode_msg(pol)).proposal_pol == pol.proposal_pol
+    return [cm.encode_msg(m), cm.encode_msg(pol)]
+
+
+def wire_vote_set_bits_channel_codec_registered(p):
+    cm = p.cm
+    msg = cm.VoteSetBitsMessage(
+        9, 2, int(p.basic.SignedMsgType.PREVOTE), _bid(p), 10,
+        p.bits.BitArray.from_indices(10, [1, 9]).to_bytes())
+    data = p.wire.encode(cm.VOTE_SET_BITS_CHANNEL, msg)
+    assert type(p.wire.decode(cm.VOTE_SET_BITS_CHANNEL, data)) is type(msg)
+    return data
+
+
+WIRE = {fn.__name__[len("wire_"):]: fn for fn in (
+    wire_mempool_golden, wire_statesync_golden, wire_pex_golden,
+    wire_consensus_has_vote_golden, wire_bitarray_layout,
+    wire_consensus_roundtrips, wire_blocksync_statesync_evidence_roundtrips,
+    wire_channel_registry, wire_decoders_reject_garbage_and_pickle,
+    wire_truncated_valid_messages_raise,
+    wire_consensus_new_valid_block_and_pol,
+    wire_vote_set_bits_channel_codec_registered)}
+
+
+@pytest.mark.parametrize("case", sorted(WIRE))
+def test_p2p_wire_case(case):
+    """The JAX test's case, its assertions, in each package; the encodings
+    and counts it yields are the same in both."""
+    assert WIRE[case](JAX) == WIRE[case](PORT)
+
+
+@pytest.mark.parametrize("src,dst", [("jax", "port"), ("port", "jax")])
+def test_pex_and_statesync_messages_cross(src, dst):
+    """PEX (0x00) and statesync (0x60, 0x61) messages encoded by one package
+    decode in the other to the same values and re-encode to the same
+    bytes."""
+    ps, pd_ = BY_NAME[src], BY_NAME[dst]
+    for m_s, codec in (
+            (ps.pex.PexRequest(), "pex"),
+            (ps.pex.PexAddrs([("ab" * 20, "10.0.0.1:26656"),
+                              ("cd" * 20, "10.0.0.2:1")]), "pex"),
+            (ps.ssr.SnapshotsResponse(100, 1, 205, b"h" * 32, b"m"), "ssr"),
+            (ps.ssr.ChunkResponse(100, 1, 7, b"c" * 100, busy=True,
+                                  retry_after_ms=250), "ssr")):
+        data = getattr(ps, codec).encode_msg(m_s)
+        m_d = getattr(pd_, codec).decode_msg(data)
+        assert getattr(pd_, codec).encode_msg(m_d) == data
+        assert plain(m_d) == plain(m_s)
+        assert ps.wire.decode(0x00 if codec == "pex" else 0x61,
+                              data) == m_s
+
+
+# ---------------------------------------------------------------------------
+# tests/test_p2p_aux.py's fuzz and trust cases, tests/test_fuzz.py's proto
+# decoding and mempool cases
+# ---------------------------------------------------------------------------
+
+class _PipeConn:
+    def __init__(self):
+        self.sent = []
+        self.inbox = []
+
+    def send_frame(self, data):
+        self.sent.append(data)
+
+    def recv_frame(self):
+        return self.inbox.pop(0)
+
+    def close(self):
+        pass
+
+
+def test_fuzzed_connection_drops_frames():
+    got = {}
+    for p in PKGS:
+        inner = _PipeConn()
+        fz = p.fuzz.FuzzedConnection(inner, p.fuzz.FuzzConnConfig(
+            prob_drop_rw=0.5, prob_sleep=0.0), rng=random.Random(42))
+        for i in range(200):
+            fz.send_frame(b"x%d" % i)
+        assert 0 < len(inner.sent) < 200
+        assert fz.dropped_frames == 200 - len(inner.sent)
+        inner.inbox = [b"a", b"b", b"c", b"d", b"e", b"f"]
+        first = fz.recv_frame()
+        assert first in (b"a", b"b", b"c", b"d", b"e", b"f")
+        got[p.name] = (inner.sent, fz.dropped_frames, first)
+    assert got["jax"] == got["port"]
+
+
+def test_fuzz_start_after_grace():
+    got = {}
+    for p in PKGS:
+        inner = _PipeConn()
+        fz = p.fuzz.FuzzedConnection(inner, p.fuzz.FuzzConnConfig(
+            prob_drop_rw=1.0, start_after_s=60.0), rng=random.Random(1))
+        fz.send_frame(b"hello")
+        assert inner.sent == [b"hello"]
+        got[p.name] = inner.sent
+    assert got["jax"] == got["port"]
+
+
+def _trust_clock(monkeypatch, p, clk):
+    monkeypatch.setattr(p.trust, "time", types.SimpleNamespace(
+        monotonic=clk.monotonic))
+
+
+def test_trust_metric_declines_on_bad_events(monkeypatch):
+    """tests/test_p2p_aux.py:89 with its sleeps on one injected clock: the
+    same trust values in both packages."""
+    got = {}
+    for p in PKGS:
+        clk = _Clock()
+        _trust_clock(monkeypatch, p, clk)
+        tm = p.trust.TrustMetric(interval_s=0.05, max_history=4)
+        vals = [tm.value()]
+        assert vals[0] == pytest.approx(1.0)
+        tm.bad_events(10)
+        vals.append(tm.value())
+        assert vals[-1] < 1.0
+        clk.sleep(0.06)
+        tm.bad_events(10)
+        vals.append(tm.value())
+        assert vals[-1] < 0.9
+        for _ in range(6):
+            clk.sleep(0.06)
+            tm.good_events(20)
+        vals.append(tm.value())
+        assert vals[-1] > vals[2]
+        got[p.name] = vals
+    assert got["jax"] == got["port"]
+
+
+def test_trust_store(monkeypatch):
+    got = {}
+    for p in PKGS:
+        clk = _Clock()
+        _trust_clock(monkeypatch, p, clk)
+        st = p.trust.TrustMetricStore()
+        assert st.peer_trust("unknown") == 1.0
+        st.get("p1").bad_events(5)
+        assert st.peer_trust("p1") < 1.0
+        assert st.size() == 1
+        small = p.trust.TrustMetricStore(max_size=2)
+        for i in range(5):
+            small.get(f"q{i}")
+        got[p.name] = (st.peer_trust("p1"), small.size())
+    assert got["jax"] == got["port"] == (got["port"][0], 2)
+
+
+def _fuzz_rng():
+    return np.random.default_rng(0xF0220)
+
+
+def _mutations(rng, valid: bytes):
+    yield bytes(rng.integers(0, 256, int(rng.integers(0, 200)),
+                             dtype=np.uint8))
+    if valid:
+        n = len(valid)
+        yield valid[: int(rng.integers(0, n))]
+        b = bytearray(valid)
+        for _ in range(int(rng.integers(1, 6))):
+            b[int(rng.integers(0, n))] ^= int(rng.integers(1, 256))
+        yield bytes(b)
+
+
+def test_fuzz_proto_decoding_block_vote_commit():
+    """tests/test_fuzz.py:35 through both packages on the same chain and
+    mutations: every decode either raises (never SystemExit or
+    MemoryError) or yields an object whose hash works, and the two
+    packages agree decode for decode."""
+    got = {}
+    for p in PKGS:
+        gdoc, privs = make_genesis(p, 2)
+        blocks, commits, _ = build_chain(p, gdoc, privs, 2)
+        valids = [(p.block.Block, blocks[-1].proto()),
+                  (p.commit.Commit, commits[-1].proto()),
+                  (p.vote.Vote, b""),
+                  (p.light_block.SignedHeader, b"")]
+        rng = _fuzz_rng()
+        rows = []
+        for _ in range(100):
+            for cls, valid in valids:
+                for data in _mutations(rng, valid):
+                    try:
+                        obj = cls.from_proto(data)
+                        rows.append(obj.hash() if hasattr(obj, "hash")
+                                    else "ok")
+                    except Exception as e:  # noqa: BLE001 - the outcome
+                        assert not isinstance(e, (SystemExit, MemoryError))
+                        rows.append(type(e).__name__)
+                    try:
+                        p.protodec.parse(data)
+                    except p.protodec.ProtoError:
+                        pass
+        got[p.name] = rows
+    assert got["jax"] == got["port"]
+
+
+def test_fuzz_mempool_check_tx():
+    """tests/test_fuzz.py:70 through both packages: the same random txs
+    through both mempool versions, the same responses and sizes."""
+    got = {}
+    for p in PKGS:
+        rng = _fuzz_rng()
+        rows = []
+        for cls in (p.mempool.Mempool, p.pmempool.PriorityMempool):
+            mp = cls(p.kvstore.KVStoreApplication(), size_limit=50)
+            for _ in range(300):
+                tx = bytes(rng.integers(0, 256, int(rng.integers(0, 80)),
+                                        dtype=np.uint8))
+                try:
+                    r = mp.check_tx(tx)
+                    rows.append((r.code, r.log))
+                except Exception as e:  # noqa: BLE001 - the outcome
+                    assert "mempool" in type(e).__name__.lower() or \
+                        isinstance(e, ValueError), e
+                    rows.append(type(e).__name__)
+            assert mp.size() <= 50
+            rows.append(mp.size())
+        got[p.name] = rows
+    assert got["jax"] == got["port"]

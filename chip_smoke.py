@@ -336,7 +336,30 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      light_verify (-32603), and the statesync.* drills.  Every K1, C1 and
      C2 launch of the phase held against its plain version; each step's
      wall, the restore's rate and the card's share logged, not gated
- 23  the kernels line; then the last line {"ok": true, "device": ...}
+ 23  the node, its config, the CLI and the light proxy: (a) four node
+     processes from the CLI's `testnet` homes (`start --device cuda`, each
+     home's [batch_verifier] tpu_threshold 1), 2,000 signed txs (1%
+     corrupted) into node 0's broadcast_tx_sync from 4 client threads,
+     gossiped and pre-verified by each process's IngressGate (K1), every
+     answer a device="cpu" gate's here, the chains equal at height 20,
+     each process's launches, failures, fallbacks and breaker read from
+     its /metrics, node 3 SIGKILLed and restarted from its home, the
+     debug-device, debug-consensus, show-node-id and version commands,
+     each node's own height wall and /debug/gc; (b) at BASELINE config
+     2's width, a Node(device="cuda") serving a 150-validator kvstore
+     chain of 61 heights of 1,000 txs from its SQLite home (snapshots
+     every 25), a fresh Node with [state_sync] enable restoring snapshot
+     50 through its own routine (certificates on K1), blocksyncing the
+     tail (K1 windows) and switching to consensus with the chain's app
+     hash, a LightProxy (after a prewarm: C1, its certificates on C2)
+     whose headers and commits equal the node's RPC, the joiner's
+     /debug/device and /debug/light; (c) K1's wrapper raising with no
+     failpoint armed under a joiner's _statesync_routine (device_error,
+     no blocksync fallback, nothing offered, rejected or banned; a fresh
+     Node over the same home resumes from the RestoreLedger), the
+     control.decide=raise drill (every knob reverts).  Every K1, C1 and C2
+     launch of (b) and (c) held against its plain version
+ 24  the kernels line; then the last line {"ok": true, "device": ...}
 
 Signatures come from a seeded incremental generator (a_i = a_0 + i, so
 A_i = A_{i-1} + B), because signing 100k triples one by one in pure
@@ -361,6 +384,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.request
 from queue import Empty as QueueEmpty
 from types import SimpleNamespace
 
@@ -463,6 +487,11 @@ from tendermint_tpu_torch.p2p.switch import Switch  # noqa: E402
 from tendermint_tpu_torch.p2p.pex import (AddrBook, PEX_CHANNEL,  # noqa: E402
                                            PexReactor, PexRequest)
 from tendermint_tpu_torch.rpc.server import RPCServer  # noqa: E402
+from tendermint_tpu_torch.rpc import client as rpcclient  # noqa: E402
+from tendermint_tpu_torch.libs import control  # noqa: E402
+from tendermint_tpu_torch.config.config import Config as NodeConfig  # noqa: E402
+from tendermint_tpu_torch.light.proxy import LightProxy  # noqa: E402
+from tendermint_tpu_torch.node import Node  # noqa: E402
 from tendermint_tpu_torch.rpc.server import RPC_BUSY_CODE  # noqa: E402
 from tendermint_tpu_torch.statesync import syncer as ssync  # noqa: E402
 from tendermint_tpu_torch.statesync.ledger import RestoreLedger  # noqa: E402
@@ -9315,7 +9344,860 @@ check(launches22["verify_packed"] > 0 and launches22["comb_verify"] > 0
       f"phase 22: a kernel disagrees with its plain version: {cmp22}")
 REPORT["statesync_rpc"] = statesync22
 
-# -- phase 23: the kernels line -----------------------------------------------
+# -- phase 23: the node, its config, the CLI and the light proxy -------------
+# The node assembled from its config as a user starts it.  (a) four node
+# processes from the CLI's `testnet` homes, each `start --device cuda` on
+# the card: a flood of signed txs into node 0's broadcast_tx_sync from 4
+# client threads, gossiped to the others, pre-verified by each process's
+# IngressGate (K1).  Four signatures a commit are under the batch floor,
+# so the flood is what puts the card on this path; and because HTTP
+# clients hand the gate a few txs at a time (phase 22 (d)), each home's
+# [batch_verifier] tpu_threshold is 1, so every MEMPOOL window, however
+# small, goes to the card.  Every answer equals a device="cpu" gate's in
+# this process; the chains reach HEIGHTS23 heights with equal blocks; each
+# process's launches, failures, fallbacks and breaker are read from its own
+# /metrics; node 3 is SIGKILLed and restarted from its home (handshake,
+# WAL catch-up, blocksync) and commits on; the debug-device,
+# debug-consensus, show-node-id and version commands run against the homes
+# and processes; each node's own height wall and /debug/gc are logged.
+# (b) at BASELINE config 2's width (150 validators, 1,000 txs of 64 bytes
+# a block): a Node(device="cuda"), a non-validator, serves a kvstore chain
+# of H23 heights with snapshots every SNAP23 from its SQLite home; a fresh
+# Node with [state_sync] enable (trust at height 1) restores the newest
+# snapshot through its own _statesync_routine (its light certificates on
+# K1), blocksyncs the tail (K1 windows), switches to consensus, and its
+# app hash is the chain's; a LightProxy in front of the serving node
+# answers headers and commits equal to the node's RPC, after a prewarm of
+# the set (C1; the proxy's certificates on C2); /debug/device and
+# /debug/light from the joiner's pprof server.  (c) K1's wrapper raising
+# with no failpoint armed under a joiner's _statesync_routine (its ledger
+# holding three quarters of the snapshot's chunks): node.device_error
+# set, no blocksync fallback, nothing offered, rejected or banned; a
+# fresh Node over the same home resumes from the RestoreLedger on the
+# card; then the control.decide=raise drill on a node with [control]
+# enable: every knob reverts to its static value.  Every K1, C1 and C2
+# launch of (b) and (c) is held against its plain version.  Walls are
+# host-clock, logged and not gated.
+NET23, FLOOD23, BAD23, CLIENTS23, HEIGHTS23 = 4, 2000, 20, 4, 20   # (a)
+N23, H23, TXS23, SNAP23 = 150, 61, 1000, 25                        # (b)
+CHAIN23 = "chip-smoke-23"
+T23 = time.perf_counter()
+rng23 = random.Random(SEED + 23)
+E.table_cache_clear()
+check(not msm.use_rlc(10_000) and not failpoints.armed()
+      and vsched.installed() is None and bpipe.installed() is None
+      and control.installed() is None,
+      "phase 23: RLC, a failpoint, a scheduler, a pipeline or a controller "
+      "is still on")
+degrade.configure(degrade.DegradeConfig.from_env(), registry=Registry("p23"))
+ingress.set_enabled(None)
+ON_CARD23 = DEV.type == "cuda"
+HERE23 = os.path.dirname(os.path.abspath(__file__))
+root23 = tempfile.mkdtemp(prefix="smoke23_")
+node23: dict = {"card": CARD}
+walls23: dict = {}
+tmlog.setup("info", module_levels="statesync:error,blocksync:error,"
+            "p2p:error,mempool:error,light:error,rpc:error,pex:error,"
+            "consensus:error,node:error,state:error,control:error")
+
+
+clis23: list = []      # every CLI process the phase starts
+
+
+def cli23_start(*argvs):
+    """`python3 -m tendermint_tpu_torch.cmd <argv>` from the checkout for
+    each argv, all started together (each pays a torch import)."""
+    started = [(argv, subprocess.Popen(
+        [sys.executable, "-m", "tendermint_tpu_torch.cmd", *argv],
+        cwd=HERE23, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)) for argv in argvs]
+    clis23.extend(p for _, p in started)
+    return started
+
+
+def cli23_wait(started, timeout=120.0):
+    """The standard outputs of cli23_start's commands (each must exit
+    0)."""
+    outs = []
+    for argv, p in started:
+        out, err = p.communicate(timeout=timeout)
+        check(p.returncode == 0, f"phase 23: `cmd {' '.join(argv)}` exited "
+              f"{p.returncode}: {err[-3000:]}")
+        outs.append(out)
+    return outs
+
+
+def free_ports23(n):
+    """The first of n consecutive free ports on 127.0.0.1 (the testnet
+    command numbers its nodes' ports up from a base)."""
+    for _ in range(500):
+        base = rng23.randrange(20_000, 60_000 - n)
+        socks = []
+        try:
+            for p in range(base, base + n):
+                s = socket.socket()
+                socks.append(s)
+                s.bind(("127.0.0.1", p))
+            return base
+        except OSError:
+            continue
+        finally:
+            for s in socks:
+                s.close()
+    fail("phase 23: no range of free ports")
+
+
+def wait23(cond, what, timeout):
+    end = time.monotonic() + timeout
+    while not cond():
+        check(time.monotonic() < end, f"phase 23: {what} timed out")
+        time.sleep(0.05)
+
+
+def rpc23(addr, method, **params):
+    """One JSON-RPC call; None while the server does not answer."""
+    try:
+        return rpcclient.HTTPClient(addr, timeout=30).call(method, **params)
+    except (OSError, rpcclient.RPCClientError):
+        return None
+
+
+def get23(addr, path):
+    with urllib.request.urlopen(f"http://{addr}{path}", timeout=30) as r:
+        return r.read().decode()
+
+
+def height23(addr):
+    st = rpc23(addr, "status")
+    return -1 if st is None else int(st["sync_info"]["latest_block_height"])
+
+
+def metric23(text, name, label=""):
+    """The sum over its label sets (those holding `label`) of a metric in
+    a /metrics exposition."""
+    total = 0.0
+    for ln in text.splitlines():
+        if (ln.startswith(name + "{") or ln.startswith(name + " ")) \
+                and label in ln:
+            total += float(ln.rsplit(" ", 1)[1])
+    return total
+
+
+# -- (a) node processes from the CLI's testnet homes
+t = time.perf_counter()
+net23 = os.path.join(root23, "net")
+base23 = free_ports23(3 * NET23)
+cli23_wait(cli23_start(
+    ("testnet", "--v", str(NET23), "--o", net23, "--chain-id",
+     "smoke23-net", "--starting-p2p-port", str(base23),
+     "--starting-rpc-port", str(base23 + NET23))))
+homes23 = [os.path.join(net23, f"node{i}") for i in range(NET23)]
+rpcs23 = [f"127.0.0.1:{base23 + NET23 + i}" for i in range(NET23)]
+pprofs23 = [f"127.0.0.1:{base23 + 2 * NET23 + i}" for i in range(NET23)]
+for i, home in enumerate(homes23):
+    cfg = NodeConfig.load(home)
+    cfg.home = home
+    cfg.rpc.pprof_laddr = pprofs23[i]
+    cfg.batch_verifier.tpu_threshold = 1
+    cfg.save()
+walls23["a testnet"] = time.perf_counter() - t
+procs23: list = [None] * NET23
+
+
+def start23(i):
+    """Node i as a process of its own: `start --device cuda` on its home,
+    its log in the phase's directory."""
+    logf = open(os.path.join(root23, f"node{i}.log"), "ab")
+    procs23[i] = subprocess.Popen(
+        [sys.executable, "-m", "tendermint_tpu_torch.cmd", "--home",
+         homes23[i], "start", "--device", "cuda", "--log-level", "error"],
+        cwd=HERE23, stdout=logf, stderr=subprocess.STDOUT,
+        start_new_session=True)
+    logf.close()
+
+
+def logs23(i):
+    with open(os.path.join(root23, f"node{i}.log"), "rb") as f:
+        return f.read()[-3000:].decode(errors="replace")
+
+
+def alive23():
+    for i, p in enumerate(procs23):
+        if p is not None and p.poll() is not None:
+            fail(f"phase 23 (a): node {i} exited {p.returncode}:\n"
+                 f"{logs23(i)}")
+    return True
+
+
+def stop_procs23():
+    """Every process the phase started ends: the nodes (SIGTERM, then
+    SIGKILL) and any CLI command still running."""
+    for p in clis23:
+        if p.poll() is None:
+            p.kill()
+            p.wait(15)
+    for p in procs23:
+        if p is not None and p.poll() is None:
+            p.terminate()
+    for p in procs23:
+        if p is None:
+            continue
+        try:
+            p.wait(15)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait(15)
+
+
+try:
+    t = time.perf_counter()
+    for i in range(NET23):
+        start23(i)
+    wait23(lambda: alive23() and all(height23(a) >= 2 for a in rpcs23),
+           "(a) four node processes committing height 2", 240)
+    walls23["a start"] = time.perf_counter() - t
+    ids23 = [rpc23(a, "status")["node_info"]["id"] for a in rpcs23]
+    h0_23 = [(time.perf_counter(), height23(a)) for a in rpcs23]
+    # the flood: 1% of the signed txs corrupted
+    flood23 = sigtxs20(FLOOD23)
+    bad23 = set(rng23.sample(range(FLOOD23), BAD23))
+    flood23 = [corrupt20(tx) if i in bad23 else tx
+               for i, tx in enumerate(flood23)]
+    got23 = [None] * CLIENTS23
+
+    def client23(k):
+        got23[k] = rpc_burst22(rpcs23[0], flood23[k::CLIENTS23],
+                               "broadcast_tx_sync")
+    t = time.perf_counter()
+    ths = [threading.Thread(target=client23, args=(k,),
+                            name=f"rpc-client23-{k}")
+           for k in range(CLIENTS23)]
+    for th in ths:
+        th.start()
+    for th in ths:
+        th.join(600)
+    walls23["a flood"] = time.perf_counter() - t
+    check(all(g is not None for g in got23), "phase 23 (a): a client died")
+    res23 = [None] * FLOOD23
+    for k in range(CLIENTS23):
+        res23[k::CLIENTS23] = got23[k]
+    # the same txs through a gate and a scheduler on device="cpu" here
+    s_c23 = vsched.install(vsched.VerifyScheduler(device="cpu"))
+    s_c23.start()
+    mp_c23 = Mempool(App20(), registry=Registry("p23 cpu"), **MP20)
+    g_c23 = gate20(mp_c23, device="cpu")
+    want23, c_c23 = main_path(lambda: settle20(
+        [g_c23.submit(tx) for tx in flood23]))
+    g_c23.stop()
+    stop_sched20(s_c23)
+    view23 = [(r["result"]["code"], r["result"]["data"], r["result"]["log"])
+              if "result" in r else ("error", r["error"]["code"])
+              for r in res23]
+    want_view23 = [(r.code, base64.b64encode(r.data or b"").decode(), r.log)
+                   for r in want23]
+    mism23 = sum(a != b for a, b in zip(view23, want_view23))
+    check(mism23 == 0 and c_c23["verify_packed"] == 0
+          and view23.count((1, "", "invalid signature")) == BAD23,
+          f"phase 23 (a): {mism23} answers differ from the device='cpu' "
+          f"gate's: {sorted(set(view23), key=str)}")
+    wait23(lambda: alive23() and all(height23(a) >= HEIGHTS23
+                                     for a in rpcs23),
+           f"(a) the chains reaching {HEIGHTS23} heights", 240)
+    h1_23 = [(time.perf_counter(), height23(a)) for a in rpcs23]
+    blocks23 = [rpc23(a, "block", height=HEIGHTS23) for a in rpcs23]
+    check(all(b is not None for b in blocks23)
+          and len({json.dumps(b["block_id"]) for b in blocks23}) == 1
+          and len({b["block"]["header"]["app_hash"] for b in blocks23}) == 1,
+          f"phase 23 (a): the chains differ at height {HEIGHTS23}")
+    # each process's own launches, failures, fallbacks and breaker
+    per23 = []
+    for i, a in enumerate(rpcs23):
+        text = get23(a, "/metrics")
+        dev = json.loads(get23(pprofs23[i], "/debug/device?last=4"))
+        per23.append({
+            "node": i,
+            "device_launches": metric23(
+                text, "tendermint_crypto_device_launch_total"),
+            "k1_launches": metric23(
+                text, "tendermint_crypto_device_launch_total",
+                'site="sched.ed25519"'),
+            "failures": metric23(
+                text, "tendermint_crypto_device_failure_total"),
+            "fallbacks": metric23(
+                text, "tendermint_crypto_host_fallback_total"),
+            "breaker": metric23(text, "tendermint_crypto_breaker_state"),
+            "devobs_keys": sorted(dev)})
+    check(all(p["k1_launches"] > 0 and p["failures"] == 0
+              and p["fallbacks"] == 0 and p["breaker"] == 0
+              for p in per23),
+          f"phase 23 (a): a process's runtime did not serve the card: "
+          f"{per23}")
+    # each node's own height wall over the flood and after it, and its
+    # collector's counts
+    own23 = [{"node": i, "heights": h1 - h0,
+              "s_per_height": (t1 - t0) / max(1, h1 - h0)}
+             for i, ((t0, h0), (t1, h1)) in enumerate(zip(h0_23, h1_23))]
+    gc23 = [get23(p, "/debug/gc").strip().splitlines() for p in pprofs23]
+    # the CLI against the homes and the processes, run while node 3 is
+    # killed and restarted from its home (its handshake, WAL catch-up and
+    # blocksync run, then it commits on with the others)
+    t = time.perf_counter()
+    cli_procs23 = cli23_start(
+        ("--home", homes23[0], "show-node-id"), ("version",),
+        ("--home", homes23[1], "debug-device", "--last", "4"),
+        ("--home", homes23[2], "debug-consensus", "--last", "4"))
+    procs23[3].kill()
+    procs23[3].wait(30)
+    procs23[3] = None
+    hk23 = height23(rpcs23[0])
+    wait23(lambda: alive23() and height23(rpcs23[0]) >= hk23 + 2,
+           "(a) three of four committing with node 3 down", 60)
+    start23(3)
+    hr23 = height23(rpcs23[0])
+    wait23(lambda: alive23() and height23(rpcs23[3]) >= hr23 + 2,
+           "(a) node 3 restarted and committing", 180)
+    hc23 = height23(rpcs23[3]) - 1
+    b3, b0 = rpc23(rpcs23[3], "block", height=hc23), \
+        rpc23(rpcs23[0], "block", height=hc23)
+    check(b3 is not None and b0 is not None
+          and b3["block_id"] == b0["block_id"],
+          f"phase 23 (a): node 3's block {hc23} after its restart differs")
+    nid23, ver23, dd23, dc23 = cli23_wait(cli_procs23)
+    nid23, ver23 = nid23.strip(), ver23.strip()
+    dd23, dc23 = json.loads(dd23), json.loads(dc23)
+    check(nid23 == ids23[0] and ver23 and isinstance(dd23, dict)
+          and isinstance(dc23, dict) and dc23.get("nodes"),
+          f"phase 23 (a): the CLI answered {nid23!r} (want {ids23[0]!r}), "
+          f"{ver23!r}, {sorted(dd23)}, {sorted(dc23)}")
+    walls23["a restart and cli"] = time.perf_counter() - t
+finally:
+    stop_procs23()
+node23["a"] = {"answers": {str(v): view23.count(v)
+                           for v in sorted(set(view23), key=str)},
+               "cpu_mismatches": mism23, "processes": per23,
+               "own_height_wall": own23, "gc": gc23,
+               "flood_txs_per_s": FLOOD23 / walls23["a flood"],
+               "restart_height": hr23, "caught_up_at": hc23 + 1,
+               "cli": {"version": ver23, "debug_device": sorted(dd23),
+                       "debug_consensus": sorted(dc23)},
+               "walls": {k: v for k, v in walls23.items()
+                         if k.startswith("a ")}}
+log(phase=23, card=CARD, at_s=time.perf_counter() - T23,
+    step="a node processes", **node23["a"])
+
+# -- (b) and (c) in this process: every K1, K2, C1 and C2 launch kept
+keep23 = {name: [] for name in ("verify_packed", "verify_packed_split",
+                                "comb_build", "comb_verify")}
+label23 = [""]
+was23 = {name: getattr(KERNEL_MOD[name], name) for name in keep23}
+_keep23_lock = threading.Lock()
+
+
+def _keeping23(name):
+    """The bare wrapper (REAL), keeping a copy of every launch's tensor
+    inputs (C2's tables by reference) and its output; the launches come
+    from the nodes' own threads (state sync, blocksync, the proxy's
+    handler threads)."""
+    def wrapper(*args):
+        out = REAL[name](*args)
+        kept = [a.clone() if isinstance(a, torch.Tensor)
+                and not (name == "comb_verify" and i == 1) else a
+                for i, a in enumerate(args)]
+        with _keep23_lock:
+            keep23[name].append((label23[0], kept, out))
+        return out
+    return wrapper
+
+
+for _name in keep23:
+    setattr(KERNEL_MOD[_name], _name, _keeping23(_name))
+gc.collect()
+gc.freeze()
+gc17.update(n=[0, 0, 0], s=[0.0, 0.0, 0.0])
+gc.callbacks.append(_gc17)
+
+
+def step23(label, fn, site=None):
+    """fn() on the main path with a fresh SigCache and the step's label;
+    the runtime must have served it from the card.  Returns (the result,
+    the launch counts, the wall)."""
+    cbatch.verified_sigs = cbatch.SigCache(capacity=1 << 18)
+    label23[0] = label
+    t = time.perf_counter()
+    out, c = main_path(fn, site=site)
+    walls23[label] = time.perf_counter() - t
+    runtime_clean(f"phase 23 {label}")
+    return out, {k: v for k, v in c.items() if v}, walls23[label]
+
+
+a23, pubs23 = gen_keys(N23, rng23)
+a_of23 = dict(zip(pubs23, a23))
+G23 = int(time.time()) - 7200      # two hours ago: inside the trust period
+gdoc23 = tgen.GenesisDoc(
+    chain_id=CHAIN23, genesis_time=Timestamp(G23, 0),
+    validators=[tgen.GenesisValidator(
+        address=b"", pub_key_type="ed25519", pub_key_bytes=p, power=10,
+        name=f"v{i}") for i, p in enumerate(pubs23)])
+gdoc23.validate_and_complete()
+
+
+def sign23(state, bid, h: int):
+    """The commit of height h: a precommit from every validator."""
+    vals = state.validators.validators
+    sigs = [CommitSig(BlockIDFlag.COMMIT, v.address,
+                      Timestamp(G23 + h, 500 + i))
+            for i, v in enumerate(vals)]
+    commit = Commit(h, 0, bid, sigs)
+    vp = [v.pub_key.bytes() for v in vals]
+    for cs, sig in zip(sigs, sign_batch(
+            [a_of23[p] for p in vp], vp,
+            commit_sign_bytes_batch(CHAIN23, commit, list(range(len(vals)))),
+            rng23)):
+        cs.signature = sig
+    return commit
+
+
+def txs23(h: int):
+    out = []
+    for i in range(TXS23):
+        key = b"n%d_%d=" % (h, i)
+        out.append(key + rng23.randbytes(32).hex().encode()[:64 - len(key)])
+    return out
+
+
+def home23(name, **over):
+    """A node home: its config (the given sections' keys changed, p2p and
+    RPC on free ports, a pprof listener), the genesis, no validator key
+    (a non-validator)."""
+    cfg = NodeConfig(home=os.path.join(root23, name), moniker=name)
+    cfg.ensure_dirs()
+    cfg.p2p.laddr = f"127.0.0.1:{free_port22()}"
+    cfg.rpc.laddr = f"127.0.0.1:{free_port22()}"
+    cfg.rpc.pprof_laddr = f"127.0.0.1:{free_port22()}"
+    for sect, kv in over.items():
+        for k, v in kv.items():
+            setattr(getattr(cfg, sect), k, v)
+    cfg.validate_basic()
+    cfg.save()
+    with open(cfg.genesis_file(), "w") as f:
+        f.write(gdoc23.to_json())
+    return NodeConfig.load(cfg.home), cfg.home
+
+
+class Counted23:
+    """A kvstore whose offer_snapshot calls are counted."""
+
+    def __init__(self):
+        self.app = KVStoreApplication()
+        self.offers = 0
+
+    def __getattr__(self, name):
+        return getattr(self.app, name)
+
+    def offer_snapshot(self, snapshot, app_hash):
+        self.offers += 1
+        return self.app.offer_snapshot(snapshot, app_hash)
+
+
+# (b1) the serving node's home: the chain built and applied into its
+# SQLite stores by an executor that trusts its own signatures (no
+# launch), the kvstore taking a snapshot every SNAP23 heights; then the
+# Node over that home and that app (the handshake finds them level)
+t = time.perf_counter()
+cfg_s23, hs23 = home23(
+    "serve", block_sync={"enable": False}, light_serve={"prewarm": False})
+cfg_s23.home = hs23
+app_s23 = app18(gdoc23)
+app_s23.snapshot_interval = SNAP23
+bdb23 = SQLiteDB(cfg_s23.block_db_file())
+sdb23 = SQLiteDB(cfg_s23.state_db_file(), commit_every=64)
+bs_b23, ss_b23 = BlockStore(bdb23), StateStore(sdb23)
+ex_b23 = sexec.BlockExecutor(ss_b23, app_s23)
+state = state_from_genesis(gdoc23)
+ss_b23.save(state)
+states23 = []
+last = Commit(0, 0, BlockID(), [])
+for h in range(1, H23 + 1):
+    block = state.make_block(h, txs23(h), last, [],
+                             state.validators.get_proposer().address,
+                             block_time=Timestamp(G23 + h, 0))
+    parts = tparts.make_block_parts(block)
+    bid = BlockID(block.hash(), parts.header())
+    seen = sign23(state, bid, h)
+    if h > 1:
+        ex_b23.mark_commit_verified(h - 1, last)
+    state, _ = ex_b23.apply_block(state, bid, block)
+    bs_b23.save_block(block, parts, seen)
+    states23.append(state)
+    last = seen
+for db in (bdb23, sdb23):
+    db.flush()
+    db.close()
+walls23["b build"] = time.perf_counter() - t
+snaps23 = sorted(s.height for s in app_s23.list_snapshots())
+check(snaps23 == [SNAP23, 2 * SNAP23] and not any(keep23.values()),
+      f"phase 23 (b): snapshots {snaps23}, build launches "
+      f"{ {k: len(v) for k, v in keep23.items()} }")
+serve23 = Node(cfg_s23, app_s23, device=DEV)
+check(serve23.state.last_block_height == H23
+      and serve23.state.app_hash == states23[-1].app_hash
+      and serve23.device == DEV,
+      "phase 23 (b): the serving Node's handshake did not find its chain")
+serve23.start()
+srpc23 = serve23.rpc_server.laddr
+anchor23 = serve23.block_store.load_block(1).hash()
+walls23["b serve"] = time.perf_counter() - t
+
+
+def joiner23(name, app, **over):
+    """A fresh node's home with [state_sync] enable: trust at height 1
+    (the anchor taken out of band), the serving node's RPC as primary and
+    witness, the serving node as its persistent peer; LightServe on
+    without its prewarm."""
+    ss = {"enable": True, "rpc_servers": f"{srpc23},{srpc23}",
+          "trust_height": 1, "trust_hash": anchor23.hex()}
+    cfg, home = home23(
+        name, state_sync=ss, light_serve={"prewarm": False},
+        p2p={"persistent_peers": f"{serve23.node_key.node_id}@"
+             f"{serve23.switch.actual_listen_addr()}"}, **over)
+    cfg.home = home
+    return cfg, Node(cfg, app, device=DEV)
+
+
+def synced23(j, app):
+    """The joiner restored, blocksynced to the chain's tip and switched
+    to consensus, its app at the chain's height and hash."""
+    info = app.info(abci_t.RequestInfo())
+    return (j._consensus_started.is_set()
+            and j.block_store.height() == H23
+            and info.last_block_height == H23
+            and info.last_block_app_hash == states23[-1].app_hash)
+
+
+# (b2) the joiner restores snapshot 2 * SNAP23 through its own routine,
+# then blocksyncs the tail and switches to consensus
+snap_b23 = next(s for s in app_s23.list_snapshots()
+                if s.height == 2 * SNAP23)
+app_j23 = Counted23()
+
+
+def join_b23():
+    """The joiner made (its light client's anchor checked), started, and
+    waited for until it is synced."""
+    global cfg_j23, join23
+    cfg_j23, join23 = joiner23("join", app_j23)
+    check(join23._statesync_active and join23.device == DEV,
+          "phase 23 (b): the joiner is not state-syncing on the card")
+    join23.start()
+    wait23(lambda: synced23(join23, app_j23) or join23.device_error,
+           "(b) the joiner's state sync and tail", 240)
+
+
+_, c_j23, wall_j23 = step23("b joiner", join_b23)
+rest_j23 = dict(join23.statesync_reactor.syncer.last_restore or {})
+jv23 = {"synced": synced23(join23, app_j23),
+        "height": join23.block_store.height(),
+        "app": app_j23.info(abci_t.RequestInfo()).last_block_height,
+        "offers": app_j23.offers, "error": repr(join23.device_error),
+        "chunks": (rest_j23.get("chunks"), snap_b23.chunks)}
+check(jv23["synced"] and join23.device_error is None
+      and app_j23.offers == 1
+      and rest_j23.get("chunks") == snap_b23.chunks
+      and c_j23.get("verify_packed", 0) > 0,
+      f"phase 23 (b): the joiner {jv23}, its restore {rest_j23}, "
+      f"launches {c_j23}")
+dev_j23 = json.loads(get23(cfg_j23.rpc.pprof_laddr, "/debug/device?last=8"))
+light_j23 = json.loads(get23(cfg_j23.rpc.pprof_laddr, "/debug/light"))
+check(isinstance(dev_j23, dict) and light_j23.get("running") is True,
+      f"phase 23 (b): the joiner's /debug/light {light_j23}")
+node23["b"] = {"restore": {k: v for k, v in rest_j23.items()
+                           if k != "banned"},
+               "launches": c_j23, "wall_s": wall_j23,
+               "restore_s": rest_j23.get("time_to_synced_s"),
+               "tail_s": wall_j23 - (rest_j23.get("time_to_synced_s") or 0),
+               "debug_device": sorted(dev_j23),
+               "debug_light": sorted(light_j23)}
+log(phase=23, card=CARD, at_s=time.perf_counter() - T23,
+    step="b joiner", **node23["b"])
+
+# (b3) a LightProxy in front of the serving node: its light client over
+# the serving node's RPC, the set prewarmed (C1), headers and commits
+# verified (C2) and equal to the node's own RPC answers
+_, c_pw23, _ = step23("b prewarm", lambda: E.prewarm(
+    pubs23, device=DEV))
+# heights no step before verified (the joiner's light client verified the
+# anchor and the snapshot's heights, its blocksync the tail): the proxy's
+# own certificates launch
+ask23 = (2, SNAP23 - 1, 2 * SNAP23 - 1)
+
+
+def proxy_b23():
+    """The proxy's light client made (its anchor checked) and the proxy
+    asked for each height's header and commit."""
+    global proxy23
+    pcl = light.Client(CHAIN23, light.TrustOptions(1, anchor23, 7 * 86400.0),
+                       lprov.HTTPProvider(CHAIN23, srpc23), [],
+                       light.LightStore(MemDB()), device=DEV)
+    proxy23 = LightProxy(pcl, srpc23, "127.0.0.1:0")
+    proxy23.start()
+    out = []
+    for h in ask23:
+        ph = rpc23(proxy23.laddr, "header", height=h)
+        pc = rpc23(proxy23.laddr, "commit", height=h)
+        nb = rpc23(srpc23, "block", height=h)
+        sh = tlight.SignedHeader.from_proto(
+            base64.b64decode(pc["signed_header"]))
+        out.append({"height": h,
+                    "header": ph["hash"] == nb["block_id"]["hash"]
+                    and ph["app_hash"] == nb["block"]["header"]["app_hash"],
+                    "commit": sh.header.hash().hex().upper()
+                    == nb["block_id"]["hash"]
+                    and sh.commit.block_id.hash.hex().upper()
+                    == nb["block_id"]["hash"] and pc["verified"]})
+    return out
+
+
+pres23, c_px23, wall_px23 = step23("b proxy", proxy_b23)
+proxy23.stop()
+check(all(r["header"] and r["commit"] for r in pres23)
+      and c_pw23.get("comb_build", 0) > 0
+      and c_px23.get("comb_verify", 0) > 0,
+      f"phase 23 (b): the proxy's answers {pres23}, launches {c_pw23}, "
+      f"{c_px23}")
+node23["b"].update(proxy=pres23, proxy_launches=c_px23,
+                   prewarm_launches=c_pw23, proxy_s=wall_px23)
+log(phase=23, card=CARD, at_s=time.perf_counter() - T23,
+    step="b proxy", answers=pres23, launches=c_px23, wall_s=wall_px23)
+
+# (c1) K1 raising under a joiner's _statesync_routine, its ledger holding
+# three quarters of the snapshot's chunks (a restore a crash cut short)
+E.table_cache_clear()
+snap_c23 = snap_b23
+PREFIX23 = snap_c23.chunks * 3 // 4
+app_f23 = Counted23()
+pre23 = NodeConfig(home=os.path.join(root23, "fault"))
+pre23.ensure_dirs()
+ledger23 = RestoreLedger(SQLiteDB(os.path.join(pre23.data_dir(),
+                                               "statesync.db")))
+ledger23.begin(snap_c23)
+for i in range(PREFIX23):
+    ledger23.put_chunk(i, app_s23.load_snapshot_chunk(
+        snap_c23.height, snap_c23.format, i))
+ledger23.flush()
+ledger23.close()
+(cfg_f23, fault23), c_fn23, _ = step23(
+    "c fault node", lambda: joiner23("fault", app_f23))
+rt23 = degrade.runtime()
+fails0_23 = counter_total(rt23.metrics.device_failures)
+falls0_23 = counter_total(rt23.metrics.host_fallbacks)
+banned0_23 = ssync.metrics().peers_banned.value()
+cbatch.verified_sigs = cbatch.SigCache(capacity=1 << 18)
+label23[0] = "c fault"
+keeping23 = ck.verify_packed
+ck.verify_packed = launch_failed
+t = time.perf_counter()
+try:
+    fault23.start()
+    wait23(lambda: fault23.device_error is not None,
+           "(c) the joiner's card fault", 120)
+finally:
+    ck.verify_packed = keeping23
+join_abandoned()
+time.sleep(0.5)                   # the routine has returned: nothing more
+row_c23 = {
+    "wall_s": time.perf_counter() - t,
+    "error": type(fault23.device_error).__name__,
+    "failures": counter_total(rt23.metrics.device_failures) - fails0_23,
+    "fallbacks": counter_total(rt23.metrics.host_fallbacks) - falls0_23,
+    "offers": app_f23.offers,
+    "rejected": len(fault23.statesync_reactor.syncer._rejected),
+    "banned": ssync.metrics().peers_banned.value() - banned0_23,
+    "blocksync_active": fault23.blocksync_reactor._active,
+    "consensus": fault23._consensus_started.is_set(),
+    "bootstrapped": fault23.state_store.load().last_block_height}
+fault23.stop()
+# the serving node drops the old connection before the fresh node (the
+# same home, so the same node id) dials in
+wait23(lambda: fault23.node_key.node_id not in serve23.switch.peers,
+       "(c) the serving node dropping the faulted joiner", 30)
+ledger23 = RestoreLedger(SQLiteDB(os.path.join(cfg_f23.data_dir(),
+                                               "statesync.db")))
+row_c23["ledger"] = len(ledger23.begin(snap_c23))
+ledger23.close()
+check(isinstance(fault23.device_error, degrade.DeviceLaneError)
+      and degrade.card_fault(fault23.device_error)
+      and row_c23["offers"] == 0 and row_c23["rejected"] == 0
+      and row_c23["banned"] == 0 and not row_c23["blocksync_active"]
+      and not row_c23["consensus"] and row_c23["bootstrapped"] == 0
+      and row_c23["ledger"] == PREFIX23 and row_c23["failures"] >= 1
+      and row_c23["fallbacks"] == 0,
+      f"phase 23 (c): the state-sync routine's card fault {row_c23} "
+      f"({fault23.device_error!r})")
+degrade.configure(degrade.DegradeConfig.from_env(),
+                  registry=Registry("p23 c"))
+# the card back: a fresh Node over the same home resumes from the ledger
+app_r23 = Counted23()
+
+
+def resume_c23():
+    global res23n
+    res23n = Node(cfg_f23, app_r23, device=DEV)
+    res23n.start()
+    wait23(lambda: synced23(res23n, app_r23) or res23n.device_error,
+           "(c) the resume", 240)
+
+
+_, c_r23, wall_r23 = step23("c resume", resume_c23)
+rest_r23 = dict(res23n.statesync_reactor.syncer.last_restore or {})
+check(synced23(res23n, app_r23) and rest_r23.get("resumed") == PREFIX23
+      and c_r23.get("verify_packed", 0) > 0,
+      f"phase 23 (c): the resume {rest_r23}, launches {c_r23}")
+row_c23.update(resume_s=wall_r23, resumed=rest_r23.get("resumed"),
+               resume_launches=c_r23)
+res23n.stop()
+join23.stop()
+
+# (c2) the control.decide=raise drill on a node with [control] enable:
+# every governed knob moved off its static value reverts to it
+cfg_k23, hk23_ = home23("control", control={"enable": True,
+                                            "period_ms": 20.0})
+cfg_k23.home = hk23_
+ctl_node23 = Node(cfg_k23, KVStoreApplication(), device=DEV)
+# its LightServe prewarms the genesis set at start (C1)
+_, c_k23, _ = step23("c drill node", ctl_node23.start)
+ctl23 = control.installed()
+check(ctl23 is not None and ctl23.knobs(),
+      "phase 23 (c): the node installed no controller")
+try:
+    failpoints.set_mode("control.decide", "raise")
+    wait23(lambda: failpoints.fired("control.decide", "raise") >= 1,
+           "(c) the control.decide drill's first period", 10)
+    for name, k in list(ctl23._knobs.items()):
+        lo, hi = k.safe_range
+        k.setter(hi if k.static != hi else lo)
+    fired0_23 = failpoints.fired("control.decide", "raise")
+    wait23(lambda: failpoints.fired("control.decide", "raise")
+           >= fired0_23 + 2, "(c) the drill's periods", 10)
+    rep23 = ctl23.report()
+finally:
+    failpoints.clear("control.decide")
+reverted23 = {n: v["value"] == v["static"] for n, v in rep23["knobs"].items()}
+check(all(reverted23.values()) and rep23["skipped_periods"] >= 2
+      and any(d["reason"] == "chaos" for d in rep23["decisions"])
+      and not failpoints.armed(),
+      f"phase 23 (c): the control.decide drill {reverted23}, "
+      f"{rep23['skipped_periods']} skipped")
+ctl_node23.stop()
+check(control.installed() is None, "phase 23 (c): the controller stayed")
+row_c23.update(drill_knobs=sorted(reverted23),
+               drill_skipped=rep23["skipped_periods"])
+node23["c"] = row_c23
+log(phase=23, card=CARD, at_s=time.perf_counter() - T23,
+    step="c card fault and drill", **row_c23)
+serve23.stop()
+
+# -- every launch of (b) and (c) against its plain version on the same
+# inputs (grouped by step), C2 against the plain tables of its build
+label23[0] = ""
+for _name in keep23:
+    setattr(KERNEL_MOD[_name], _name, was23[_name])
+cmp23 = {name: [] for name in keep23}
+t = time.perf_counter()
+for name, plain in (("verify_packed", ck.verify_packed_plain),
+                    ("verify_packed_split", ck.verify_packed_split_plain)):
+    runs = keep23[name]
+    if not runs:
+        continue
+    got = torch.cat([out for _, _, out in runs])
+    cols = [torch.cat([args[k] for _, args, _ in runs], dim=1)
+            for k in range(len(runs[0][1]))]
+    step_of = np.repeat([label or "-" for label, _, _ in runs],
+                        [out.shape[0] for _, _, out in runs])
+    real = (cols[-1] != 0).any(dim=0)
+    check(not got[~real].any(), f"phase 23 {name}: a padding lane passed")
+    got = got[real].cpu().numpy()
+    step_of = step_of[real.cpu().numpy()]
+    uniq, inv = torch.unique(torch.cat([c[:, real] for c in cols]), dim=1,
+                             return_inverse=True)
+    sizes = [c.shape[0] for c in cols]
+    ucols = list(torch.split(uniq, sizes))
+    want_u = torch.cat([plain(*[c[:, a:a + 65_536] for c in ucols]).cpu()
+                        for a in range(0, uniq.shape[1], 65_536)])
+    want = want_u[inv.cpu()].numpy()
+    err = np.abs(got.astype(int) - want.astype(int))
+    for g in sorted(set(step_of)):
+        on = step_of == g
+        n_runs = sum((label or "-") == g for label, _, _ in runs)
+        cmp23[name].append((f"phase 23 ({g}): {n_runs} launches, "
+                            f"{uniq.shape[1]} distinct lanes",
+                            int(on.sum()), int(err[on].sum()),
+                            float(err[on].max())))
+builds23 = {}
+for label, args, (tab, ok) in keep23["comb_build"]:
+    ptab, pok = cc.comb_build_plain(args[0])
+    builds23[id(tab)] = (ptab, pok)
+    cmp23["comb_build"].append(
+        (f"phase 23 {label}", args[0].shape[0],
+         cc.tables_mismatch(tab, ptab) + int((ok != pok).sum())))
+check(all(id(args[1]) in builds23 for _, args, _ in keep23["comb_verify"]),
+      "phase 23: a C2 launch on a table that no build of the phase made")
+for key, (ptab, pok) in builds23.items():
+    runs = [(args, out) for _, args, out in keep23["comb_verify"]
+            if id(args[1]) == key]
+    if not runs:
+        continue
+    rows_c2 = torch.cat([args[0] for args, _ in runs])
+    got = torch.cat([out for _, out in runs]).cpu().numpy()
+    urows, uinv = torch.unique(rows_c2, dim=0, return_inverse=True)
+    want = cc.comb_verify_plain(urows, ptab, pok).cpu()[uinv.cpu()]
+    cmp23["comb_verify"].append(c2_row(
+        f"phase 23: {len(runs)} launches on one table, {urows.shape[0]} "
+        f"distinct rows", got, want.numpy()))
+plain23_s = time.perf_counter() - t
+# the card's time for each step's launches, replayed back to back between
+# two CUDA events on a quiet card, against the step's host wall
+card23 = {}
+if ON_CARD23:
+    for name in ("verify_packed", "comb_verify"):
+        for step in sorted({lab for lab, _, _ in keep23[name]}):
+            if step not in walls23:
+                continue
+            runs = [args for lab, args, _ in keep23[name] if lab == step]
+            REAL[name](*runs[0])
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda.synchronize()
+            ev[0].record()
+            for a in runs:
+                REAL[name](*a)
+            ev[1].record()
+            torch.cuda.synchronize()
+            ms = ev[0].elapsed_time(ev[1])
+            card23[f"{step} {name}"] = {
+                "launches": len(runs), "ms": ms, "wall_s": walls23[step],
+                "card_share": ms / 1e3 / walls23[step]}
+log(phase=23, card=CARD, at_s=time.perf_counter() - T23, step="card time",
+    replayed=card23)
+E.table_cache_clear()
+staging_clear(23)
+shutil.rmtree(root23)
+tmlog.setup("info")
+gc.callbacks.remove(_gc17)
+gc.unfreeze()
+launches23 = {name: len(v) for name, v in keep23.items()}
+node23.update(gc={"collections": gc17["n"], "seconds": gc17["s"]},
+              card_time=card23, comparisons=cmp23, walls=walls23,
+              launches=launches23, plain_s=plain23_s,
+              phase_s=time.perf_counter() - T23)
+log(phase=23, card=CARD, at_s=time.perf_counter() - T23,
+    launches=launches23, comparisons=cmp23, plain_s=plain23_s,
+    phase_s=node23["phase_s"])
+check(launches23["verify_packed"] > 0 and launches23["comb_verify"] > 0
+      and launches23["comb_build"] > 0
+      and all(r[2] == 0 for rows in cmp23.values() for r in rows),
+      f"phase 23: a kernel disagrees with its plain version: {cmp23}")
+REPORT["node"] = node23
+
+# -- phase 24: the kernels line -----------------------------------------------
 
 src = "tendermint_tpu_torch/csrc/ed25519_verify.cu"
 # each comparison: (input, lanes, mismatching lanes, max |kernel - plain|)
@@ -9324,7 +10206,8 @@ k1_cmp = [("phase-3 vectors + seeded", k1_cmp_lanes, k1_mism,
           cmp4, cmp6, cmp13] + cmp16["verify_packed"] \
     + cmp17["verify_packed"] + cmp18["verify_packed"] \
     + cmp19["verify_packed"] + cmp20["verify_packed"] \
-    + cmp21["verify_packed"] + cmp22["verify_packed"]
+    + cmp21["verify_packed"] + cmp22["verify_packed"] \
+    + cmp23["verify_packed"]
 k2_cmp = [("phase-3 vectors + seeded", len(k2_raw3), k2_mism3,
            float(np.abs(k2_raw3.astype(int) - k2_plain3.astype(int)).max())),
           ("100k slice", 4096, k2_mism,
@@ -9332,7 +10215,8 @@ k2_cmp = [("phase-3 vectors + seeded", len(k2_raw3), k2_mism3,
           cmp5] + cmp16["verify_packed_split"] \
     + cmp17["verify_packed_split"] + cmp18["verify_packed_split"] \
     + cmp19["verify_packed_split"] + cmp20["verify_packed_split"] \
-    + cmp21["verify_packed_split"] + cmp22["verify_packed_split"]
+    + cmp21["verify_packed_split"] + cmp22["verify_packed_split"] \
+    + cmp23["verify_packed_split"]
 k3_cmp = [("phase-3 vectors + seeded", len(k3_raw3), k3_mism3,
            float(np.abs(k3_raw3.astype(int) - k3_plain3.astype(int)).max())),
           cmp11]
@@ -9419,10 +10303,11 @@ for name, key, src_f, replaces, cmps, bound in (
 # C1 and C2 (XLA functions of the JAX package, not Pallas kernels): C1 at
 # the 1,024-key set, held as field values; C2 at 65,536 lanes, as bitmaps
 cmp15 += cmp16["comb_build"] + cmp17["comb_build"] + cmp18["comb_build"] \
-    + cmp19["comb_build"] + cmp21["comb_build"] + cmp22["comb_build"]
+    + cmp19["comb_build"] + cmp21["comb_build"] + cmp22["comb_build"] \
+    + cmp23["comb_build"]
 c2_cmp += cmp16["comb_verify"] + cmp17["comb_verify"] \
     + cmp18["comb_verify"] + cmp19["comb_verify"] + cmp21["comb_verify"] \
-    + cmp22["comb_verify"]
+    + cmp22["comb_verify"] + cmp23["comb_verify"]
 c2_vs_k1 += c2_vs_k1_16
 comb_src = "tendermint_tpu_torch/csrc/comb.cu"
 kernels.append(

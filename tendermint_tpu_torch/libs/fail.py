@@ -134,6 +134,13 @@ REGISTERED_SITES = frozenset({
     "statesync.verify",
     "statesync.apply",
     "statesync.serve",
+    # adaptive control plane (libs/control.py): fires at the top of
+    # every decision period.  raise = the whole period's decisions are
+    # skipped (counted under knob=period, direction=skipped) and every
+    # knob reverts to its static configured value: a malfunctioning
+    # controller fails static, never steering; latency is absorbed into
+    # the period
+    "control.decide",
 })
 
 _extra_sites: set = set()

@@ -754,6 +754,41 @@ class TraceMetrics:
             "window; this counts what it forgot).")
 
 
+class ControlMetrics:
+    """Adaptive control plane (libs/control.py, ADR-023): what the
+    knob governor decided, where every governed knob sits right now,
+    how often moves hit a declared safe-range bound, and whether the
+    kill switch is flipped.  The decision RING (the why behind each
+    move) is served at GET /debug/control; these are the aggregates."""
+
+    def __init__(self, reg: Optional[Registry] = None):
+        reg = reg or DEFAULT
+        self.decisions = reg.counter(
+            "control", "decisions_total",
+            "Knob moves by the decision loop, by knob and direction "
+            "(grow / shrink / revert / held: the seam refused this "
+            "period's move / error: the knob's seam raised / skipped: "
+            "a whole period skipped at the control.decide chaos "
+            "seam, knob=period).", labels=("knob", "direction"))
+        self.knob_value = reg.gauge(
+            "control", "knob_value",
+            "Current value of each governed knob as last applied or "
+            "observed by the controller (registration publishes the "
+            "static configured value).", labels=("knob",))
+        self.clamped = reg.counter(
+            "control", "clamped_total",
+            "Decisions whose target was clamped onto a declared "
+            "safe-range bound — persistent clamping means the range "
+            "(or the workload) needs operator attention.",
+            labels=("knob",))
+        self.killed = reg.gauge(
+            "control", "killed",
+            "1 while the kill switch is flipped (control.kill() / "
+            "chaos at control.decide): every knob is reverted to its "
+            "static configured value and the loop refuses further "
+            "decisions.")
+
+
 class LightMetrics:
     """Light serving plane (light/service.py, ADR-026): admission
     outcomes and overload refusals at the front door, cross-client

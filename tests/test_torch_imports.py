@@ -250,6 +250,89 @@ def test_statesync_rpc_imports_stay_in_the_port(rel):
     assert r.returncode == 0, r.stderr
 
 
+NODE_MODULES = (
+    "config/__init__.py", "config/config.py", "parallel/__init__.py",
+    "parallel/sharding.py", "libs/control.py", "libs/pprof.py",
+    "node/__init__.py", "node/node.py", "light/proxy.py",
+    "cmd/__init__.py", "cmd/__main__.py")
+
+
+def test_node_modules_are_checked():
+    """The node slice (the config, the reduced sharding knob module, the
+    control plane, the debug server, the node, the light proxy, the CLI)
+    is among the modules the checks below cover."""
+    mods = _port_modules()
+    for rel in NODE_MODULES:
+        m = rel[:-3].replace("/", ".").removesuffix(".__init__")
+        assert f"tendermint_tpu_torch.{m}" in mods, m
+
+
+@pytest.mark.parametrize("rel", NODE_MODULES)
+def test_node_imports_stay_in_the_port(rel):
+    """Every import of the node slice's modules, at the top and inside
+    functions (the CLI's and the node's lazy imports, pprof's), names the
+    port, the standard library or torch; the module imports in a fresh
+    interpreter without jax or the JAX package in sys.modules."""
+    tree = ast.parse((PKG / rel).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom):
+            name = "." * node.level + (node.module or "")
+        elif isinstance(node, ast.Import):
+            name = node.names[0].name
+        else:
+            continue
+        assert name.split(".")[0] not in ("jax", "jaxlib",
+                                          "tendermint_tpu"), (rel, name)
+    mod = "tendermint_tpu_torch." + rel[:-3].replace("/", ".") \
+        .removesuffix(".__init__")
+    code = (f"import sys, {mod}\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'tendermint_tpu')]\n"
+            "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+def test_node_and_start_default_to_the_card(monkeypatch, tmp_path):
+    """Node(device=None) takes the package default, "cuda", and with no
+    CUDA raises RuntimeError unless device="cpu" was asked for; the
+    `start` and `light` commands' --device defaults to cuda."""
+    import inspect
+
+    from tendermint_tpu_torch.abci.kvstore import KVStoreApplication
+    from tendermint_tpu_torch.cmd import __main__ as cli
+    from tendermint_tpu_torch.config.config import Config
+    from tendermint_tpu_torch.node import Node
+
+    assert inspect.signature(Node.__init__).parameters["device"].default \
+        is None
+    cfg = Config(home=str(tmp_path), moniker="dflt")
+    cfg.ensure_dirs()
+    from test_torch_node import make_genesis
+    gdoc, _ = make_genesis(1)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(T, "_default_device", "cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Node(cfg, KVStoreApplication(), genesis=gdoc, in_memory=True)
+    node = Node(cfg, KVStoreApplication(), genesis=gdoc, in_memory=True,
+                device="cpu")
+    assert node.device == torch.device("cpu")
+    seen = {}
+    monkeypatch.setattr(cli, "cmd_start", lambda a: seen.update(s=a))
+    monkeypatch.setattr(cli, "cmd_light", lambda a: seen.update(li=a))
+    cli.main(["start"])
+    cli.main(["light", "127.0.0.1:1"])
+    assert seen["s"].device == "cuda" and seen["li"].device == "cuda"
+
+
+def test_fail_registers_the_control_site():
+    from tendermint_tpu_torch.libs import fail
+
+    assert "control.decide" in fail.REGISTERED_SITES
+    assert fail.is_registered("control.decide")
+
+
 def test_statesync_follows_the_light_clients_device(monkeypatch):
     """State sync takes no device of its own: its StateProvider verifies
     on its light client's, and with no CUDA the client (the entry point)

@@ -54,7 +54,7 @@ def test_fail_sites_of_the_port_are_registered_in_both(fails):
         "pipeline.stage", "pipeline.commit", "netobs.record",
         "light.serve", "light.coalesce", "ingress.admit", "ingress.checktx",
         "ingress.recheck", "statesync.fetch", "statesync.verify",
-        "statesync.apply", "statesync.serve"}
+        "statesync.apply", "statesync.serve", "control.decide"}
     assert all(jfail.is_registered(s) for s in tfail.REGISTERED_SITES)
 
 

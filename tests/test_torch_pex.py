@@ -18,6 +18,7 @@ import importlib
 import json
 import os
 import tempfile
+import time
 import types
 
 import pytest
@@ -210,21 +211,36 @@ def test_pex_exchange_across_packages(a, b):
         "a_learned": True, "a_dialed": True}
 
 
-def _flood(pa, pb):
+def _flood(pa, pb, slow_accept_s=0.0):
+    """The flooding peer (of package pa) dials the guard (of pb) and sends
+    PexRequests past the guard's one an ensure period.  The dialer's
+    dial_peer returns once its own side of the handshake is done; the
+    guard may add the inbound peer later (under load, or slow_accept_s
+    later here), so the wait is for the ban and the dropped peer both: a
+    wait for "no peer" alone passes at once while the guard has not added
+    the peer yet, and the ban is then not there to see."""
     books = [pa.pex.AddrBook(), pb.pex.AddrBook()]
     reactors = [pa.pex.PexReactor(books[0], ensure_period_s=30.0),
                 pb.pex.PexReactor(books[1], ensure_period_s=30.0)]
+    if slow_accept_s:
+        add = reactors[1].add_peer
+
+        def slow_add(peer):
+            time.sleep(slow_accept_s)
+            add(peer)
+        reactors[1].add_peer = slow_add
     switches = [_mk_switch(pa, f"flood-{pa.name}", reactors[0]),
                 _mk_switch(pb, f"guard-{pb.name}", reactors[1])]
     try:
         addr1 = switches[1].actual_listen_addr()
         nid1 = switches[1].node_key.node_id
+        nid0 = switches[0].node_key.node_id
         peer = switches[0].dial_peer(f"{nid1}@{addr1}")
         assert peer is not None
         peer.send(pa.pex.PEX_CHANNEL, pa.pex.PexRequest())
         peer.send(pa.pex.PEX_CHANNEL, pa.pex.PexRequest())
-        assert wait_for(lambda: switches[1].num_peers() == 0, 10)
-        assert books[1].is_banned(switches[0].node_key.node_id)
+        assert wait_for(lambda: books[1].is_banned(nid0)
+                        and switches[1].num_peers() == 0, 10)
         return True
     finally:
         for sw in switches:
@@ -237,6 +253,15 @@ def test_pex_request_flood_disconnects(a, b):
     """More than one PexRequest an ensure period: the guard (of package
     b) drops and bans the flooding peer (of package a)."""
     assert run_limited(lambda: _flood(BY_NAME[a], BY_NAME[b]), 60)
+
+
+@pytest.mark.parametrize("b", ["jax", "port"])
+def test_pex_flood_guard_holds_a_slow_accept(b):
+    """The guard's side of the connection added half a second after the
+    dialer's (as a loaded host does): the flooding peer is still banned
+    and dropped, and the wait sees it."""
+    assert run_limited(lambda: _flood(BY_NAME["port"], BY_NAME[b],
+                                      slow_accept_s=0.5), 60)
 
 
 def test_trust_store_feeds_the_reactor():

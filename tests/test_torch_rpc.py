@@ -33,6 +33,7 @@ from test_torch_blocksync import BY_NAME as CHAIN_PKG
 from test_torch_blocksync import build_chain, make_genesis
 from test_torch_ingress import JAX as ING_JAX, PORT as ING_PORT
 from test_torch_ingress import Gates, EchoApp, _sigtx, card_kernel  # noqa: F401
+from test_torch_statesync import run_limited
 from test_torch_types import _cpu, _one_torch_thread  # noqa: F401
 
 _MODS = {
@@ -610,3 +611,138 @@ def test_light_verify_through_the_rpc_equal():
     assert out["port"][2]["result"]["ok"] is False
     assert len(out["port"][3]["result"]["blocks"]) == 2
     assert out["port"][5]["result"] == {"evicted": True, "blocks": []}
+
+
+# ---------------------------------------------------------------------------
+# the RPC over real Nodes (device="cpu")
+# ---------------------------------------------------------------------------
+
+def real_node(p, base, node_key_file):
+    """A Node of package p over a home whose SQLite stores hold the seeded
+    chain (4 validators, 4 heights, a tx each; applied by a BlockExecutor
+    that trusts its own commits) and a kvstore at its tip: a non-validator
+    with block sync off, so consensus starts and commits nothing new.  The
+    node key is the given file's, so both packages' nodes have one id."""
+    import os
+    import shutil
+
+    cfgm = importlib.import_module(f"{p.root}.config.config")
+    node_m = importlib.import_module(f"{p.root}.node")
+    parts = importlib.import_module(f"{p.root}.types.part_set")
+    b = CHAIN_PKG[p.name]
+    gdoc, privs = make_genesis(b, 4)
+    blocks, commits, _states = build_chain(
+        b, gdoc, privs, 4, txs_fn=lambda h: [b"k%d=v%d" % (h, h)])
+    cfg = cfgm.Config(home=os.path.join(str(base), p.name), moniker="rpc")
+    cfg.ensure_dirs()
+    cfg.p2p.laddr = "127.0.0.1:0"
+    cfg.p2p.pex = False
+    cfg.rpc.laddr = "127.0.0.1:0"
+    cfg.block_sync.enable = False
+    cfg.light_serve.prewarm = False
+    with open(cfg.genesis_file(), "w") as f:
+        f.write(gdoc.to_json())
+    shutil.copy(node_key_file, cfg.node_key_file())
+    app = p.kvstore.KVStoreApplication()
+    app.init_chain(p.abci.RequestInitChain(
+        chain_id=gdoc.chain_id, validators=[
+            p.abci.ValidatorUpdate("ed25519", v.pub_key_bytes, v.power)
+            for v in gdoc.validators]))
+    ss = p.sstore.StateStore(p.kvdb.SQLiteDB(cfg.state_db_file()))
+    bs = p.bstore.BlockStore(p.kvdb.SQLiteDB(cfg.block_db_file()))
+    ex = p.execution.BlockExecutor(ss, app, **_kw(p))
+    st = p.state.state_from_genesis(gdoc)
+    ss.save(st)
+    for h in range(1, len(blocks) + 1):
+        if h > 1:
+            ex.mark_commit_verified(h - 1, commits[h - 2])
+        st, _ = ex.apply_block(st, commits[h - 1].block_id, blocks[h - 1])
+        bs.save_block(blocks[h - 1], parts.make_block_parts(blocks[h - 1]),
+                      commits[h - 1])
+    for s in (ss, bs):
+        s.db.flush()
+        s.db.close()
+    node = node_m.Node(cfg, app, **_kw(p))
+    node.start()
+    return node, blocks
+
+
+def _node_servers(base):
+    from tendermint_tpu_torch.p2p.key import NodeKey
+
+    key = str(base / "node_key.json")
+    NodeKey.load_or_generate(key)
+    return {p.name: real_node(p, base, key) for p in PKGS}
+
+
+NODE_CALLS = [
+    ("health", {}), ("genesis", {}),
+    ("blockchain", {"minHeight": 1, "maxHeight": 4}),
+    ("block", {"height": 2}), ("block", {"height": 99}),
+    ("block_results", {"height": 2}), ("commit", {"height": 2}),
+    ("commit", {"height": 4}), ("validators", {"height": 2}),
+    ("consensus_params", {"height": 2}), ("abci_info", {}),
+    ("abci_query", {"data": b"k2".hex()}),
+    ("abci_query", {"data": b"k2".hex(), "prove": True}),
+    ("check_tx", {"tx": _b64(b"x=1")}),
+    ("broadcast_tx_sync", {"tx": _b64(b"y=2")}),
+    ("num_unconfirmed_txs", {}), ("unconfirmed_txs", {}),
+    ("light_block", {"height": 2}), ("block_proto", {"height": 3}),
+    ("genesis_chunked", {"chunk": 0}), ("no_such_route", {}),
+]
+
+
+def test_routes_over_real_nodes_answer_the_same(tmp_path):
+    """Every chain, app and mempool route of both packages' RPCServers,
+    each over its own package's real Node (the port's on device="cpu")
+    holding the same seeded chain: the same JSON; the status the same but
+    the listen address; the block route by hash too."""
+    def run():
+        made = _node_servers(tmp_path)
+        try:
+            out = {}
+            for name, (node, blocks) in made.items():
+                port = node.rpc_server.port
+                rows = [post(port, m, prm) for m, prm in NODE_CALLS]
+                rows.append(post(port, "block_by_hash",
+                                 {"hash": blocks[1].hash().hex()}))
+                st = post(port, "status")["result"]
+                st["node_info"].pop("listen_addr")
+                rows.append(st)
+                rows.append(node.status()["sync_info"]["latest_block_height"])
+                out[name] = rows
+            return out
+        finally:
+            for node, _ in made.values():
+                node.stop()
+    got = run_limited(run, 120)
+    for i, (m, _) in enumerate(NODE_CALLS):
+        assert got["jax"][i] == got["port"][i], m
+    assert got["jax"][len(NODE_CALLS):] == got["port"][len(NODE_CALLS):]
+    assert got["port"][-1] == "4"
+    assert got["port"][NODE_CALLS.index(("broadcast_tx_sync", {
+        "tx": _b64(b"y=2")}))]["result"]["code"] == 0
+
+
+def test_node_status_route_is_the_nodes(tmp_path):
+    """The status route of the port's RPCServer answers its real Node's
+    status(): the node id is the home's key, the chain's tip height and
+    app hash those of the seeded chain, catching_up false (consensus
+    started), no validator info for a non-validator."""
+    def run():
+        made = _node_servers(tmp_path)
+        try:
+            node, _ = made["port"]
+            return (post(node.rpc_server.port, "status")["result"],
+                    node.node_key.node_id,
+                    node.state.app_hash.hex().upper())
+        finally:
+            for n, _ in made.values():
+                n.stop()
+    st, nid, app_hash = run_limited(run, 120)
+    assert st["node_info"]["id"] == nid
+    assert st["sync_info"]["latest_block_height"] == "4"
+    assert st["sync_info"]["latest_app_hash"] == app_hash
+    assert st["sync_info"]["catching_up"] is False
+    assert st["validator_info"]["address"] == ""
+    assert st["validator_info"]["voting_power"] == "0"

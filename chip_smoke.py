@@ -381,7 +381,31 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      the card with 0 launch failures and fallbacks and the breaker
      closed on its /metrics, read from outside while it runs; the
      runner's stages and stats; the full node's app hash the chain's
- 25  the kernels line; then the last line {"ok": true, "device": ...}
+ 25  the multi-GPU data planes (parallel/sharding.py): (a) data_plane()
+     is None on this one-card host (and under TM_TPU_NO_MESH=1); a plane
+     of 4 positions on cuda:0 (make_mesh([cuda:0] * 4)) runs K1 on each
+     position's lanes of phase 6's 100,000 triples (plane.verify_batch,
+     then BatchVerifier with the plane installed), K3 on phase 5's
+     corrupted 100,000-validator bulk (make_sharded_verifier, the compact
+     route: all-valid false), rlc-sharded on phase 8's commit (K4, K5 and
+     A1 a position; vouched, then one bad signature rejected and named by
+     the plane's K1) and phase 15's 1,024-key comb at three budgets
+     (mesh-comb, mesh-comb-sharded, the single-device comb; the
+     mesh_tables ledger), every bitmap and verdict the single-device
+     route's; chaos at sharding.mesh_stage and sharding.mesh_comb; a
+     position's K1 wrapper raising outside a drill (DeviceLaneError, no
+     redo, no plain version); each kernel launched on every position, its
+     first launch held against its plain version; the walls beside the
+     single-device walls (one card: the plane's overhead, not scaling);
+     (b) two ranks of a gloo process group on cuda:0 (`--gmesh-child`,
+     started before phase 24): verify_sigs_bulk(coordinated=True) on a
+     4,096-validator commit with one bad signature (route global-mesh,
+     K3 on each rank's half, both bitmaps the single-device one), one
+     lockstep replay_window of a 150-validator chain of 16 heights (the
+     chain's app hash), the poison latch (rank 1 latches, rank 0 reads
+     None within 2 x _POISON_CHECK_EVERY_S, the next call on both ranks
+     local), every K3 launch against its plain version
+ 26  the kernels line; then the last line {"ok": true, "device": ...}
 
 Signatures come from a seeded incremental generator (a_i = a_0 + i, so
 A_i = A_{i-1} + B), because signing 100k triples one by one in pure
@@ -726,6 +750,124 @@ def network_child(out_dir: str) -> None:
         json.dump(report, f, default=str)
 
 
+# -- phase 25 (b)'s processes: two ranks of one global plane on the card ------
+# `python3 chip_smoke.py --gmesh-child DIR RANK PORT` is one rank of a
+# two-process job (gloo, a TCP store on 127.0.0.1:PORT, rank 0 its server),
+# both ranks on cuda:0, so that the global plane (parallel/sharding.py
+# _GlobalDataPlane) has two positions, one a rank.  Phase 25 writes the
+# inputs (DIR/gmesh_in.pkl: a 4,096-validator commit with one bad signature
+# and a 150-validator chain from one seed) and starts both ranks before
+# phase 24; each rank, in lockstep with the other: (1) verify_sigs_bulk(
+# coordinated=True) on the commit, (2) one lockstep replay_window of the
+# chain into fresh stores, (3) the latch: rank 1 calls
+# disable_global_plane(), rank 0's global_plane() must read None within
+# 2 x _POISON_CHECK_EVERY_S, and the next coordinated bulk call of both
+# ranks takes the local route.  Every K3 launch's inputs and output are kept
+# and held against the plain version in the rank; the launch counts of each
+# step are zeroed before it and read after.  Its report: DIR/gmesh_<rank>.json.
+def gmesh_child(out_dir: str, rank: int, port: int) -> None:
+    import pickle
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from tendermint_tpu_torch.parallel import sharding as shd
+
+    with open(os.path.join(out_dir, "gmesh_in.pkl"), "rb") as f:
+        inp = pickle.load(f)
+    ck.kernels()
+    bare, kept = ck.verify_staged, []
+
+    def keeping(*rows):
+        out = bare(*rows)
+        kept.append(([r.clone() for r in rows], out.clone()))
+        return out
+
+    ck.verify_staged = keeping
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=2, rank=rank,
+                            timeout=timedelta(seconds=300))
+    rep = {"rank": rank, "backend": dist.get_backend()}
+
+    def step(name, fn):
+        ck.reset_launches()
+        n_kept = len(kept)
+        dist.barrier()
+        t = time.perf_counter()
+        out = fn()
+        wall_s = time.perf_counter() - t
+        ll = dict(E.last_launch())
+        rep[name] = {"wall_s": wall_s, "path": ll.get("path"),
+                     "shards": ll.get("shards"), "nb": ll.get("nb"),
+                     "all_valid": ll.get("all_valid"),
+                     "launches": {k: v for k, v in ck.launches.items() if v},
+                     "k3_lanes": [int(o.shape[0]) for _, o in kept[n_kept:]]}
+        return out
+
+    try:
+        keys = [edkeys.PubKey(p) for p in inp["pubs"]]
+        bits = step("bulk", lambda: cbatch.verify_sigs_bulk(
+            keys, inp["msgs"], inp["sigs"], device=DEV, coordinated=True))
+        rep["bulk"]["bitmap"] = np.packbits(bits).tobytes().hex()
+        gdoc = inp["gdoc"]
+        app = KVStoreApplication()
+        app.init_chain(abci_t.RequestInitChain(
+            chain_id=gdoc.chain_id, validators=[
+                abci_t.ValidatorUpdate("ed25519", v.pub_key_bytes, v.power)
+                for v in gdoc.validators]))
+        ex = sexec.BlockExecutor(StateStore(MemDB()), app, device=DEV)
+        store = BlockStore(MemDB())
+        blocks, certs = inp["blocks"], inp["certs"]
+        state, applied = step("replay", lambda: breplay.replay_window(
+            ex, store, state_from_genesis(gdoc), blocks, certs,
+            max_window=len(blocks)))
+        rep["replay"].update(applied=applied,
+                             app_hash=bytes(state.app_hash).hex())
+        # the latch
+        dist.barrier()
+        latch = {"check_every_s": shd._POISON_CHECK_EVERY_S}
+        if rank == 1:
+            shd.disable_global_plane()
+            latch["self_latched"] = shd._GLOBAL_PLANE is False
+        dist.barrier()
+        if rank == 0:
+            t = time.monotonic()
+            seen = False
+            while time.monotonic() - t < 3 * shd._POISON_CHECK_EVERY_S:
+                with shd.lockstep():
+                    if shd.global_plane() is None:
+                        seen = True
+                        break
+                time.sleep(0.02)
+            latch.update(peer_saw_poison=seen,
+                         seen_after_s=time.monotonic() - t)
+        rep["latch"] = latch
+        bits2 = step("after_latch", lambda: cbatch.verify_sigs_bulk(
+            keys, inp["msgs"], inp["sigs"], device=DEV, coordinated=True))
+        rep["after_latch"]["bitmap"] = np.packbits(bits2).tobytes().hex()
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    ck.verify_staged = bare
+    rows = []
+    for rows_in, out in kept:
+        want = ck.verify_staged_plain(*rows_in)
+        err = np.abs(out.cpu().numpy().astype(int)
+                     - want.cpu().numpy().astype(int))
+        rows.append((f"rank {rank}", int(out.shape[0]), int(err.sum()),
+                     float(err.max())))
+    rt = degrade.runtime()
+
+    def total(counter):
+        return sum(float(ln.rsplit(" ", 1)[1]) for ln in counter.render())
+
+    rep.update(k3_vs_plain=rows, failures=total(rt.metrics.device_failures),
+               fallbacks=total(rt.metrics.host_fallbacks),
+               breaker=rt.breaker.state)
+    with open(os.path.join(out_dir, f"gmesh_{rank}.json"), "w") as f:
+        json.dump(rep, f, default=str)
+
+
 MANIFEST24 = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "networks", "ci.toml")
 
@@ -873,6 +1015,9 @@ if len(sys.argv) == 3 and sys.argv[1] == "--network-child":
     sys.exit(0)
 if len(sys.argv) == 4 and sys.argv[1] == "--e2e-watch":
     e2e_watch(sys.argv[2], int(sys.argv[3]))
+    sys.exit(0)
+if len(sys.argv) == 5 and sys.argv[1] == "--gmesh-child":
+    gmesh_child(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]))
     sys.exit(0)
 
 
@@ -10572,6 +10717,71 @@ check(launches23["verify_packed"] > 0 and launches23["comb_verify"] > 0
       f"phase 23: a kernel disagrees with its plain version: {cmp23}")
 REPORT["node"] = node23
 
+# -- phase 25 (b)'s processes, started here and read back in phase 25 --------
+# The two ranks of the global plane (`--gmesh-child`, above) run beside
+# phase 24 on the one card; their inputs are made here: a 4,096-validator
+# commit with one bad signature (BASELINE's commit shape) and a
+# 150-validator kvstore chain (BASELINE config 4's width) of H25 heights of
+# 50 txs from one seed, pickled with its genesis.  The chain's depth is cut
+# to one replay window (PERF.md §4).
+T25S = time.perf_counter()
+root25 = tempfile.mkdtemp(prefix="smoke25_")
+H25 = 16
+rng = random.Random(SEED + 25)
+vset25, commit25, bid25, msgs25r = make_commit(4096, rng)
+pubs25 = [v.pub_key.bytes() for v in vset25.validators]
+msgs25 = [msgs25r[i] for i in range(len(pubs25))]
+sigs25 = [cs.signature for cs in commit25.signatures]
+BAD25 = 1234
+sigs25[BAD25] = corrupt(sigs25[BAD25], rng)
+expect25 = np.ones(len(pubs25), dtype=bool)
+expect25[BAD25] = False
+gdoc25, store25, states25, _ = build18(150, H25, 50)
+blocks25, certs25 = served18(store25, H25)
+with open(os.path.join(root25, "gmesh_in.pkl"), "wb") as _f:
+    import pickle
+    pickle.dump({"pubs": pubs25, "msgs": msgs25, "sigs": sigs25,
+                 "gdoc": gdoc25, "blocks": blocks25, "certs": certs25}, _f)
+procs25: dict = {}
+
+
+def free_port25() -> int:
+    with socket.socket() as s_:
+        s_.bind(("127.0.0.1", 0))
+        return s_.getsockname()[1]
+
+
+def start25() -> None:
+    """Both ranks on a fresh port, each in a process group of its own."""
+    port = free_port25()
+    for rank in (0, 1):
+        log_path = os.path.join(root25, f"rank{rank}.out")
+        with open(log_path, "w") as f:
+            p = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--gmesh-child",
+                 root25, str(rank), str(port)], cwd=HERE24, stdout=f,
+                stderr=subprocess.STDOUT, start_new_session=True)
+        procs25[rank] = (p, log_path, time.perf_counter())
+
+
+def stop_procs25():
+    for p, _, _ in procs25.values():
+        try:
+            os.killpg(p.pid, 9)
+        except OSError:
+            pass
+        try:
+            p.wait(30)
+        except subprocess.TimeoutExpired:
+            pass
+
+
+atexit.register(stop_procs25)
+check(not failpoints.armed(), "phase 25: a failpoint is armed")
+start25()
+log(phase=25, card=CARD, step="b processes started", heights=H25,
+    prepare_s=time.perf_counter() - T25S)
+
 # -- phase 24: the in-process network harness and the e2e runner ------------
 # The harness (networks/: vnet, NetHarness, scenarios, invariants) and the
 # e2e runner (e2e/) on the card, through the entry points a user calls.
@@ -11021,7 +11231,443 @@ check(launches24["verify_packed"] > 0
       f"phase 24: a kernel disagrees with its plain version: {cmp24}")
 REPORT["network"] = net24
 
-# -- phase 25: the kernels line -----------------------------------------------
+# -- phase 25: the multi-GPU data planes ---------------------------------------
+# parallel/sharding.py on the one card.  (a) data_plane() is None on this
+# one-card host (and under TM_TPU_NO_MESH=1), so a plane of 4 positions on
+# cuda:0 is built explicitly (make_mesh([cuda:0] * 4)), as the JAX CPU tests
+# build theirs on virtual devices, and driven through its entry points:
+# K1 on each position's lanes of phase 6's 100,000 ad-hoc triples
+# (plane.verify_batch, then BatchVerifier with the plane installed as the
+# process's data plane), K3 on phase 5's 100,000-validator bulk with 0.1%
+# corrupted lanes (make_sharded_verifier's run and the compact route,
+# all-valid bit false), rlc-sharded on phase 8's 100,000-validator commit
+# (K4, the sort, K5 and A1 a position; vouched, then one bad signature
+# rejected and named by the plane's K1), and phase 15's 1,024-key set at
+# three budgets (mesh-comb: a table copy a position; mesh-comb-sharded: a
+# quarter of the keys a position; the single-device comb), each bitmap the
+# single-device route's; chaos at sharding.mesh_stage and
+# sharding.mesh_comb; a position's K1 wrapper raising outside a drill
+# (DeviceLaneError, no single-device redo, no plain version).  The first
+# launch of each kernel (position 0) is held against its plain version.
+# Walls beside the single-device walls of the same batch: on one card they
+# measure the plane's overhead, not scaling.  (b) the two ranks started
+# before phase 24 (`--gmesh-child`): both ranks' bitmaps the single-device
+# one, each rank's K3 on its half, the lockstep replay on route
+# global-mesh to the chain's app hash, the poison latch.
+T25 = time.perf_counter()
+from tendermint_tpu_torch.parallel import sharding as S  # noqa: E402
+
+E.table_cache_clear()
+check(not msm.use_rlc(10_000) and not failpoints.armed()
+      and vsched.installed() is None,
+      "phase 25: RLC, a failpoint or a scheduler is still on")
+degrade.configure(degrade.DegradeConfig.from_env(), registry=Registry("p25"))
+plane25: dict = {"card": CARD}
+walls25: dict = {}
+cmp25 = {"verify_packed": [], "verify_staged": [], "comb_verify": []}
+
+with S._PLANE_LOCK:
+    S._PLANE = S._PLANE_KEY = None
+dp25 = {"cards": torch.cuda.device_count(), "data_plane": S.data_plane()}
+os.environ["TM_TPU_NO_MESH"] = "1"
+S._PLANE = None
+dp25["no_mesh"] = S.data_plane()
+del os.environ["TM_TPU_NO_MESH"]
+S._PLANE = None
+check(dp25 == {"cards": 1, "data_plane": None, "no_mesh": None},
+      f"phase 25: data_plane() on this host: {dp25}")
+plane25["data_plane"] = {k: str(v) for k, v in dp25.items()}
+
+P25 = S._DataPlane(S.make_mesh([DEV] * 4))
+pos25: dict = {}        # kernel -> launches a position
+_bare_launch25 = S._DataPlane._launch
+
+
+def _counting25(pos, dev, fn, *args):
+    """A position's launch, its kernel launches counted by position."""
+    before = {**ck.launches, **cm.launches, **cc.launches}
+    out = _bare_launch25(pos, dev, fn, *args)
+    for k, v in {**ck.launches, **cm.launches, **cc.launches}.items():
+        if v > before[k]:
+            pos25.setdefault(k, [0] * P25.nshard)[pos] += v - before[k]
+    return out
+
+
+P25._launch = _counting25
+
+
+def install25(on: bool) -> None:
+    """The 4-position plane as the process's data plane, or none."""
+    with S._PLANE_LOCK:
+        S._PLANE = P25 if on else None
+        S._PLANE_KEY = S._topology_key()
+
+
+KERN25 = ("verify_packed", "verify_staged", "decompress_niels",
+          "bucket_scan", "aggregate", "comb_verify")
+for _name in KERN25:
+    setattr(KERNEL_MOD[_name], _name, _recording(_name))
+
+
+def step25(label, fn, capture=(), site=None):
+    """fn() on the main path; returns (the result, the launch counts, the
+    launch record)."""
+    t = time.perf_counter()
+    out, c = main_path(fn, capture=capture, site=site)
+    walls25[label] = time.perf_counter() - t
+    return out, {k: v for k, v in c.items() if v}, dict(E.last_launch())
+
+
+# -- K1: phase 6's 100,000 ad-hoc triples
+p6, m6, s6 = trip6
+bits, c, rec = step25("k1 plane", lambda: P25.verify_batch(p6, m6, s6),
+                      capture=("verify_packed", "phase 25 K1, position 0"))
+check(rec["path"] == "mesh-cuda" and rec["nb"] == 131_072
+      and rec["shards"] == 4 and c == {"verify_packed": 4}
+      and np.array_equal(bits, expect6) and np.array_equal(bits, bits6),
+      f"phase 25 K1 plane: {c} {rec}")
+cmp25["verify_packed"].append(plain_on_captured("verify_packed",
+                                                expect6[:32_768]))
+plane25["k1"] = {"launches": c, "record": rec}
+install25(True)
+cbatch.verified_sigs = cbatch.SigCache()
+bv25 = cbatch.BatchVerifier(device=DEV)
+for p_, m_, s_ in zip(p6, m6, s6):
+    bv25.add(edkeys.PubKey(p_), m_, s_)
+(ok_b, bits_b), c, rec = step25("k1 BatchVerifier", bv25.verify,
+                                site="batch.ed25519")
+check(rec["path"] == "mesh-cuda" and c == {"verify_packed": 4}
+      and not ok_b and np.array_equal(bits_b, expect6),
+      f"phase 25 K1 through BatchVerifier: {c} {rec}")
+plane25["k1_batch_verifier"] = {"launches": c, "record": rec}
+install25(False)
+
+# -- K3: phase 5's corrupted 100,000-validator bulk
+msgs5l = list(msgs100k)
+staged25, host_ok25 = E.prepare_batch_compact(mat, sig_bad, msgs5l)
+_, run25 = S.make_sharded_verifier(P25.mesh)
+bits, c, rec = step25("k3 sharded verifier",
+                      lambda: run25(staged25) & host_ok25,
+                      capture=("verify_staged", "phase 25 K3, position 0"))
+check(rec["path"] == "mesh-sharded" and rec["shards"] == 4
+      and rec["nb"] == 100_000 and c == {"verify_staged": 4}
+      and np.array_equal(bits, expect5),
+      f"phase 25 K3 sharded verifier: {c} {rec}")
+cmp25["verify_staged"].append(plain_on_captured("verify_staged",
+                                                expect5[:25_000]))
+check(cmp25["verify_staged"][-1][1] == 25_000,
+      f"phase 25 K3: position 0's launch {cmp25['verify_staged'][-1]}")
+bits, c, rec = step25("k3 compact route",
+                      lambda: P25._verify_compact(staged25, host_ok25))
+check(rec["path"] == "mesh-xla" and rec["nb"] == 131_072
+      and rec["chunks"] == 2 and rec["all_valid"] is False
+      and c == {"verify_staged": 8} and np.array_equal(bits, expect5),
+      f"phase 25 K3 compact route: {c} {rec}")
+plane25["k3"] = {"launches": c, "record": rec}
+
+# -- RLC: phase 8's 100,000-validator commit, vouched, then one bad
+msm.set_enabled(True)
+RLC25 = [("decompress_niels", "phase 25 rlc-sharded, position 0"),
+         ("bucket_scan", "phase 25 rlc-sharded, position 0"),
+         ("aggregate", "phase 25 rlc-sharded, position 0")]
+ok, c, rec = step25("rlc sharded", lambda: msm.verify_batch_rlc(
+    vp100k, msgs100k, sig100k, plane=P25, device=DEV), capture=RLC25)
+route = dict(msm.last_route())
+check(ok is True and (route["path"], route["outcome"], route["nb"],
+                      route["shards"], route["c"])
+      == ("rlc-sharded", "vouched", 131_072, 4, 8)
+      and c == {"decompress_niels": 4, "bucket_scan": 4, "aggregate": 4}
+      and len(rec.get("shard_h2d_s", ())) == 4
+      and route8a["outcome"] == "vouched",
+      f"phase 25 rlc-sharded: {ok} {route} {c}")
+plane25["rlc"] = {"launches": c, "route": route, "record": rec}
+sig_s1 = list(sig100k)
+sig_s1[bad8] = orig8[:32] + s8.to_bytes(32, "little")
+install25(True)
+bits, c, rec = step25("rlc sharded, one bad", lambda: E.verify_batch(
+    vp100k, msgs100k, sig_s1, device=DEV))
+route = dict(msm.last_route())
+want8 = np.ones(100_000, dtype=bool)
+want8[bad8] = False
+check(route["path"] == "rlc-sharded" and route["outcome"] == "rejected"
+      and route8b["outcome"] == "rejected" and rec["path"] == "mesh-cuda"
+      and c == {"decompress_niels": 4, "bucket_scan": 4, "aggregate": 4,
+                "verify_packed": 4} and np.array_equal(bits, want8),
+      f"phase 25 rlc-sharded, one bad: {route} {rec} {c}")
+plane25["rlc_bad"] = {"launches": c, "route": route}
+install25(False)
+label, (b_rows,), (n10, ok10) = captured["decompress_niels"][-1]
+k4_cmp(label, b_rows, n10, ok10)
+label, (table, rows, seg), out = captured["bucket_scan"][-1]
+plain = cm.bucket_scan_plain(cm.limbs22_from_bytes(cm.to_bytes10(table)),
+                             rows)
+msm_cmp["bucket_scan"].append(
+    (label,) + point_cmp(cm.to_bytes10(out), cm.to_bytes22(plain)))
+label, (bk, W, c_), ws = captured["aggregate"][-1]
+plain = cm.aggregate_plain(cm.limbs22_from_bytes(cm.to_bytes10(bk)), W, c_)
+msm_cmp["aggregate"].append((label,) + point_cmp(ws, plain))
+check(all(msm_cmp[k][-1][2] == 0 for k in msm_cmp),
+      f"phase 25: K4, K5 or A1 differs from plain: "
+      f"{[msm_cmp[k][-1] for k in msm_cmp]}")
+msm.set_enabled(None)
+
+# -- the comb: phase 15's 1,024-key set at three budgets
+TB25 = E._TABLE_BYTES_PER_KEY
+E.set_comb_config(table_cache_mb=400)
+check(E.prewarm(keys1k, device=DEV), "phase 25: the 1,024-key prewarm")
+keys25 = [keys1k[j] for j in idx15]
+comb_single, c, rec = step25("comb single", lambda: E.verify_batch(
+    keys25, msgs15, sigs15, device=DEV))
+check(rec["path"] == "comb" and c == {"comb_verify": 1}
+      and np.array_equal(comb_single, expect15),
+      f"phase 25 single-device comb: {c} {rec}")
+install25(True)
+comb25 = {}
+for mb, path, cap in ((400, "mesh-comb", ("comb_verify",
+                                          "phase 25 mesh-comb, position 0")),
+                      (300, "mesh-comb-sharded", ()), (220, "comb", ())):
+    E.set_comb_config(table_cache_mb=mb)
+    bits, c, rec = step25(f"comb {mb} MiB", lambda: E.verify_batch(
+        keys25, msgs15, sigs15, device=DEV), capture=cap)
+    comb25[path] = {"launches": c, "record": rec, "mesh_tables": (
+        devobs.ledger_report().get("mesh_tables", {}).get("bytes"))}
+    check(rec["path"] == path and np.array_equal(bits, comb_single)
+          and c == {"comb_verify": 1 if path == "comb" else 4},
+          f"phase 25 comb at {mb} MiB: {c} {rec}")
+check(comb25["mesh-comb"]["mesh_tables"] == 3 * 1024 * TB25
+      and comb25["mesh-comb-sharded"]["mesh_tables"] == 4 * 1024 * TB25
+      and comb25["comb"]["mesh_tables"] == 4 * 1024 * TB25,
+      f"phase 25: the mesh_tables ledger: {comb25}")
+label, args, out = captured["comb_verify"][-1]
+ptab, pok = plain_tables(keys1k)
+cmp25["comb_verify"].append(c2_row(
+    label, out.cpu().numpy(),
+    cc.comb_verify_plain(args[0], ptab, pok).cpu().numpy()))
+# chaos at sharding.mesh_comb: the single-device comb, exact bitmap
+rt25 = degrade.runtime()
+E.set_comb_config(table_cache_mb=400)
+dec0 = rt25.metrics.msm_route.value(path="mesh-comb", outcome="declined")
+failpoints.set_mode("sharding.mesh_comb", "raise")
+try:
+    bits, c, rec = step25("chaos mesh_comb", lambda: E.verify_batch(
+        keys25[:4096], msgs15[:4096], sigs15[:4096], device=DEV))
+finally:
+    failpoints.clear("sharding.mesh_comb")
+chaos25 = {"mesh_comb": {"launches": c, "path": rec["path"], "declined":
+                         rt25.metrics.msm_route.value(
+                             path="mesh-comb", outcome="declined") - dec0}}
+check(rec["path"] == "comb" and c == {"comb_verify": 1}
+      and chaos25["mesh_comb"]["declined"] == 1
+      and np.array_equal(bits, expect15[:4096]),
+      f"phase 25 chaos at sharding.mesh_comb: {chaos25}")
+E.table_cache_clear()
+E._table_budget_override = None
+check(devobs.ledger_report().get("mesh_tables", {}).get("bytes") == 0,
+      "phase 25: the mesh_tables pool is not back to 0")
+plane25["comb"] = comb25
+# chaos at sharding.mesh_stage: the single-device ladder, exact bitmap
+dec0 = rt25.metrics.msm_route.value(path="mesh-cuda", outcome="declined")
+failpoints.set_mode("sharding.mesh_stage", "raise")
+try:
+    bits, c, rec = step25("chaos mesh_stage", lambda: E.verify_batch(
+        p6[:4096], m6[:4096], s6[:4096], device=DEV))
+finally:
+    failpoints.clear("sharding.mesh_stage")
+chaos25["mesh_stage"] = {"launches": c, "path": rec["path"], "declined":
+                         rt25.metrics.msm_route.value(
+                             path="mesh-cuda", outcome="declined") - dec0}
+check(rec["path"] == "cuda" and c == {"verify_packed": 1}
+      and chaos25["mesh_stage"]["declined"] == 1
+      and np.array_equal(bits, expect6[:4096]),
+      f"phase 25 chaos at sharding.mesh_stage: {chaos25}")
+plane25["chaos"] = chaos25
+for s_ in ("batch.ed25519",):
+    runtime_clean("phase 25", s_)
+
+# -- walls beside the single-device walls of the same batch (one card: the
+# plane's overhead, not scaling)
+single25 = {
+    "k1": lambda: E.verify_batch(p6, m6, s6, device=DEV),
+    "k3": lambda: ck.verify_staged(*(
+        torch.from_numpy(staged25[k].view(np.uint8)).to(DEV)
+        for k in ("pub", "r", "s", "digest"))).cpu().numpy() & host_ok25,
+    "rlc": lambda: msm.verify_batch_rlc(vp100k, msgs100k, sig100k,
+                                        device=DEV)}
+plane_fns25 = {
+    "k1": lambda: P25.verify_batch(p6, m6, s6),
+    "k3": lambda: P25._verify_compact(staged25, host_ok25),
+    "rlc": lambda: msm.verify_batch_rlc(vp100k, msgs100k, sig100k,
+                                        plane=P25, device=DEV)}
+
+
+def walls_of25(fn, reps=2):
+    """Host walls of `reps` calls of fn after one warm-up call (phase 7's
+    `wall`; the name is a number by phase 25)."""
+    fn()
+    out = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        out.append(time.perf_counter() - t)
+    return out
+
+
+msm.set_enabled(True)
+wall25 = {}
+for key in single25:
+    wall25[key] = {"plane_s": walls_of25(plane_fns25[key]),
+                   "single_s": walls_of25(single25[key])}
+msm.set_enabled(None)
+plane25["walls_s"] = wall25
+log(phase=25, card=CARD, at_s=time.perf_counter() - T25, step="a plane",
+    walls=wall25, per_position=pos25, comb=comb25, chaos=chaos25)
+
+# -- a position's K1 wrapper raising outside a drill
+check(not failpoints.armed(), "phase 25: a failpoint is armed")
+rt = degrade.runtime()
+fails0 = counter_total(rt.metrics.device_failures)
+falls0 = counter_total(rt.metrics.host_fallbacks)
+k1_seen, plain_seen = [], [0]
+keeping = ck.verify_packed
+keeping_plain = ck.verify_packed_plain
+
+
+def position1_fails(packed):
+    k1_seen.append(int(packed.shape[1]))
+    if len(k1_seen) == 2:
+        launch_failed(packed)
+    return keeping(packed)
+
+
+def plain_counted(packed):
+    plain_seen[0] += 1
+    return keeping_plain(packed)
+
+
+install25(True)
+cbatch.verified_sigs = cbatch.SigCache()
+bvf = cbatch.BatchVerifier(device=DEV)
+for p_, m_, s_ in zip(p6[:4096], m6[:4096], s6[:4096]):
+    bvf.add(edkeys.PubKey(p_), m_, s_)
+ck.verify_packed, ck.verify_packed_plain = position1_fails, plain_counted
+try:
+    err25 = None
+    try:
+        bvf.verify()
+    except Exception as e:  # noqa: BLE001 - checked below
+        err25 = e
+finally:
+    ck.verify_packed, ck.verify_packed_plain = keeping, keeping_plain
+install25(False)
+fault25 = {"error": type(err25).__name__, "k1_calls": k1_seen,
+           "plain_calls": plain_seen[0],
+           "failures": counter_total(rt.metrics.device_failures) - fails0,
+           "fallbacks": counter_total(rt.metrics.host_fallbacks) - falls0}
+check(isinstance(err25, degrade.DeviceLaneError) and k1_seen == [1024, 1024]
+      and plain_seen[0] == 0 and fault25["failures"] >= 1
+      and fault25["fallbacks"] == 0,
+      f"phase 25: a position's card fault: {fault25} ({err25!r})")
+degrade.configure(degrade.DegradeConfig.from_env(),
+                  registry=Registry("p25 after the fault"))
+plane25["card_fault"] = fault25
+for _name in KERN25:
+    setattr(KERNEL_MOD[_name], _name, REAL[_name])
+check(sorted(pos25) == sorted(KERN25)
+      and all(len(v) == 4 and min(v) > 0 for v in pos25.values()),
+      f"phase 25: a kernel did not launch on every position: {pos25}")
+plane25["per_position_launches"] = pos25
+staging_clear(25)
+
+# -- (b) the two ranks of the global plane
+single_b25, c, rec = step25("b single-device", lambda: cbatch.verify_sigs_bulk(
+    [edkeys.PubKey(p_) for p_ in pubs25], msgs25, sigs25, device=DEV),
+    site="bulk.ed25519")
+check(np.array_equal(single_b25, expect25), "phase 25 (b): the single-device "
+      "bitmap of the 4,096-validator commit")
+
+
+def collect25():
+    """Both ranks' reports; a pair whose rank 0 lost its port to another
+    process between the probe and the bind is started once more."""
+    for attempt in range(2):
+        rcs = []
+        for rank in (0, 1):
+            p_, _, _ = procs25[rank]
+            try:
+                rcs.append(p_.wait(max(60.0, 400.0 - (
+                    time.perf_counter() - procs25[rank][2]))))
+            except subprocess.TimeoutExpired:
+                rcs.append(None)
+        outs = []
+        for rank in (0, 1):
+            with open(procs25[rank][1]) as f_:
+                outs.append(f_.read())
+        if rcs == [0, 0]:
+            break
+        stop_procs25()
+        if attempt == 0 and any("EADDRINUSE" in o or "ddress already in use"
+                                in o for o in outs):
+            start25()
+            continue
+        fail(f"phase 25 (b): the ranks exited {rcs}:\n"
+             + "\n".join(o[-3000:] for o in outs))
+    reps = []
+    for rank in (0, 1):
+        with open(os.path.join(root25, f"gmesh_{rank}.json")) as f_:
+            reps.append(json.load(f_))
+    return reps, {r: procs25[r][2] for r in (0, 1)}
+
+
+g25, _ = collect25()
+walls25["b ranks"] = time.perf_counter() - T25S
+
+
+def bits25(hexs):
+    return np.unpackbits(np.frombuffer(bytes.fromhex(hexs), np.uint8)
+                         )[:len(pubs25)].astype(bool)
+
+
+for r in g25:
+    b_, rp, al = r["bulk"], r["replay"], r["after_latch"]
+    check(r["backend"] == "gloo" and b_["path"] == "global-mesh"
+          and b_["shards"] == 2 and b_["all_valid"] is False
+          and b_["launches"] == {"verify_staged": 1}
+          and b_["k3_lanes"] == [b_["nb"] // 2]
+          and np.array_equal(bits25(b_["bitmap"]), single_b25),
+          f"phase 25 (b) rank {r['rank']}: the coordinated bulk {b_}")
+    check(rp["path"] == "global-mesh" and rp["shards"] == 2
+          and rp["applied"] == H25 and rp["launches"].get("verify_staged")
+          and rp["app_hash"] == bytes(states25[-1].app_hash).hex(),
+          f"phase 25 (b) rank {r['rank']}: the lockstep replay {rp}")
+    check(al["path"] != "global-mesh" and al["shards"] == 1
+          and "verify_staged" not in al["launches"]
+          and np.array_equal(bits25(al["bitmap"]), single_b25),
+          f"phase 25 (b) rank {r['rank']}: after the latch {al}")
+    check(r["failures"] == 0 and r["fallbacks"] == 0
+          and r["breaker"] == degrade.CLOSED
+          and all(row[2] == 0 for row in r["k3_vs_plain"]),
+          f"phase 25 (b) rank {r['rank']}: {r}")
+    cmp25["verify_staged"] += [tuple(row) for row in r["k3_vs_plain"]]
+    for step_ in (b_, rp, al):
+        for k_, v_ in step_["launches"].items():
+            launches_main[k_] = launches_main.get(k_, 0) + v_
+check(g25[1]["latch"]["self_latched"] and g25[0]["latch"]["peer_saw_poison"]
+      and g25[0]["latch"]["seen_after_s"]
+      <= 2 * g25[0]["latch"]["check_every_s"],
+      f"phase 25 (b): the poison latch {g25[0]['latch']} "
+      f"{g25[1]['latch']}")
+plane25["global"] = g25
+shutil.rmtree(root25)
+plane25.update(comparisons=cmp25, walls=walls25,
+               phase_s=time.perf_counter() - T25)
+log(phase=25, card=CARD, at_s=time.perf_counter() - T25, step="b ranks",
+    ranks=[{k: r[k] for k in ("rank", "bulk", "replay", "latch",
+                              "after_latch")} for r in g25])
+log(phase=25, card=CARD, at_s=time.perf_counter() - T25,
+    comparisons=cmp25, walls=walls25, phase_s=plane25["phase_s"])
+REPORT["planes"] = plane25
+
+# -- phase 26: the kernels line -----------------------------------------------
 
 src = "tendermint_tpu_torch/csrc/ed25519_verify.cu"
 # each comparison: (input, lanes, mismatching lanes, max |kernel - plain|)
@@ -11031,7 +11677,8 @@ k1_cmp = [("phase-3 vectors + seeded", k1_cmp_lanes, k1_mism,
     + cmp17["verify_packed"] + cmp18["verify_packed"] \
     + cmp19["verify_packed"] + cmp20["verify_packed"] \
     + cmp21["verify_packed"] + cmp22["verify_packed"] \
-    + cmp23["verify_packed"] + cmp24["verify_packed"]
+    + cmp23["verify_packed"] + cmp24["verify_packed"] \
+    + cmp25["verify_packed"]
 k2_cmp = [("phase-3 vectors + seeded", len(k2_raw3), k2_mism3,
            float(np.abs(k2_raw3.astype(int) - k2_plain3.astype(int)).max())),
           ("100k slice", 4096, k2_mism,
@@ -11043,7 +11690,7 @@ k2_cmp = [("phase-3 vectors + seeded", len(k2_raw3), k2_mism3,
     + cmp23["verify_packed_split"] + cmp24["verify_packed_split"]
 k3_cmp = [("phase-3 vectors + seeded", len(k3_raw3), k3_mism3,
            float(np.abs(k3_raw3.astype(int) - k3_plain3.astype(int)).max())),
-          cmp11]
+          cmp11] + cmp25["verify_staged"]
 kernels = [
     {"name": "K1 verify_packed", "route": "cuda", "source": src,
      "replaces": "tendermint_tpu/ops/pallas_ed25519.py:826",
@@ -11131,7 +11778,8 @@ cmp15 += cmp16["comb_build"] + cmp17["comb_build"] + cmp18["comb_build"] \
     + cmp23["comb_build"] + cmp24["comb_build"]
 c2_cmp += cmp16["comb_verify"] + cmp17["comb_verify"] \
     + cmp18["comb_verify"] + cmp19["comb_verify"] + cmp21["comb_verify"] \
-    + cmp22["comb_verify"] + cmp23["comb_verify"] + cmp24["comb_verify"]
+    + cmp22["comb_verify"] + cmp23["comb_verify"] + cmp24["comb_verify"] \
+    + cmp25["comb_verify"]
 c2_vs_k1 += c2_vs_k1_16
 comb_src = "tendermint_tpu_torch/csrc/comb.cu"
 kernels.append(

@@ -30,14 +30,13 @@ The port's departures from the JAX package's replay:
   * the executor's device (BlockExecutor.device) is the device of every
     signature the window verifies: the coalesced batch's verify_items and
     the strict path's verify_commit_light take device=executor.device;
-  * the coalesced batch has no global-mesh branch (one card has no mesh;
-    the lockstep branch comes with the sharded paths);
   * a launch that failed on the card outside a chaos drill
     (degrade.DeviceLaneError with no failpoint armed) is not a fault of
     the peer's data: it leaves replay_window as WindowDeviceError, a
     DeviceLaneError that carries the state and the count of the blocks
     that did apply, never wrapped in WindowSyncError and never retried on
-    the strict path.  In a chaos drill the JAX package's behaviour holds.
+    the strict path, on the lockstep branch as on the local one.  In a
+    chaos drill the JAX package's behaviour holds.
 """
 from __future__ import annotations
 
@@ -250,14 +249,24 @@ def replay_window(executor, store, state, blocks: List[Block],
             # replay class on the shared verify scheduler (coalesces
             # with whatever consensus/light work is in flight, below
             # their priority) when it runs on the executor's device;
-            # exact BatchVerifier semantics either way.  One card has no
-            # global mesh: the lockstep branch (every process replaying
-            # the same window into the mesh collective) comes with the
-            # sharded paths
+            # exact BatchVerifier semantics either way.  On a
+            # multi-process runtime (torch.distributed initialised) this
+            # is a lockstep-safe site: every process replays the same
+            # window in the same order, so the batch may enter the
+            # global plane's collective (ADR-027) — coordinated=True
+            # skips the scheduler, whose coalescing with process-local
+            # traffic would break the cross-process shape agreement
+            from tendermint_tpu_torch.parallel import sharding
             try:
-                all_ok, _bits = vsched.verify_items(
-                    items, vsched.Priority.BLOCKSYNC,
-                    device=executor.device)
+                if sharding.global_mesh_ready():
+                    with sharding.lockstep():
+                        all_ok, _bits = vsched.verify_items(
+                            items, vsched.Priority.BLOCKSYNC,
+                            device=executor.device, coordinated=True)
+                else:
+                    all_ok, _bits = vsched.verify_items(
+                        items, vsched.Priority.BLOCKSYNC,
+                        device=executor.device)
             except Exception as e:
                 if card_fault(e):
                     raise window_error(base_h, e, state, 0) from e

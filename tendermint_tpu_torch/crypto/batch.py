@@ -497,7 +497,8 @@ def _host_verify_items(tname: str, items, assume_miss: bool = False,
 
 
 def verify_sigs_bulk(pubs: Sequence[PubKey], msgs, sigs: Sequence[bytes],
-                     tpu_threshold: int = 32, device=None) -> np.ndarray:
+                     tpu_threshold: int = 32, device=None,
+                     coordinated: bool = False) -> np.ndarray:
     """Bitmap for n (pub, msg, sig) triples without per-item _Item objects
     — the whole-commit path (types/validator_set.py), where n can be 100k+.
     `msgs` may be a RaggedBytes (the batched sign-bytes assembler's output)
@@ -520,10 +521,31 @@ def verify_sigs_bulk(pubs: Sequence[PubKey], msgs, sigs: Sequence[bytes],
     key cache) keep the direct path.  Only SchedulerError and
     TimeoutError send a scheduled batch to the direct path: a launch
     that failed on the card raises DeviceLaneError here, as it does on
-    the direct path.  (The coordinated multi-process sweep waits for
-    its port.)"""
+    the direct path.
+
+    coordinated=True: the caller asserts every process of a
+    multi-process runtime performs this exact bulk verify in the same
+    order (a coordinated catch-up / audit sweep, ADR-027): the call runs
+    inside a sharding.lockstep() window so the batch may enter the
+    global plane's collective, and the scheduler is skipped (its
+    coalescing with process-local traffic would break cross-process
+    shape agreement)."""
+    from contextlib import ExitStack
+    with ExitStack() as stack:
+        if coordinated:
+            from tendermint_tpu_torch.parallel import sharding
+            if sharding.global_mesh_ready():
+                stack.enter_context(sharding.lockstep())
+            else:
+                coordinated = False
+        return _verify_sigs_bulk(pubs, msgs, sigs, tpu_threshold, device,
+                                 coordinated)
+
+
+def _verify_sigs_bulk(pubs, msgs, sigs, tpu_threshold: int, device,
+                      coordinated: bool) -> np.ndarray:
     n = len(pubs)
-    if n and not isinstance(pubs, np.ndarray):
+    if n and not coordinated and not isinstance(pubs, np.ndarray):
         from tendermint_tpu_torch.crypto import scheduler as vsched
         sch = vsched.running_on(resolve_device(device))
         if sch is not None and n <= sch.max_batch:

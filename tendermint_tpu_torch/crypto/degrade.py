@@ -363,8 +363,15 @@ class DeviceLaneRuntime:
                 self._backend_backoff = self.cfg.backoff_base_s
             self.metrics.backend_probes.inc(
                 result="accelerator" if ok else "cpu")
-            # (the mesh plane's topology refresh waits for the sharded
-            # paths to be ported)
+            # a successful probe is the one moment the device topology
+            # can have changed under a latched mesh plane (the backend
+            # came up after the plane's first look): let the plane
+            # rebuild itself against the live device list (ADR-027)
+            try:
+                from tendermint_tpu_torch.parallel import sharding
+                sharding.invalidate_on_topology_change()
+            except Exception:  # noqa: BLE001 - plane upkeep must not
+                pass            # fail a backend probe
             return ok
         except Exception:
             with self._backend_lock:
@@ -392,19 +399,31 @@ class DeviceLaneRuntime:
         self.metrics.device_launches.inc(site=site)
         # the launch runs on the lane worker thread: capture the caller's
         # span id HERE so the worker's span links into the caller's tree
-        # (the thread-local stack doesn't cross the pool boundary).  (The
-        # mesh lockstep mark waits for the sharded paths to be ported.)
+        # (the thread-local stack doesn't cross the pool boundary).
+        # The lockstep mark (parallel/sharding, ADR-027) is thread-local
+        # for the same reason and crosses the boundary the same way —
+        # without re-arming it on the worker, a coordinated caller's
+        # batch would lose its global-mesh eligibility here
         parent = trace.current_id()
+        from tendermint_tpu_torch.parallel import sharding
+        locked = sharding.in_lockstep()
 
         def _launch():
             with trace.span("device.launch", parent=parent, site=site):
                 fail.inject(site)
+                if locked:
+                    with sharding.lockstep():
+                        return fn(*args)
                 return fn(*args)
         try:
             f = self._get_pool().submit(_launch)
         except Exception as e:  # noqa: BLE001 - e.g. pool at shutdown
             f = _cf.Future()
             f.set_exception(e)
+        # collect() reads this on a wedge: a lockstep launch that times
+        # out is the global collective's signature hang (a peer never
+        # entered), and the latch must trip on the FIRST one
+        f.tm_lockstep = locked
         return f
 
     def collect(self, site: str, fut: _cf.Future,
@@ -451,8 +470,15 @@ class DeviceLaneRuntime:
                     reason = "timeout"
                     self._quarantine_pool()
                     fut.cancel()
-                    # (latching the global mesh plane off on a wedged
-                    # lockstep launch waits for the sharded paths)
+                    from tendermint_tpu_torch.parallel import sharding
+                    if getattr(fut, "tm_lockstep", False) and \
+                            sharding.global_mesh_ready():
+                        # a coordinated launch wedged past the deadline
+                        # on a multi-process runtime means a collective
+                        # a peer never entered: latch the global plane
+                        # off NOW (and poison it job-wide) rather than
+                        # burning one launch deadline per later batch
+                        sharding.disable_global_plane()
             except Exception as e:  # noqa: BLE001 - any fault degrades
                 err = e
                 reason = "integrity" if isinstance(e, DeviceLaneError) \

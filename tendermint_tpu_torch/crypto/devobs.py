@@ -84,14 +84,33 @@ PHASES = ("stage_s", "h2d_s", "compute_s", "collect_s", "drain_s")
 # accept any pool name (the gauge is labeled).  The port feeds table_cache
 # (ops/ed25519's comb table cache, the bytes it charges), pub_cache (its
 # DeviceLRU of pubkey rows), base_comb (B's static comb of the route's
-# device), and staging (the chunk feed's pinned and device buffers, the
-# comb route's per-launch rows); mesh_tables waits for the sharded paths
+# device), staging (the chunk feed's pinned and device buffers, the
+# comb route's per-launch rows, the data plane's in-flight chunks) and
+# mesh_tables (the data plane's comb table copies beyond the build copy,
+# parallel/sharding)
 KNOWN_POOLS = ("table_cache", "pub_cache", "base_comb", "staging",
                "mesh_tables")
 
 
-# (shard_fields, the per-shard real-row model of a mesh launch record,
-# waits for the sharded paths)
+def shard_fields(n: int, nb: int, shards: int) -> dict:
+    """Per-shard real-row counts + max/mean imbalance for a mesh launch
+    record: nb padded lanes split contiguously over `shards`, the first
+    ceil(n/per) shards holding real rows.  Exact for single-chunk
+    launches; chunked mesh launches reuse it as an approximation of the
+    total per-position load.  Shared by ops/ed25519._comb_try and the
+    parallel/sharding mesh routes so the model can't drift between
+    them."""
+    if shards <= 1 or nb < shards:
+        return {}
+    per = nb // shards
+    if per <= 0:
+        return {}
+    rows = [max(0, min(n - i * per, per)) for i in range(shards)]
+    out = {"shard_rows": rows}
+    mean = n / shards
+    if mean > 0:
+        out["shard_imbalance"] = max(rows) / mean
+    return out
 
 
 class DevObs:
@@ -348,7 +367,17 @@ class DevObs:
                 # plane's overlap mode reads for freshness: a stable
                 # ratio republished by a busy path still advances it
                 m.chunk_overlap_seq.set(r.get("obs_seq", 0))
-            # (the per-shard imbalance gauges wait for the sharded paths)
+            if r.get("shard_imbalance") is not None:
+                m.shard_imbalance.set(r["shard_imbalance"])
+            sh = r.get("shard_h2d_s")
+            if sh:
+                # per-position put walls of the mesh staging (ADR-027):
+                # publish the max/mean imbalance — a slow link or one
+                # oversubscribed position shows up here before it shows
+                # up as a widening drain_s
+                mean = sum(sh) / len(sh)
+                if mean > 0:
+                    m.shard_h2d_imbalance.set(max(sh) / mean)
             wall = r.get("wall_s")
             if wall is not None:
                 slo.observe("device_launch", wall)

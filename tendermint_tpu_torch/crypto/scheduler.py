@@ -62,8 +62,8 @@ The port's rules under the scheduler:
 
 When the scheduler is not installed/running, every call site takes its
 direct BatchVerifier path — the scheduler is an accelerant, never a
-dependency.  (The coordinated lockstep branch waits for the sharded
-paths.)
+dependency.  A coordinated call (verify_items(coordinated=True), from
+inside a sharding.lockstep() window) skips the scheduler.
 """
 from __future__ import annotations
 
@@ -1109,7 +1109,8 @@ def running_on(device) -> Optional[VerifyScheduler]:
 def verify_items(items: Sequence, prio: Priority = Priority.COMMIT,
                  deadline: Optional[float] = None,
                  populate_cache: bool = True,
-                 device=None) -> Tuple[bool, np.ndarray]:
+                 device=None,
+                 coordinated: bool = False) -> Tuple[bool, np.ndarray]:
     """Drop-in synchronous wrapper with BatchVerifier.verify()'s exact
     (all_valid, bitmap) contract.  Routes through the global scheduler
     when it is running on the caller's device; otherwise — or if the
@@ -1118,10 +1119,15 @@ def verify_items(items: Sequence, prio: Priority = Priority.COMMIT,
     change.  The device is resolved first: no CUDA and no request for
     the CPU raises RuntimeError, scheduler or not.  A launch that failed
     on the card raises degrade.DeviceLaneError here, as the direct path
-    does.  (The coordinated multi-process branch waits for the sharded
-    paths.)"""
+    does.
+
+    coordinated=True: the caller is inside a sharding.lockstep() window
+    (every process of a multi-process runtime walks this exact call,
+    ADR-027) — SKIP the scheduler, whose coalescing would merge
+    process-local traffic into the batch and break the cross-process
+    shape agreement the global plane's collective requires."""
     dev = resolve_device(device)
-    s = running_on(dev)
+    s = None if coordinated else running_on(dev)
     if s is not None:
         try:
             fut = s.submit(items, prio, deadline=deadline,

@@ -55,6 +55,15 @@ REGISTERED_SITES = frozenset({
     # the fixed-base comb route inside ops/ed25519.verify_batch, after its
     # table lookup and before its staging and launches
     "ops.ed25519.comb",
+    # the data planes (parallel/sharding.py): sharding.mesh_stage at the
+    # top of a local plane's per-signature launch and sharding.mesh_comb
+    # after its comb budget decision (raise = the batch degrades to the
+    # single-device routes, exact bitmap), sharding.global_plane at the
+    # top of the global plane's launch, before any collective (raise =
+    # the local routes of this process)
+    "sharding.mesh_stage",
+    "sharding.mesh_comb",
+    "sharding.global_plane",
     # degradation-runtime lane sites (crypto/degrade.py submit/run):
     # one per (consumer, scheme) lane — BatchVerifier's, the
     # VerifyScheduler's coalesced lanes and the whole-commit bulk path

@@ -604,8 +604,7 @@ class DevObsMetrics:
     launch's wall clock goes (host staging / H2D transfer / compute /
     D2H collect), whether the double-buffered chunk paths actually hide
     transfer behind compute, what is resident in device memory per pool,
-    and how many (kernel, bucket shape) entries the process has built.
-    (The per-shard imbalance gauges wait for the sharded paths.)"""
+    and how many (kernel, bucket shape) entries the process has built."""
 
     def __init__(self, reg: Optional[Registry] = None):
         reg = reg or DEFAULT
@@ -651,6 +650,17 @@ class DevObsMetrics:
             "overlap mode compares it across periods so a busy path "
             "repeatedly publishing the same stable ratio still reads "
             "as fresh (a frozen ratio AND a frozen seq = idle).")
+        self.shard_imbalance = reg.gauge(
+            "crypto", "device_shard_imbalance",
+            "max/mean real rows per shard of the most recent mesh "
+            "launch (1 = balanced; pad-only shards drag the mean "
+            "down).")
+        self.shard_h2d_imbalance = reg.gauge(
+            "crypto", "device_shard_h2d_imbalance",
+            "max/mean per-shard host->device put wall of the most "
+            "recent overlapped mesh staging launch (ADR-027; 1 = every "
+            "shard position staged equally fast — a slow link or "
+            "oversubscribed shard shows up here first).")
         self.hbm_resident = reg.gauge(
             "crypto", "hbm_resident_bytes",
             "Device-resident bytes per pool (table_cache = comb window "

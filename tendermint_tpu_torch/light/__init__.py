@@ -1,9 +1,8 @@
 """Light client (reference light/): stateless verification, bisection
 client, witness fork detection, providers + trusted store (BASELINE
 config 3: skipping verification over huge validator sets rides the
-card's batch plane) and the LightServe serving plane (light.service).
-The JAX package's light/proxy.py (the RPC proxy) waits for the port's RPC
-server."""
+card's batch plane), the LightServe serving plane (light.service) and
+the RPC proxy (light.proxy)."""
 from . import verifier
 from .client import Client, LightClientError, TrustOptions
 from .detector import Divergence, detect_divergence

@@ -30,6 +30,13 @@ table budget) verifies with zero doublings, tried after RLC and before
 the ladder routes; "cuda-staged" — verify_batch_staged, K3 on raw
 SHA-512 digests (no node path uses it).  On device="cpu" the same routes
 run the kernels' plain PyTorch versions.
+
+The data planes of parallel/sharding.py come first when the caller's
+device type is theirs: the global plane (route "global-mesh", only inside
+a lockstep() window of a multi-process runtime), then RLC through the
+local plane ("rlc-sharded"), the comb with the plane ("mesh-comb",
+"mesh-comb-sharded") and the plane's per-signature route ("mesh-cuda" on
+cards, "mesh-xla" on a CPU plane), then the single-device routes above.
 """
 from __future__ import annotations
 
@@ -488,6 +495,9 @@ COMB_GROUP_OPS = {"doublings": 0, "adds": 2 * COMB_WINDOWS}
 _GROUP_OPS_BY_PATH = {
     "cuda": LADDER_GROUP_OPS, "cuda-split": LADDER_GROUP_OPS,
     "cuda-staged": LADDER_GROUP_OPS, "comb": COMB_GROUP_OPS,
+    "mesh-cuda": LADDER_GROUP_OPS, "mesh-xla": LADDER_GROUP_OPS,
+    "global-mesh": LADDER_GROUP_OPS, "mesh-sharded": LADDER_GROUP_OPS,
+    "mesh-comb": COMB_GROUP_OPS, "mesh-comb-sharded": COMB_GROUP_OPS,
 }
 
 
@@ -506,7 +516,27 @@ def _record_launch(path: str, dev: torch.device, n: int, nb: int,
                           compile_s=wall_s if first else None)
     trace.current().add(path=path, n=n, nb=nb,
                         occupancy=round(n / nb if nb else 1.0, 4),
-                        shards=1, first_launch=first)
+                        shards=phases.get("shards", 1), first_launch=first)
+
+
+def _overlap_phases(probe: dict) -> dict:
+    """Normalize a mesh route's put probe (parallel/sharding) into launch
+    record phase keys: h2d_s is the summed per-position put wall,
+    chunk_overlap the fraction of that wall issued while an earlier
+    chunk's kernels were in flight — the first chunk's puts have nothing
+    to hide behind, every later one is issued between a launch and the
+    final wait."""
+    out = {}
+    if probe.get("stage_s") is not None:
+        out["stage_s"] = probe["stage_s"]
+    dma = probe.get("dma_s")
+    if dma is not None:
+        out["h2d_s"] = dma
+        first = probe.get("dma_first_s", 0.0)
+        out["chunk_overlap"] = max(0.0, (dma - first) / dma) \
+            if dma > 0 else 0.0
+        out["chunks"] = probe.get("chunks")
+    return out
 
 
 def _overlap(h2d_s: float, compute_s: float, span_s: float) -> float:
@@ -831,7 +861,7 @@ class CombTables:
     is C1's output: on a GPU one (64, 9, K_pad, 4, 10) int32 tensor, on
     the CPU the plain version's Cached fields (64, 9, NLIMB, K_pad)."""
     __slots__ = ("set_hash", "index", "tables", "dec_ok", "nbytes",
-                 "k", "k_pad", "device")
+                 "k", "k_pad", "device", "mesh_repl", "mesh_shard")
 
     def __init__(self, set_hash, index, tables, dec_ok, nbytes, k, k_pad,
                  device):
@@ -843,6 +873,10 @@ class CombTables:
         self.k = k
         self.k_pad = k_pad
         self.device = device      # str(torch.device)
+        # the data plane's copies (parallel/sharding): (mesh, {position:
+        # (tables, dec_ok)}, bytes charged to the mesh_tables pool)
+        self.mesh_repl = None     # full copies a position
+        self.mesh_shard = None    # a slice of the key axis a position
 
 
 _table_key_lock = threading.Lock()
@@ -851,6 +885,18 @@ _table_key_index: dict = {}
 
 
 def _table_evicted(key, entry):
+    # release the data plane's copies with the build copy: the
+    # mesh_tables pool must not keep charging bytes whose owner the LRU
+    # let go (the device buffers free with the entry's last reference)
+    freed = 0
+    for slot in ("mesh_repl", "mesh_shard"):
+        cached = getattr(entry, slot, None)
+        if cached is not None:
+            freed += cached[2]
+            setattr(entry, slot, None)
+    if freed:
+        from tendermint_tpu_torch.crypto import devobs
+        devobs.ledger_add("mesh_tables", -freed)
     with _table_key_lock:
         for kb in entry.index:
             ik = (kb, entry.device)
@@ -1116,13 +1162,18 @@ def _declined_early(pub_m: np.ndarray, dev: torch.device) -> bool:
     return True
 
 
-def _comb_try(pubkeys, msgs, sigs, cache_pubs: bool, dev: torch.device):
+def _comb_try(pubkeys, msgs, sigs, cache_pubs: bool, dev: torch.device,
+              plane=None):
     """The comb route: engage iff every key resolves to one cached set on
     `dev` (building the set on a cache_pubs batch of at least
     comb_min_batch()).  Returns the bitmap, or None to fall through to
     the ladder routes.  It runs under the caller's degradation lane, so
     the breaker, the deadline, the host fallback of a drill and the
-    integrity spot check apply unchanged (chaos site ops.ed25519.comb)."""
+    integrity spot check apply unchanged (chaos site ops.ed25519.comb).
+    With a data plane (parallel/sharding) and a batch worth sharding the
+    plane runs C2 on its positions (routes mesh-comb, mesh-comb-sharded);
+    a budget that declines both layouts, or a chaos fault at its seam,
+    leaves the batch to the single-device comb."""
     from tendermint_tpu_torch.crypto import degrade
     from tendermint_tpu_torch.crypto import devobs
 
@@ -1168,7 +1219,49 @@ def _comb_try(pubkeys, msgs, sigs, cache_pubs: bool, dev: torch.device):
     t0 = time.perf_counter()
     _, r_b, s_b, kscal, host_ok = _stage_rows(
         pub_m, _to_u8_matrix(sigs, 64), msgs)
-    phases = {"stage_s": time.perf_counter() - t0, "h2d_s": 0.0,
+    stage_s = time.perf_counter() - t0
+    res = None
+    if plane is not None and plane.worth_sharding(n):
+        # the plane takes the FULL batch: it owns the chunking and the
+        # budget-aware table layout; the single-device comb below takes
+        # what it declines (the tables are resident on the build device,
+        # so declining to the ladder would throw the cached work away)
+        probe = {}
+        try:
+            mesh_out = plane.verify_comb(r_b, s_b, kscal, vidx, entry,
+                                         probe=probe)
+        except fail.InjectedFault:
+            degrade.publish_route("mesh-comb", "declined")
+            mesh_out = None
+        if mesh_out is not None:
+            res, nb, shards, path = mesh_out
+            phases = _overlap_phases({
+                "stage_s": stage_s, "dma_s": probe.get("dma_s", 0.0),
+                "dma_first_s": probe.get("dma_first_s", 0.0),
+                "chunks": probe.get("chunks", 1)})
+            if probe.get("shard_h2d_s"):
+                phases["shard_h2d_s"] = probe["shard_h2d_s"]
+            phases.update(devobs.shard_fields(n, nb, shards))
+            phases["shards"] = shards
+    if res is None:
+        res, nb, phases = _comb_single(r_b, s_b, kscal, vidx, entry, dev,
+                                       stage_s)
+        path = "comb"
+    _record_launch(path, dev, n, nb, time.perf_counter() - t0,
+                   dict(phases, table_build=built, set_k=entry.k,
+                        k_pad=entry.k_pad))
+    res = fail.corrupt_bitmap("ops.ed25519.comb",
+                              np.asarray(res[:n], dtype=bool))
+    return res & host_ok
+
+
+def _comb_single(r_b, s_b, kscal, vidx, entry, dev, stage_s: float):
+    """The single-device comb: C2 in MAX_CHUNK-lane launches.  Returns
+    (bitmap (n,), padded lanes, phases)."""
+    from tendermint_tpu_torch.crypto import devobs
+
+    n = r_b.shape[0]
+    phases = {"stage_s": stage_s, "h2d_s": 0.0,
               "compute_s": 0.0, "collect_s": 0.0}
     # events on the stream the wrappers launch on (that of `dev`, which
     # need not be the calling thread's current device)
@@ -1213,12 +1306,7 @@ def _comb_try(pubkeys, msgs, sigs, cache_pubs: bool, dev: torch.device):
         if charged:
             devobs.ledger_add("staging", -charged)
     res = parts[0] if len(parts) == 1 else np.concatenate(parts)
-    _record_launch("comb", dev, n, nb, time.perf_counter() - t0,
-                   dict(phases, chunks=len(parts), table_build=built,
-                        set_k=entry.k, k_pad=entry.k_pad))
-    res = fail.corrupt_bitmap("ops.ed25519.comb",
-                              np.asarray(res[:n], dtype=bool))
-    return res & host_ok
+    return res, nb, dict(phases, chunks=len(parts))
 
 
 def verify_batch(pubkeys, msgs, sigs, cache_pubs: bool = False,
@@ -1243,14 +1331,54 @@ def verify_batch(pubkeys, msgs, sigs, cache_pubs: bool = False,
                              resolve_device(device))
 
 
+def _on_device(plane, dev: torch.device):
+    """`plane` when its positions are of the caller's device type, else
+    None: the device follows its owner, so a caller on the CPU never
+    reaches a plane of cards (nor the reverse)."""
+    if plane is None or plane.device_type != dev.type:
+        return None
+    return plane
+
+
 def _verify_batch(pubkeys, msgs, sigs, cache_pubs: bool, dev):
+    from tendermint_tpu_torch.crypto import degrade
+    from tendermint_tpu_torch.parallel import sharding
     from . import msm
 
-    # the multi-GPU data planes (reference parallel/sharding.py _DataPlane,
-    # _GlobalDataPlane) attach here, sharding the batch before any route
-    if msm.use_rlc(len(pubkeys)) and msm.verify_batch_rlc(
-            pubkeys, msgs, sigs, device=dev):
-        return np.ones(len(pubkeys), dtype=bool)
+    n = len(pubkeys)
+    sp = trace.current()
+    # the GLOBAL plane outranks everything, but only answers inside a
+    # lockstep() window on a multi-process runtime (ADR-027): blocksync
+    # replay_window and the coordinated bulk verify, where every process
+    # is known to walk the same batches in the same order.  A chaos fault
+    # at its seam degrades this batch to the local routes below, on THIS
+    # process only.  A collective or rendezvous fault latches the plane
+    # off (the failure is deterministic) and the local routes verify the
+    # batch exactly.  A card fault (degrade.card_fault) latches it off,
+    # publishes the poison and is raised: the batch is never re-verified
+    # on the local routes of a card that failed
+    gplane = _on_device(sharding.global_plane(), dev)
+    if gplane is not None and gplane.worth_sharding(n):
+        try:
+            return gplane.verify_batch(pubkeys, msgs, sigs)
+        except fail.InjectedFault:
+            degrade.publish_route("global-mesh", "declined")
+            sp.add(global_mesh_fault=True)
+        except Exception as e:  # noqa: BLE001 - see above
+            sharding.disable_global_plane()
+            if degrade.card_fault(e):
+                raise
+            degrade.publish_route("global-mesh", "declined")
+            sp.add(global_mesh_fault=True,
+                   global_mesh_err=type(e).__name__)
+    # the local data plane is consulted FIRST, and the RLC fast path
+    # dispatches THROUGH it (rlc-sharded: per-position partial MSMs)
+    plane = _on_device(sharding.data_plane(), dev)
+    if msm.use_rlc(n):
+        if msm.verify_batch_rlc(pubkeys, msgs, sigs, plane=plane,
+                                device=dev):
+            return np.ones(n, dtype=bool)
+        sp.add(rlc_fallback=True)
     # the fixed-base comb: engages when every key resolves to one resident
     # table set; unknown keys, mixed sets, evicted tables or a declined
     # budget fall through to the ladder.  A device fault (RuntimeError,
@@ -1258,16 +1386,25 @@ def _verify_batch(pubkeys, msgs, sigs, cache_pubs: bool, dev):
     # degradation runtime wrapping this dispatch; any other exception is
     # a comb bug: routed comb/error, and the ladder verifies the batch
     try:
-        out = _comb_try(pubkeys, msgs, sigs, cache_pubs, dev)
+        out = _comb_try(pubkeys, msgs, sigs, cache_pubs, dev, plane)
     except (fail.InjectedFault, RuntimeError):
         raise
     except Exception as e:  # noqa: BLE001 - see above
-        from tendermint_tpu_torch.crypto import degrade
         degrade.publish_route("comb", "error")
-        trace.current().add(comb_error=type(e).__name__)
+        sp.add(comb_error=type(e).__name__)
         out = None
     if out is not None:
         return out
+    if plane is not None and plane.worth_sharding(n):
+        try:
+            return plane.verify_batch(pubkeys, msgs, sigs)
+        except fail.InjectedFault:
+            # chaos at the mesh staging seam (sharding.mesh_stage):
+            # degrade THIS batch to the single-device routes below,
+            # bitmap identical.  A position's card fault (a
+            # DeviceLaneError) propagates to the degradation runtime
+            degrade.publish_route(plane.batch_path, "declined")
+            sp.add(mesh_fault=True)
     t0 = time.perf_counter()
     phases = {}
     feed = None

@@ -33,8 +33,10 @@ The pipeline, as the JAX package's:
   host      Horner over the W_A window sums, the cofactor, the identity
             test (Python bignum)
 
-Not ported here: the mesh-sharded route ("rlc-sharded", parallel/
-sharding.py), route publication to the degrade runtime, trace spans.
+With a data plane (parallel/sharding._DataPlane) and a shape its policy
+accepts, the route is "rlc-sharded": each position runs K4, the sort, K5
+and A1 on its rows and the partial window sums are added as points on the
+host before the one identity test (plane.msm_window_sums).
 """
 from __future__ import annotations
 
@@ -456,13 +458,21 @@ def _set_route(route: dict, dev=None, wall_s: float = 0.0,
                         outcome=route.get("outcome"))
 
 
-def verify_batch_rlc(pubkeys, msgs, sigs, z=None, device=None) -> bool:
-    """All-or-nothing RLC batch verification on one device.  True: every
-    signature passes (cofactored semantics); False: at least one fails,
-    or the batch is ineligible (non-canonical encodings), fails to decode
-    or overflows a bucket — the caller must then use the per-signature
-    path for exact attribution.  device: "cuda" (default) or "cpu" for
-    the kernels' plain versions."""
+def verify_batch_rlc(pubkeys, msgs, sigs, z=None, device=None,
+                     plane=None) -> bool:
+    """All-or-nothing RLC batch verification.  True: every signature
+    passes (cofactored semantics); False: at least one fails, or the
+    batch is ineligible (non-canonical encodings), fails to decode or
+    overflows a bucket — the caller must then use the per-signature path
+    for exact attribution.  device: "cuda" (default) or "cpu" for the
+    kernels' plain versions.
+
+    With `plane` (parallel/sharding._DataPlane) and a shape that passes
+    plane.worth_sharding_msm, the MSM runs as per-position partial MSMs
+    (route "rlc-sharded"), reduced on the host before the single
+    cofactored identity test.  The partition never changes the combined
+    group element, and the RLC scalars are staged once on the host in
+    row order, so the sharded verdict is the single-device one."""
     dev = resolve_device(device)
     pub_m = ed._to_u8_matrix(pubkeys, 32)
     n = pub_m.shape[0]
@@ -475,22 +485,40 @@ def verify_batch_rlc(pubkeys, msgs, sigs, z=None, device=None) -> bool:
                     "outcome": "ineligible"})
         return False
     r_bytes, zk, z, zs = staged
-    nb = ed.bucket_size(n)
-    c = _pick_c(nb)
-    r_bytes, pub_m, zk, z = _pad_rows(r_bytes, pub_m, zk, z, nb)
-    phases = {"stage_s": time.perf_counter() - t0}
-    marks = _Marks(dev)
-    marks.mark("start")
-    args = [torch.from_numpy(np.require(a, requirements=("C", "W"))).to(dev)
-            for a in (r_bytes, pub_m, zk, z, zs)]
-    marks.mark("h2d")
-    ws, ok_all, overflow = _msm_pipeline(*args, c, marks=marks)
-    t_col = time.perf_counter()
-    ws = ws.cpu().numpy()       # synchronises
-    ok_all, overflow = bool(ok_all), bool(overflow)
-    phases["collect_s"] = time.perf_counter() - t_col
-    phases.update(marks.phases())
-    route = {"path": "rlc-single", "n": n, "nb": nb, "shards": 1, "c": c}
+    if plane is not None and plane.worth_sharding_msm(n):
+        from tendermint_tpu_torch.crypto import devobs
+
+        nb = plane.msm_bucket(n)
+        c = _pick_c(nb // plane.nshard)
+        r_bytes, pub_m, zk, z = _pad_rows(r_bytes, pub_m, zk, z, nb)
+        phases = {"stage_s": time.perf_counter() - t0}
+        probe = {} if devobs.is_enabled() else None
+        ws, ok_all, overflow = plane.msm_window_sums(
+            r_bytes, pub_m, zk, z, zs, c, probe=probe)
+        if probe:
+            # per-position put walls ride the route into last_launch
+            phases.update(probe)
+        dev = plane.mesh.devices[0]
+        route = {"path": "rlc-sharded", "n": n, "nb": nb,
+                 "shards": plane.nshard, "c": c}
+    else:
+        nb = ed.bucket_size(n)
+        c = _pick_c(nb)
+        r_bytes, pub_m, zk, z = _pad_rows(r_bytes, pub_m, zk, z, nb)
+        phases = {"stage_s": time.perf_counter() - t0}
+        marks = _Marks(dev)
+        marks.mark("start")
+        args = [torch.from_numpy(np.require(a, requirements=("C", "W")))
+                .to(dev) for a in (r_bytes, pub_m, zk, z, zs)]
+        marks.mark("h2d")
+        ws, ok_all, overflow = _msm_pipeline(*args, c, marks=marks)
+        t_col = time.perf_counter()
+        ws = ws.cpu().numpy()       # synchronises
+        ok_all, overflow = bool(ok_all), bool(overflow)
+        phases["collect_s"] = time.perf_counter() - t_col
+        phases.update(marks.phases())
+        route = {"path": "rlc-single", "n": n, "nb": nb, "shards": 1,
+                 "c": c}
     if not ok_all or overflow:
         route["outcome"] = "overflow" if overflow else "decode-failed"
         _set_route(route, dev, time.perf_counter() - t0, phases)

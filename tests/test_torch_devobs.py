@@ -199,16 +199,17 @@ def test_publish_pending_feeds_metrics_and_slo():
 
 def test_devobs_metrics_families_match():
     """DevObsMetrics registers the JAX package's families with the same
-    help, labels and buckets, but for the per-shard imbalance gauges,
-    which wait for the sharded paths."""
+    help, labels and buckets, the per-shard imbalance gauges of the
+    sharded paths included."""
     def families(m):
         reg = m.Registry("x")
         m.DevObsMetrics(reg)
         return [(k, type(v).__name__, v.help, v.label_names,
                  getattr(v, "buckets", None))
                 for k, v in sorted(reg._metrics.items())]
-    ported = [f for f in families(jmetrics) if "_shard_" not in f[0]]
-    assert ported == families(tmetrics) and len(ported) == 11
+    ported = families(jmetrics)
+    assert ported == families(tmetrics) and len(ported) == 13
+    assert sum("_shard_" in f[0] for f in ported) == 2
 
 
 def test_set_config_wins_both_ways_and_resizes():

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no jax, nothing of tendermint_tpu, and no
 quiet fall-back to the CPU when CUDA is missing."""
 import ast
+import contextlib
 import os
 import pathlib
 import re
@@ -258,9 +259,9 @@ NODE_MODULES = (
 
 
 def test_node_modules_are_checked():
-    """The node slice (the config, the reduced sharding knob module, the
-    control plane, the debug server, the node, the light proxy, the CLI)
-    is among the modules the checks below cover."""
+    """The node slice (the config, the sharding module, the control
+    plane, the debug server, the node, the light proxy, the CLI) is among
+    the modules the checks below cover."""
     mods = _port_modules()
     for rel in NODE_MODULES:
         m = rel[:-3].replace("/", ".").removesuffix(".__init__")
@@ -296,6 +297,103 @@ def _imports_stay_in_the_port(rel):
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
+
+
+# the reference's module-level names, and the _DataPlane methods that are
+# jit / shard_map bodies there: each per-position kernel launch takes
+# their place here (parallel/sharding.py's docstring)
+_JIT_BODIES = {"_msm_fn", "_comb_fn", "_comb_sharded_fn", "_packed_fn",
+               "_step_fn"}
+
+
+def _defs(path):
+    tree = ast.parse(pathlib.Path(path).read_text())
+    top = {n.name for n in tree.body
+           if isinstance(n, (ast.FunctionDef, ast.ClassDef))}
+    methods = {n.name: {m.name for m in n.body
+                        if isinstance(m, ast.FunctionDef)}
+               for n in tree.body if isinstance(n, ast.ClassDef)}
+    return top, methods
+
+
+def test_sharding_holds_the_reference_surface():
+    """parallel/sharding.py has every module-level function and class of
+    the JAX package's, and every method of its _DataPlane and
+    _GlobalDataPlane but the jit / shard_map bodies; the public surface
+    imports."""
+    from tendermint_tpu_torch.parallel import sharding
+
+    ref_top, ref_methods = _defs(ROOT / "tendermint_tpu" / "parallel"
+                                 / "sharding.py")
+    top, methods = _defs(PKG / "parallel" / "sharding.py")
+    assert ref_top <= top, ref_top - top
+    for cls in ("_DataPlane", "_GlobalDataPlane"):
+        missing = ref_methods[cls] - methods[cls] - _JIT_BODIES
+        if cls == "_GlobalDataPlane":
+            missing -= methods["_DataPlane"]
+        assert not missing, (cls, missing)
+    for name in ("make_mesh", "data_plane", "global_plane", "lockstep",
+                 "in_lockstep", "global_mesh_ready", "disable_global_plane",
+                 "invalidate_on_topology_change", "_DataPlane",
+                 "_GlobalDataPlane", "make_sharded_verifier"):
+        assert callable(getattr(sharding, name)), name
+
+
+def test_sharding_without_cuda(monkeypatch):
+    """No CUDA: make_mesh(None) raises RuntimeError, the topology reads as
+    no devices (never raising), this process's devices are the CPU alone,
+    so data_plane() is None; an explicit CPU mesh may repeat its device."""
+    from tendermint_tpu_torch.parallel import sharding
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        sharding.make_mesh()
+    assert sharding._topology_key() == ()
+    assert sharding._local_devices() == [torch.device("cpu")]
+    monkeypatch.setattr(sharding, "_PLANE", None)
+    monkeypatch.setattr(sharding, "_PLANE_KEY", None)
+    monkeypatch.delenv("TM_TPU_NO_MESH", raising=False)
+    assert sharding.data_plane() is None
+    mesh = sharding.make_mesh(["cpu"] * 4)
+    assert mesh.nshard == 4 and mesh.device_type == "cpu"
+    with pytest.raises(ValueError):
+        sharding.make_mesh([])
+    assert sharding.global_mesh_ready() is False
+
+
+def test_a_card_position_that_raises_raises_device_lane_error(monkeypatch):
+    """On a CUDA position a kernel that raises leaves the plane as
+    degrade.DeviceLaneError (no plain version runs in its place); on a CPU
+    position the exception is the plain version's own."""
+    from tendermint_tpu_torch.crypto import degrade
+    from tendermint_tpu_torch.parallel import sharding
+
+    monkeypatch.setattr(sharding, "_device_ctx",
+                        lambda dev: contextlib.nullcontext())
+    ran = []
+
+    def kernel(x):
+        ran.append(x)
+        raise RuntimeError("an illegal memory access was encountered")
+
+    card = torch.device("cuda", 0)
+    with pytest.raises(degrade.DeviceLaneError, match="position 2"):
+        sharding._DataPlane._launch(2, card, kernel, 1)
+    with pytest.raises(degrade.DeviceLaneError):
+        sharding._DataPlane._collect(
+            1, card, lambda: kernel(2))
+    with pytest.raises(RuntimeError) as e:
+        sharding._DataPlane._launch(0, torch.device("cpu"), kernel, 3)
+    assert not isinstance(e.value, degrade.DeviceLaneError)
+    assert ran == [1, 2, 3]
+
+
+def test_fail_registers_the_sharding_sites():
+    from tendermint_tpu_torch.libs import fail
+
+    for site in ("sharding.mesh_stage", "sharding.mesh_comb",
+                 "sharding.global_plane"):
+        assert site in fail.REGISTERED_SITES and fail.is_registered(site)
 
 
 NET_MODULES = (

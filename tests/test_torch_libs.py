@@ -55,7 +55,9 @@ def test_fail_sites_of_the_port_are_registered_in_both(fails):
         "light.serve", "light.coalesce", "ingress.admit", "ingress.checktx",
         "ingress.recheck", "statesync.fetch", "statesync.verify",
         "statesync.apply", "statesync.serve", "control.decide",
-        "vnet.deliver", "vnet.partition", "vnet.reorder", "harness.step"}
+        "vnet.deliver", "vnet.partition", "vnet.reorder", "harness.step",
+        "sharding.mesh_stage", "sharding.mesh_comb",
+        "sharding.global_plane"}
     assert all(jfail.is_registered(s) for s in tfail.REGISTERED_SITES)
 
 
